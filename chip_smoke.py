@@ -15,12 +15,25 @@ printing one JSON line:
 4. card_vs_cpu: the 7b width cut to 2 layers, f32, the same weights in the
    port's LLMEngine on the card (kernels) and on the CPU (plain versions):
    greedy tokens identical, first-step logits within a stated bound;
-5. engine: LLMEngine on the 7b preset, all 32 layers, bf16, random seeded
-   weights, paged KV (page 64, 16 slots, 2048 tokens), flash prefill,
-   12 requests of 64-1000 prompt tokens (4 sharing a 512-token prefix),
-   64 new tokens each, driven by step_n(8); the launch counters are set to
-   0 just before it and read just after;
-6. kernels: one line with every kernel's numbers;
+5. engine: the serving main path, LLMEngine on the 7b preset, all 32
+   layers, bf16, random seeded weights, paged KV (page 64, 16 slots, 2048
+   tokens), flash prefill, 12 requests of 64-1000 prompt tokens (4 sharing
+   a 512-token prefix), 64 new tokens each, driven by step_n(8); the launch
+   counters are set to 0 just before it and read just after;
+6. k2 / k3k4: the sliding-window forward (K2) and the backward kernels (K3
+   dQ, K4 dK/dV) against their plain versions at the 1b train shape and
+   others, in bf16 and f32, within ``kernel_tolerance`` /
+   ``grad_tolerance``; times beside the bound, the plain version and SDPA
+   (with a band mask; its backward);
+7. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
+   card and on the CPU from one init, without and with a sliding window
+   (the run on which K2 launches): losses, grad norms and params within
+   stated bounds;
+8. train: the training main path, the 1b preset at full width and 16
+   layers, bf16 compute, remat, flash, B 8 S 1024, 10 steps after a
+   warm-up: falling finite losses, exact K1/K3/K4 launch counts, step time,
+   tokens/s, MFU, peak memory and one step's device profile;
+9. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -52,6 +65,18 @@ LSE_TOL = 1e-4
 # card vs CPU, 2 layers at the 7b width in f32 (no TF32): first-step
 # logits of magnitude ~1 after 4096- and 11008-long f32 sums
 LOGITS_TOL = 1e-3
+# training card vs CPU, 2 layers at the 1b width in f32 (no TF32): the loss
+# (~10.4) and the grad norm are f32 sums in another order, ~1e-6 relative
+# apart. An AdamW step moves a param by at most ~lr (m_hat / sqrt(v_hat)
+# is at most ~1 in the first steps), so after 2 steps no param can differ
+# by more than 4 lr, which a gradient of either sign near 0 may reach
+# (its normalised step flips). Elements further apart than 1e-5 (far
+# above f32 rounding of a 3e-4 step) must be that rare kind: at most 1e-4
+# of them.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_MAX = 4 * 3e-4
+TRAIN_PARAM_FAR = 1e-5
+TRAIN_PARAM_FAR_SHARE = 1e-4
 
 RESULTS: dict = {"phases": {}}
 
@@ -84,6 +109,24 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_report(log: Path) -> dict:
+    """{kernel entry: "registers, spills"} from nvcc's -Xptxas -v log."""
+    import re
+
+    out, name = {}, None
+    for ln in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            name = name[:90] if len(name) > 90 else name
+        elif name and "spill stores" in ln:
+            out[name] = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            out[name] = (out.get(name, "") + "; "
+                         + ln.split(":", 1)[1].strip()).strip("; ")
+    return out
 
 
 def held(out, plain, tol, rows=None):
@@ -278,6 +321,367 @@ def phase_k1():
     return cases
 
 
+# --- K2: the sliding-window forward -------------------------------------------
+
+
+def band_pairs(S: int, T: int, causal: bool, window=None) -> int:
+    """(query, key) pairs a band keeps: the work of one (batch, head)."""
+    if not causal:
+        return S * T
+    w = window or max(S, T)
+    return sum(max(0, min(s + 1, T) - max(0, s - w + 1)) for s in range(S))
+
+
+def k2_case(*, B, S, H, KV, D, window, dtype, seed, timed=True):
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def t(x):
+        return torch.as_tensor(x).to(device="cuda", dtype=dt)
+
+    q = t(rng.standard_normal((B, S, H, D)))
+    k = t(rng.standard_normal((B, S, KV, D)))
+    v = t(rng.standard_normal((B, S, KV, D)))
+    before = fa.launches_window
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=True,
+                                                    window=window)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = reduced
+    torch.cuda.synchronize()
+    if fa.launches_window != before + 1:
+        raise AssertionError("K2 wrapper did not launch its kernel")
+    err, over = held(out, ref, fa.kernel_tolerance(q, k, v, ref, causal=True,
+                                                   window=window))
+    lse_err = float((lse - lse_ref).abs().max())
+    finite = bool(torch.isfinite(out.float()).all())
+    res = {"shape": f"B={B} S=T={S} H={H} KV={KV} D={D} window={window}",
+           "dtype": dtype, "max_abs_err": err, "max_err_over_tol": over,
+           "tol": "1e-4" if dtype == "float32"
+           else "2^-7 (attention of |v| + |plain|) + 1e-5",
+           "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL}
+    ok = finite and over <= 1.0 and lse_err <= LSE_TOL
+    if timed:
+        res["kernel_ms"] = cuda_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, window=window), iters=10)
+        fa.launches_window = before
+        res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, causal=True, window=window), iters=3)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        band = fa.band_mask(S, S, causal=True, window=window, device="cuda")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        res["library_ms"] = cuda_ms(
+            lambda: sdpa(qh, kh, vh, attn_mask=band, enable_gqa=KV != H),
+            iters=10)
+        elt = torch.finfo(dt).bits // 8
+        pairs = band_pairs(S, S, True, window)
+        flops = 4 * B * H * pairs * D
+        nbytes = elt * (2 * B * S * H * D + 2 * B * S * KV * D) + 4 * B * H * S
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
+    fa.launches_window = before
+    res["ok"] = ok
+    return res
+
+
+def phase_k2():
+    """K2 at the 1b train shape (B 8, S 1024, H 16, KV 8, D 128) with
+    windows 256 and 1024 (the whole causal band), and ragged S = T = 200
+    with window 64, in bf16 and f32."""
+    cases = []
+    for window in (256, 1024):
+        for dtype in ("bfloat16", "float32"):
+            r = k2_case(B=8, S=1024, H=16, KV=8, D=128, window=window,
+                        dtype=dtype, seed=20)
+            r["config"] = f"1b-w{window}"
+            cases.append(r)
+    for dtype in ("bfloat16", "float32"):
+        r = k2_case(B=2, S=200, H=16, KV=8, D=128, window=64, dtype=dtype,
+                    seed=21, timed=False)
+        r["config"] = "ragged-w64"
+        cases.append(r)
+    return cases
+
+
+# --- K3 / K4: the flash backward ----------------------------------------------
+
+
+def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
+    """K3 and K4 against the plain backward on the same (q, k, v, out, lse,
+    dO), dq/dk/dv elementwise within grad_tolerance; times of each kernel,
+    the plain backward and SDPA's backward (bf16 only)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+
+    def t(x):
+        return torch.as_tensor(x).to(device="cuda", dtype=dt)
+
+    q = t(rng.standard_normal((B, S, H, D)))
+    k = t(rng.standard_normal((B, S, KV, D)))
+    v = t(rng.standard_normal((B, S, KV, D)))
+    g = t(rng.standard_normal((B, S, H, D)))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    before = (fa.launches_dq, fa.launches_dkdv)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                 window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                   window=window)
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+    tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    if (fa.launches_dq, fa.launches_dkdv) != (before[0] + 2, before[1] + 2):
+        raise AssertionError("K3/K4 wrappers did not launch their kernels")
+    res = {"shape": f"B={B} S=T={S} H={H} KV={KV} D={D}", "dtype": dtype,
+           "causal": causal, "window": window,
+           "tol": "grad_tolerance (ops/flash_attention.py)",
+           "deterministic": all(torch.equal(a, b)
+                                for a, b in zip(got, again))}
+    ok = res["deterministic"]
+    for name, a, b, tol in zip(("dq", "dk", "dv"), got, plain, tols):
+        err, over = held(a, b, tol)
+        res[f"{name}_max_abs_err"] = err
+        res[f"{name}_max_err_over_tol"] = over
+        ok = ok and over <= 1.0 and bool(torch.isfinite(a.float()).all())
+    del plain, tols
+    if timed:
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                              causal=causal, window=window)
+        res["k3_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, out, lse, g, causal=causal, window=window), iters=10)
+        res["k4_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_dkdv(
+            q, k, v, lse, g, delta, causal=causal, window=window), iters=10)
+        res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, g, causal=causal, window=window), iters=3)
+        res["library_ms"] = None
+        if dtype == "bfloat16":
+            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            mask = (None if window is None else fa.band_mask(
+                S, S, causal=True, window=window, device="cuda"))
+            o = torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=KV != H)
+            gh = g.transpose(1, 2).contiguous()
+            res["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                o, (qh, kh, vh), gh, retain_graph=True), iters=10)
+        elt = torch.finfo(dt).bits // 8
+        pairs = band_pairs(S, S, causal, window)
+        bshd, btkd, bhs = B * S * H * D, B * S * KV * D, B * H * S
+        # K3 reads q, o, dO, k, v, lse and writes dq, delta; 3 products
+        res["k3_bound_ms"], res["k3_bound_by"] = bound(
+            elt * (4 * bshd + 2 * btkd) + 8 * bhs, 6 * B * H * pairs * D,
+            dtype)
+        # K4 reads q, dO, k, v, lse, delta and writes dk, dv; 4 products
+        res["k4_bound_ms"], res["k4_bound_by"] = bound(
+            elt * (2 * bshd + 4 * btkd) + 8 * bhs, 8 * B * H * pairs * D,
+            dtype)
+    fa.launches_dq, fa.launches_dkdv = before
+    res["ok"] = ok
+    return res
+
+
+def phase_k3k4():
+    """At the 1b train shape (B 8, S = T = 1024, H 16, KV 8, D 128,
+    causal), debug-125m's heads (H = KV = 12, D 64), ragged S = T = 200,
+    non-causal (S = 512) and window 256, each in bf16 and f32."""
+    cases = []
+    shapes = (("1b", dict(B=8, S=1024, H=16, KV=8, D=128, causal=True,
+                          window=None), True),
+              ("debug-125m", dict(B=8, S=1024, H=12, KV=12, D=64,
+                                  causal=True, window=None), True),
+              ("ragged", dict(B=2, S=200, H=16, KV=8, D=128, causal=True,
+                              window=None), False),
+              ("non-causal", dict(B=2, S=512, H=16, KV=8, D=128,
+                                  causal=False, window=None), False),
+              ("1b-w256", dict(B=8, S=1024, H=16, KV=8, D=128, causal=True,
+                               window=256), True))
+    for name, shape, timed in shapes:
+        for dtype in ("bfloat16", "float32"):
+            r = k3k4_case(**shape, dtype=dtype, seed=22, timed=timed)
+            r["config"] = name
+            cases.append(r)
+    return cases
+
+
+# --- the port's training step ---------------------------------------------------
+
+
+def _train_launches():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_fwd_window": fa.launches_window,
+            "flash_attention_bwd_dq": fa.launches_dq,
+            "flash_attention_bwd_dkdv": fa.launches_dkdv}
+
+
+def _reset_train_launches():
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    fa.launches = fa.launches_window = fa.launches_dq = fa.launches_dkdv = 0
+
+
+def phase_train_card_vs_cpu():
+    """The 1b width (d_model 2048, H 16, KV 8, d_ff 5632, vocab 32000) cut
+    to 2 layers, f32 without TF32, flash, remat "none", adamw(3e-4,
+    weight_decay=0.01), B 2, S 256: 2 steps on the card (kernels) and on
+    the CPU (plain versions) from one seeded init, without a window and
+    with sliding_window 64 (the run on which K2 launches; the launch
+    counters are set to 0 just before the card runs and read after)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+
+    lr = 3e-4
+    base = llama.PRESETS["1b"].replace(n_layers=2, dtype=torch.float32,
+                                       attn_impl="flash", remat=True,
+                                       remat_policy="none")
+    params0 = llama.init_params(torch.Generator().manual_seed(0), base)
+    tokens = np.random.default_rng(6).integers(
+        0, base.vocab_size, size=(2, 257)).astype(np.int64)
+    res = {"cfg": "1b width, 2 layers, f32, flash, remat none, B 2 S 256, "
+                  "adamw(3e-4, weight_decay=0.01), 2 steps",
+           "loss_rel_tol": TRAIN_LOSS_RTOL, "grad_norm_rel_tol":
+           TRAIN_LOSS_RTOL, "param_max_tol": TRAIN_PARAM_MAX,
+           "param_far_tol": TRAIN_PARAM_FAR, "param_far_share_max":
+           TRAIN_PARAM_FAR_SHARE, "runs": {}}
+    ok = True
+    _reset_train_launches()
+    for window in (None, 64):
+        cfg = base.replace(sliding_window=window)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            init, _ = ts.make_train_state_init(
+                lambda g: params0, ts.adamw(lr, weight_decay=0.01),
+                device=dev)
+            state = init(0)
+            step = ts.make_train_step(
+                lambda p, b, c=cfg: llama.loss_fn(p, b, c))
+            batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+            ms = []
+            for _ in range(2):
+                state, m = step(state, batch)
+                ms.append((float(m["loss"]), float(m["grad_norm"])))
+            out[dev] = (ms, ts._leaves(state.params))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        (mc, pc), (mh, ph) = out["cuda"], out["cpu"]
+        loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mc, mh))
+        gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(mc, mh))
+        dmax, far, n = 0.0, 0, 0
+        for a, b in zip(pc, ph):
+            d = (a.detach().cpu() - b.detach()).abs()
+            dmax = max(dmax, float(d.max()))
+            far += int((d > TRAIN_PARAM_FAR).sum())
+            n += d.numel()
+        r = {"losses_card": [m[0] for m in mc],
+             "losses_cpu": [m[0] for m in mh],
+             "grad_norms_card": [m[1] for m in mc],
+             "grad_norms_cpu": [m[1] for m in mh],
+             "loss_max_rel_err": loss_rel, "grad_norm_max_rel_err": gn_rel,
+             "param_max_abs_err": dmax, "param_far_share": far / n}
+        r["ok"] = (loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_LOSS_RTOL
+                   and dmax <= TRAIN_PARAM_MAX
+                   and far / n <= TRAIN_PARAM_FAR_SHARE
+                   and all(np.isfinite(m[0]) for m in mc))
+        res["runs"][f"window={window}"] = r
+        ok = ok and r["ok"]
+    res["launches"] = _train_launches()
+    # per card run: 2 steps x 2 layers x (forward + remat recompute) of K1
+    # (no window) or K2 (window 64), and 2 x 2 of K3 and of K4 per run
+    expect = {"flash_attention_fwd": 8, "flash_attention_fwd_window": 8,
+              "flash_attention_bwd_dq": 8, "flash_attention_bwd_dkdv": 8}
+    res["launches_expected"] = expect
+    res["ok"] = ok and res["launches"] == expect
+    return res
+
+
+def phase_train():
+    """The training main path: the 1b preset at full width and all 16
+    layers (~886 M params), bf16 compute with f32 master weights, flash,
+    remat, f32_logits False, adamw(3e-4, weight_decay=0.01), B 8, S 1024,
+    tokens from a seed; one warm-up step, then 10 steps on the same batch
+    with the launch counters set to 0 just before them and read after."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+
+    B, S, steps = 8, 1024, 10
+    cfg = llama.PRESETS["1b"].replace(attn_impl="flash", remat=True,
+                                      f32_logits=False)
+    t0 = time.perf_counter()
+    init, _ = ts.make_train_state_init(
+        lambda g: llama.init_params(g, cfg), ts.adamw(3e-4,
+                                                      weight_decay=0.01),
+        device="cuda")
+    state = init(0)
+    step = ts.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg))
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(B, S + 1)), device="cuda")
+    batch = {"tokens": tokens}
+    state, m = step(state, batch)           # warm-up
+    warm_loss = float(m["loss"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_launches()
+    losses, norms = [], []
+    t_run = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = _train_launches()
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    step_s = run_s / steps
+    n_params = llama.num_params(cfg)
+    flops = 6 * n_params * B * S + 12 * cfg.n_layers * B * S * S * cfg.d_model
+    L = cfg.n_layers
+    expect = {"flash_attention_fwd": steps * L * 2,
+              "flash_attention_fwd_window": 0,
+              "flash_attention_bwd_dq": steps * L,
+              "flash_attention_bwd_dkdv": steps * L}
+    res = {"cfg": "1b, 16 layers, bf16 compute, f32 master weights, flash, "
+                  "remat none, f32_logits False, adamw(3e-4, "
+                  "weight_decay=0.01), B 8, S 1024",
+           "n_params": n_params, "setup_s": setup_s,
+           "warmup_loss": warm_loss, "losses": losses, "grad_norms": norms,
+           "step_s": step_s, "tokens_per_s": B * S / step_s,
+           "model_flops_per_step": flops,
+           "mfu_vs_989_tflops": flops / step_s / 989e12,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_expected": expect}
+    res["ok"] = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                 and launches == expect)
+    # one step's device time by kernel class, after the counted run
+    res["profile_step"] = device_profile(lambda: step(state, batch),
+                                         lambda: step(state, batch))
+    return res
+
+
 # --- the port's engine --------------------------------------------------------
 
 
@@ -439,6 +843,10 @@ def phase_engine():
 
 _KERNEL_CLASSES = (("k6_paged_decode", ("paged_decode_",)),
                    ("k1_flash_fwd", ("flash_fwd_",)),
+                   ("k3_flash_bwd_dq", ("flash_bwd_dq_",)),
+                   ("k4_flash_bwd_dkdv", ("flash_bwd_dkdv_",)),
+                   ("adamw", ("multi_tensor_apply",)),
+                   ("casts_copies", ("copy_kernel",)),
                    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 
 
@@ -468,6 +876,11 @@ def device_profile(timed, profiled):
     for ev in prof.events():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
+        if getattr(ev, "is_user_annotation", False):
+            # a record_function range on the device timeline (such as
+            # "Optimizer.step#AdamW.step"), not a kernel: it would count
+            # its kernels twice
+            continue
         ms = ev.time_range.elapsed_us() / 1e3   # one kernel on one stream
         n_kernels += 1
         name = ev.name.lower()
@@ -486,13 +899,11 @@ def device_profile(timed, profiled):
 # --- driver -----------------------------------------------------------------
 
 
-PHASES = ("build", "k6", "k1", "card_vs_cpu", "engine")
+PHASES = ("build", "k6", "k1", "card_vs_cpu", "engine", "k2", "k3k4",
+          "train_card_vs_cpu", "train")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT = {
-    "K2": "ray_tpu/ops/flash_attention.py:123 _fwd_kernel_stream",
-    "K3": "ray_tpu/ops/flash_attention.py:251 _bwd_dq_kernel",
-    "K4": "ray_tpu/ops/flash_attention.py:297 _bwd_dkdv_kernel",
     "K5": "ray_tpu/ops/paged_attention.py:61 _kernel",
 }
 
@@ -524,9 +935,7 @@ def main() -> int:
 
                 t0 = time.perf_counter()
                 took = _build.build()
-                logs = {n: [ln for ln in (_build.BUILD_DIR / f"{n}.log")
-                            .read_text().splitlines()
-                            if "registers" in ln or "spill" in ln][:40]
+                logs = {n: ptxas_report(_build.BUILD_DIR / f"{n}.log")
                         for n in _build.KERNEL_SOURCES
                         if (_build.BUILD_DIR / f"{n}.log").is_file()}
                 emit("build", seconds=time.perf_counter() - t0,
@@ -547,6 +956,18 @@ def main() -> int:
                 r = phase_engine()
                 emit("engine", **r)
                 ok &= r["ok"]
+            elif ph in ("k2", "k3k4"):
+                cases = phase_k2() if ph == "k2" else phase_k3k4()
+                emit(ph, cases=cases)
+                ok &= all(c["ok"] for c in cases)
+            elif ph == "train_card_vs_cpu":
+                r = phase_train_card_vs_cpu()
+                emit(ph, **r)
+                ok &= r["ok"]
+            elif ph == "train":
+                r = phase_train()
+                emit(ph, **r)
+                ok &= r["ok"]
             if not ok:
                 print(f"chip_smoke.py: phase {ph} failed", file=sys.stderr)
                 break
@@ -562,34 +983,52 @@ def main() -> int:
 
     kernels = []
     ph = RESULTS["phases"]
-    eng = ph.get("engine", {}).get("launches", {})
-    main_cases = {
-        "paged_decode_attention_inplace": next(
-            (c for c in ph.get("k6", {}).get("cases", [])
-             if c["config"] == "7b" and c["dtype"] == "bfloat16"), None),
-        "flash_attention_fwd": next(
-            (c for c in ph.get("k1", {}).get("cases", [])
-             if c["config"] == "7b" and c["dtype"] == "bfloat16"), None),
-    }
-    meta = {
-        "paged_decode_attention_inplace": (
-            "ray_tpu_torch/csrc/paged_attention.cu",
-            "ray_tpu/ops/paged_attention.py:127"),
-        "flash_attention_fwd": (
-            "ray_tpu_torch/csrc/flash_attention.cu",
-            "ray_tpu/ops/flash_attention.py:37"),
-    }
-    emit("kernel_status", ported=sorted(meta), to_port=TO_PORT)
-    for name, (src, rep) in meta.items():
-        c = main_cases[name] or {}
+
+    def case(phase, config, dtype="bfloat16"):
+        return next((c for c in ph.get(phase, {}).get("cases", [])
+                     if c["config"] == config and c["dtype"] == dtype), {})
+
+    # main-path launches: each path's run with the counters set to 0 just
+    # before it (serving: engine; training: train, and train_card_vs_cpu,
+    # the run on which K2 launches)
+    paths = {"engine": ph["engine"]["launches"],
+             "train": ph["train"]["launches"],
+             "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"]}
+    k1, k2, k34 = case("k1", "7b"), case("k2", "1b-w256"), case("k3k4", "1b")
+    rows = [
+        ("flash_attention_fwd", "ray_tpu_torch/csrc/flash_attention.cu",
+         "ray_tpu/ops/flash_attention.py:37", k1, ""),
+        ("flash_attention_fwd_window", "ray_tpu_torch/csrc/flash_attention.cu",
+         "ray_tpu/ops/flash_attention.py:123", k2, ""),
+        ("flash_attention_bwd_dq", "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+         "ray_tpu/ops/flash_attention.py:251", k34, "k3_"),
+        ("flash_attention_bwd_dkdv",
+         "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+         "ray_tpu/ops/flash_attention.py:297", k34, "k4_"),
+        ("paged_decode_attention_inplace",
+         "ray_tpu_torch/csrc/paged_attention.cu",
+         "ray_tpu/ops/paged_attention.py:127", case("k6", "7b"), ""),
+    ]
+    emit("kernel_status", ported=[r[0] for r in rows], to_port=TO_PORT)
+    for name, src, rep, c, pre in rows:
+        by_path = {p: n[name] for p, n in paths.items() if name in n}
+        err = c.get("max_abs_err")
+        if err is None:
+            err = max(c.get(f"{x}_max_abs_err", 0.0) for x in
+                      (("dq",) if pre == "k3_" else ("dk", "dv")))
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": eng.get(name),
-                        "max_abs_err": c.get("max_abs_err"),
-                        "ms": c.get("kernel_ms"),
+                        "replaces": rep, "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, "max_abs_err": err,
+                        "ms": c.get(pre + "ms" if pre else "kernel_ms"),
                         "plain_ms": c.get("plain_ms"),
-                        "bound_ms": c.get("bound_ms"),
-                        "bound_by": c.get("bound_by"),
+                        "bound_ms": c.get(pre + "bound_ms"),
+                        "bound_by": c.get(pre + "bound_by"),
                         "library_ms": c.get("library_ms")})
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        print(f"chip_smoke.py: kernels not launched on their main path: "
+              f"{missing}", file=sys.stderr)
+        return 1
     RESULTS["kernels"] = kernels
     (OUT_DIR / "chip_smoke.json").write_text(
         json.dumps(RESULTS, indent=1, default=str))

@@ -13,4 +13,17 @@ kernel and touches no device. Entry points take ``device=None`` (meaning
 version.
 """
 
-__all__ = ["ops", "models", "serve"]
+__all__ = ["ops", "models", "serve", "parallel", "resolve_device"]
+
+
+def resolve_device(device=None):
+    """``None`` means CUDA. Without CUDA, only an explicit ``"cpu"`` runs
+    (the plain versions of the kernels); there is no silent fallback."""
+    import torch
+
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the port's "
+            "plain PyTorch versions on the CPU")
+    return dev

@@ -1,9 +1,16 @@
-// K1: flash attention forward (causal or full), for Hopper (sm_90a).
+// K1 and K2: flash attention forward (causal, full, or causal with a
+// sliding window), for Hopper (sm_90a).
 //
-// Replaces ray_tpu/ops/flash_attention.py:_fwd_kernel_loop (reached through
-// _flash_fwd_loop): out = softmax(q k^T / sqrt(D)) v per query head, with the
-// log-sum-exp of each row, q [B, S, H, D], k/v [B, T, KV, D], GQA through
-// kv_head = h / (H / KV) with no K/V broadcast.
+// Replaces ray_tpu/ops/flash_attention.py:_fwd_kernel_loop (K1, reached
+// through _flash_fwd_loop) and _fwd_kernel_stream (K2, the sliding window,
+// reached through _flash_fwd with window > 0): out = softmax(q k^T /
+// sqrt(D)) v per query head, with the log-sum-exp of each row, q [B, S, H,
+// D], k/v [B, T, KV, D], GQA through kv_head = h / (H / KV) with no K/V
+// broadcast. Under a window W (causal only) key t is visible to query s iff
+// 0 <= s - t < W; a query tile then starts at the K/V tile holding key
+// q0 - W + 1, so tiles below the band are never loaded and the cost is
+// O(S * W), which is what K2's clamped index map buys on the TPU. K2 is
+// the WINDOW instantiation of the same kernels, so K1's code is unchanged.
 //
 // Bound on this card: causal attention does 2 * S^2 * D flops a head against
 // 8 * S * D bytes of bf16 q/k/v/o, ~S/4 flops a byte, so prefill buckets up
@@ -27,11 +34,15 @@
 // tiles, so the f32 path agrees with the plain version to rounding.
 //
 // The ragged edge (S or T not a multiple of 64) is masked: rows past T are
-// zero-filled and scored -1e30, rows past S are not stored.
+// zero-filled and scored -1e30, rows past S are not stored. A row whose
+// keys in a tile are all masked (the band's first tile under a window)
+// gets p = 0 there: the exponent is taken against 0 while the row's
+// running max is still -1e30.
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -41,81 +52,12 @@ constexpr int NT = 128;  // 4 warps x 16 query rows
 
 // ------------------------------------------------------------------ bf16 ---
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 zero-fills (rows past the edge)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [0, rows) of a [rows, D] tile (row stride LD elements) from global rows
-// `stride` elements apart, by cp.async; rows past `valid` are zero-filled
-template <int D, int LD>
-__device__ __forceinline__ void async_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           size_t stride, int valid,
-                                           int rows) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < rows * CH; i += NT) {
-    const int r = i / CH;
-    const int c = (i - r * CH) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * LD + c, ok ? src + (size_t)r * stride + c : src,
-               ok ? 16 : 0);
-  }
-}
-
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int S, int T_len, int H, int KV, float scale) {
+    float* __restrict__ lse, int S, int T_len, int H, int KV, int window,
+    float scale) {
   constexpr int LD = D + 8;  // padded row (elements): conflict-free ldmatrix
   constexpr int KS = D / 16;  // k-steps of Q.K^T
   constexpr int NS = BK / 8;  // 8-key n-tiles of the scores
@@ -142,11 +84,20 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
   const __nv_bfloat16* vb = v + ((size_t)b * T_len * KV + kvh) * D;
 
   int n_k = (T_len + BK - 1) / BK;
-  if (CAUSAL) n_k = min(n_k, (q0 + BQ - 1) / BK + 1);  // up to the diagonal
+  int kt_lo = 0;
+  if (CAUSAL) {
+    n_k = min(n_k, (q0 + BQ - 1) / BK + 1);  // up to the diagonal
+    if (WINDOW) kt_lo = max(0, q0 - window + 1) / BK;  // band's start
+  }
 
-  async_rows<D, LD>(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0, BQ);
-  async_rows<D, LD>(Ks, kb, kv_stride, T_len, BK);
-  async_rows<D, LD>(Vs, vb, kv_stride, T_len, BK);
+  async_rows<D, LD, NT>(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0, BQ);
+  {
+    const int k0 = kt_lo * BK;
+    async_rows<D, LD, NT>(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
+                      BK);
+    async_rows<D, LD, NT>(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
+                      BK);
+  }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -166,15 +117,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
   const int row_a = q0 + warp * 16 + g;
   const int row_b = row_a + 8;
 
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int stage = kt & 1;
+  for (int kt = kt_lo; kt < n_k; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
     const int k0 = kt * BK;
     if (kt + 1 < n_k) {
       // the other stage was released by the barrier ending iteration kt-1
       const int k1 = k0 + BK;
-      async_rows<D, LD>(Ks + (stage ^ 1) * BK * LD, kb + (size_t)k1 * kv_stride,
+      async_rows<D, LD, NT>(Ks + (stage ^ 1) * BK * LD, kb + (size_t)k1 * kv_stride,
                         kv_stride, T_len - k1, BK);
-      async_rows<D, LD>(Vs + (stage ^ 1) * BK * LD, vb + (size_t)k1 * kv_stride,
+      async_rows<D, LD, NT>(Vs + (stage ^ 1) * BK * LD, vb + (size_t)k1 * kv_stride,
                         kv_stride, T_len - k1, BK);
       cp_async_commit();
       cp_async_wait<1>();  // tile kt has landed, tile kt+1 may be in flight
@@ -213,7 +164,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
 
     // mask (only tiles that cross the diagonal or the ragged edge), then the
     // online-softmax step; a row's 4 threads (same g) combine by shuffles
-    const bool edge = k0 + BK > T_len || (CAUSAL && k0 + BK - 1 > q0 + warp * 16);
+    const bool edge =
+        k0 + BK > T_len || (CAUSAL && k0 + BK - 1 > q0 + warp * 16) ||
+        (WINDOW && q0 + warp * 16 + 15 - k0 >= window);
     float mx_a = -1e30f, mx_b = -1e30f;
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
@@ -223,7 +176,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
         if (edge) {
           const int col = k0 + n * 8 + t4 * 2 + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          if (col >= T_len || (CAUSAL && col > row)) x = -1e30f;
+          if (col >= T_len ||
+              (CAUSAL && (col > row || (WINDOW && row - col >= window))))
+            x = -1e30f;
         }
         s[n][e] = x;
       }
@@ -241,13 +196,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
     const float al_b = expf(m_b - mn_b);
     m_a = mn_a;
     m_b = mn_b;
+    // under a window a row may have no visible key yet: exp against 0
+    // gives its masked p = 0 (without one, key 0 is in every row's first
+    // tile)
+    const float e_a = WINDOW && mn_a <= -1e29f ? 0.f : mn_a;
+    const float e_b = WINDOW && mn_b <= -1e29f ? 0.f : mn_b;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      s[n][0] = expf(s[n][0] - mn_a);
-      s[n][1] = expf(s[n][1] - mn_a);
-      s[n][2] = expf(s[n][2] - mn_b);
-      s[n][3] = expf(s[n][3] - mn_b);
+      s[n][0] = expf(s[n][0] - e_a);
+      s[n][1] = expf(s[n][1] - e_a);
+      s[n][2] = expf(s[n][2] - e_b);
+      s[n][3] = expf(s[n][3] - e_b);
       sum_a += s[n][0] + s[n][1];
       sum_b += s[n][2] + s[n][3];
     }
@@ -321,11 +281,12 @@ struct F32Tile {
                        (size_t)BQ * OLD + 3 * BQ);
 };
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    float* __restrict__ lse, int S, int T_len, int H, int KV, float scale) {
+    float* __restrict__ lse, int S, int T_len, int H, int KV, int window,
+    float scale) {
   using L = F32Tile<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [BQ, LD]
@@ -368,9 +329,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
   }
 
   int n_k = (T_len + BK - 1) / BK;
-  if (CAUSAL) n_k = min(n_k, (q0 + BQ - 1) / BK + 1);
+  int kt_lo = 0;
+  if (CAUSAL) {
+    n_k = min(n_k, (q0 + BQ - 1) / BK + 1);
+    if (WINDOW) kt_lo = max(0, q0 - window + 1) / BK;
+  }
 
-  for (int kt = 0; kt < n_k; ++kt) {
+  for (int kt = kt_lo; kt < n_k; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's K/V are no longer read
     load(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0);
@@ -401,12 +366,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
       const int c1 = c0 + 32;
       float x0 = s0[i] * scale;
       float x1 = s1[i] * scale;
-      if (c0 >= T_len || (CAUSAL && c0 > qpos)) x0 = -1e30f;
-      if (c1 >= T_len || (CAUSAL && c1 > qpos)) x1 = -1e30f;
+      if (c0 >= T_len || (CAUSAL && (c0 > qpos ||
+                                     (WINDOW && qpos - c0 >= window))))
+        x0 = -1e30f;
+      if (c1 >= T_len || (CAUSAL && (c1 > qpos ||
+                                     (WINDOW && qpos - c1 >= window))))
+        x1 = -1e30f;
       const float m_old = m_sh[r0 + i];
       const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new);
-      const float p1 = expf(x1 - m_new);
+      // under a window a row may have no visible key yet: p = 0
+      const float m_exp = WINDOW && m_new <= -1e29f ? 0.f : m_new;
+      const float p0 = expf(x0 - m_exp);
+      const float p1 = expf(x1 - m_exp);
       const float sum = warp_sum(p0 + p1);
       Pw[i * L::PLD + lane] = p0;
       Pw[i * L::PLD + lane + 32] = p1;
@@ -444,34 +415,36 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
 // --------------------------------------------------------------- launch ---
 
 template <int D>
-int launch_d(int dtype, int causal, const void* q, const void* k,
-             const void* v, void* o, void* lse, int B, int S, int T_len,
-             int H, int KV, float scale, cudaStream_t st) {
+int launch_d(int dtype, int causal, int window, const void* q,
+             const void* k, const void* v, void* o, void* lse, int B, int S,
+             int T_len, int H, int KV, float scale, cudaStream_t st) {
   if (dtype == RT_BF16) {
     using T = __nv_bfloat16;
     const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * (D + 8);
-    auto kernel = causal ? flash_fwd_bf16_kernel<D, true>
-                         : flash_fwd_bf16_kernel<D, false>;
+    auto kernel = window > 0 ? flash_fwd_bf16_kernel<D, true, true>
+                  : causal   ? flash_fwd_bf16_kernel<D, true, false>
+                             : flash_fwd_bf16_kernel<D, false, false>;
     cudaError_t err = rt_set_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((S + BQ - 1) / BQ, H, B);
     kernel<<<grid, NT, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o),
-        static_cast<float*>(lse), S, T_len, H, KV, scale);
+        static_cast<float*>(lse), S, T_len, H, KV, window, scale);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype == RT_F32) {
     const size_t smem = F32Tile<D>::kBytes;
-    auto kernel = causal ? flash_fwd_f32_kernel<D, true>
-                         : flash_fwd_f32_kernel<D, false>;
+    auto kernel = window > 0 ? flash_fwd_f32_kernel<D, true, true>
+                  : causal   ? flash_fwd_f32_kernel<D, true, false>
+                             : flash_fwd_f32_kernel<D, false, false>;
     cudaError_t err = rt_set_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((S + BQ - 1) / BQ, H, B);
     kernel<<<grid, NT, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
-        static_cast<float*>(lse), S, T_len, H, KV, scale);
+        static_cast<float*>(lse), S, T_len, H, KV, window, scale);
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -479,19 +452,22 @@ int launch_d(int dtype, int causal, const void* q, const void* k,
 
 }  // namespace
 
-extern "C" int flash_attention_fwd(int dtype, int causal, const void* q,
-                                   const void* k, const void* v, void* o,
-                                   void* lse, int B, int S, int T_len, int H,
-                                   int KV, int D, float scale, void* stream) {
+// window 0: no window (K1); window > 0 needs causal (K2)
+extern "C" int flash_attention_fwd(int dtype, int causal, int window,
+                                   const void* q, const void* k,
+                                   const void* v, void* o, void* lse, int B,
+                                   int S, int T_len, int H, int KV, int D,
+                                   float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  if (KV <= 0 || H % KV != 0 || T_len <= 0)
+  if (KV <= 0 || H % KV != 0 || T_len <= 0 || window < 0 ||
+      (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_d<16>(dtype, causal, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
-    case 32: return launch_d<32>(dtype, causal, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
-    case 64: return launch_d<64>(dtype, causal, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
-    case 128: return launch_d<128>(dtype, causal, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
+    case 16: return launch_d<16>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
+    case 32: return launch_d<32>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
+    case 64: return launch_d<64>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
+    case 128: return launch_d<128>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,0 +1,809 @@
+// K3 and K4: flash attention backward (FlashAttention-2 split), for Hopper
+// (sm_90a).
+//
+// Replaces ray_tpu/ops/flash_attention.py:_bwd_dq_kernel (K3) and
+// _bwd_dkdv_kernel (K4), both launched by _flash_pallas_bwd. For
+// q/dO/O [B, S, H, D], k/v [B, T, KV, D] and the forward's f32 log-sum-exp
+// lse [B, H, S], with P = exp(q k^T scale - lse) and
+// dS = P * (dO v^T - delta) * scale, delta = rowsum(O * dO):
+//   K3: dq = dS k           one block per (b, h, 64-row query tile);
+//   K4: dk = dS^T q, dv = P^T dO   one block per (b, kv_head, 64-key tile).
+// The causal band (and a sliding window W: key t visible to query s iff
+// 0 <= s - t < W) bounds both loops: K3 streams K/V tiles from the band's
+// first tile to the diagonal, K4 streams query tiles from the diagonal to
+// the band's last. Nothing uses atomics: each output element is summed by
+// one thread in a fixed order, so the gradients are deterministic.
+//
+// Bound on this card: per (b, h), 4 S T D flops of recomputed products
+// (q k^T and dO v^T) plus 4 S T D of gradient products, within the band;
+// with K/V re-read per query tile and q/dO per key tile. At the 1b train
+// shape (S = T = 1024, D = 128, causal) that is ~S/2 flops a byte of
+// inputs, so the bound is the tensor cores'.
+//
+// delta: K3 forms it in-kernel from O and dO (f32) and also stores it
+// ([B, H, S] f32); K4, launched after K3 on the same stream, reads it
+// instead of re-reading O for every key tile.
+//
+// GQA in K4: the block loops over the `groups` query heads of its kv head
+// and sums their contributions in f32 registers, so the per-head f32
+// [B, H, T, D] buffers of the TPU wrapper (_flash_pallas_bwd:421-422) do
+// not exist.
+//
+// bf16 (training): mma.sync.m16n8k16 with f32 accumulation in the fragment
+// layouts of K1 (mma.cuh). The recomputed scores and dP stay in f32
+// registers; P (for dV) and dS (for dK, dQ) are rounded to bf16 as the
+// A operand of the gradient products. K/V tiles (K3) and q/dO tiles (K4)
+// arrive through cp.async, double-buffered. A operands come from shared
+// memory by ldmatrix per 32-wide k-step, which keeps registers for the
+// f32 accumulators (K4 holds dK and dV, 2 x 16 x D per warp).
+//
+// f32 (parity runs): exact f32 FMAs on the CUDA cores through shared-memory
+// tiles; P and dS stay f32.
+//
+// The ragged edge (S or T not a multiple of 64) is masked: rows past the
+// edge are zero-filled and get P = 0, and are not stored. Masked entries get
+// P = 0 explicitly (never exp of -1e30 against an lse), so rows or keys
+// with nothing visible in a tile contribute exactly 0.
+
+#include <cstdint>
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace {
+
+constexpr int BQ = 64;   // query rows a tile
+constexpr int BK = 64;   // key rows a tile
+constexpr int NT = 128;  // 4 warps x 16 rows
+
+using bf16 = __nv_bfloat16;
+
+// key `col` is visible to query `row`
+template <bool CAUSAL>
+__device__ __forceinline__ bool visible(int row, int col, int S, int T_len,
+                                        int window) {
+  bool keep = row < S && col < T_len;
+  if (CAUSAL) keep = keep && col <= row && (window <= 0 || row - col < window);
+  return keep;
+}
+
+// K/V tiles [kt_lo, kt_hi) a query tile at q0 visits
+template <bool CAUSAL>
+__device__ __forceinline__ void key_tiles(int q0, int T_len, int window,
+                                          int& kt_lo, int& kt_hi) {
+  kt_lo = 0;
+  kt_hi = (T_len + BK - 1) / BK;
+  if (CAUSAL) {
+    kt_hi = min(kt_hi, (q0 + BQ - 1) / BK + 1);
+    if (window > 0) kt_lo = max(0, q0 - window + 1) / BK;
+  }
+}
+
+// query tiles [qt_lo, qt_hi) that see some key of the tile at k0
+template <bool CAUSAL>
+__device__ __forceinline__ void query_tiles(int k0, int S, int window,
+                                            int& qt_lo, int& qt_hi) {
+  qt_lo = 0;
+  qt_hi = (S + BQ - 1) / BQ;
+  if (CAUSAL) {
+    qt_lo = k0 / BQ;
+    if (window > 0) qt_hi = min(qt_hi, (k0 + BK - 1 + window - 1) / BQ + 1);
+  }
+}
+
+// ------------------------------------------------------------------ bf16 ---
+
+// acc[NS][4] (16 rows of A, 8 columns per n-tile) += A (16 x D, rows of
+// `Aw` in shared memory) . B^T (B rows of `Bt`, 8 per n-tile), over D
+template <int D, int NS>
+__device__ __forceinline__ void mma_abt(float (&acc)[NS][4],
+                                        const bf16* Aw, const bf16* Bt,
+                                        int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ks += 2) {
+    uint32_t a0[4], a1[4];
+    ldmatrix_x4(a0, Aw + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
+    ldmatrix_x4(a1, Aw + (lane & 15) * LD + (ks + 1) * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      uint32_t bf[4];  // b0, b1 of k-step ks, then of ks + 1
+      ldmatrix_x4(bf, Bt + (n * 8 + (lane & 7)) * LD + ks * 16 +
+                          (lane >> 3) * 8);
+      mma_bf16(acc[n], a0, bf[0], bf[1]);
+      mma_bf16(acc[n], a1, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[ND][4] (16 x D) += X (16 x 64, the C fragments x[8][4], rounded to
+// bf16) . M (64 rows x D of `Mt` in shared memory)
+template <int D>
+__device__ __forceinline__ void mma_xm(float (&acc)[D / 8][4],
+                                       const float (&x)[8][4],
+                                       const bf16* Mt, int lane) {
+  constexpr int LD = D + 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t xf[4];  // the C fragments of n-tiles 2j, 2j+1 are the A of step j
+    xf[0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
+    xf[1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
+    xf[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
+    xf[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t mf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
+      ldmatrix_x4_trans(mf, Mt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                     LD + n * 8 + (lane >> 4) * 8);
+      mma_bf16(acc[n], xf, mf[0], mf[1]);
+      mma_bf16(acc[n + 1], xf, mf[2], mf[3]);
+    }
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ o,
+    const bf16* __restrict__ g, const float* __restrict__ lse,
+    bf16* __restrict__ dq, float* __restrict__ delta, int S, int T_len, int H,
+    int KV, int window, float scale) {
+  constexpr int LD = D + 8;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ, LD]
+  bf16* Gs = Qs + BQ * LD;                   // [BQ, LD] dO
+  bf16* Ks = Gs + BQ * LD;                   // [2][BK, LD]
+  bf16* Vs = Ks + 2 * BK * LD;               // [2][BK, LD]
+  float* dl_sh = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // [BQ]
+
+  // causal tiles near the end do the most work: schedule them first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)KV * D;
+  const size_t head = ((size_t)b * S * H + h) * D;
+  const bf16* kb = k + ((size_t)b * T_len * KV + kvh) * D;
+  const bf16* vb = v + ((size_t)b * T_len * KV + kvh) * D;
+
+  int kt_lo, kt_hi;
+  key_tiles<CAUSAL>(q0, T_len, window, kt_lo, kt_hi);
+
+  async_rows<D, LD, NT>(Qs, q + head + (size_t)q0 * q_stride, q_stride,
+                        S - q0, BQ);
+  async_rows<D, LD, NT>(Gs, g + head + (size_t)q0 * q_stride, q_stride,
+                        S - q0, BQ);
+  if (kt_lo < kt_hi) {
+    const int k0 = kt_lo * BK;
+    async_rows<D, LD, NT>(Ks, kb + (size_t)k0 * kv_stride, kv_stride,
+                          T_len - k0, BK);
+    async_rows<D, LD, NT>(Vs, vb + (size_t)k0 * kv_stride, kv_stride,
+                          T_len - k0, BK);
+  }
+  cp_async_commit();
+
+  // delta = rowsum(O * dO) in f32 from device memory, while the tiles land
+  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    const int row = q0 + r;
+    float a = 0.f;
+    if (row < S) {
+      const size_t off = head + (size_t)row * q_stride;
+      for (int d = lane; d < D; d += 32)
+        a += to_f32(o[off + d]) * to_f32(g[off + d]);
+    }
+    a = warp_sum(a);
+    if (lane == 0) {
+      dl_sh[r] = a;
+      if (row < S) delta[((size_t)b * H + h) * S + row] = a;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int row_a = q0 + warp * 16 + g8;
+  const int row_b = row_a + 8;
+  const size_t lrow = ((size_t)b * H + h) * S;
+  const float lse_a = row_a < S ? lse[lrow + row_a] : 0.f;
+  const float lse_b = row_b < S ? lse[lrow + row_b] : 0.f;
+  const float dl_a = dl_sh[warp * 16 + g8];
+  const float dl_b = dl_sh[warp * 16 + g8 + 8];
+  const bf16* Qw = Qs + warp * 16 * LD;
+  const bf16* Gw = Gs + warp * 16 * LD;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    const int k0 = kt * BK;
+    if (kt + 1 < kt_hi) {
+      // the other stage was released by the barrier ending iteration kt-1
+      const int k1 = k0 + BK;
+      async_rows<D, LD, NT>(Ks + (stage ^ 1) * BK * LD,
+                            kb + (size_t)k1 * kv_stride, kv_stride, T_len - k1,
+                            BK);
+      async_rows<D, LD, NT>(Vs + (stage ^ 1) * BK * LD,
+                            vb + (size_t)k1 * kv_stride, kv_stride, T_len - k1,
+                            BK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + stage * BK * LD;
+    const bf16* Vt = Vs + stage * BK * LD;
+
+    // s = q k^T, dp = dO v^T: rows g, g+8 of the warp; keys k0 + 8n + 2t4
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    mma_abt<D, 8>(s, Qw, Kt, lane);
+    mma_abt<D, 8>(dp, Gw, Vt, lane);
+
+    // dS = P (dP - delta) scale, P from the saved lse (0 where masked)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + n * 8 + t4 * 2 + (e & 1);
+        const bool top = e < 2;
+        const float p =
+            visible<CAUSAL>(top ? row_a : row_b, col, S, T_len, window)
+                ? expf(s[n][e] * scale - (top ? lse_a : lse_b))
+                : 0.f;
+        s[n][e] = p * (dp[n][e] - (top ? dl_a : dl_b)) * scale;
+      }
+    mma_xm<D>(acc, s, Kt, lane);  // dq += dS k
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_b : row_a;
+    if (row >= S) continue;
+    bf16* out = dq + head + (size_t)row * q_stride;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + t4 * 2) =
+          __floats2bfloat162_rn(acc[n][half * 2], acc[n][half * 2 + 1]);
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T_len, int H,
+    int KV, int window, float scale) {
+  constexpr int LD = D + 8;
+  constexpr int ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK, LD]
+  bf16* Vs = Ks + BK * LD;                   // [BK, LD]
+  bf16* Qs = Vs + BK * LD;                   // [2][BQ, LD]
+  bf16* Gs = Qs + 2 * BQ * LD;               // [2][BQ, LD] dO
+  float* lse_sh = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // [2][BQ]
+  float* dl_sh = lse_sh + 2 * BQ;                              // [2][BQ]
+
+  // under causal attention the first key tiles see the most query tiles
+  const int k0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int groups = H / KV;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)KV * D;
+  const size_t kv_off = ((size_t)b * T_len * KV + kvh) * D;
+
+  int qt_lo, qt_hi;
+  query_tiles<CAUSAL>(k0, S, window, qt_lo, qt_hi);
+  const int nq = max(0, qt_hi - qt_lo);
+  const int n_it = groups * nq;  // (query head of the group, query tile)
+
+  auto load_q = [&](int it, int stage) {
+    const int hh = kvh * groups + it / nq;
+    const int q0 = (qt_lo + it % nq) * BQ;
+    const size_t off = ((size_t)b * S * H + hh) * D + (size_t)q0 * q_stride;
+    async_rows<D, LD, NT>(Qs + stage * BQ * LD, q + off, q_stride, S - q0,
+                          BQ);
+    async_rows<D, LD, NT>(Gs + stage * BQ * LD, g + off, q_stride, S - q0,
+                          BQ);
+    if (threadIdx.x < BQ) {
+      const int row = q0 + threadIdx.x;
+      const size_t i = ((size_t)b * H + hh) * S + row;
+      lse_sh[stage * BQ + threadIdx.x] = row < S ? lse[i] : 0.f;
+      dl_sh[stage * BQ + threadIdx.x] = row < S ? delta[i] : 0.f;
+    }
+  };
+
+  async_rows<D, LD, NT>(Ks, k + kv_off + (size_t)k0 * kv_stride, kv_stride,
+                        T_len - k0, BK);
+  async_rows<D, LD, NT>(Vs, v + kv_off + (size_t)k0 * kv_stride, kv_stride,
+                        T_len - k0, BK);
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();
+
+  const int key_a = k0 + warp * 16 + g8;
+  const int key_b = key_a + 8;
+  const bf16* Kw = Ks + warp * 16 * LD;
+  const bf16* Vw = Vs + warp * 16 * LD;
+  float dk_acc[ND][4], dv_acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    const int q0 = (qt_lo + it % nq) * BQ;
+    if (it + 1 < n_it) {
+      // the other stage was released by the barrier ending iteration it-1
+      load_q(it + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Qt = Qs + stage * BQ * LD;
+    const bf16* Gt = Gs + stage * BQ * LD;
+    const float* lt = lse_sh + stage * BQ;
+    const float* dt = dl_sh + stage * BQ;
+
+    // P^T = exp(k q^T scale - lse): keys g, g+8 of the warp (rows),
+    // queries q0 + 8n + 2t4 (columns), 0 where masked
+    float p[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[n][e] = 0.f;
+    mma_abt<D, 8>(p, Kw, Qt, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + t4 * 2 + (e & 1);
+        p[n][e] = visible<CAUSAL>(q0 + c, e < 2 ? key_a : key_b, S, T_len,
+                                  window)
+                      ? expf(p[n][e] * scale - lt[c])
+                      : 0.f;
+      }
+    mma_xm<D>(dv_acc, p, Gt, lane);  // dv += P^T dO
+
+    // dS^T = P^T (v dO^T - delta) scale
+    float ds[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[n][e] = 0.f;
+    mma_abt<D, 8>(ds, Vw, Gt, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + t4 * 2 + (e & 1);
+        ds[n][e] = p[n][e] * (ds[n][e] - dt[c]) * scale;
+      }
+    mma_xm<D>(dk_acc, ds, Qt, lane);  // dk += dS^T q
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key_b : key_a;
+    if (key >= T_len) continue;
+    const size_t off = kv_off + (size_t)key * kv_stride;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dk_acc[n][half * 2], dk_acc[n][half * 2 + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dv_acc[n][half * 2], dv_acc[n][half * 2 + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- f32 ---
+
+template <int D>
+struct F32Bwd {
+  static constexpr int LD = D + 1;    // staggers banks for column-wise reads
+  static constexpr int PLD = 64 + 1;
+  static constexpr size_t kBytes =
+      sizeof(float) * ((size_t)4 * 64 * LD + (size_t)2 * 64 * PLD + 2 * 64);
+};
+
+// acc[i][c] += sum_j X[i][j] M[j][lane + 32 c] for the warp's 16 rows of X
+// (row stride PLD) and a [64, D] tile M (row stride LD): j outermost, so
+// each M element is read once per warp and the unrolled body stays small
+template <int D, int LD, int PLD>
+__device__ __forceinline__ void accumulate_xm(float (&acc)[16][D / 32],
+                                              const float* Xw,
+                                              const float* M, int lane) {
+  for (int j = 0; j < 64; ++j) {
+    float m[D / 32];
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) m[c] = M[j * LD + lane + 32 * c];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float x = Xw[i * PLD + j];
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) acc[i][c] = fmaf(x, m[c], acc[i][c]);
+    }
+  }
+}
+
+// rows [0, 64) of a [64, D] f32 tile (row stride LD) from global rows
+// `stride` apart; rows past `valid` are zero-filled
+template <int D, int LD>
+__device__ __forceinline__ void load_f32(float* dst, const float* src,
+                                         size_t stride, int valid) {
+  for (int i = threadIdx.x; i < 64 * D; i += NT) {
+    const int r = i / D;
+    const int c = i - r * D;
+    dst[r * LD + c] = r < valid ? src[(size_t)r * stride + c] : 0.f;
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ o,
+    const float* __restrict__ g, const float* __restrict__ lse,
+    float* __restrict__ dq, float* __restrict__ delta, int S, int T_len,
+    int H, int KV, int window, float scale) {
+  using L = F32Bwd<D>;
+  constexpr int DC = D / 32;  // output columns a lane owns
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [BQ, LD]
+  float* Gs = Qs + BQ * L::LD;                 // [BQ, LD] dO
+  float* Ks = Gs + BQ * L::LD;                 // [BK, LD]
+  float* Vs = Ks + BK * L::LD;                 // [BK, LD]
+  float* Ps = Vs + BK * L::LD;                 // [BQ, PLD] dS
+  float* lse_sh = Ps + BQ * L::PLD;            // [BQ]
+  float* dl_sh = lse_sh + BQ;                  // [BQ]
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = warp * 16;
+
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)KV * D;
+  const size_t head = ((size_t)b * S * H + h) * D;
+  const float* kb = k + ((size_t)b * T_len * KV + kvh) * D;
+  const float* vb = v + ((size_t)b * T_len * KV + kvh) * D;
+
+  load_f32<D, L::LD>(Qs, q + head + (size_t)q0 * q_stride, q_stride, S - q0);
+  load_f32<D, L::LD>(Gs, g + head + (size_t)q0 * q_stride, q_stride, S - q0);
+  __syncthreads();
+  for (int i = 0; i < 16; ++i) {
+    const int row = q0 + r0 + i;
+    float a = 0.f;
+    if (row < S) {
+      const float* orow = o + head + (size_t)row * q_stride;
+      for (int d = lane; d < D; d += 32) a += orow[d] * Gs[(r0 + i) * L::LD + d];
+    }
+    a = warp_sum(a);
+    if (lane == 0) {
+      const size_t li = ((size_t)b * H + h) * S + row;
+      dl_sh[r0 + i] = a;
+      lse_sh[r0 + i] = row < S ? lse[li] : 0.f;
+      if (row < S) delta[li] = a;
+    }
+  }
+  __syncwarp();  // a warp reads only its own rows of dl_sh / lse_sh
+
+  int kt_lo, kt_hi;
+  key_tiles<CAUSAL>(q0, T_len, window, kt_lo, kt_hi);
+  float acc[16][DC];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's K/V and dS are no longer read
+    load_f32<D, L::LD>(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0);
+    load_f32<D, L::LD>(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0);
+    __syncthreads();
+
+    // lane owns key columns lane and lane + 32 of the warp's 16 rows
+    float s0[16], s1[16], d0[16], d1[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s0[i] = s1[i] = d0[i] = d1[i] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float ka = Ks[lane * L::LD + d];
+      const float kc = Ks[(lane + 32) * L::LD + d];
+      const float va = Vs[lane * L::LD + d];
+      const float vc = Vs[(lane + 32) * L::LD + d];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float qv = Qs[(r0 + i) * L::LD + d];
+        const float gv = Gs[(r0 + i) * L::LD + d];
+        s0[i] = fmaf(qv, ka, s0[i]);
+        s1[i] = fmaf(qv, kc, s1[i]);
+        d0[i] = fmaf(gv, va, d0[i]);
+        d1[i] = fmaf(gv, vc, d1[i]);
+      }
+    }
+    float* Pw = Ps + r0 * L::PLD;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int row = q0 + r0 + i;
+      const float m = lse_sh[r0 + i];
+      const float dl = dl_sh[r0 + i];
+      const int c0 = k0 + lane;
+      const float p0 = visible<CAUSAL>(row, c0, S, T_len, window)
+                           ? expf(s0[i] * scale - m) : 0.f;
+      const float p1 = visible<CAUSAL>(row, c0 + 32, S, T_len, window)
+                           ? expf(s1[i] * scale - m) : 0.f;
+      Pw[i * L::PLD + lane] = p0 * (d0[i] - dl) * scale;
+      Pw[i * L::PLD + lane + 32] = p1 * (d1[i] - dl) * scale;
+    }
+    __syncwarp();
+    accumulate_xm<D, L::LD, L::PLD>(acc, Pw, Ks, lane);  // dq += dS k
+  }
+
+  for (int i = 0; i < 16; ++i) {
+    const int row = q0 + r0 + i;
+    if (row >= S) break;
+    float* out = dq + head + (size_t)row * q_stride;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) out[lane + 32 * c] = acc[i][c];
+  }
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NT) flash_bwd_dkdv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int T_len, int H,
+    int KV, int window, float scale) {
+  using L = F32Bwd<D>;
+  constexpr int DC = D / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);  // [BK, LD]
+  float* Vs = Ks + BK * L::LD;                 // [BK, LD]
+  float* Qs = Vs + BK * L::LD;                 // [BQ, LD]
+  float* Gs = Qs + BQ * L::LD;                 // [BQ, LD] dO
+  float* Ps = Gs + BQ * L::LD;                 // [BK, PLD] P^T
+  float* Ds = Ps + BK * L::PLD;                // [BK, PLD] dS^T
+  float* lse_sh = Ds + BK * L::PLD;            // [BQ]
+  float* dl_sh = lse_sh + BQ;                  // [BQ]
+
+  const int k0 = blockIdx.x * BK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int groups = H / KV;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int r0 = warp * 16;  // the warp's 16 keys
+
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)KV * D;
+  const size_t kv_off = ((size_t)b * T_len * KV + kvh) * D;
+  load_f32<D, L::LD>(Ks, k + kv_off + (size_t)k0 * kv_stride, kv_stride,
+                     T_len - k0);
+  load_f32<D, L::LD>(Vs, v + kv_off + (size_t)k0 * kv_stride, kv_stride,
+                     T_len - k0);
+
+  int qt_lo, qt_hi;
+  query_tiles<CAUSAL>(k0, S, window, qt_lo, qt_hi);
+  float dka[16][DC], dva[16][DC];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  for (int gi = 0; gi < groups; ++gi) {
+    const int hh = kvh * groups + gi;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int q0 = qt * BQ;
+      const size_t off = ((size_t)b * S * H + hh) * D + (size_t)q0 * q_stride;
+      __syncthreads();  // the previous tile's q, dO and P are no longer read
+      load_f32<D, L::LD>(Qs, q + off, q_stride, S - q0);
+      load_f32<D, L::LD>(Gs, g + off, q_stride, S - q0);
+      if (tid < BQ) {
+        const int row = q0 + tid;
+        const size_t li = ((size_t)b * H + hh) * S + row;
+        lse_sh[tid] = row < S ? lse[li] : 0.f;
+        dl_sh[tid] = row < S ? delta[li] : 0.f;
+      }
+      __syncthreads();
+
+      // lane owns query columns lane and lane + 32 of the warp's 16 keys
+      float s0[16], s1[16], d0[16], d1[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) s0[i] = s1[i] = d0[i] = d1[i] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float qa = Qs[lane * L::LD + d];
+        const float qc = Qs[(lane + 32) * L::LD + d];
+        const float ga = Gs[lane * L::LD + d];
+        const float gc = Gs[(lane + 32) * L::LD + d];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const float kv = Ks[(r0 + i) * L::LD + d];
+          const float vv = Vs[(r0 + i) * L::LD + d];
+          s0[i] = fmaf(kv, qa, s0[i]);
+          s1[i] = fmaf(kv, qc, s1[i]);
+          d0[i] = fmaf(vv, ga, d0[i]);
+          d1[i] = fmaf(vv, gc, d1[i]);
+        }
+      }
+      float* Pw = Ps + r0 * L::PLD;
+      float* Dw = Ds + r0 * L::PLD;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int key = k0 + r0 + i;
+        const float p0 = visible<CAUSAL>(q0 + lane, key, S, T_len, window)
+                             ? expf(s0[i] * scale - lse_sh[lane]) : 0.f;
+        const float p1 =
+            visible<CAUSAL>(q0 + lane + 32, key, S, T_len, window)
+                ? expf(s1[i] * scale - lse_sh[lane + 32]) : 0.f;
+        Pw[i * L::PLD + lane] = p0;
+        Pw[i * L::PLD + lane + 32] = p1;
+        Dw[i * L::PLD + lane] = p0 * (d0[i] - dl_sh[lane]) * scale;
+        Dw[i * L::PLD + lane + 32] = p1 * (d1[i] - dl_sh[lane + 32]) * scale;
+      }
+      __syncwarp();
+      accumulate_xm<D, L::LD, L::PLD>(dva, Pw, Gs, lane);  // dv += P^T dO
+      accumulate_xm<D, L::LD, L::PLD>(dka, Dw, Qs, lane);  // dk += dS^T q
+    }
+  }
+
+  for (int i = 0; i < 16; ++i) {
+    const int key = k0 + r0 + i;
+    if (key >= T_len) break;
+    const size_t off = kv_off + (size_t)key * kv_stride;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      dk[off + lane + 32 * c] = dka[i][c];
+      dv[off + lane + 32 * c] = dva[i][c];
+    }
+  }
+}
+
+// --------------------------------------------------------------- launch ---
+
+template <int D>
+int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
+              const void* v, const void* o, const void* g, const void* lse,
+              void* dq, void* delta, int B, int S, int T_len, int H, int KV,
+              float scale, cudaStream_t st) {
+  dim3 grid((S + BQ - 1) / BQ, H, B);
+  if (dtype == RT_BF16) {
+    const size_t smem = sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * (D + 8) +
+                        sizeof(float) * BQ;
+    auto kernel = causal ? flash_bwd_dq_bf16_kernel<D, true>
+                         : flash_bwd_dq_bf16_kernel<D, false>;
+    cudaError_t err = rt_set_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, NT, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+        static_cast<const bf16*>(g), static_cast<const float*>(lse),
+        static_cast<bf16*>(dq), static_cast<float*>(delta), S, T_len, H, KV,
+        window, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype == RT_F32) {
+    const size_t smem = F32Bwd<D>::kBytes;
+    auto kernel = causal ? flash_bwd_dq_f32_kernel<D, true>
+                         : flash_bwd_dq_f32_kernel<D, false>;
+    cudaError_t err = rt_set_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, NT, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(o),
+        static_cast<const float*>(g), static_cast<const float*>(lse),
+        static_cast<float*>(dq), static_cast<float*>(delta), S, T_len, H, KV,
+        window, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_dkdv(int dtype, int causal, int window, const void* q,
+                const void* k, const void* v, const void* g, const void* lse,
+                const void* delta, void* dk, void* dv, int B, int S,
+                int T_len, int H, int KV, float scale, cudaStream_t st) {
+  dim3 grid((T_len + BK - 1) / BK, KV, B);
+  if (dtype == RT_BF16) {
+    const size_t smem = sizeof(bf16) * (size_t)(2 * BK + 4 * BQ) * (D + 8) +
+                        sizeof(float) * 4 * BQ;
+    auto kernel = causal ? flash_bwd_dkdv_bf16_kernel<D, true>
+                         : flash_bwd_dkdv_bf16_kernel<D, false>;
+    cudaError_t err = rt_set_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, NT, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, T_len, H, KV,
+        window, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype == RT_F32) {
+    const size_t smem = F32Bwd<D>::kBytes;
+    auto kernel = causal ? flash_bwd_dkdv_f32_kernel<D, true>
+                         : flash_bwd_dkdv_f32_kernel<D, false>;
+    cudaError_t err = rt_set_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, NT, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(g),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv), S, T_len, H, KV,
+        window, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool bad_args(int causal, int window, int H, int KV, int T_len) {
+  return KV <= 0 || H % KV != 0 || T_len <= 0 || window < 0 ||
+         (window > 0 && !causal);
+}
+
+}  // namespace
+
+// K3: dq [B, S, H, D] in the input type, and delta = rowsum(o * g) f32
+// [B, H, S] for K4. window 0: no window; window > 0 needs causal.
+extern "C" int flash_attention_bwd_dq(
+    int dtype, int causal, int window, const void* q, const void* k,
+    const void* v, const void* o, const void* g, const void* lse, void* dq,
+    void* delta, int B, int S, int T_len, int H, int KV, int D, float scale,
+    void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
+  if (bad_args(causal, window, H, KV, T_len))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_dq<32>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
+    case 64: return launch_dq<64>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
+    case 128: return launch_dq<128>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K4: dk, dv [B, T, KV, D] in the input type, from K3's delta.
+extern "C" int flash_attention_bwd_dkdv(
+    int dtype, int causal, int window, const void* q, const void* k,
+    const void* v, const void* g, const void* lse, const void* delta,
+    void* dk, void* dv, int B, int S, int T_len, int H, int KV, int D,
+    float scale, void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (bad_args(causal, window, H, KV, T_len))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_dkdv<32>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
+    case 64: return launch_dkdv<64>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
+    case 128: return launch_dkdv<128>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,11 +1,18 @@
 """Llama-family transformer (RMSNorm + RoPE + GQA + SwiGLU) in PyTorch.
 
-Port of ``ray_tpu/models/llama.py``, function for function, for the paged
-serving path: ``prefill`` -> ``scatter_prefill_pages`` ->
-``decode_step_paged`` (fused paged decode kernel K6 on every layer) and
-``prefill_paged_tail`` for prefix-cache hits and chunked prefill.
-``attn_impl="flash"`` sends prefill buckets of at least 128 tokens to the
-flash forward kernel K1.
+Port of ``ray_tpu/models/llama.py``, function for function, for two
+paths:
+
+- paged serving: ``prefill`` -> ``scatter_prefill_pages`` ->
+  ``decode_step_paged`` (fused paged decode kernel K6 on every layer) and
+  ``prefill_paged_tail`` for prefix-cache hits and chunked prefill;
+- training: ``loss_fn`` -> ``forward``, each layer under
+  ``torch.utils.checkpoint`` when ``cfg.remat`` (the JAX
+  ``jax.checkpoint``), run by ``parallel/train_step.py``.
+
+``attn_impl="flash"`` sends sequences of at least 128 tokens to the flash
+kernels: the forward K1 (K2 under ``sliding_window``) and, in training,
+the backward K3/K4 through ``ops.flash_attention``'s autograd Function.
 
 PyTorch idiom, JAX layouts: plain functions on tensors; parameters are the
 JAX pytree as a dict of tensors, matmul weights ``[in, out]`` (``h @ w``),
@@ -17,9 +24,8 @@ numpy) into these tensors, so the weights cross over by plain copy.
 
 Not ported yet (ROADMAP.md): the contiguous cache (``init_cache``,
 ``decode_step``, ``prefill_tail_contiguous``, ``forward_with_cache``),
-int8 weights (``quantize_params_int8``), and the training path
-(``forward``, ``loss_fn``, ``forward_sp``/``forward_pp``) with its config
-knobs (remat, pipeline schedule, scan/unrolled layers, f32 logits).
+int8 weights (``quantize_params_int8``), sharded training (``mesh``/
+``rules`` raise) and ``forward_sp``/``forward_pp``.
 """
 
 from __future__ import annotations
@@ -48,10 +54,27 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16        # activation/compute dtype
     param_dtype: Any = torch.float32   # master weights
     attn_impl: str = "xla"             # "xla" | "flash" ("ring"/"ulysses" wait)
-    # Mistral-style sliding window; the paged path rejects it (as in JAX)
+    # Mistral-style sliding window: each query sees only the last
+    # `sliding_window` keys (None = full causal); flash runs K2, which never
+    # loads K/V tiles outside the band. The paged path rejects it (as in JAX)
     sliding_window: Any = None
+    remat: bool = True                 # checkpoint each layer in forward
+    # what the per-layer checkpoint keeps: "none" (recompute the whole
+    # layer) or "dots" (keep the outputs of the projection matmuls,
+    # aten.mm, recompute the rest: jax's dots_with_no_batch_dims_saveable)
+    remat_policy: str = "none"
     # one [D, (H+2KV)*HD] matmul (and one [D, 2F]) instead of three (two)
     fused_matmuls: bool = False
+    # [B, S, vocab] logits in f32, or kept in the compute dtype (loss_fn
+    # takes its logsumexp in f32 either way)
+    f32_logits: bool = True
+    # accepted for the JAX config's sake: forward_pp (pipeline parallel)
+    # waits for ROADMAP.md queue 1 item 8
+    pp_schedule: str = "gpipe"
+    # accepted for the JAX config's sake: the port's only layer loop is a
+    # Python loop over the stacked [L, ...] params (JAX's scan_layers=False
+    # form); lax.scan has no eager counterpart
+    scan_layers: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -171,8 +194,40 @@ def _dq(w, dt):
     return w.to(dt)
 
 
-def _layer_params(layers: Dict[str, torch.Tensor], i: int):
-    return {k: v[i] for k, v in layers.items()}
+def _unstack_layers(layers: Dict[str, torch.Tensor]):
+    """The stacked [L, ...] params as L per-layer dicts of views. One
+    ``unbind`` a tensor: its backward stacks the L gradients once, where L
+    ``v[i]`` selects would each scatter into a full-size zero tensor."""
+    cols = {k: v.unbind(0) for k, v in layers.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
+def _save_mm(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op == torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint(body, cfg: "LlamaConfig"):
+    """body under a non-reentrant checkpoint: "none" recomputes the whole
+    layer in the backward; "dots" keeps the outputs of aten.mm (the
+    projections of [B*S, D] activations, no batch dims) and recomputes the
+    rest."""
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    if cfg.remat_policy == "dots":
+        ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   _save_mm)
+        return lambda *a: checkpoint(body, *a, use_reentrant=False,
+                                     context_fn=ctx_fn)
+    if cfg.remat_policy != "none":
+        raise ValueError(
+            f"remat_policy must be 'none' or 'dots', got "
+            f"{cfg.remat_policy!r}")
+    return lambda *a: checkpoint(body, *a, use_reentrant=False)
 
 
 def _embed(params, tokens, dt):
@@ -291,6 +346,63 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin, collect_kv=False):
     return x, None
 
 
+def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
+            rules=None):
+    """Teacher-forced logits. tokens: [B, S] int -> [B, S, vocab] (f32
+    unless ``cfg.f32_logits`` is False). pos_offset shifts RoPE positions.
+    Differentiable in the params; each layer runs under ``_checkpoint``
+    when ``cfg.remat``."""
+    if mesh is not None or rules is not None:
+        raise NotImplementedError(
+            "sharded forward (mesh/rules) is not ported yet (ROADMAP.md "
+            "queue 1 item 4)")
+    dt = cfg.dtype
+    B, S = tokens.shape
+    x = _embed(params, tokens, dt)
+    if isinstance(pos_offset, int) and pos_offset == 0:
+        cos, sin = _rope_tables(cfg.rope_theta, S, cfg.head_dim, x.device)
+    else:
+        cos, sin = _rope_tables(cfg.rope_theta, cfg.max_seq_len,
+                                cfg.head_dim, x.device)
+        cos = cos[pos_offset:pos_offset + S]
+        sin = sin[pos_offset:pos_offset + S]
+
+    def body(x, lp):
+        return _layer(x, lp, cfg, cos, sin)[0]
+
+    if cfg.remat:
+        body = _checkpoint(body, cfg)
+    for lp in _unstack_layers(params["layers"]):
+        x = body(x, lp)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ _dq(params["lm_head"], dt)
+    return logits.float() if cfg.f32_logits else logits
+
+
+def loss_fn(params, batch, cfg: LlamaConfig, mesh=None, rules=None):
+    """Next-token cross-entropy. batch: {"tokens": [B, S+1]} or
+    {"inputs": [B, S], "targets": [B, S]}, each with an optional "mask"
+    (for "tokens" [B, S+1], whose first column is dropped). nll =
+    logsumexp(logits in f32) - the target's logit, with no [B, S, V]
+    log_softmax."""
+    if "tokens" in batch:
+        inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        mask = batch.get("mask")
+        if mask is not None:
+            mask = mask[:, 1:]
+    else:
+        inputs, targets = batch["inputs"], batch["targets"]
+        mask = batch.get("mask")
+    logits = forward(params, inputs, cfg, mesh=mesh, rules=rules)
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0].float()
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 def _mlp_block(x, lp, dt, eps):
     h = rms_norm(x, lp["ffn_norm"], eps)
     gate = F.silu(h @ _dq(lp["w_gate"], dt))
@@ -312,9 +424,8 @@ def prefill(params, tokens, lengths, cfg: LlamaConfig):
     x = _embed(params, tokens, dt)
     cos, sin = _rope_tables(cfg.rope_theta, P, cfg.head_dim, x.device)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _layer(x, _layer_params(params["layers"], i), cfg, cos,
-                           sin, collect_kv=True)
+    for lp in _unstack_layers(params["layers"]):
+        x, (k, v) = _layer(x, lp, cfg, cos, sin, collect_kv=True)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -328,7 +439,11 @@ def prefill(params, tokens, lengths, cfg: LlamaConfig):
 def init_paged_cache(cfg: LlamaConfig, num_pages: int, page_size: int,
                      dtype=None, device=None):
     """Paged KV pools [L, KV, num_pages, page_size, HD] (page 0 is the
-    trash page inactive slots and padding write into)."""
+    trash page inactive slots and padding write into), on `device` (None
+    means CUDA; raises without CUDA unless given "cpu")."""
+    from ray_tpu_torch import resolve_device
+
+    device = resolve_device(device)
     dt = dtype or cfg.dtype
     shape = (cfg.n_layers, cfg.n_kv_heads, num_pages, page_size,
              cfg.head_dim)
@@ -369,8 +484,7 @@ def decode_step_paged(params, tokens, k_pools, v_pools, page_table,
     attn_len = torch.where(live, lengths + 1, 0).to(torch.int32)
 
     x = _embed(params, tokens, dt)                        # [S, 1, D]
-    for i in range(cfg.n_layers):
-        lp = _layer_params(params["layers"], i)
+    for i, lp in enumerate(_unstack_layers(params["layers"])):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         q = _rotate((h @ _dq(lp["wq"], dt)).reshape(S, 1, H, HD), c, s)
         k = _rotate((h @ _dq(lp["wk"], dt)).reshape(S, 1, KV, HD), c, s)
@@ -435,8 +549,7 @@ def prefill_paged_tail(params, tokens, tail_len, prefix_len, page_table,
         (kv_pos[:, None, :] <= qpos[:, :, None])                 # [B, T, S_view]
 
     x = _embed(params, tokens, dt)                               # [B, T, D]
-    for i in range(cfg.n_layers):
-        lp = _layer_params(params["layers"], i)
+    for i, lp in enumerate(_unstack_layers(params["layers"])):
         kp, vp = k_pools[i], v_pools[i]
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         q = _rotate((h @ _dq(lp["wq"], dt)).reshape(B, T, H, HD), c, s)

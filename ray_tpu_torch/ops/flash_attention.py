@@ -1,21 +1,33 @@
-"""Fused causal attention forward (flash-style) for Hopper.
+"""Fused causal / sliding-window attention (flash-style) for Hopper, forward
+and backward.
 
-Port of the forward half of ``ray_tpu/ops/flash_attention.py`` (TPU kernel
-K1, ``_fwd_kernel_loop`` via ``_flash_fwd_loop``): one block per (batch,
-head, 64-row query tile) streams K/V tiles with the online-softmax
-recurrence, so the S x T scores never reach device memory. GQA is handled
-in the kernel (kv_head = h // groups), with no K/V broadcast. The kernel
-is ``csrc/flash_attention.cu``; for CPU tensors the wrappers run
-``flash_attention_reference``, which follows ``llama._attention_xla``'s
-math.
+Port of ``ray_tpu/ops/flash_attention.py``:
+
+- forward, ``flash_attention_fwd``: TPU kernels K1 (``_fwd_kernel_loop``,
+  causal or full) and K2 (``_fwd_kernel_stream``, the sliding window) are
+  one CUDA kernel here (``csrc/flash_attention.cu``) with a ``window``
+  argument: a block per (batch, head, 64-row query tile) streams only the
+  K/V tiles inside the causal band, so a window costs O(S * W);
+- backward, ``flash_attention_bwd``: the FlashAttention-2 split of the TPU
+  kernels K3 (``_bwd_dq_kernel``) and K4 (``_bwd_dkdv_kernel``) in
+  ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV
+  pass over key tiles, both recomputing P from the saved log-sum-exp, with
+  no atomics (the gradients are deterministic, so a remat recompute is
+  bit-identical);
+- ``_Flash``, a ``torch.autograd.Function``, takes the place of ``_flash``'s
+  ``custom_vjp``.
+
+GQA is handled in the kernels (kv_head = h // groups), with no K/V
+broadcast; K4 loops over the query heads of its kv head inside the block,
+so no per-head f32 dK/dV buffers exist. For CPU tensors each wrapper runs
+its plain version (``flash_attention_reference``,
+``flash_attention_bwd_reference``), which follows ``llama._attention_xla``
+and ``_reference_chunked_bwd``.
 
 Shapes: q [B, S, H, D], k/v [B, T, KV, D] -> out [B, S, H, D] in q.dtype,
 lse [B, H, S] f32 (the TPU kernel's 128-lane broadcast of the LSE existed
-only for Mosaic and is dropped).
-
-Not ported yet (ROADMAP.md queue 2): the sliding-window forward (K2) and
-the backward (K3/K4). ``window=`` and inputs that require grad raise
-rather than run a forward without its gradient.
+only for Mosaic and is dropped). Unlike the TPU wrapper, S and T need not
+divide a block: the kernels mask the ragged edge.
 """
 
 from __future__ import annotations
@@ -29,16 +41,46 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
-#: launches of the CUDA kernel (counted where it is launched, nowhere else)
+#: launches of the CUDA forward kernel without a window (K1) and with one
+#: (K2), and of the backward kernels K3 (dQ) and K4 (dK/dV); each counted
+#: where it is launched, nowhere else
 launches = 0
+launches_window = 0
+launches_dq = 0
+launches_dkdv = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+_BWD_HEAD_DIMS = (32, 64, 128)
 
 
-def flash_attention_reference(q, k, v, *, causal: bool = True):
+def _window(window) -> int:
+    """None or 0 mean no window, as ``int(window or 0)`` in the JAX
+    wrapper."""
+    w = int(window or 0)
+    if w < 0:
+        raise ValueError(f"window must be positive, got {window}")
+    return w
+
+
+def band_mask(S: int, T: int, *, causal: bool, window=None, device=None):
+    """[S, T] bool: key t is visible to query s (positions from 0):
+    s >= t when causal, and s - t < window under a window."""
+    if not causal:
+        return torch.ones((S, T), dtype=torch.bool, device=device)
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = qpos >= kpos
+    if _window(window):
+        mask = mask & (qpos - kpos < window)
+    return mask
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = True,
+                              window: Optional[int] = None):
     """Plain version: einsum attention with f32 scores (the math of
-    ``llama._attention_xla``). Returns (out in q.dtype, lse [B, H, S])."""
+    ``llama._attention_xla``, band mask included). Returns (out in
+    q.dtype, lse [B, H, S])."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     groups = H // KV
@@ -46,8 +88,7 @@ def flash_attention_reference(q, k, v, *, causal: bool = True):
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
     scores = scores / (D ** 0.5)
     if causal:
-        mask = (torch.arange(S, device=q.device)[:, None]
-                >= torch.arange(T, device=q.device)[None, :])
+        mask = band_mask(S, T, causal=True, window=window, device=q.device)
         scores = torch.where(mask, scores, NEG_INF)
     lse = torch.logsumexp(scores, dim=-1).reshape(B, H, S)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -55,8 +96,47 @@ def flash_attention_reference(q, k, v, *, causal: bool = True):
     return out.reshape(B, S, H, D), lse
 
 
-def kernel_tolerance(q, k, v, plain_out, *, causal: bool = True):
-    """Elementwise bound on |kernel - plain| for these inputs, where
+def _bwd_terms(q, k, v, out, lse, g, causal, window):
+    """The f32 intermediates of the backward, with keys last:
+    (q5, g5, kf, vf, p, ds) with p, ds [B, S, KV, G, T]."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    groups = H // KV
+    scale = D ** -0.5
+    q5 = q.float().reshape(B, S, KV, groups, D)
+    g5 = g.float().reshape(B, S, KV, groups, D)
+    kf, vf = k.float(), v.float()
+    delta5 = (out.float() * g.float()).sum(-1).reshape(B, S, KV, groups)
+    lse5 = lse.float().transpose(1, 2).reshape(B, S, KV, groups)
+    s = torch.einsum("bskgd,btkd->bskgt", q5, kf) * scale
+    if causal:
+        mask = band_mask(S, T, causal=True, window=window, device=q.device)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    p = torch.exp(s - lse5[..., None])
+    dp = torch.einsum("bskgd,btkd->bskgt", g5, vf)
+    ds = p * (dp - delta5[..., None]) * scale
+    return q5, g5, kf, vf, p, ds
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, g, *,
+                                  causal: bool = True,
+                                  window: Optional[int] = None):
+    """Plain backward, the math of ``_reference_chunked_bwd`` in one chunk:
+    delta = rowsum(O * dO) in f32, P recomputed from the saved LSE,
+    dS = P * (dP - delta) * scale, GQA groups summed. Returns (dq in
+    q.dtype, dk in k.dtype, dv in v.dtype)."""
+    B, S, H, D = q.shape
+    q5, g5, kf, _, p, ds = _bwd_terms(q, k, v, out, lse, g, causal, window)
+    dv = torch.einsum("bskgt,bskgd->btkd", p, g5)
+    dq = torch.einsum("bskgt,btkd->bskgd", ds, kf)
+    dk = torch.einsum("bskgt,bskgd->btkd", ds, q5)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def kernel_tolerance(q, k, v, plain_out, *, causal: bool = True,
+                     window: Optional[int] = None):
+    """Elementwise bound on |kernel - plain| for the forward, where
     plain_out is ``flash_attention_reference``'s output with its products
     accumulated in f32. f32: 1e-4 (both sum in f32, in another order).
     bf16: each side rounds its probabilities to bf16 before p.v, which
@@ -67,80 +147,248 @@ def kernel_tolerance(q, k, v, plain_out, *, causal: bool = True):
     if q.dtype == torch.float32:
         return torch.full(plain_out.shape, 1e-4, device=plain_out.device)
     a, _ = flash_attention_reference(q.float(), k.float(), v.float().abs(),
-                                     causal=causal)
+                                     causal=causal, window=window)
     return 2.0 ** -7 * (a + plain_out.float().abs()) + 1e-5
 
 
-def _lib():
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    if fn.argtypes is None:
+def grad_tolerance(q, k, v, out, lse, g, plain, *, causal: bool = True,
+                   window: Optional[int] = None):
+    """Elementwise bounds (tol_dq, tol_dk, tol_dv) on |kernel - plain| for
+    the backward, where plain = ``flash_attention_bwd_reference``'s
+    (dq, dk, dv) on the same inputs (exact f32 math from the inputs as
+    stored).
+
+    Derivation. Let e = 2^-24 (f32 unit roundoff), u the unit roundoff of
+    what the kernel feeds its tensor-core products (bf16 path: u = 2^-8,
+    since it rounds P and dS to bf16; f32 path: exact FMAs, u = 0), u_out
+    that of the output type (2^-8 for bf16, e for f32), L = max(S, T).
+
+    - Scores s = q.k scale are D-long f32 sums taken in another order on
+      the two sides: |ds| <= D 2e scale (|q|.|k|). P = exp(s - lse) uses
+      the same lse on both sides, so P moves by P rel with
+      rel = D 2e scale (|q|.|k|) + 4e (4e for the two exps).
+    - dP = dO.V and delta = rowsum(O dO) are D-long f32 sums as well: dS =
+      P (dP - delta) scale moves by |dS| rel + E with E = P scale D 2e
+      (|dO|.|V| + rowsum|O dO|).
+    - The bf16 kernel rounds P (for dV) and dS (for dK, dQ): u P, u |dS|.
+    - dV = sum_s P dO, dK = sum_s dS Q, dQ = sum_t dS K sum up to L
+      products in another order: L e times the sum of their magnitudes.
+    - Each side rounds its output once: u_out |x| each.
+
+    So tol_dv = sum_s P (u + rel + L e) |dO| + 2 u_out |plain_dv|,
+    tol_dk = sum_s (|dS| (u + rel + L e) + E) |Q| + 2 u_out |plain_dk|,
+    tol_dq = sum_t (|dS| (u + rel + L e) + E) |K| + 2 u_out |plain_dq|;
+    each is doubled (the terms are first order, exact to a factor
+    1 + O(u)), and 1e-6 is added for results that round to 0."""
+    B, S, H, D = q.shape
+    T = k.shape[1]
+    low = q.dtype != torch.float32
+    e = 2.0 ** -24
+    u = 2.0 ** -8 if low else 0.0
+    u_out = 2.0 ** -8 if low else e
+    scale = D ** -0.5
+    q5, g5, kf, vf, p, ds = _bwd_terms(q, k, v, out, lse, g, causal, window)
+    groups = q5.shape[3]
+    aq5, ag5, akf, avf = q5.abs(), g5.abs(), kf.abs(), vf.abs()
+    rel = (D * 2 * e * scale
+           * torch.einsum("bskgd,btkd->bskgt", aq5, akf) + 4 * e
+           + u + max(S, T) * e)
+    rowsum = (out.float() * g.float()).abs().sum(-1).reshape(
+        B, S, -1, groups)
+    err_ds = ds.abs() * rel + p * scale * D * 2 * e * (
+        torch.einsum("bskgd,btkd->bskgt", ag5, avf) + rowsum[..., None])
+    tol_dv = torch.einsum("bskgt,bskgd->btkd", p * rel, ag5)
+    tol_dk = torch.einsum("bskgt,bskgd->btkd", err_ds, aq5)
+    tol_dq = torch.einsum("bskgt,btkd->bskgd", err_ds, akf).reshape(
+        B, S, H, D)
+    dq_p, dk_p, dv_p = (x.float().abs() for x in plain)
+    return (2 * (tol_dq + 2 * u_out * dq_p) + 1e-6,
+            2 * (tol_dk + 2 * u_out * dk_p) + 1e-6,
+            2 * (tol_dv + 2 * u_out * dv_p) + 1e-6)
+
+
+def _lib(name: str):
+    lib = _build.load(name)
+    for fn_name, n_ptr in (("flash_attention_fwd", 5),
+                           ("flash_attention_bwd_dq", 8),
+                           ("flash_attention_bwd_dkdv", 8)):
+        fn = getattr(lib, fn_name, None)
+        if fn is None or fn.argtypes is not None:
+            continue
         P = ctypes.c_void_p
         I = ctypes.c_int
-        fn.argtypes = [I, I, P, P, P, P, P, I, I, I, I, I, I,
-                       ctypes.c_float, P]
+        fn.argtypes = ([I, I, I] + [P] * n_ptr + [I] * 6
+                       + [ctypes.c_float, P])
         fn.restype = I
     return lib
 
 
-def _check_no_grad(*ts):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "flash_attention has no backward in the port yet (kernels K3/K4 "
-            "of ROADMAP.md queue 2); run under torch.no_grad()")
-
-
-def flash_attention_fwd(q, k, v, *, causal: bool = True):
-    """q [B,S,H,D], k/v [B,T,KV,D] -> (out [B,S,H,D] in q.dtype,
-    lse [B,H,S] f32). CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
-    global launches
-    _check_no_grad(q, k, v)
-    if not q.is_cuda:
-        return flash_attention_reference(q, k, v, causal=causal)
+def _check(what, q, k, v, head_dims, *rest):
+    """Device, dtype, shape and head-dim checks of a kernel launch."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k, v must be on one device")
+    if any(t.device != q.device for t in (k, v, *rest)):
+        raise ValueError(f"{what}: all tensors must be on one device")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q, k, v must share one dtype of "
+        raise TypeError(f"{what}: q, k, v must share one dtype of "
                         f"{list(_DTYPES)}; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if (k.shape != (B, T, KV, D) or v.shape != k.shape or KV == 0
             or H % KV or T == 0):
-        raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if D not in _HEAD_DIMS:
+    if D not in head_dims:
         raise NotImplementedError(
-            f"flash_attention kernel is built for head dims {_HEAD_DIMS}, "
-            f"got {D}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        # the kernel loads 16-byte vectors
-        q, k, v = q.clone(), k.clone(), v.clone()
+            f"{what} kernel is built for head dims {head_dims}, got {D}")
+
+
+def _aligned(*ts):
+    """Contiguous copies where needed; the kernels load 16-byte vectors."""
+    ts = [t.contiguous() for t in ts]
+    return [t.clone() if t.data_ptr() % 16 else t for t in ts]
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """q [B,S,H,D], k/v [B,T,KV,D] -> (out [B,S,H,D] in q.dtype,
+    lse [B,H,S] f32). CUDA tensors launch the kernel (K1, or K2 under a
+    window); CPU tensors take the plain version."""
+    global launches, launches_window
+    w = _window(window)
+    if w and not causal:
+        raise ValueError("window= requires causal=True")
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, causal=causal, window=w)
+    _check("flash_attention", q, k, v, _HEAD_DIMS)
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = _lib("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_fwd(
-            _DTYPES[q.dtype], int(causal), q.data_ptr(), k.data_ptr(),
+            _DTYPES[q.dtype], int(causal), w, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, S, T, H, KV, D,
             D ** -0.5, stream)
     _build.check(lib, rc, "flash_attention_fwd")
-    launches += 1
+    if w:
+        launches_window += 1
+    else:
+        launches += 1
     return out, lse
+
+
+def _bwd_inputs(what, q, k, v, out, lse, g):
+    _check(what, q, k, v, _BWD_HEAD_DIMS, out, lse, g)
+    B, S, H, _ = q.shape
+    if out.shape != q.shape or g.shape != q.shape or \
+            lse.shape != (B, H, S):
+        raise ValueError(f"{what}: bad shapes out {tuple(out.shape)} g "
+                         f"{tuple(g.shape)} lse {tuple(lse.shape)}")
+    q, k, v, out, g = _aligned(q, k, v, out, g.to(q.dtype))
+    return q, k, v, out, lse.float().contiguous(), g
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, g, *, causal: bool = True,
+                           window: Optional[int] = None):
+    """K3 on CUDA tensors: (dq in q.dtype, delta = rowsum(out * g) f32
+    [B, H, S], which K4 reads)."""
+    global launches_dq
+    w = _window(window)
+    q, k, v, out, lse, g = _bwd_inputs("flash_attention_bwd_dq", q, k, v,
+                                       out, lse, g)
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _lib("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_dq(
+            _DTYPES[q.dtype], int(causal), w, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), delta.data_ptr(), B, S, T, H, KV, D, D ** -0.5,
+            stream)
+    _build.check(lib, rc, "flash_attention_bwd_dq")
+    launches_dq += 1
+    return dq, delta
+
+
+def flash_attention_bwd_dkdv(q, k, v, lse, g, delta, *, causal: bool = True,
+                             window: Optional[int] = None):
+    """K4 on CUDA tensors, from K3's delta: (dk, dv) in k.dtype."""
+    global launches_dkdv
+    w = _window(window)
+    q, k, v, _, lse, g = _bwd_inputs("flash_attention_bwd_dkdv", q, k, v,
+                                     q, lse, g)
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if delta.shape != (B, H, S) or delta.dtype != torch.float32 or \
+            delta.device != q.device:
+        raise ValueError("flash_attention_bwd_dkdv: delta must be f32 "
+                         "[B, H, S] on the inputs' device")
+    delta = delta.contiguous()
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _lib("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd_dkdv(
+            _DTYPES[q.dtype], int(causal), w, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, D, D ** -0.5,
+            stream)
+    _build.check(lib, rc, "flash_attention_bwd_dkdv")
+    launches_dkdv += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """Gradients (dq in q.dtype, dk/dv in k.dtype) of flash attention for
+    the output cotangent g [B,S,H,D], from the forward's out and lse. CUDA
+    tensors launch K3 (dQ, and delta = rowsum(out * g) for K4) then K4
+    (dK/dV); CPU tensors take the plain version."""
+    w = _window(window)
+    if w and not causal:
+        raise ValueError("window= requires causal=True")
+    if not q.is_cuda:
+        return flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=w)
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, lse, g, causal=causal,
+                                       window=w)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, lse, g, delta, causal=causal,
+                                      window=w)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """``_flash``'s custom_vjp: the forward saves (q, k, v, out, lse); the
+    backward recomputes P from lse (K3/K4 on CUDA, the plain backward on
+    the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
-    """q [B,S,H,D], k/v [B,T,KV,D] -> [B,S,H,D] in q.dtype. Query and key
-    positions both start at 0 (causal keeps key t for query s iff
-    s >= t). Unlike the TPU wrapper, S and T need not divide a block: the
-    kernel masks the ragged edge."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window flash attention is kernel K2 of ROADMAP.md "
-            "queue 2, not ported yet")
-    out, _ = flash_attention_fwd(q, k, v, causal=causal)
-    return out
+    """q [B,S,H,D], k/v [B,T,KV,D] -> [B,S,H,D] in q.dtype, differentiable
+    in q, k and v. Query and key positions both start at 0 (causal keeps
+    key t for query s iff s >= t); window=W (causal only) keeps only the
+    last W keys, s - t < W (Mistral-style sliding window)."""
+    return _Flash.apply(q, k, v, causal, _window(window))

@@ -33,6 +33,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.serve.paged_kv import PagePool, page_chain_hashes
 
@@ -40,17 +41,6 @@ from ray_tpu_torch.serve.paged_kv import PagePool, page_chain_hashes
 class LLMQueueFull(Exception):
     """Raised by submit() when the admission queue is at max_queue_depth
     (the serve layer maps it to HTTP 429)."""
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA. Without CUDA, only an explicit ``"cpu"`` runs
-    (the plain versions of the kernels); there is no silent fallback."""
-    dev = torch.device(device if device is not None else "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the port's "
-            "plain PyTorch versions on the CPU")
-    return dev
 
 
 @dataclass

@@ -4,8 +4,11 @@ version) against ray_tpu/ops/flash_attention.py.
 The JAX side runs its Pallas forward in interpret mode on the CPU, as the
 JAX package's own tests do. Inputs come from numpy with a fixed seed, in
 f32; outputs and LSE agree within 1e-5 (f32 sums in another order; the
-online softmax and the plain softmax are the same function). The CUDA
-kernel is held against the plain version in the ``cuda``-marked tests.
+online softmax and the plain softmax are the same function). Gradients
+of the port's autograd Function agree with ``jax.grad`` through the Pallas
+backward (K3/K4, interpret mode) within GRAD_TOL = 1e-4 in f32. The CUDA
+kernels are held against the plain versions in the ``cuda``-marked tests,
+within the ops module's ``kernel_tolerance`` and ``grad_tolerance``.
 """
 
 import numpy as np
@@ -18,6 +21,8 @@ from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import flash_attention as fa
 
 TOL = 1e-5
+# gradients: f32 products of 128 keys, both sides' sums in another order
+GRAD_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -69,18 +74,116 @@ def test_plain_matches_port_attention_xla():
 
 
 def test_window_raises_not_implemented():
+    """A window is implemented now (K2); what still raises is a window
+    without causal masking, as in the JAX wrapper."""
     q, k, v = (torch.from_numpy(a) for a in make_qkv(1, 16, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="K2"):
-        fa.flash_attention(q, k, v, causal=True, window=8)
+    out = fa.flash_attention(q, k, v, causal=True, window=8)
+    ref, _ = fa.flash_attention_reference(q, k, v, causal=True, window=8)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention(q, k, v, causal=False, window=8)
 
 
 def test_grad_raises_not_implemented():
+    """Inputs that require grad no longer raise: the gradient is the plain
+    backward's on the CPU, and no_grad still runs the forward alone."""
     q, k, v = (torch.from_numpy(a) for a in make_qkv(1, 16, 2, 2, 16))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K3/K4"):
-        fa.flash_attention(q, k, v)
+    out = fa.flash_attention(q, k, v)
+    g = torch.ones_like(out)
+    out.backward(g)
+    o, lse = fa.flash_attention_reference(q.detach(), k, v)
+    dq, _, _ = fa.flash_attention_bwd_reference(q.detach(), k, v, o, lse, g)
+    torch.testing.assert_close(q.grad, dq, atol=0, rtol=0)
     with torch.no_grad():
         assert fa.flash_attention(q, k, v).shape == q.shape
+
+
+@pytest.mark.parametrize("window", [32, 48, 200])
+def test_plain_window_matches_jax_flash_fwd(window, jnp):
+    """K2's JAX path: ``_flash_fwd`` with window > 0 (the band-clamped
+    streaming kernel) against the plain version's band mask."""
+    q, k, v = make_qkv(2, 128, 4, 2, 16, seed=5)
+    with jax_reference() as ref:
+        jo, jlse = ref.flash_attention._flash_fwd(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+            block_q=32, block_k=32, window=window)
+        jo, jlse = np.asarray(jo), np.asarray(jlse)
+    out, lse = fa.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)),
+                                      causal=True, window=window)
+    np.testing.assert_allclose(to_np(out), jo, atol=TOL, rtol=0)
+    np.testing.assert_allclose(to_np(lse), jlse[..., 0], atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal,H,KV,window", [
+    (True, 2, 2, None), (False, 2, 2, None), (True, 4, 2, None),
+    (True, 4, 2, 40)])
+def test_autograd_grads_match_jax_pallas_bwd(causal, H, KV, window, jnp):
+    """(dq, dk, dv) of the port's autograd Function against jax.grad of
+    JAX's flash_attention, whose custom_vjp runs the Pallas K3/K4 in
+    interpret mode (BACKWARD_IMPL = "pallas"). The cotangent is a seeded
+    random w, through loss = sum(out * w). f32 within GRAD_TOL."""
+    import jax
+
+    q, k, v = make_qkv(1, 128, H, KV, 16, seed=6)
+    w = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    with jax_reference() as ref:
+        assert ref.flash_attention.BACKWARD_IMPL == "pallas"
+        jg = jax.grad(lambda q, k, v: (ref.flash_attention.flash_attention(
+            q, k, v, causal=causal, block_q=32, block_k=32, window=window)
+            * jnp.asarray(w)).sum(), argnums=(0, 1, 2))(
+                jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        jg = [np.asarray(x) for x in jg]
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    (out * torch.from_numpy(w)).sum().backward()
+    for ours, theirs in zip((tq.grad, tk.grad, tv.grad), jg):
+        np.testing.assert_allclose(to_np(ours), theirs, atol=GRAD_TOL,
+                                   rtol=0)
+
+
+def _emulated_kernel_bwd(q, k, v, out, lse, g, causal, window=None):
+    """The plain backward with P and dS rounded to bf16 before the
+    gradient products, as the bf16 kernels round them."""
+    B, S, H, D = q.shape
+    q5, g5, kf, _, p, ds = fa._bwd_terms(q, k, v, out, lse, g, causal,
+                                         window)
+    p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dv = torch.einsum("bskgt,bskgd->btkd", p, g5)
+    dq = torch.einsum("bskgt,btkd->bskgd", ds, kf)
+    dk = torch.einsum("bskgt,bskgd->btkd", ds, q5)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def test_grad_tolerance_holds_rounding_not_a_dropped_tile_or_head():
+    """The bf16 backward bound takes a kernel's own roundings (P and dS to
+    bf16 before the products, outputs to bf16) but not a kernel that skips
+    one 64-key tile or reads the wrong kv head of a GQA group."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in make_qkv(1, 256, 4, 2, 64, seed=8))
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        q.shape).astype(np.float32)).to(torch.bfloat16)
+    out, lse = fa.flash_attention_reference(q, k, v, causal=True)
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g)
+    tols = fa.grad_tolerance(q, k, v, out, lse, g, plain)
+    emul = _emulated_kernel_bwd(q, k, v, out, lse, g, True)
+    for a, b, t in zip(emul, plain, tols):
+        assert ((a.float() - b.float()).abs() <= t).all()
+    # keys 64-127 dropped from the gradient products
+    k_drop = k.clone()
+    k_drop[:, 64:128] = 0
+    dq_drop = fa.flash_attention_bwd_reference(q, k_drop, v, out, lse, g)[0]
+    bad = ((dq_drop.float() - plain[0].float()).abs() > tols[0])
+    assert bad[:, 128:].any(-1).float().mean() > 0.9
+    # the wrong kv head: each query head's group swapped
+    k_swap, v_swap = k.flip(2), v.flip(2)
+    dq_s, dk_s, dv_s = fa.flash_attention_bwd_reference(
+        q, k_swap, v_swap, out, lse, g)
+    for a, b, t in ((dq_s, plain[0], tols[0]), (dv_s, plain[2], tols[2])):
+        assert ((a.float() - b.float()).abs() > t).any(-1).float().mean() \
+            > 0.9
 
 
 def test_kernel_tolerance_holds_rounding_not_a_dropped_tile():
@@ -126,3 +229,65 @@ def test_kernel_matches_plain_on_card(dtype, S, causal):
     err = (out.float() - ref.float()).abs()
     assert (err <= fa.kernel_tolerance(q, k, v, ref, causal=causal)).all()
     assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window", [(256, 64), (200, 64), (256, 100)])
+def test_window_kernel_matches_plain_on_card(dtype, S, window):
+    """K2: the forward kernel under a window, elementwise within
+    kernel_tolerance; it counts on its own launch counter."""
+    require_cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+               for a in make_qkv(2, S, 8, 4, 128, seed=10))
+    before, before_k1 = fa.launches_window, fa.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=True,
+                                                    window=window)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = reduced
+    torch.cuda.synchronize()
+    assert fa.launches_window == before + 1 and fa.launches == before_k1
+    err = (out.float() - ref.float()).abs()
+    assert (err <= fa.kernel_tolerance(q, k, v, ref, causal=True,
+                                       window=window)).all()
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,KV,D,causal,window", [
+    (256, 8, 4, 128, True, None), (200, 8, 4, 128, True, None),
+    (200, 4, 4, 64, False, None), (256, 8, 4, 128, True, 96),
+    (128, 4, 2, 32, True, None)])
+def test_bwd_kernels_match_plain_on_card(dtype, S, H, KV, D, causal, window):
+    """K3 and K4 against the plain backward, dq/dk/dv elementwise within
+    grad_tolerance (derived in its docstring)."""
+    require_cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+               for a in make_qkv(2, S, H, KV, D, seed=11))
+    g = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        q.shape).astype(np.float32)).cuda().to(dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    before = (fa.launches_dq, fa.launches_dkdv)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                 window=window)
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+    tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkdv) == (before[0] + 1,
+                                                 before[1] + 1)
+    for a, b, t in zip(got, plain, tols):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+        assert ((a.float() - b.float()).abs() <= t).all()
+    # no atomics: a second run gives the same bits
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                   window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

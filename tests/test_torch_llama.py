@@ -197,7 +197,8 @@ def test_prefill_paged_tail_matches_jax(tiny):
 
 def test_init_paged_cache_layout():
     cfg = llama.PRESETS["tiny"]
-    kp, vp = llama.init_paged_cache(cfg, 9, 8, dtype=torch.float32)
+    kp, vp = llama.init_paged_cache(cfg, 9, 8, dtype=torch.float32,
+                                    device="cpu")
     assert kp.shape == vp.shape == (2, 2, 9, 8, 16)
     assert kp.dtype == torch.float32 and not kp.any()
 

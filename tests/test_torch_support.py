@@ -29,7 +29,7 @@ _STUB_PACKAGES = ("ray_tpu", "ray_tpu.serve", "ray_tpu.util",
                   "ray_tpu.observability")
 _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.ops.paged_attention",
                       "ray_tpu.ops.flash_attention", "ray_tpu.serve.llm",
-                      "ray_tpu.serve.paged_kv")
+                      "ray_tpu.serve.paged_kv", "ray_tpu.parallel.train_step")
 _loaded: dict = {}
 
 
@@ -66,7 +66,7 @@ def _install_stubs():
 
 class _Reference(types.SimpleNamespace):
     """The JAX reference modules: llama, paged_attention, flash_attention,
-    llm, paged_kv."""
+    llm, paged_kv, train_step, mesh, sharding."""
 
 
 @contextlib.contextmanager
@@ -94,7 +94,10 @@ def jax_reference():
             # ray_tpu/ops/__init__.py rebinds the attribute to the function
             flash_attention=sys.modules["ray_tpu.ops.flash_attention"],
             llm=sys.modules["ray_tpu.serve.llm"],
-            paged_kv=sys.modules["ray_tpu.serve.paged_kv"])
+            paged_kv=sys.modules["ray_tpu.serve.paged_kv"],
+            train_step=sys.modules["ray_tpu.parallel.train_step"],
+            mesh=sys.modules["ray_tpu.parallel.mesh"],
+            sharding=sys.modules["ray_tpu.parallel.sharding"])
     finally:
         for k in [k for k in sys.modules if _is_ray_tpu(k)]:
             del sys.modules[k]
