@@ -6,34 +6,49 @@ printing one JSON line:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA;
 2. build: the kernels from ray_tpu_torch/csrc, one nvcc each, in parallel;
-3. k6 / k1: each kernel against its plain PyTorch version on the card, at
-   the 7b serving shapes and at a GQA shape (the 1b preset), in bf16 and
-   f32, held elementwise within the bound of the ops module's
+3. k6 / k5 / k1: each kernel against its plain PyTorch version on the card,
+   at the 7b serving shapes and at a GQA shape (the 1b preset), in bf16
+   and f32, held elementwise within the bound of the ops module's
    ``kernel_tolerance``; for K6 the pools after the write too (every byte
-   equal to the plain version's, and only the new rows changed); times of
-   the kernel, the plain version and (K1) SDPA, beside the bound;
+   equal to the plain version's, and only the new rows changed), for K5
+   the pools unchanged byte for byte and K5 over the pools K6 just wrote
+   against K6's output; times of the kernel, the plain version and (K1)
+   SDPA, beside the bound;
 4. card_vs_cpu: the 7b width cut to 2 layers, f32, the same weights in the
-   port's LLMEngine on the card (kernels) and on the CPU (plain versions):
-   greedy tokens identical, first-step logits within a stated bound;
-5. engine: the serving main path, LLMEngine on the 7b preset, all 32
+   port's paged LLMEngine on the card (kernels) and on the CPU (plain
+   versions): greedy tokens identical, first-step logits within a stated
+   bound;
+5. engine: the paged serving path, LLMEngine on the 7b preset, all 32
    layers, bf16, random seeded weights, paged KV (page 64, 16 slots, 2048
    tokens), flash prefill, 12 requests of 64-1000 prompt tokens (4 sharing
    a 512-token prefix), 64 new tokens each, driven by step_n(8); the launch
-   counters are set to 0 just before it and read just after;
-6. k2 / k3k4: the sliding-window forward (K2) and the backward kernels (K3
+   counters are set to 0 just before it and read just after. Then, with 16
+   slots still live at ~1000 tokens, the K5 path: ``paged_attention`` on
+   all 32 layers of the engine's pools, each held against the plain
+   version (its launch counter zeroed just before);
+6. card_vs_cpu_contiguous: 2 layers at the 7b width, f32, greedy tokens
+   identical card vs CPU in the contiguous layout, contiguous vs paged on
+   the card, int8 card vs CPU, and ``sliding_window=64`` with flash card vs
+   CPU (the serving run on which K2 launches); ``forward_with_cache`` at
+   offset 0 (K1 over the whole cache row) card vs CPU;
+7. engine_contiguous: the JAX engine's default configuration, the 7b preset
+   at all 32 layers, bf16, contiguous KV, int8 weights, flash prefill, 16
+   slots, max_seq 2048, the engine phase's 12 requests: int8 bytes at rest,
+   peak memory, decode tokens/s, TTFT and a decode block's profile;
+8. k2 / k3k4: the sliding-window forward (K2) and the backward kernels (K3
    dQ, K4 dK/dV) against their plain versions at the 1b train shape and
    others, in bf16 and f32, within ``kernel_tolerance`` /
    ``grad_tolerance``; times beside the bound, the plain version and SDPA
    (with a band mask; its backward);
-7. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
+9. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
    card and on the CPU from one init, without and with a sliding window
    (the run on which K2 launches): losses, grad norms and params within
    stated bounds;
-8. train: the training main path, the 1b preset at full width and 16
+10. train: the training main path, the 1b preset at full width and 16
    layers, bf16 compute, remat, flash, B 8 S 1024, 10 steps after a
    warm-up: falling finite losses, exact K1/K3/K4 launch counts, step time,
    tokens/s, MFU, peak memory and one step's device profile;
-9. kernels: one line with every kernel's numbers;
+11. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -111,6 +126,39 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds of the kernels one fn() call launches
+    (CUPTI, under torch.profiler), after a warm-up: the kernels' own time,
+    which cuda_ms cannot give when launching a call takes the host longer
+    than the card takes to run it (the paged kernels, ~0.08 ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for _, ms in kernel_events(prof)) / iters
+
+
+def kernel_events(prof):
+    """(name, device ms) of every kernel a profile traced."""
+    import torch
+
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(ev, "is_user_annotation", False):
+            # a record_function range on the device timeline (such as
+            # "Optimizer.step#AdamW.step"), not a kernel: it would count
+            # its kernels twice
+            continue
+        yield ev.name, ev.time_range.elapsed_us() / 1e3   # one kernel
+
+
 def ptxas_report(log: Path) -> dict:
     """{kernel entry: "registers, spills"} from nvcc's -Xptxas -v log."""
     import re
@@ -120,7 +168,6 @@ def ptxas_report(log: Path) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             name = m.group(1)
-            name = name[:90] if len(name) > 90 else name
         elif name and "spill stores" in ln:
             out[name] = ln.strip()
         elif name and "Used" in ln and "registers" in ln:
@@ -146,14 +193,14 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 # --- K6: fused paged decode write-and-attend --------------------------------
 
 
-def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
-    """One K6 comparison. Lengths cover the hard cases: a length-0 slot,
-    tips that start a fresh page (length % ps == 1), slots ending on a page
-    boundary (length % ps == 0), and two slots sharing prefix pages."""
+def paged_inputs(*, S, H, KV, HD, ps, maxP, dtype, seed):
+    """Inputs of a K6 or K5 case on the card. Lengths cover the hard cases:
+    a length-0 slot, tips that start a fresh page (length % ps == 1),
+    slots ending on a page boundary (length % ps == 0), and two slots
+    sharing prefix pages. Returns (q, k_new, v_new, k_pool, v_pool,
+    page_table, lengths) and the lengths as numpy."""
     import numpy as np
     import torch
-
-    from ray_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
@@ -175,14 +222,23 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
     def t(x, d=dt):
         return torch.as_tensor(x).to(device="cuda", dtype=d)
 
-    q = t(rng.standard_normal((S, H, HD)))
-    kn = t(rng.standard_normal((S, KV, HD)))
-    vn = t(rng.standard_normal((S, KV, HD)))
-    kp0 = t(rng.standard_normal((KV, NP, ps, HD)))
-    vp0 = t(rng.standard_normal((KV, NP, ps, HD)))
-    pt = t(table, torch.int32)
-    ln = t(lengths, torch.int32)
+    return (t(rng.standard_normal((S, H, HD))),
+            t(rng.standard_normal((S, KV, HD))),
+            t(rng.standard_normal((S, KV, HD))),
+            t(rng.standard_normal((KV, NP, ps, HD))),
+            t(rng.standard_normal((KV, NP, ps, HD))),
+            t(table, torch.int32), t(lengths, torch.int32)), lengths
 
+
+def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
+    """One K6 comparison on paged_inputs."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    (q, kn, vn, kp0, vp0, pt, ln), lengths = paged_inputs(
+        S=S, H=H, KV=KV, HD=HD, ps=ps, maxP=maxP, dtype=dtype, seed=seed)
     kp, vp = kp0.clone(), vp0.clone()
     before = pa.launches
     o, _, _ = pa.paged_decode_attention_inplace(q, kn, vn, kp, vp, pt, ln)
@@ -208,8 +264,11 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
            "rows_expected": expect_changed, "dead_slots_zero": dead_zero}
     ok = (over <= 1.0 and pools_equal and changed == expect_changed
           and dead_zero)
-    res["kernel_ms"] = cuda_ms(lambda: pa.paged_decode_attention_inplace(
-        q, kn, vn, kp, vp, pt, ln), iters=50)
+    def run():
+        pa.paged_decode_attention_inplace(q, kn, vn, kp, vp, pt, ln)
+
+    res["kernel_ms"] = device_ms(run)
+    res["event_ms"] = cuda_ms(run, iters=50)   # bound by the host's launches
     pa.launches = before   # timing launches are not main-path launches
     res["plain_ms"] = cuda_ms(
         lambda: pa.paged_decode_attention_inplace_reference(
@@ -234,6 +293,81 @@ def phase_k6():
     for name, (H, KV) in (("7b", (32, 32)), ("1b-gqa", (16, 8))):
         for dtype in ("bfloat16", "float32"):
             r = k6_case(S=16, H=H, KV=KV, HD=128, ps=64, maxP=32,
+                        dtype=dtype, seed=1)
+            r["config"] = name
+            cases.append(r)
+    return cases
+
+
+# --- K5: read-only paged decode attention -------------------------------------
+
+
+def k5_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
+    """One K5 comparison on paged_inputs: live rows within
+    kernel_tolerance, the pools unchanged byte for byte, dead rows zero;
+    then the K6 -> K5 cross-check: K5 over the pools K6 just wrote (same
+    q and lengths) against K6's output."""
+    import torch
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    dt = getattr(torch, dtype)
+    (q, kn, vn, kp, vp, pt, ln), lengths = paged_inputs(
+        S=S, H=H, KV=KV, HD=HD, ps=ps, maxP=maxP, dtype=dtype, seed=seed)
+    kp0, vp0 = kp.clone(), vp.clone()
+    before, before6 = pa.launches_read, pa.launches
+    o = pa.paged_attention(q, kp, vp, pt, ln)
+    o_ref = pa.paged_attention_reference(q, kp, vp, pt, ln)
+    torch.cuda.synchronize()
+    if pa.launches_read != before + 1:
+        raise AssertionError("K5 wrapper did not launch its kernel")
+    live = torch.as_tensor(lengths > 0, device="cuda")
+    err, over = held(o, o_ref, pa.kernel_tolerance(o_ref), live)
+    finite = bool(torch.isfinite(o.float()[live]).all())
+    pools_unchanged = bool(torch.equal(kp, kp0) and torch.equal(vp, vp0))
+    dead_zero = bool((o[~live] == 0).all()) if (~live).any() else True
+    # K6 writes k_new/v_new into copies of the pools; K5 reads them back
+    k6p, v6p = kp0.clone(), vp0.clone()
+    o6, _, _ = pa.paged_decode_attention_inplace(q, kn, vn, k6p, v6p, pt, ln)
+    o5 = pa.paged_attention(q, k6p, v6p, pt, ln)
+    torch.cuda.synchronize()
+    cross_err, cross_over = held(o5, o6, pa.kernel_tolerance(o6), live)
+    res = {"shape": f"S={S} H={H} KV={KV} HD={HD} ps={ps} maxP={maxP}",
+           "dtype": dtype, "max_abs_err": err, "max_err_over_tol": over,
+           "tol": "1e-4" if dtype == "float32" else "2^-7 |plain| + 1e-5",
+           "pools_unchanged": pools_unchanged, "dead_slots_zero": dead_zero,
+           "k6_to_k5_max_abs_err": cross_err,
+           "k6_to_k5_max_err_over_tol": cross_over,
+           "k6_to_k5_identical": bool(torch.equal(o5[live], o6[live]))}
+    ok = (finite and over <= 1.0 and pools_unchanged and dead_zero
+          and cross_over <= 1.0)
+    def run():
+        pa.paged_attention(q, kp, vp, pt, ln)
+
+    res["kernel_ms"] = device_ms(run)
+    res["event_ms"] = cuda_ms(run, iters=50)   # bound by the host's launches
+    # comparison and timing launches are not main-path launches
+    pa.launches_read, pa.launches = before, before6
+    res["plain_ms"] = cuda_ms(
+        lambda: pa.paged_attention_reference(q, kp, vp, pt, ln), iters=5)
+    elt = torch.finfo(dt).bits // 8
+    live_tok = int(lengths.sum())
+    res["live_tokens"] = live_tok
+    nbytes = (2 * live_tok * KV * HD * elt          # K and V read once
+              + 2 * S * H * HD * elt                # q in, o out
+              + 4 * S * (maxP + 1))                 # table, lengths
+    flops = 4 * live_tok * H * HD                   # q.k and p.v
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
+    res["library_ms"] = None   # no single PyTorch call computes K5
+    res["ok"] = ok
+    return res
+
+
+def phase_k5():
+    cases = []
+    for name, (H, KV) in (("7b", (32, 32)), ("1b-gqa", (16, 8))):
+        for dtype in ("bfloat16", "float32"):
+            r = k5_case(S=16, H=H, KV=KV, HD=128, ps=64, maxP=32,
                         dtype=dtype, seed=1)
             r["config"] = name
             cases.append(r)
@@ -727,8 +861,8 @@ def phase_card_vs_cpu():
     outs = {}
     for name, dev, prm in (("card", device, params), ("cpu", "cpu",
                                                       params_cpu)):
-        eng = LLMEngine(cfg=cfg, params=prm, max_slots=4, page_size=64,
-                        device=dev)
+        eng = LLMEngine(cfg=cfg, params=prm, max_slots=4,
+                        kv_layout="paged", page_size=64, device=dev)
         reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
         while eng.has_work():
             eng.step_n(8)
@@ -743,8 +877,84 @@ def phase_card_vs_cpu():
             "logits_tol": LOGITS_TOL, "ok": ok}
 
 
+def engine_requests(rng, V):
+    """The engine phases' 12 prompts in two waves: 8 of 64-1000 tokens and
+    4 sharing a 512-token prefix (the first of them in wave 1)."""
+    prefix = rng.integers(0, V, size=512).tolist()
+    unique = [rng.integers(0, V, size=int(n)).tolist()
+              for n in rng.integers(64, 1001, size=8)]
+    shared = [prefix + rng.integers(0, V, size=int(n)).tolist()
+              for n in rng.integers(40, 400, size=4)]
+    return unique[:7] + shared[:1], shared[1:] + unique[7:]
+
+
+def drive_engine(eng, wave1, wave2):
+    """Submit wave 1 (request 3 sampled at temperature 0.8), step once,
+    submit wave 2, and step until done. Returns the requests."""
+    reqs = [eng.submit(p, max_new_tokens=64,
+                       temperature=0.8 if i == 3 else 0.0)
+            for i, p in enumerate(wave1)]
+    eng.step_n(8)   # prefills wave 1 (and registers the shared prefix pages)
+    reqs += [eng.submit(p, max_new_tokens=64) for p in wave2]
+    while eng.has_work():
+        eng.step_n(8)
+    return reqs
+
+
+def engine_metrics(eng, reqs, m0, run_s):
+    """The serving numbers of a counted run: tokens, TTFT, decode rate (the
+    engine's counters less those before the run, m0)."""
+    import numpy as np
+
+    m = {k: v - m0.get(k, 0) for k, v in eng.metrics.items()}
+    n_tok = sum(len(r.generated) for r in reqs)
+    ttft = [r.first_token_time - r.submit_time for r in reqs]
+    V = eng.cfg.vocab_size
+    return {"requests": len(reqs), "run_s": run_s,
+            "tokens_generated": n_tok,
+            "ttft_mean_s": float(np.mean(ttft)),
+            "ttft_max_s": float(np.max(ttft)),
+            # every request's first token comes from its prefill
+            "decode_tokens_per_s": (n_tok - len(reqs)) /
+            max(m.get("decode_block_s", 0.0), 1e-9),
+            "decode_block_s": m.get("decode_block_s", 0.0),
+            "admit_s": m.get("admit_s", 0.0),
+            "decode_blocks": m.get("decode_blocks", 0),
+            "prefix_hits": m.get("prefix_hits", 0),
+            "prefix_hit_tokens": m.get("prefix_hit_tokens", 0),
+            "preemptions": m.get("preemptions", 0),
+            "all_finished_64": all(
+                len(r.generated) == 64 and r.error is None
+                and all(0 <= t < V for t in r.generated) for r in reqs)}
+
+
+def profile_windows(eng, rng):
+    """Where the time goes, after a counted run. The profiler slows the
+    host by far more than the work it traces, so each window runs twice on
+    the same shapes: once on the host clock alone (wall), once under the
+    profiler (device time by kernel class); idle = 1 - busy / wall.
+    Windows: an admission of 8 prompts of 1000 tokens (prefill, bucket
+    1024), then a decode block of 8 steps with all 16 slots live. Both
+    passes admit 8, so 16 slots stay live with ~1000-token contexts."""
+    V = eng.cfg.vocab_size
+    full = [rng.integers(0, V, size=1000).tolist() for _ in range(16)]
+
+    def admit(prompts):
+        def run():
+            for p in prompts:
+                eng.submit(p, max_new_tokens=64)
+            eng._admit()
+        return run
+
+    return {"profile_prefill": device_profile(admit(full[:8]),
+                                              admit(full[8:])),
+            "profile_decode_block": device_profile(lambda: eng.step_n(8),
+                                                   lambda: eng.step_n(8))}
+
+
 def phase_engine():
-    """The main path: 7b preset, 32 layers, bf16, paged, flash prefill."""
+    """The paged serving path: 7b preset, 32 layers, bf16, paged, flash
+    prefill; then the K5 path over its live pools."""
     import numpy as np
     import torch
 
@@ -755,19 +965,13 @@ def phase_engine():
 
     t0 = time.perf_counter()
     cfg = llama.PRESETS["7b"].replace(attn_impl="flash")
-    eng = LLMEngine(cfg=cfg, max_slots=16, max_seq_len=2048, page_size=64,
-                    seed=0, device="cuda")
+    eng = LLMEngine(cfg=cfg, max_slots=16, max_seq_len=2048,
+                    kv_layout="paged", page_size=64, seed=0, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(5)
     V = cfg.vocab_size
-    prefix = rng.integers(0, V, size=512).tolist()
-    unique = [rng.integers(0, V, size=int(n)).tolist()
-              for n in rng.integers(64, 1001, size=8)]
-    shared = [prefix + rng.integers(0, V, size=int(n)).tolist()
-              for n in rng.integers(40, 400, size=4)]
-    wave1 = unique[:7] + shared[:1]
-    wave2 = shared[1:] + unique[7:]
+    wave1, wave2 = engine_requests(rng, V)
 
     # warm-up (cuBLAS handles, kernel libraries, the profiler's CUPTI
     # start-up) so the counted run below measures steady state
@@ -778,66 +982,214 @@ def phase_engine():
     pa.launches = 0
     fa.launches = 0
     t_run = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=64,
-                       temperature=0.8 if i == 3 else 0.0)
-            for i, p in enumerate(wave1)]
-    eng.step_n(8)   # prefills wave 1 and registers the shared prefix pages
-    reqs += [eng.submit(p, max_new_tokens=64) for p in wave2]
-    while eng.has_work():
-        eng.step_n(8)
+    reqs = drive_engine(eng, wave1, wave2)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = {"paged_decode_attention_inplace": pa.launches,
                 "flash_attention_fwd": fa.launches}
-
-    m = {k: v - m0.get(k, 0) for k, v in eng.metrics.items()}
-    n_tok = sum(len(r.generated) for r in reqs)
-    ttft = [r.first_token_time - r.submit_time for r in reqs]
-    tokens_ok = all(len(r.generated) == 64 and r.error is None
-                    and all(0 <= t < V for t in r.generated) for r in reqs)
     res = {"cfg": "7b, 32 layers, bf16, flash, paged page 64, 16 slots, "
                   "max_seq 2048",
-           "requests": len(reqs),
            "prompt_lens": [len(p) for p in wave1 + wave2],
-           "setup_s": setup_s, "run_s": run_s,
-           "tokens_generated": n_tok,
-           "ttft_mean_s": float(np.mean(ttft)),
-           "ttft_max_s": float(np.max(ttft)),
-           # every request's first token comes from its prefill
-           "decode_tokens_per_s": (n_tok - len(reqs)) /
-           max(m.get("decode_block_s", 0.0), 1e-9),
-           "decode_block_s": m.get("decode_block_s", 0.0),
-           "admit_s": m.get("admit_s", 0.0),
-           "decode_blocks": m.get("decode_blocks", 0),
-           "prefix_hits": m.get("prefix_hits", 0),
-           "prefix_hit_tokens": m.get("prefix_hit_tokens", 0),
-           "preemptions": m.get("preemptions", 0),
+           "setup_s": setup_s, **engine_metrics(eng, reqs, m0, run_s),
            "launches": launches,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "all_finished_64": tokens_ok}
-    res["ok"] = (tokens_ok and res["prefix_hits"] >= 1
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res["ok"] = (res["all_finished_64"] and res["prefix_hits"] >= 1
                  and all(v > 0 for v in launches.values()))
+    res.update(profile_windows(eng, rng))
+    res["k5_path"] = k5_path(eng)
+    res["ok"] = res["ok"] and res["k5_path"]["ok"]
+    return res
 
-    # where the time goes, after the counted run. The profiler slows the
-    # host by far more than the work it traces, so each window runs twice
-    # on the same shapes: once on the host clock alone (wall), once under
-    # the profiler (device time by kernel class); idle = 1 - busy / wall.
-    # Windows: an admission of 8 prompts of 1000 tokens (prefill, bucket
-    # 1024), then a decode block of 8 steps with all 16 slots live.
-    full = [rng.integers(0, V, size=1000).tolist() for _ in range(16)]
 
-    def admit(prompts):
-        def run():
-            for p in prompts:
-                eng.submit(p, max_new_tokens=64)
-            eng._admit()
-        return run
+def k5_path(eng):
+    """The K5 path: ``paged_attention`` on every layer of the live engine's
+    pools, page table and lengths (16 slots at ~1000 tokens), with a seeded
+    q, each layer held against the plain version. The launch counter is
+    set to 0 just before and read just after."""
+    import torch
 
-    res["profile_prefill"] = device_profile(admit(full[:8]),
-                                            admit(full[8:]))
-    # both passes admitted 8: 16 live slots, 1000-token contexts
-    res["profile_decode_block"] = device_profile(lambda: eng.step_n(8),
-                                                 lambda: eng.step_n(8))
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    cfg = eng.cfg
+    pt = eng._tensor(eng.pool.table)
+    ln = eng._tensor(eng._len_host)
+    live = ln > 0
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((eng.max_slots, cfg.n_heads, cfg.head_dim), generator=g,
+                    device="cuda").to(cfg.dtype)
+    pa.launches_read = 0
+    outs = [pa.paged_attention(q, eng.kp[i], eng.vp[i], pt, ln)
+            for i in range(cfg.n_layers)]
+    torch.cuda.synchronize()
+    launches = {"paged_attention": pa.launches_read}
+    err = over = 0.0
+    dead_zero = finite = True
+    for i, o in enumerate(outs):
+        ref = pa.paged_attention_reference(q, eng.kp[i], eng.vp[i], pt, ln)
+        e, ov = held(o, ref, pa.kernel_tolerance(ref), live)
+        err, over = max(err, e), max(over, ov)
+        finite &= bool(torch.isfinite(o.float()[live]).all())
+        dead_zero &= bool((o[~live] == 0).all())
+    res = {"live_slots": int(live.sum()), "live_tokens": int(ln.sum()),
+           "layers": cfg.n_layers, "launches": launches,
+           "max_abs_err": err, "max_err_over_tol": over,
+           "dead_slots_zero": dead_zero}
+    res["ok"] = (finite and over <= 1.0 and dead_zero
+                 and launches["paged_attention"] == cfg.n_layers
+                 and res["live_slots"] > 0)
+    return res
+
+
+def phase_card_vs_cpu_contiguous():
+    """2 layers at the 7b width, f32 (no TF32), flash, max_seq 512, 4
+    slots, the prompts of card_vs_cpu: greedy tokens identical (1) card vs
+    CPU, contiguous layout; (2) contiguous vs paged on the card; (3) int8,
+    card vs CPU (and the two int8 trees bit for bit); (4)
+    ``sliding_window=64``, card vs CPU, the serving run on which K2
+    launches. Also ``forward_with_cache`` of 256 tokens at offset 0 into a
+    512-token cache row (K1 with T = 512 > S), logits card vs CPU. The
+    launch counters are set to 0 just before the phase and read after."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = llama.PRESETS["7b"].replace(n_layers=2, dtype=torch.float32,
+                                      attn_impl="flash", max_seq_len=512)
+    params = llama.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    params_cpu = _cpu_copy(params)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (130, 167, 200)]
+    fa.launches = fa.launches_window = pa.launches = 0
+
+    def serve(dev, prm, c=cfg, **kw):
+        eng = LLMEngine(cfg=c, params=prm, max_slots=4, device=dev, **kw)
+        reqs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        while eng.has_work():
+            eng.step_n(8)
+        return eng, [r.generated for r in reqs]
+
+    runs, ok = {}, True
+    _, card = serve("cuda", params)
+    _, cpu = serve("cpu", params_cpu)
+    runs["contiguous_card_vs_cpu"] = {"card": card, "cpu": cpu}
+    _, paged = serve("cuda", params, kv_layout="paged", page_size=64)
+    runs["contiguous_vs_paged_card"] = {"contiguous": card, "paged": paged}
+    e_card, q_card = serve("cuda", params, quantize="int8")
+    e_cpu, q_cpu = serve("cpu", params_cpu, quantize="int8")
+    runs["int8_card_vs_cpu"] = {"card": q_card, "cpu": q_cpu}
+    trees_equal = all(
+        torch.equal(a.cpu(), b) for a, b in zip(
+            _leaves(e_card.params), _leaves(e_cpu.params)))
+    wcfg = cfg.replace(sliding_window=64)
+    before_w = fa.launches_window
+    _, w_card = serve("cuda", params, c=wcfg)
+    k2_serving = fa.launches_window - before_w
+    _, w_cpu = serve("cpu", params_cpu, c=wcfg)
+    runs["window64_card_vs_cpu"] = {"card": w_card, "cpu": w_cpu}
+    for r in runs.values():
+        a, b = r.values()
+        r["identical"] = a == b and all(len(t) == 8 for t in a)
+        ok = ok and r["identical"]
+
+    # forward_with_cache: 256 tokens at offset 0 into 512-token rows
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                             size=(2, 256))
+    logits = {}
+    before = fa.launches
+    for dev, prm in (("cuda", params), ("cpu", params_cpu)):
+        cache = llama.init_cache(cfg, 2, max_seq=512, device=dev)
+        lg, cache = llama.forward_with_cache(
+            prm, torch.as_tensor(toks, device=dev), cache, cfg, 0)
+        logits[dev] = lg.cpu()
+    k1_fwc = fa.launches - before
+    fwc_err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_fwd_window": fa.launches_window,
+                "paged_decode_attention_inplace": pa.launches}
+    ok = (ok and trees_equal and k2_serving > 0 and k1_fwc == cfg.n_layers
+          and fwc_err <= LOGITS_TOL)
+    return {"cfg": "7b width, 2 layers, f32, flash, max_seq 512, 4 slots",
+            "prompt_lens": [len(p) for p in prompts], "runs": runs,
+            "int8_trees_identical": trees_equal,
+            "k2_launches_serving_window64": k2_serving,
+            "forward_with_cache_k1_launches": k1_fwc,
+            "forward_with_cache_logits_max_abs_err": fwc_err,
+            "logits_tol": LOGITS_TOL, "launches": launches, "ok": ok}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def phase_engine_contiguous():
+    """The JAX engine's default configuration on the card: the 7b preset,
+    all 32 layers, bf16, contiguous KV (16 slots x 2048 tokens), int8
+    weights, flash prefill; the engine phase's 12 requests (seed 5), 64
+    tokens each, with the K1 counter set to 0 just before them and read
+    after; then the prefill and decode-block profiles."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = llama.PRESETS["7b"].replace(attn_impl="flash")
+    eng = LLMEngine(cfg=cfg, max_slots=16, max_seq_len=2048, seed=0,
+                    quantize="int8", device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated() / 1e9
+    weight_bytes = sum(t.nbytes for t in _leaves(eng.params))
+    q8_bytes = sum(t.nbytes for t in _leaves(eng.params)
+                   if t.dtype == torch.int8)
+    cache_bytes = eng.cache.k.nbytes + eng.cache.v.nbytes
+    rng = np.random.default_rng(5)
+    V = cfg.vocab_size
+    wave1, wave2 = engine_requests(rng, V)
+    eng.generate(rng.integers(0, V, size=200).tolist(), max_new_tokens=2)
+    m0 = dict(eng.metrics)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t_run = time.perf_counter()
+    reqs = drive_engine(eng, wave1, wave2)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"flash_attention_fwd": fa.launches}
+    res = {"cfg": "7b, 32 layers, bf16, int8 weights, flash, contiguous KV, "
+                  "16 slots, max_seq 2048",
+           "prompt_lens": [len(p) for p in wave1 + wave2],
+           "setup_s": setup_s, "setup_peak_mem_gb": setup_peak,
+           "weight_bytes_at_rest": weight_bytes, "int8_bytes": q8_bytes,
+           "kv_cache_bytes": cache_bytes,
+           **engine_metrics(eng, reqs, m0, run_s), "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res["ok"] = res["all_finished_64"] and launches["flash_attention_fwd"] > 0
+
+    def dequantize_all():
+        # what one decode step spends on int8: every matmul weight
+        # dequantized to bf16 once (the embedding gathers rows only)
+        for lp in llama._unstack_layers(eng.params["layers"]):
+            for k, w in lp.items():
+                if not k.endswith("norm"):
+                    llama._dq(w, cfg.dtype)
+        llama._dq(eng.params["lm_head"], cfg.dtype)
+
+    res["dequant_ms_per_step"] = cuda_ms(dequantize_all, iters=3)
+    res.update(profile_windows(eng, rng))
     return res
 
 
@@ -873,21 +1225,12 @@ def device_profile(timed, profiled):
     by["other"] = 0.0
     by_name: dict = {}
     n_kernels = 0
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        if getattr(ev, "is_user_annotation", False):
-            # a record_function range on the device timeline (such as
-            # "Optimizer.step#AdamW.step"), not a kernel: it would count
-            # its kernels twice
-            continue
-        ms = ev.time_range.elapsed_us() / 1e3   # one kernel on one stream
+    for name, ms in kernel_events(prof):
         n_kernels += 1
-        name = ev.name.lower()
         cls = next((c for c, keys in _KERNEL_CLASSES
-                    if any(k in name for k in keys)), "other")
+                    if any(k in name.lower() for k in keys)), "other")
         by[cls] += ms
-        by_name[ev.name[:100]] = by_name.get(ev.name[:100], 0.0) + ms
+        by_name[name[:100]] = by_name.get(name[:100], 0.0) + ms
     busy = sum(by.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
@@ -899,13 +1242,21 @@ def device_profile(timed, profiled):
 # --- driver -----------------------------------------------------------------
 
 
-PHASES = ("build", "k6", "k1", "card_vs_cpu", "engine", "k2", "k3k4",
+PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
+          "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
           "train_card_vs_cpu", "train")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
-TO_PORT = {
-    "K5": "ray_tpu/ops/paged_attention.py:61 _kernel",
-}
+TO_PORT: dict = {}
+
+
+KERNEL_PHASES = {"k6": phase_k6, "k5": phase_k5, "k1": phase_k1,
+                 "k2": phase_k2, "k3k4": phase_k3k4}
+PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
+               "card_vs_cpu_contiguous": phase_card_vs_cpu_contiguous,
+               "engine_contiguous": phase_engine_contiguous,
+               "train_card_vs_cpu": phase_train_card_vs_cpu,
+               "train": phase_train}
 
 
 def main() -> int:
@@ -940,33 +1291,14 @@ def main() -> int:
                         if (_build.BUILD_DIR / f"{n}.log").is_file()}
                 emit("build", seconds=time.perf_counter() - t0,
                      per_source_s=took, ptxas=logs)
-            elif ph == "k6":
-                cases = phase_k6()
-                emit("k6", cases=cases)
-                ok &= all(c["ok"] for c in cases)
-            elif ph == "k1":
-                cases = phase_k1()
-                emit("k1", cases=cases)
-                ok &= all(c["ok"] for c in cases)
-            elif ph == "card_vs_cpu":
-                r = phase_card_vs_cpu()
-                emit("card_vs_cpu", **r)
-                ok &= r["ok"]
-            elif ph == "engine":
-                r = phase_engine()
-                emit("engine", **r)
-                ok &= r["ok"]
-            elif ph in ("k2", "k3k4"):
-                cases = phase_k2() if ph == "k2" else phase_k3k4()
+            elif ph in KERNEL_PHASES:
+                cases = KERNEL_PHASES[ph]()
                 emit(ph, cases=cases)
                 ok &= all(c["ok"] for c in cases)
-            elif ph == "train_card_vs_cpu":
-                r = phase_train_card_vs_cpu()
-                emit(ph, **r)
-                ok &= r["ok"]
-            elif ph == "train":
-                r = phase_train()
-                emit(ph, **r)
+            else:
+                t0 = time.perf_counter()
+                r = PATH_PHASES[ph]()
+                emit(ph, **r, phase_s=time.perf_counter() - t0)
                 ok &= r["ok"]
             if not ok:
                 print(f"chip_smoke.py: phase {ph} failed", file=sys.stderr)
@@ -989,9 +1321,14 @@ def main() -> int:
                      if c["config"] == config and c["dtype"] == dtype), {})
 
     # main-path launches: each path's run with the counters set to 0 just
-    # before it (serving: engine; training: train, and train_card_vs_cpu,
-    # the run on which K2 launches)
+    # before it (serving: engine, its K5 path, card_vs_cpu_contiguous (the
+    # serving run on which K2 launches) and engine_contiguous; training:
+    # train, and train_card_vs_cpu, the run on which K2 launches)
     paths = {"engine": ph["engine"]["launches"],
+             "engine_k5": ph["engine"]["k5_path"]["launches"],
+             "card_vs_cpu_contiguous":
+                 ph["card_vs_cpu_contiguous"]["launches"],
+             "engine_contiguous": ph["engine_contiguous"]["launches"],
              "train": ph["train"]["launches"],
              "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"]}
     k1, k2, k34 = case("k1", "7b"), case("k2", "1b-w256"), case("k3k4", "1b")
@@ -1008,6 +1345,8 @@ def main() -> int:
         ("paged_decode_attention_inplace",
          "ray_tpu_torch/csrc/paged_attention.cu",
          "ray_tpu/ops/paged_attention.py:127", case("k6", "7b"), ""),
+        ("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu",
+         "ray_tpu/ops/paged_attention.py:61", case("k5", "7b"), ""),
     ]
     emit("kernel_status", ported=[r[0] for r in rows], to_port=TO_PORT)
     for name, src, rep, c, pre in rows:

@@ -1,9 +1,15 @@
-// K6: fused paged decode write-and-attend, for Hopper (sm_90a).
+// K6: fused paged decode write-and-attend, and K5: read-only paged decode
+// attention, for Hopper (sm_90a). One split-KV kernel serves both, with a
+// WRITE template parameter, the way K2 is K1's WINDOW instantiation.
 //
-// Replaces ray_tpu/ops/paged_attention.py:_kernel_inplace (reached through
-// paged_decode_attention_inplace): for every decode slot, write the new
-// token's k/v at position length-1 of the slot's tip page, then attend the
-// slot's query heads over all of its cached tokens.
+// K6 replaces ray_tpu/ops/paged_attention.py:_kernel_inplace (reached
+// through paged_decode_attention_inplace): for every decode slot, write the
+// new token's k/v at position length-1 of the slot's tip page, then attend
+// the slot's query heads over all of its cached tokens.
+// K5 replaces ray_tpu/ops/paged_attention.py:_kernel (reached through
+// paged_attention): the same attention with the write taken out. Every K/V
+// row, the one at length-1 included, is read from the pool, and the pools
+// are never written.
 //
 // Bound on this card: device-memory bytes. Each live slot reads its
 // length * HD * 2 (K and V) values per kv head once and does ~4 flops per
@@ -20,16 +26,16 @@
 //     exact there (one max, one sum); each split leaves (m, l, unnormalized
 //     o) in f32, and a second small kernel merges the splits of a
 //     (slot, kv head) with the usual rescaling -- the same online-softmax
-//     algebra as the TPU kernel, in two levels;
+//     algebra as the TPU kernels, in two levels;
 //   * the G = H / KV query rows of a kv head share every K/V load.
 //
-// The new token: its k/v rows come from k_new/v_new (a separate input) and
+// K6's new token: its k/v rows come from k_new/v_new (a separate input) and
 // are held in shared memory by the one block whose split holds the tip page;
 // the pool is never re-read at that row (no read-after-write in a block).
 // Only that ONE row is written to each pool -- the TPU kernel flushed the
 // whole tip page -- so page 0 (trash) and prefix-shared pages are never
-// written. Slots of length 0 write nothing and output zeros (callers mask
-// them).
+// written. In both kernels slots of length 0 write nothing and output zeros
+// (callers mask them).
 
 #include "common.cuh"
 
@@ -58,14 +64,16 @@ __device__ __forceinline__ void load_vec(const T* p, float (&out)[Vec<T>::N]) {
   for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_f32(e[i]);
 }
 
-// Pass 1: one block per (slot, kv head, split) of `tps` tokens.
-template <typename T, int G>
+// Pass 1: one block per (slot, kv head, split) of `tps` tokens. WRITE: K6
+// (the new token from k_new/v_new, written to the pools); else K5 (k_new and
+// v_new unused, the pools only read).
+template <typename T, int G, bool WRITE>
 __global__ void __launch_bounds__(K6_THREADS) paged_decode_split_kernel(
     const T* __restrict__ q,         // [S, H, HD]
     const T* __restrict__ k_new,     // [S, KV, HD]
     const T* __restrict__ v_new,     // [S, KV, HD]
-    T* k_pool,                       // [KV, NP, ps, HD], updated in place
-    T* v_pool,                       // [KV, NP, ps, HD], updated in place
+    T* k_pool,                       // [KV, NP, ps, HD], written if WRITE
+    T* v_pool,                       // [KV, NP, ps, HD], written if WRITE
     const int* __restrict__ page_table,  // [S, maxP]
     const int* __restrict__ lengths,     // [S], including the new token
     float* __restrict__ part_o,      // [S, KV, n_split, G, HD] unnormalized
@@ -84,7 +92,7 @@ __global__ void __launch_bounds__(K6_THREADS) paged_decode_split_kernel(
   const int t0 = p0 * ps;
   const int n_tok = min(tps, length - t0);
   const int pos = length - 1;
-  const bool has_tip = pos >= t0 && pos < t0 + tps;
+  const bool has_tip = WRITE && pos >= t0 && pos < t0 + tps;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -135,7 +143,7 @@ __global__ void __launch_bounds__(K6_THREADS) paged_decode_split_kernel(
       if (i >= n_tok) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) k[e] = 0.f;
-      } else if (t == pos) {
+      } else if (WRITE && t == pos) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) k[e] = kn[c * VEC + e];
       } else {
@@ -189,7 +197,7 @@ __global__ void __launch_bounds__(K6_THREADS) paged_decode_split_kernel(
     for (int i = tg; i < n_tok; i += tg_n) {
       const int t = t0 + i;
       float v[VEC];
-      if (t == pos) {
+      if (WRITE && t == pos) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) v[e] = vn[dc * VEC + e];
       } else {
@@ -248,12 +256,12 @@ __global__ void __launch_bounds__(K6_THREADS) paged_decode_merge_kernel(
   }
 }
 
-template <typename T, int G>
-int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
-           void* v_pool, const void* page_table, const void* lengths,
-           void* out, void* part_o, void* part_ml, int S, int KV, int NP,
-           int ps, int HD, int maxP, int pps, int n_split, float scale,
-           cudaStream_t stream) {
+template <typename T, int G, bool WRITE>
+int launch(const void* q, const void* k_new, const void* v_new,
+           const void* k_pool, const void* v_pool, const void* page_table,
+           const void* lengths, void* out, void* part_o, void* part_ml, int S,
+           int KV, int NP, int ps, int HD, int maxP, int pps, int n_split,
+           float scale, cudaStream_t stream) {
   constexpr int VEC = Vec<T>::N;
   const int lpt = HD / VEC;
   if (HD % VEC != 0 || lpt > 32 || 32 % lpt != 0)
@@ -263,13 +271,16 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
   const size_t smem = sizeof(float) * ((size_t)G * HD + 2 * HD +
                                        (size_t)G * tps +
                                        (size_t)tg_n * G * HD + 2 * G);
-  cudaError_t err = rt_set_smem(paged_decode_split_kernel<T, G>, smem);
+  cudaError_t err = rt_set_smem(paged_decode_split_kernel<T, G, WRITE>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  paged_decode_split_kernel<T, G>
+  // K5 never writes through these: WRITE is false
+  T* kp = const_cast<T*>(static_cast<const T*>(k_pool));
+  T* vp = const_cast<T*>(static_cast<const T*>(v_pool));
+  paged_decode_split_kernel<T, G, WRITE>
       <<<dim3(S, KV, n_split), K6_THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k_new),
-          static_cast<const T*>(v_new), static_cast<T*>(k_pool),
-          static_cast<T*>(v_pool), static_cast<const int*>(page_table),
+          static_cast<const T*>(v_new), kp, vp,
+          static_cast<const int*>(page_table),
           static_cast<const int*>(lengths), static_cast<float*>(part_o),
           static_cast<float*>(part_ml), KV, NP, ps, HD, maxP, pps, n_split,
           scale);
@@ -282,17 +293,18 @@ int launch(const void* q, const void* k_new, const void* v_new, void* k_pool,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool WRITE>
 int dispatch_g(int G, const void* q, const void* k_new, const void* v_new,
-               void* k_pool, void* v_pool, const void* page_table,
-               const void* lengths, void* out, void* part_o, void* part_ml,
-               int S, int KV, int NP, int ps, int HD, int maxP, int pps,
-               int n_split, float scale, cudaStream_t st) {
+               const void* k_pool, const void* v_pool,
+               const void* page_table, const void* lengths, void* out,
+               void* part_o, void* part_ml, int S, int KV, int NP, int ps,
+               int HD, int maxP, int pps, int n_split, float scale,
+               cudaStream_t st) {
 #define K6_CASE(GV)                                                          \
   case GV:                                                                   \
-    return launch<T, GV>(q, k_new, v_new, k_pool, v_pool, page_table,        \
-                         lengths, out, part_o, part_ml, S, KV, NP, ps, HD,   \
-                         maxP, pps, n_split, scale, st);
+    return launch<T, GV, WRITE>(q, k_new, v_new, k_pool, v_pool, page_table, \
+                                lengths, out, part_o, part_ml, S, KV, NP,    \
+                                ps, HD, maxP, pps, n_split, scale, st);
   switch (G) {
     K6_CASE(1)
     K6_CASE(2)
@@ -302,6 +314,29 @@ int dispatch_g(int G, const void* q, const void* k_new, const void* v_new,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef K6_CASE
+}
+
+template <bool WRITE>
+int dispatch(int dtype, const void* q, const void* k_new, const void* v_new,
+             const void* k_pool, const void* v_pool, const void* page_table,
+             const void* lengths, void* out, void* part_o, void* part_ml,
+             int S, int H, int KV, int NP, int ps, int HD, int maxP, int pps,
+             int n_split, float scale, void* stream) {
+  if (S == 0) return 0;
+  if (KV <= 0 || H % KV != 0 || pps <= 0 || n_split * pps < maxP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = H / KV;
+  if (dtype == RT_BF16)
+    return dispatch_g<__nv_bfloat16, WRITE>(
+        G, q, k_new, v_new, k_pool, v_pool, page_table, lengths, out, part_o,
+        part_ml, S, KV, NP, ps, HD, maxP, pps, n_split, scale, st);
+  if (dtype == RT_F32)
+    return dispatch_g<float, WRITE>(G, q, k_new, v_new, k_pool, v_pool,
+                                    page_table, lengths, out, part_o, part_ml,
+                                    S, KV, NP, ps, HD, maxP, pps, n_split,
+                                    scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -314,19 +349,19 @@ extern "C" int paged_decode_attention_inplace(
     void* out, void* part_o, void* part_ml, int S, int H, int KV, int NP,
     int ps, int HD, int maxP, int pps, int n_split, float scale,
     void* stream) {
-  if (S == 0) return 0;
-  if (KV <= 0 || H % KV != 0 || pps <= 0 || n_split * pps < maxP)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int G = H / KV;
-  if (dtype == RT_BF16)
-    return dispatch_g<__nv_bfloat16>(G, q, k_new, v_new, k_pool, v_pool,
-                                     page_table, lengths, out, part_o,
-                                     part_ml, S, KV, NP, ps, HD, maxP, pps,
-                                     n_split, scale, st);
-  if (dtype == RT_F32)
-    return dispatch_g<float>(G, q, k_new, v_new, k_pool, v_pool, page_table,
-                             lengths, out, part_o, part_ml, S, KV, NP, ps,
-                             HD, maxP, pps, n_split, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(dtype, q, k_new, v_new, k_pool, v_pool, page_table,
+                        lengths, out, part_o, part_ml, S, H, KV, NP, ps, HD,
+                        maxP, pps, n_split, scale, stream);
+}
+
+// K5: as above without k_new/v_new; the pools are only read.
+extern "C" int paged_attention(int dtype, const void* q, const void* k_pool,
+                               const void* v_pool, const void* page_table,
+                               const void* lengths, void* out, void* part_o,
+                               void* part_ml, int S, int H, int KV, int NP,
+                               int ps, int HD, int maxP, int pps, int n_split,
+                               float scale, void* stream) {
+  return dispatch<false>(dtype, q, nullptr, nullptr, k_pool, v_pool,
+                         page_table, lengths, out, part_o, part_ml, S, H, KV,
+                         NP, ps, HD, maxP, pps, n_split, scale, stream);
 }

@@ -1,31 +1,41 @@
 """Llama-family transformer (RMSNorm + RoPE + GQA + SwiGLU) in PyTorch.
 
-Port of ``ray_tpu/models/llama.py``, function for function, for two
+Port of ``ray_tpu/models/llama.py``, function for function, for three
 paths:
 
 - paged serving: ``prefill`` -> ``scatter_prefill_pages`` ->
   ``decode_step_paged`` (fused paged decode kernel K6 on every layer) and
   ``prefill_paged_tail`` for prefix-cache hits and chunked prefill;
+- contiguous serving: ``prefill`` into a ``KVCache`` row per slot ->
+  ``decode_step`` (per-row positions, the ``active`` mask, the sliding
+  window band), ``prefill_tail_contiguous`` for chunked prefill and
+  ``forward_with_cache``;
 - training: ``loss_fn`` -> ``forward``, each layer under
   ``torch.utils.checkpoint`` when ``cfg.remat`` (the JAX
   ``jax.checkpoint``), run by ``parallel/train_step.py``.
 
-``attn_impl="flash"`` sends sequences of at least 128 tokens to the flash
-kernels: the forward K1 (K2 under ``sliding_window``) and, in training,
-the backward K3/K4 through ``ops.flash_attention``'s autograd Function.
+``attn_impl="flash"`` sends sequences of at least 128 tokens that start at
+position 0 to the flash kernels: the forward K1 (K2 under
+``sliding_window``) and, in training, the backward K3/K4 through
+``ops.flash_attention``'s autograd Function.
+
+Weights may be int8 (``quantize_params_int8``, for serving): each matmul
+weight becomes ``{"q8": int8, "s8": bf16 per-output-channel scale}`` and
+every layer loop dequantizes one weight at its use (``_dq``). Eager
+PyTorch writes that bf16 copy to device memory, where XLA fused the
+convert into the dot.
 
 PyTorch idiom, JAX layouts: plain functions on tensors; parameters are the
 JAX pytree as a dict of tensors, matmul weights ``[in, out]`` (``h @ w``),
 stacked ``[L, ...]`` per layer as in ``param_specs``; a Python loop over
 layers replaces ``lax.scan``; the paged KV pools ``[L, KV, NP, ps, HD]``
-(page 0 = trash page) are updated IN PLACE where the JAX version donates
-them to ``jax.jit``. ``params_from_jax`` turns the JAX param tree (as
-numpy) into these tensors, so the weights cross over by plain copy.
+(page 0 = trash page) and the contiguous cache ``[L, B, max_seq, KV, HD]``
+are updated IN PLACE where the JAX version donates them to ``jax.jit``.
+``params_from_jax`` turns the JAX param tree (as numpy) into these
+tensors, so the weights cross over by plain copy.
 
-Not ported yet (ROADMAP.md): the contiguous cache (``init_cache``,
-``decode_step``, ``prefill_tail_contiguous``, ``forward_with_cache``),
-int8 weights (``quantize_params_int8``), sharded training (``mesh``/
-``rules`` raise) and ``forward_sp``/``forward_pp``.
+Not ported yet (ROADMAP.md): sharded training (``mesh``/``rules`` raise)
+and ``forward_sp``/``forward_pp``.
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,32 +183,101 @@ def num_params(cfg: LlamaConfig) -> int:
 
 def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None):
     """The JAX param pytree (nested dicts of arrays; numpy or anything
-    np.asarray takes) -> the same dict of tensors on `device`, cast to
-    `dtype` when given. Layouts are identical, so this is a plain copy."""
+    np.asarray takes) -> the same dict of tensors on `device`, floating
+    leaves cast to `dtype` when given (integer leaves, such as int8
+    weights' ``q8``, stay integer). Layouts are identical, so this is a
+    plain copy."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     a = np.asarray(tree)
+    to = dtype
     if a.dtype.name == "bfloat16":       # ml_dtypes: no torch counterpart
         a = a.astype(np.float32)
-        dtype = dtype or torch.bfloat16
+        to = dtype or torch.bfloat16
     t = torch.from_numpy(np.array(a, copy=True))
-    return t.to(device=device, dtype=dtype or t.dtype)
+    if not t.is_floating_point():
+        to = None
+    return t.to(device=device, dtype=to or t.dtype)
 
 
 # --- building blocks --------------------------------------------------------
 
 
+def _is_q8(w) -> bool:
+    return isinstance(w, dict) and "q8" in w
+
+
+def quantize_params_int8(params) -> Dict[str, Any]:
+    """Weight-only per-output-channel int8 quantization for serving (int8
+    is not differentiable; training never sees it). Matmul weights (embed,
+    lm_head, the per-layer projections) become {"q8": int8, "s8": bf16
+    scale}, with s8 [1, D] for embed, [1, V] for lm_head and [L, 1, N] for
+    layer weights; norms stay float. Idempotent: quantized leaves pass
+    through. The scale is max |w| / 127 over the input axes, in f32; q8 =
+    round(w / s) (half to even, as jnp.round) clipped to [-127, 127], so
+    the tree equals the JAX one bit for bit. Layer weights are quantized
+    one layer at a time, which bounds the f32 transient to one layer."""
+
+    def quant_one(f):
+        axes = tuple(range(f.ndim - 1))
+        m = torch.amax(f.abs(), dim=axes, keepdim=True)
+        # a tensor divisor: CUDA turns division by a Python scalar into a
+        # product with its reciprocal, which may differ in the last bit
+        s = m / torch.full_like(m, 127.0)
+        s = torch.clamp(s, min=1e-8)
+        q = torch.clamp(torch.round(f / s), -127, 127).to(torch.int8)
+        return q, s.to(torch.bfloat16)
+
+    def quant(w, keep_first: bool):
+        if _is_q8(w) or w.ndim < 2 or not w.is_floating_point():
+            return w
+        if not keep_first:
+            q, s = quant_one(w.float())
+            return {"q8": q, "s8": s}
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty((w.shape[0], *([1] * (w.ndim - 2)), w.shape[-1]),
+                        dtype=torch.bfloat16, device=w.device)
+        for i in range(w.shape[0]):
+            q[i], s[i] = quant_one(w[i].float())
+        return {"q8": q, "s8": s}
+
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            out[k] = {kk: (vv if kk.endswith("norm")
+                           else quant(vv, keep_first=True))
+                      for kk, vv in v.items()}
+        elif k in ("embed", "lm_head"):
+            out[k] = quant(v, keep_first=False)
+        else:
+            out[k] = v
+    return out
+
+
 def _dq(w, dt):
-    """A weight in the compute dtype (int8 dequantization comes with the
-    int8 port)."""
+    """One weight in the compute dtype; int8 leaves dequantize here, at
+    their use (a bf16 copy on the card, where XLA fused the convert into
+    the consuming dot)."""
+    if _is_q8(w):
+        return w["q8"].to(dt) * w["s8"].to(dt)
     return w.to(dt)
 
 
-def _unstack_layers(layers: Dict[str, torch.Tensor]):
+def _unbind(v):
+    """A stacked [L, ...] leaf (or {"q8", "s8"} pair) as L per-layer
+    views."""
+    if isinstance(v, dict):
+        cols = {k: _unbind(x) for k, x in v.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    return v.unbind(0)
+
+
+def _unstack_layers(layers: Dict[str, Any]):
     """The stacked [L, ...] params as L per-layer dicts of views. One
     ``unbind`` a tensor: its backward stacks the L gradients once, where L
     ``v[i]`` selects would each scatter into a full-size zero tensor."""
-    cols = {k: v.unbind(0) for k, v in layers.items()}
+    cols = {k: _unbind(v) for k, v in layers.items()}
     n = len(next(iter(cols.values())))
     return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
@@ -231,9 +310,12 @@ def _checkpoint(body, cfg: "LlamaConfig"):
 
 
 def _embed(params, tokens, dt):
-    """Embedding lookup: gather the rows, then cast (never the whole
-    [V, D] table)."""
-    return params["embed"][tokens.long()].to(dt)
+    """Embedding lookup: gather the rows, then cast or dequantize only
+    them (never the whole [V, D] table)."""
+    w = params["embed"]
+    if _is_q8(w):
+        return w["q8"][tokens.long()].to(dt) * w["s8"].to(dt)
+    return w[tokens.long()].to(dt)
 
 
 def rms_norm(x, scale, eps):
@@ -307,9 +389,11 @@ def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0):
     return _attention_xla(q, k, v, causal, q_offset, window=win)
 
 
-def _layer(x, lp, cfg: LlamaConfig, cos, sin, collect_kv=False):
-    """One transformer block. x: [B, S, D]. collect_kv=True also returns
-    this layer's (k, v) for cache seeding."""
+def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False):
+    """One transformer block. x: [B, S, D]. cache: (k, v, offset) with k/v
+    one layer's [B, max_seq, KV, HD] cache, written IN PLACE at offset, or
+    None. collect_kv=True returns this layer's (k, v) for cache seeding;
+    otherwise the second value is the (k, v) cache or None."""
     B, S, D = x.shape
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cfg.dtype
@@ -328,7 +412,21 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin, collect_kv=False):
         v = (h @ _dq(lp["wv"], dt)).reshape(B, S, KV, HD)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = _attention(q, k, v, cfg, causal=True).reshape(B, S, H * HD)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv, offset = cache
+        # dynamic_update_slice clamps its start so the update fits
+        start = max(0, min(offset, ck.shape[1] - S))
+        ck[:, start:start + S] = k.to(ck.dtype)
+        cv[:, start:start + S] = v.to(cv.dtype)
+        # keys past offset + S are masked by the causal offset
+        attn = _attention(q, ck.to(dt), cv.to(dt), cfg, causal=True,
+                          q_offset=offset)
+        new_cache = (ck, cv)
+    else:
+        attn = _attention(q, k, v, cfg, causal=True)
+    attn = attn.reshape(B, S, H * HD)
     x = x + attn @ _dq(lp["wo"], dt)
 
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
@@ -343,7 +441,7 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin, collect_kv=False):
     x = x + (gate * up) @ _dq(lp["w_down"], dt)
     if collect_kv:
         return x, (k, v)
-    return x, None
+    return x, new_cache
 
 
 def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
@@ -408,6 +506,203 @@ def _mlp_block(x, lp, dt, eps):
     gate = F.silu(h @ _dq(lp["w_gate"], dt))
     up = h @ _dq(lp["w_up"], dt)
     return x + (gate * up) @ _dq(lp["w_down"], dt)
+
+
+# --- inference (contiguous KV cache) ----------------------------------------
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # [L, B, max_seq, KV, HD]
+    v: torch.Tensor
+    length: torch.Tensor   # [B] int32: per-sequence filled length
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_seq: Optional[int] = None,
+               dtype=None, device=None) -> KVCache:
+    """A zeroed contiguous cache, one [max_seq] row per slot, on `device`
+    (None means CUDA; raises without CUDA unless given "cpu")."""
+    from ray_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    S = max_seq or cfg.max_seq_len
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def cache_specs(cfg: LlamaConfig):
+    return KVCache(("layers", None, None, "kv_heads", "head_dim"),
+                   ("layers", None, None, "kv_heads", "head_dim"),
+                   (None,))
+
+
+@torch.no_grad()
+def decode_step(params, tokens, cache: KVCache, cfg: LlamaConfig,
+                active=None) -> Tuple[torch.Tensor, KVCache]:
+    """One continuous-batching decode step with PER-ROW positions.
+    tokens [B, 1]; cache.length [B] gives each row's write position; rows
+    where active == 0 keep their cache row as it was. Returns (logits
+    [B, V] f32, the cache with lengths advanced on active rows); k/v are
+    written in place. Softmax in f32, then p in the compute dtype for the
+    p.v product, as in JAX."""
+    dt = cfg.dtype
+    B = tokens.shape[0]
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    dev = tokens.device
+    pos = cache.length.long()                             # [B]
+    if active is None:
+        active = torch.ones((B,), dtype=torch.int32, device=dev)
+    live = active > 0
+    cos_full, sin_full = _rope_tables(cfg.rope_theta, cfg.max_seq_len,
+                                      cfg.head_dim, dev)
+    # a jnp gather clamps an out-of-range index
+    rpos = pos.clamp(0, cfg.max_seq_len - 1)
+    c = cos_full[rpos][:, None, None, :]                  # [B, 1, 1, HD/2]
+    s = sin_full[rpos][:, None, None, :]
+
+    x = _embed(params, tokens, dt)                        # [B, 1, D]
+    S = cache.k.shape[2]
+    kpos = torch.arange(S, device=dev)[None, :]           # [1, S]
+    attn_mask = (kpos <= pos[:, None]) & live[:, None]    # [B, S]
+    if cfg.sliding_window is not None:
+        # banded decode matches banded training: only the last W cached
+        # keys are visible (cache layout unchanged)
+        attn_mask = attn_mask & (pos[:, None] - kpos < cfg.sliding_window)
+    rows = torch.arange(B, device=dev)
+    # one row written per slot; dynamic_update_slice clamps its start
+    wpos = pos.clamp(0, S - 1)
+    keep = live[:, None, None]
+    for i, lp in enumerate(_unstack_layers(params["layers"])):
+        ck, cv = cache.k[i], cache.v[i]                   # [B, S, KV, HD]
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q = _rotate((h @ _dq(lp["wq"], dt)).reshape(B, 1, H, HD), c, s)
+        k = _rotate((h @ _dq(lp["wk"], dt)).reshape(B, 1, KV, HD), c, s)
+        v = (h @ _dq(lp["wv"], dt)).reshape(B, 1, KV, HD)
+        # inactive rows write back the value already there
+        ck[rows, wpos] = torch.where(keep, k[:, 0].to(ck.dtype),
+                                     ck[rows, wpos])
+        cv[rows, wpos] = torch.where(keep, v[:, 0].to(cv.dtype),
+                                     cv[rows, wpos])
+        kk, vv = ck.to(dt), cv.to(dt)
+        q5 = q.reshape(B, 1, KV, G, HD)
+        sc = torch.einsum("bqkgd,bskd->bkgqs", q5.float(),
+                          kk.float()) / (HD ** 0.5)
+        sc = torch.where(attn_mask[:, None, None, None, :], sc, -1e30)
+        p = torch.softmax(sc, dim=-1).to(dt)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, vv).reshape(B, 1, H * HD)
+        x = x + o @ _dq(lp["wo"], dt)
+        x = _mlp_block(x, lp, dt, cfg.norm_eps)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x[:, 0] @ _dq(params["lm_head"], dt)).float()
+    new_len = cache.length + active.to(cache.length.dtype)
+    return logits, KVCache(cache.k, cache.v, new_len)
+
+
+@torch.no_grad()
+def prefill_tail_contiguous(params, tokens, tail_len, prefix_len,
+                            cache: KVCache, slot_ids, cfg: LlamaConfig
+                            ) -> Tuple[torch.Tensor, KVCache]:
+    """Chunked prefill of a prompt segment into CONTIGUOUS cache rows, the
+    contiguous twin of ``prefill_paged_tail``. tokens [B, T] right-padded;
+    tail_len [B] true chunk lengths; prefix_len [B] tokens already in each
+    row; slot_ids [B] DISTINCT cache rows. Writes the chunk's KV at
+    positions prefix..prefix+tail of each slot row (in place), attends
+    causally over the row's filled length, and returns (logits at each
+    row's final chunk token [B, V] f32, the cache with length[slot] set to
+    prefix+tail on rows with tail_len > 0). Probabilities and V stay in
+    f32 until o is cast, as in JAX."""
+    dt = cfg.dtype
+    B, T = tokens.shape
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S = cache.k.shape[2]
+    grp = H // KV
+    dev = tokens.device
+    tail_len = tail_len.long()
+    prefix_len = prefix_len.long()
+    sl = slot_ids.long()
+
+    ar = torch.arange(T, device=dev)[None, :]
+    qpos = prefix_len[:, None] + ar                              # [B, T]
+    valid = ar < tail_len[:, None]                               # [B, T]
+    safe_q = torch.clamp(qpos, max=S - 1)
+    cos_full, sin_full = _rope_tables(cfg.rope_theta, cfg.max_seq_len,
+                                      cfg.head_dim, dev)
+    safe_pos = torch.clamp(qpos, max=cfg.max_seq_len - 1)
+    c = cos_full[safe_pos][:, :, None, :]                        # [B,T,1,HD/2]
+    s = sin_full[safe_pos][:, :, None, :]
+
+    kv_pos = torch.arange(S, device=dev)[None, :]                # [1, S]
+    total = (prefix_len + tail_len)[:, None]
+    mask = (kv_pos < total)[:, None, :] & \
+        (kv_pos[:, None, :] <= qpos[:, :, None])                 # [B, T, S]
+    if cfg.sliding_window is not None:
+        mask = mask & (qpos[:, :, None] - kv_pos[:, None, :]
+                       < cfg.sliding_window)
+    # only the valid tokens are written: pad positions all clamp to S - 1,
+    # where JAX writes back the old value in an undefined order; skipping
+    # them lets a valid token at S - 1 win
+    vb, vt = torch.nonzero(valid, as_tuple=True)
+    w_slot, w_pos = sl[vb], safe_q[vb, vt]
+
+    x = _embed(params, tokens, dt)                               # [B, T, D]
+    for i, lp in enumerate(_unstack_layers(params["layers"])):
+        ck, cv = cache.k[i], cache.v[i]                          # [Bc,S,KV,HD]
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q = _rotate((h @ _dq(lp["wq"], dt)).reshape(B, T, H, HD), c, s)
+        k = _rotate((h @ _dq(lp["wk"], dt)).reshape(B, T, KV, HD), c, s)
+        v = (h @ _dq(lp["wv"], dt)).reshape(B, T, KV, HD)
+        ck[w_slot, w_pos] = k[vb, vt].to(ck.dtype)
+        cv[w_slot, w_pos] = v[vb, vt].to(cv.dtype)
+        kg = torch.repeat_interleave(ck[sl].transpose(1, 2), grp, dim=1)
+        vg = torch.repeat_interleave(cv[sl].transpose(1, 2), grp, dim=1)
+        qh = q.transpose(1, 2)                                   # [B,H,T,HD]
+        scores = torch.einsum("bhtd,bhsd->bhts", qh.float(),
+                              kg.float()) / (HD ** 0.5)
+        scores = torch.where(mask[:, None], scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bhts,bhsd->bhtd", probs, vg.float()).to(dt)
+        o = o.transpose(1, 2).reshape(B, T, H * HD)
+        x = x + o @ _dq(lp["wo"], dt)
+        x = _mlp_block(x, lp, dt, cfg.norm_eps)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    idx = torch.clamp(tail_len - 1, 0, T - 1)
+    last = x[torch.arange(B, device=dev), idx]
+    logits = (last @ _dq(params["lm_head"], dt)).float()
+    old_len = cache.length[sl]
+    new_len = torch.where(tail_len > 0,
+                          (prefix_len + tail_len).to(old_len.dtype), old_len)
+    length = cache.length.clone()
+    length[sl] = new_len
+    return logits, KVCache(cache.k, cache.v, length)
+
+
+@torch.no_grad()
+def forward_with_cache(params, tokens, cache: KVCache, cfg: LlamaConfig,
+                       offset) -> Tuple[torch.Tensor, KVCache]:
+    """Run [B, S] tokens at position `offset` (an int, uniform across the
+    batch), filling the cache in place. Returns last-position logits
+    [B, V] f32 and the cache with every length advanced by S. At offset 0
+    with ``attn_impl="flash"`` and S >= 128 the attention is the flash
+    kernel over the whole [max_seq] row (causality masks the keys past
+    S)."""
+    dt = cfg.dtype
+    B, S = tokens.shape
+    offset = int(offset)
+    x = _embed(params, tokens, dt)
+    cos_full, sin_full = _rope_tables(cfg.rope_theta, cfg.max_seq_len,
+                                      cfg.head_dim, x.device)
+    # dynamic_slice_in_dim clamps its start so the slice fits
+    st = max(0, min(offset, cfg.max_seq_len - S))
+    cos, sin = cos_full[st:st + S], sin_full[st:st + S]
+    for i, lp in enumerate(_unstack_layers(params["layers"])):
+        x, _ = _layer(x, lp, cfg, cos, sin,
+                      cache=(cache.k[i], cache.v[i], offset))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x[:, -1, :] @ _dq(params["lm_head"], dt)
+    return logits.float(), KVCache(cache.k, cache.v, cache.length + S)
 
 
 # --- inference (paged KV cache) ---------------------------------------------

@@ -5,14 +5,21 @@ fixed-size pages, ``[KV, NP, ps, HD]`` per layer; each decode slot owns a
 row of page indices (its page table), so device memory scales with the
 tokens in use, not with ``slots * max_seq``. Page 0 is the trash page.
 
-``paged_decode_attention_inplace`` is the fused decode step (TPU kernel
-K6, ``_kernel_inplace``): write each live slot's new k/v at position
-``length - 1`` of its tip page and attend, in one call of the kernel in
-``csrc/paged_attention.cu`` (a split pass over ~256-token pieces of each
-slot, then a merge pass). The pools are updated IN PLACE (the JAX
-version aliases them through donated buffers). For CPU tensors the
-wrapper runs ``paged_decode_attention_inplace_reference``; for CUDA
-tensors it launches the kernel or raises.
+Two kernels, one CUDA source (``csrc/paged_attention.cu``; a split pass
+over ~256-token pieces of each slot, then a merge pass):
+
+- ``paged_decode_attention_inplace`` is the fused decode step (TPU kernel
+  K6, ``_kernel_inplace``): write each live slot's new k/v at position
+  ``length - 1`` of its tip page and attend. The pools are updated IN
+  PLACE (the JAX version aliases them through donated buffers);
+- ``paged_attention`` is read-only decode attention (TPU kernel K5,
+  ``_kernel``): the same split kernel with the write compiled out, every
+  K/V row read from the pool, the pools never written.
+
+For CPU tensors each wrapper runs its plain version
+(``paged_decode_attention_inplace_reference``,
+``paged_attention_reference``); for CUDA tensors it launches its kernel or
+raises.
 
 Shapes: q [S, H, HD] (one new token per slot), k_new/v_new [S, KV, HD],
 pools [KV, NP, ps, HD], page_table [S, maxP] int32, lengths [S] int32
@@ -29,8 +36,10 @@ from ray_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
-#: launches of the CUDA kernel (counted where it is launched, nowhere else)
+#: launches of the fused write+attend kernel (K6) and of the read-only one
+#: (K5), each counted where it is launched, nowhere else
 launches = 0
+launches_read = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GROUPS = (1, 2, 4, 8)          # query heads per kv head the kernel is built for
@@ -90,14 +99,84 @@ def kernel_tolerance(plain_out):
 
 def _lib():
     lib = _build.load("paged_attention")
-    fn = lib.paged_decode_attention_inplace
-    if fn.argtypes is None:
-        P = ctypes.c_void_p
-        I = ctypes.c_int
-        fn.argtypes = [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                       I, I, I, ctypes.c_float, P]
-        fn.restype = I
+    P = ctypes.c_void_p
+    I = ctypes.c_int
+    for name, n_ptr in (("paged_decode_attention_inplace", 10),
+                        ("paged_attention", 8)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [I] + [P] * n_ptr + [I] * 9 + [ctypes.c_float, P]
+            fn.restype = I
     return lib
+
+
+def _launch(what, q, k_pool, v_pool, page_table, lengths, k_new=None,
+            v_new=None):
+    """Check the inputs and launch K6 (given k_new/v_new) or K5 on the
+    current stream; returns o [S, H, HD]."""
+    S, H, HD = q.shape
+    KV, NP, ps, _ = k_pool.shape
+    maxP = page_table.shape[1]
+    new = [t for t in (k_new, v_new) if t is not None]
+    tensors = (q, k_pool, v_pool, page_table, lengths, *new)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what}: all inputs must be on one CUDA device")
+    dt = q.dtype
+    if dt not in _DTYPES or any(t.dtype != dt for t in
+                                (k_pool, v_pool, *new)):
+        raise TypeError(f"{what}: q, the pools (and k_new, v_new) must share "
+                        f"one dtype of {list(_DTYPES)}; got "
+                        f"{[t.dtype for t in tensors]}")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("page_table and lengths must be int32")
+    vec = 16 // q.element_size()          # elements in a 16-byte load
+    lpt = HD // vec                       # lanes sharing one K/V row
+    if (any(t.shape != (S, KV, HD) for t in new)
+            or v_pool.shape != k_pool.shape or k_pool.shape[3] != HD
+            or page_table.shape[0] != S or lengths.shape != (S,)
+            or KV == 0 or H % KV):
+        raise ValueError(
+            f"{what}: bad shapes q {tuple(q.shape)} pool "
+            f"{tuple(k_pool.shape)} table {tuple(page_table.shape)} lengths "
+            f"{tuple(lengths.shape)} new "
+            f"{[tuple(t.shape) for t in new]}")
+    G = H // KV
+    if G not in _GROUPS or HD % vec or lpt > 32 or 32 % lpt:
+        raise NotImplementedError(
+            f"paged decode kernel is built for H/KV in {_GROUPS} and head "
+            f"dims whose 16-byte chunks split a warp; got G={G}, HD={HD}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("the pools are read (and K6 updates them) in place "
+                         "and must be contiguous")
+    pps = max(1, _SPLIT_TOKENS // ps)     # pages a block attends over
+    n_split = -(-maxP // pps)
+    smem = 4 * (G * HD + 2 * HD + G * pps * ps
+                + (_THREADS // lpt) * G * HD + 2 * G)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"paged decode block needs {smem} bytes of shared "
+                         f"memory (G={G}, HD={HD}, page_size={ps})")
+    q = q.contiguous()
+    new = [t.contiguous() for t in new]
+    page_table, lengths = page_table.contiguous(), lengths.contiguous()
+    if any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
+        raise ValueError("the pools must be 16-byte aligned")
+    out = torch.empty_like(q)
+    # per-split softmax state, merged by the kernel's second pass
+    part_o = torch.empty((S, KV, n_split, G, HD), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((S, KV, n_split, G, 2), dtype=torch.float32,
+                          device=q.device)
+    lib = _lib()
+    fn = getattr(lib, what)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(_DTYPES[dt], q.data_ptr(), *(t.data_ptr() for t in new),
+                k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(),
+                part_ml.data_ptr(), S, H, KV, NP, ps, HD, maxP, pps, n_split,
+                HD ** -0.5, stream)
+    _build.check(lib, rc, what)
+    return out
 
 
 def paged_decode_attention_inplace(q, k_new, v_new, k_pool, v_pool,
@@ -111,65 +190,20 @@ def paged_decode_attention_inplace(q, k_new, v_new, k_pool, v_pool,
     if not q.is_cuda:
         return paged_decode_attention_inplace_reference(
             q, k_new, v_new, k_pool, v_pool, page_table, lengths)
-    S, H, HD = q.shape
-    KV, NP, ps, _ = k_pool.shape
-    maxP = page_table.shape[1]
-    tensors = (q, k_new, v_new, k_pool, v_pool, page_table, lengths)
-    if any(t.device != q.device for t in tensors):
-        raise ValueError("paged_decode_attention_inplace: all inputs must "
-                         "be on one CUDA device")
-    dt = q.dtype
-    if dt not in _DTYPES or any(t.dtype != dt for t in
-                                (k_new, v_new, k_pool, v_pool)):
-        raise TypeError(f"paged_decode_attention_inplace: q, k_new, v_new "
-                        f"and the pools must share one dtype of "
-                        f"{list(_DTYPES)}; got {[t.dtype for t in tensors]}")
-    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("page_table and lengths must be int32")
-    vec = 16 // q.element_size()          # elements in a 16-byte load
-    lpt = HD // vec                       # lanes sharing one K/V row
-    if (k_new.shape != (S, KV, HD) or v_new.shape != (S, KV, HD)
-            or v_pool.shape != k_pool.shape or k_pool.shape[3] != HD
-            or page_table.shape[0] != S or lengths.shape != (S,)
-            or KV == 0 or H % KV):
-        raise ValueError(
-            f"paged_decode_attention_inplace: bad shapes q {tuple(q.shape)} "
-            f"k_new {tuple(k_new.shape)} pool {tuple(k_pool.shape)} "
-            f"table {tuple(page_table.shape)} lengths {tuple(lengths.shape)}")
-    G = H // KV
-    if G not in _GROUPS or HD % vec or lpt > 32 or 32 % lpt:
-        raise NotImplementedError(
-            f"paged decode kernel is built for H/KV in {_GROUPS} and head "
-            f"dims whose 16-byte chunks split a warp; got G={G}, HD={HD}")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("the pools are updated in place and must be "
-                         "contiguous")
-    pps = max(1, _SPLIT_TOKENS // ps)     # pages a block attends over
-    n_split = -(-maxP // pps)
-    smem = 4 * (G * HD + 2 * HD + G * pps * ps
-                + (_THREADS // lpt) * G * HD + 2 * G)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"paged decode block needs {smem} bytes of shared "
-                         f"memory (G={G}, HD={HD}, page_size={ps})")
-    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
-    page_table, lengths = page_table.contiguous(), lengths.contiguous()
-    if any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
-        raise ValueError("the pools must be 16-byte aligned")
-    out = torch.empty_like(q)
-    # per-split softmax state, merged by the kernel's second pass
-    part_o = torch.empty((S, KV, n_split, G, HD), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((S, KV, n_split, G, 2), dtype=torch.float32,
-                          device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode_attention_inplace(
-            _DTYPES[dt], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(),
-            part_ml.data_ptr(), S, H, KV, NP, ps, HD, maxP, pps, n_split,
-            HD ** -0.5, stream)
-    _build.check(lib, rc, "paged_decode_attention_inplace")
+    out = _launch("paged_decode_attention_inplace", q, k_pool, v_pool,
+                  page_table, lengths, k_new, v_new)
     launches += 1
     return out, k_pool, v_pool
+
+
+def paged_attention(q, k_pool, v_pool, page_table, lengths):
+    """q [S, H, HD] -> [S, H, HD], read-only. lengths INCLUDE the current
+    token (its k/v already in the pool). Length-0 slots output zeros on the
+    card (garbage on the CPU, as in JAX); callers mask them."""
+    global launches_read
+    if not q.is_cuda:
+        return paged_attention_reference(q, k_pool, v_pool, page_table,
+                                         lengths)
+    out = _launch("paged_attention", q, k_pool, v_pool, page_table, lengths)
+    launches_read += 1
+    return out

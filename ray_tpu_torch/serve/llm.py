@@ -1,26 +1,35 @@
-"""Continuous-batching LLM engine over a paged KV cache, in PyTorch.
+"""Continuous-batching LLM engine, in PyTorch.
 
-Port of ``ray_tpu/serve/llm.py``'s ``LLMEngine`` for ``kv_layout="paged"``:
+Port of ``ray_tpu/serve/llm.py``'s ``LLMEngine``, both KV layouts:
+
+- ``kv_layout="contiguous"`` (the default, as in JAX): one [max_seq] cache
+  row per slot (``llama.KVCache``); decode is ``llama.decode_step`` and
+  chunked prefill ``llama.prefill_tail_contiguous``. The only layout that
+  serves sliding-window models;
+- ``kv_layout="paged"``: the paged pools with FIFO page gating, prefix
+  caching and recompute-preemption on the copied ``paged_kv.PagePool``;
+  decode runs the fused paged kernel K6 on every layer.
+
+Common to both:
 
 - a fixed pool of decode SLOTS: every decode step runs [max_slots] rows
   whatever the number of live requests (inactive rows are masked);
 - bucketed prefill: prompts are right-padded to a power-of-two bucket, as
   in the JAX engine, so both engines see the same shapes (and buckets of
   at least 128 tokens take the flash kernel under ``attn_impl="flash"``);
-- admission between decode steps with FIFO page gating, chunked prefill,
-  automatic prefix caching and recompute-preemption, on the copied
-  ``paged_kv.PagePool``;
+- admission between decode steps, with chunked prefill;
 - ``step_n``: n decode steps with ON-DEVICE greedy/temperature sampling
-  and one host fetch per block.
+  and one host fetch per block (``step`` is ``step_n(1)``);
+- ``quantize="int8"``: weight-only int8 (``llama.quantize_params_int8``),
+  applied after the init or to a caller's params (idempotent).
 
-PyTorch replaces ``jax.jit`` with eager calls: the KV pools are updated in
+PyTorch replaces ``jax.jit`` with eager calls: the caches are updated in
 place by the kernels and scatters (where JAX donates them), and the
 device-resident decode state (last tokens, masks, temperatures, lengths,
 page table) is uploaded only when slot membership changes, as in JAX.
 
-Not ported yet (ROADMAP.md): ``kv_layout="contiguous"``,
-``quantize="int8"``, mesh sharding, the cluster metrics instruments
-(the local ``metrics`` dict stays) and ``LLMServer``.
+Not ported yet (ROADMAP.md): mesh sharding, the cluster metrics
+instruments (the local ``metrics`` dict stays) and ``LLMServer``.
 """
 
 from __future__ import annotations
@@ -70,7 +79,7 @@ class LLMEngine:
     def __init__(self, cfg=None, params=None, *, preset: str = "tiny",
                  max_slots: int = 8, max_seq_len: Optional[int] = None,
                  eos_token: int = -1, seed: int = 0, mesh=None, rules=None,
-                 kv_layout: str = "paged", page_size: int = 64,
+                 kv_layout: str = "contiguous", page_size: int = 64,
                  num_pages: Optional[int] = None,
                  max_queue_depth: Optional[int] = None,
                  prefix_caching: bool = True,
@@ -82,18 +91,11 @@ class LLMEngine:
             raise NotImplementedError(
                 "sharded serving is not ported yet (ROADMAP.md queue 1, "
                 "with parallel/)")
-        if quantize is not None:
-            if quantize != "int8":
-                raise ValueError(f"quantize must be 'int8', got {quantize!r}")
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP.md queue 1)")
+        if quantize is not None and quantize != "int8":
+            raise ValueError(f"quantize must be 'int8', got {quantize!r}")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"kv_layout must be 'contiguous' or 'paged', "
                              f"got {kv_layout!r}")
-        if kv_layout == "contiguous":
-            raise NotImplementedError(
-                "kv_layout='contiguous' is not ported yet (ROADMAP.md "
-                "queue 1); use kv_layout='paged'")
         if cfg is None:
             cfg = llama.PRESETS[preset]
             if dev.type != "cuda":
@@ -104,7 +106,7 @@ class LLMEngine:
             # decode sizes its RoPE tables from cfg.max_seq_len; RoPE is
             # computed, not learned, so extending the cfg is exact
             cfg = cfg.replace(max_seq_len=self.max_seq)
-        if cfg.sliding_window is not None:
+        if kv_layout == "paged" and cfg.sliding_window is not None:
             raise ValueError(
                 "kv_layout='paged' does not support sliding_window "
                 "configs; use the contiguous layout for windowed models")
@@ -112,35 +114,44 @@ class LLMEngine:
         self.max_slots = max_slots
         self.eos = eos_token
         self.max_queue_depth = max_queue_depth
-        self.quantize = quantize
         if params is None:
             # serving holds no master weights: init in the compute dtype
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = llama.init_params(gen, cfg.replace(param_dtype=cfg.dtype))
+        if quantize == "int8":
+            # weight-only int8: device memory at rest halves against bf16
+            # (7B: ~6.7 GB); idempotent, so a quantized tree passes through
+            params = llama.quantize_params_int8(params)
+        self.quantize = quantize
         self.params = params
         self.kv_layout = kv_layout
-
-        maxP = -(-self.max_seq // page_size)
-        # default pool = the memory a contiguous cache would commit
-        # (+ trash page); the paged win is packing MORE slots into it
-        num_pages = num_pages or max_slots * maxP + 1
-        self.kp, self.vp = llama.init_paged_cache(cfg, num_pages, page_size,
-                                                  device=dev)
-        page_nbytes = (self.kp.nbytes + self.vp.nbytes) // num_pages
-        self.pool = PagePool(num_pages, page_size, max_slots, maxP,
-                             page_nbytes=page_nbytes)
-        # automatic prefix caching: share full prompt pages by content
-        # hash; a hit skips that prefix's prefill compute and memory, and
-        # chunked tail-prefill rounds finish admission
+        # automatic prefix caching (paged only): share full prompt pages by
+        # content hash; a hit skips that prefix's prefill compute and
+        # memory, and chunked tail-prefill rounds finish admission
         self.prefix_caching = bool(prefix_caching)
         self.prefix_cache_max_tail = (
             prefix_cache_max_tail if prefix_cache_max_tail is not None
             else 4 * page_size)
-        self._len_host = np.zeros((max_slots,), np.int64)
-        self._pt_dev = torch.as_tensor(self.pool.table, device=dev)
-        self._len_dev = torch.zeros((max_slots,), dtype=torch.int32,
-                                    device=dev)
-        self._table_dirty = False
+        if kv_layout == "paged":
+            maxP = -(-self.max_seq // page_size)
+            # default pool = the memory a contiguous cache would commit
+            # (+ trash page); the paged win is packing MORE slots into it
+            num_pages = num_pages or max_slots * maxP + 1
+            self.kp, self.vp = llama.init_paged_cache(cfg, num_pages,
+                                                      page_size, device=dev)
+            page_nbytes = (self.kp.nbytes + self.vp.nbytes) // num_pages
+            self.pool = PagePool(num_pages, page_size, max_slots, maxP,
+                                 page_nbytes=page_nbytes)
+            self._len_host = np.zeros((max_slots,), np.int64)
+            self._pt_dev = torch.as_tensor(self.pool.table, device=dev)
+            self._len_dev = torch.zeros((max_slots,), dtype=torch.int32,
+                                        device=dev)
+            self._table_dirty = False
+            self.cache = None
+        else:
+            self.pool = None
+            self.cache = llama.init_cache(cfg, max_slots, max_seq=self.max_seq,
+                                          device=dev)
         self.slots: List[Optional[_Request]] = [None] * max_slots
         self.lock = threading.Lock()
         self.pending: List[_Request] = []
@@ -208,7 +219,11 @@ class LLMEngine:
 
     def _chunk_size(self) -> int:
         """Tokens of prefill per admission round for the chunked path."""
-        return self.prefill_chunk or self.prefix_cache_max_tail
+        if self.prefill_chunk:
+            return self.prefill_chunk
+        if self.kv_layout == "paged":
+            return self.prefix_cache_max_tail
+        return 512
 
     def _admit(self):
         chunk = self._chunk_size()
@@ -216,34 +231,16 @@ class LLMEngine:
             free = [i for i, s in enumerate(self.slots) if s is None]
             chunked_new = []
             admit = []
-            # FIFO admission gated on BOTH a free slot and enough free
-            # pages for the prompt — head-of-line blocks rather than
-            # starving long prompts
-            for r in list(self.pending):
-                if not free:
-                    break
-                plen = min(len(r.prompt), self.max_seq - 1)
-                # a prompt that can NEVER fit must fail now, or it
-                # head-of-line blocks the queue forever
-                if self.pool.pages_for(plen) > min(
-                        self.pool.max_pages_per_slot,
-                        self.pool.num_pages - 1):
+            if self.kv_layout == "paged":
+                self._admit_paged(free, chunk, chunked_new, admit)
+            else:
+                for r in list(self.pending):
+                    if not free:
+                        break
+                    plen = min(len(r.prompt), self.max_seq - 1)
+                    self._assign_slot(r, free.pop(0), plen, chunk,
+                                      chunked_new, admit)
                     self.pending.remove(r)
-                    r.error = (f"prompt of {plen} tokens exceeds the "
-                               f"KV page pool capacity")
-                    r.done_event.set()
-                    r.progress.set()
-                    continue
-                if self._try_admit_cached(r, free, plen):
-                    chunked_new.append(r)
-                    self.pending.remove(r)
-                    continue
-                slot = free[0]
-                if not self.pool.grow(slot, plen):
-                    break
-                free.pop(0)
-                self._assign_slot(r, slot, plen, chunk, chunked_new, admit)
-                self.pending.remove(r)
             self._prefilling.extend(chunked_new)
         # advance every mid-prefill request (fresh prefix hits included)
         # by one bounded chunk — one batched call for the whole set
@@ -260,19 +257,55 @@ class LLMEngine:
         lens_dev = self._tensor(lens)
         logits, ks, vs = llama.prefill(self.params, self._tensor(toks),
                                        lens_dev, self.cfg)
-        self._pt_dev = self._tensor(self.pool.table)
-        llama.scatter_prefill_pages(
-            self.kp, self.vp, ks, vs, self._pt_dev,
-            self._tensor([r.slot for r in admit]), lens_dev,
-            self.pool.page_size)
+        slots = self._tensor([r.slot for r in admit], torch.long)
+        if self.kv_layout == "paged":
+            self._pt_dev = self._tensor(self.pool.table)
+            llama.scatter_prefill_pages(self.kp, self.vp, ks, vs,
+                                        self._pt_dev, slots, lens_dev,
+                                        self.pool.page_size)
+            for i, r in enumerate(admit):
+                self._len_host[r.slot] = int(lens[i])
+            self._len_dev = self._tensor(self._len_host)
+            self._table_dirty = False
+        else:
+            # the new KV into the slots' cache rows, and their lengths
+            self.cache.k[:, slots, :P] = ks.to(self.cache.k.dtype)
+            self.cache.v[:, slots, :P] = vs.to(self.cache.v.dtype)
+            self.cache.length[slots] = lens_dev
         del ks, vs
         for i, r in enumerate(admit):
-            self._len_host[r.slot] = int(lens[i])
             r._filled = int(lens[i])
-        self._len_dev = self._tensor(self._len_host)
-        self._table_dirty = False
         self._masks_dirty = True
         self._emit_first_tokens(list(enumerate(admit)), logits, len(admit))
+
+    def _admit_paged(self, free, chunk, chunked_new, admit):
+        """FIFO admission gated on BOTH a free slot and enough free pages
+        for the prompt (caller holds self.lock) — head-of-line blocks
+        rather than starving long prompts."""
+        for r in list(self.pending):
+            if not free:
+                break
+            plen = min(len(r.prompt), self.max_seq - 1)
+            # a prompt that can NEVER fit must fail now, or it
+            # head-of-line blocks the queue forever
+            if self.pool.pages_for(plen) > min(
+                    self.pool.max_pages_per_slot, self.pool.num_pages - 1):
+                self.pending.remove(r)
+                r.error = (f"prompt of {plen} tokens exceeds the KV page "
+                           f"pool capacity")
+                r.done_event.set()
+                r.progress.set()
+                continue
+            if self._try_admit_cached(r, free, plen):
+                chunked_new.append(r)
+                self.pending.remove(r)
+                continue
+            slot = free[0]
+            if not self.pool.grow(slot, plen):
+                break
+            free.pop(0)
+            self._assign_slot(r, slot, plen, chunk, chunked_new, admit)
+            self.pending.remove(r)
 
     def _assign_slot(self, r, slot: int, plen: int, chunk: int,
                      chunked_new: list, admit: list):
@@ -284,7 +317,8 @@ class LLMEngine:
             # long prompt: bounded chunks across admission rounds
             r._tail = list(r.prompt[-plen:])
             r._filled = 0
-            self._len_host[slot] = 0
+            if self.kv_layout == "paged":
+                self._len_host[slot] = 0
             chunked_new.append(r)
         else:
             admit.append(r)
@@ -310,7 +344,8 @@ class LLMEngine:
             if r.first_token_time is None:
                 self._record_first_token(r, now)
             self.metrics["tokens_generated"] += 1
-            if self.prefix_caching and r._filled < self.max_seq:
+            if (self.kv_layout == "paged" and self.prefix_caching
+                    and r._filled < self.max_seq):
                 # register this prompt's FULL pages for later hits (they
                 # stay read-only: decode appends past the fill). Prompts
                 # truncated to the FULL max_seq window are skipped: the
@@ -332,11 +367,17 @@ class LLMEngine:
         takes = [min(len(r._tail), chunk) for r in rows]
         Tb = self._bucket(max(takes))
         n = len(rows)
-        # pad the batch to a power of two, as the JAX engine does to bound
-        # its programs; pad rows have tail_len 0 and write the trash page
-        nb = 1
-        while nb < n:
-            nb *= 2
+        if self.kv_layout == "paged":
+            # pad the batch to a power of two, as the JAX engine does to
+            # bound its programs; pad rows have tail_len 0 and write the
+            # trash page
+            nb = 1
+            while nb < n:
+                nb *= 2
+        else:
+            # contiguous has no trash row a pad entry could target, so the
+            # batch stays exact
+            nb = n
         toks = np.zeros((nb, Tb), np.int32)
         tl = np.zeros((nb,), np.int32)
         pl = np.zeros((nb,), np.int32)
@@ -345,22 +386,31 @@ class LLMEngine:
             toks[i, :len(t)] = t
             tl[i] = len(t)
             pl[i] = r._filled
-        tab = np.zeros((nb, self.pool.table.shape[1]), np.int32)
-        tab[:n] = self.pool.table[[r.slot for r in rows]]
-        logits, _, _ = llama.prefill_paged_tail(
-            self.params, self._tensor(toks), self._tensor(tl),
-            self._tensor(pl), self._tensor(tab), self.kp, self.vp, self.cfg)
+        if self.kv_layout == "paged":
+            tab = np.zeros((nb, self.pool.table.shape[1]), np.int32)
+            tab[:n] = self.pool.table[[r.slot for r in rows]]
+            logits, _, _ = llama.prefill_paged_tail(
+                self.params, self._tensor(toks), self._tensor(tl),
+                self._tensor(pl), self._tensor(tab), self.kp, self.vp,
+                self.cfg)
+        else:
+            logits, self.cache = llama.prefill_tail_contiguous(
+                self.params, self._tensor(toks), self._tensor(tl),
+                self._tensor(pl), self.cache,
+                self._tensor([r.slot for r in rows]), self.cfg)
         finished = []
         with self.lock:
             for i, r in enumerate(rows):
                 r._filled += takes[i]
                 r._tail = r._tail[takes[i]:]
-                self._len_host[r.slot] = r._filled
+                if self.kv_layout == "paged":
+                    self._len_host[r.slot] = r._filled
                 if not r._tail:
                     finished.append((i, r))
                     self._prefilling.remove(r)
             self._masks_dirty = True
-            self._table_dirty = True
+            if self.kv_layout == "paged":
+                self._table_dirty = True
         self._emit_first_tokens(finished, logits, nb)
 
     def _try_admit_cached(self, r, free: List[int], plen: int) -> bool:
@@ -431,9 +481,10 @@ class LLMEngine:
                 or self._seq_len(r) >= self.max_seq - 1):
             with self.lock:
                 if r.slot >= 0:
-                    self.pool.release(r.slot)
-                    self._len_host[r.slot] = 0
-                    self._table_dirty = True
+                    if self.kv_layout == "paged":
+                        self.pool.release(r.slot)
+                        self._len_host[r.slot] = 0
+                        self._table_dirty = True
                     self.slots[r.slot] = None
                     r.slot = -1
                     self._masks_dirty = True
@@ -525,18 +576,19 @@ class LLMEngine:
                 cap = len(self.pool.owned[slot]) * self.pool.page_size
                 return max(min(n, cap - int(self._len_host[slot])), 0)
 
-    def _sync_paged_device_state(self, active_mask, temps=None):
+    def _sync_device_state(self, active_mask, temps):
         """Upload ONLY what went stale: the steady decode loop uploads
-        nothing (lengths advance on the device; the table and masks
+        nothing (lengths advance on the device; the page table and masks
         change only on admit/finish/preempt/page growth)."""
-        if self._table_dirty:
+        paged = self.kv_layout == "paged"
+        if paged and self._table_dirty:
             self._pt_dev = self._tensor(self.pool.table)
             self._table_dirty = False
         if self._masks_dirty:
             self._active_dev = self._tensor(active_mask)
-            if temps is not None:
-                self._temps_dev = self._tensor(temps, torch.float32)
-            self._len_dev = self._tensor(self._len_host)
+            self._temps_dev = self._tensor(temps, torch.float32)
+            if paged:
+                self._len_dev = self._tensor(self._len_host)
             self._masks_dirty = False
         return self._active_dev
 
@@ -597,34 +649,41 @@ class LLMEngine:
         while b * 2 <= n_eff:
             b *= 2
         n_eff = b
-        n_cap = self._ensure_paged_capacity(n_eff)
-        if n_cap < 1:
-            for r in list(active_reqs):
-                # page-capped truncation is an ERROR the client must see
-                r.max_new_tokens = len(r.generated)
-                r.error = ("generation truncated: KV page pool "
-                           f"exhausted after {len(r.generated)} tokens")
-                self._maybe_finish(r)
-            return 0
-        while n_eff > n_cap:
-            n_eff //= 2
-        # capacity growth may have preempted a slot — re-snapshot
-        with self.lock:
-            active_reqs, active_mask, temps, occupied = self._snapshot()
-        if not active_reqs:
-            return occupied
+        if self.kv_layout == "paged":
+            n_cap = self._ensure_paged_capacity(n_eff)
+            if n_cap < 1:
+                for r in list(active_reqs):
+                    # page-capped truncation is an ERROR the client must
+                    # see
+                    r.max_new_tokens = len(r.generated)
+                    r.error = ("generation truncated: KV page pool "
+                               f"exhausted after {len(r.generated)} tokens")
+                    self._maybe_finish(r)
+                return 0
+            while n_eff > n_cap:
+                n_eff //= 2
+            # capacity growth may have preempted a slot — re-snapshot
+            with self.lock:
+                active_reqs, active_mask, temps, occupied = self._snapshot()
+            if not active_reqs:
+                return occupied
         t_blk = time.time()
-        act = self._sync_paged_device_state(active_mask, temps)
-        last, ln, toks = self._last, self._len_dev, []
+        act = self._sync_device_state(active_mask, temps)
+        last, toks = self._last, []
         for _ in range(n_eff):
-            logits, _, _, ln = llama.decode_step_paged(
-                self.params, last, self.kp, self.vp, self._pt_dev, ln,
-                self.cfg, active=act)
+            if self.kv_layout == "paged":
+                logits, _, _, self._len_dev = llama.decode_step_paged(
+                    self.params, last, self.kp, self.vp, self._pt_dev,
+                    self._len_dev, self.cfg, active=act)
+            else:
+                logits, self.cache = llama.decode_step(
+                    self.params, last, self.cache, self.cfg, active=act)
             tok = self._sample(logits, self._temps_dev)
             last = tok[:, None].to(torch.int32)
             toks.append(tok)
-        self._last, self._len_dev = last, ln
-        self._len_host += active_mask.astype(np.int64) * n_eff
+        if self.kv_layout == "paged":
+            self._len_host += active_mask.astype(np.int64) * n_eff
+        self._last = last
         toks = torch.stack(toks).cpu().numpy()  # the block's one host fetch
         now = time.time()
         self.metrics["decode_block_s"] = \
@@ -647,11 +706,17 @@ class LLMEngine:
 
     # ---- disagg KV handoff -------------------------------------------------
 
+    def _require_paged(self, what: str) -> None:
+        if self.kv_layout != "paged":
+            raise ValueError(f"{what} needs kv_layout='paged'")
+
     def export_kv_pages(self, pages: List[int]):
         """Host-side gather of physical KV pages for a prefill->decode
-        handoff (call under self.lock so a reclaim can't recycle the pages
-        mid-gather). Returns (k, v) CPU tensors shaped (n_layers,
-        n_kv_heads, len(pages), page_size, head_dim) in the pool dtype."""
+        handoff (paged layout only; call under self.lock so a reclaim
+        can't recycle the pages mid-gather). Returns (k, v) CPU tensors
+        shaped (n_layers, n_kv_heads, len(pages), page_size, head_dim) in
+        the pool dtype."""
+        self._require_paged("export_kv_pages")
         idx = self._tensor(pages, torch.long)
         return self.kp[:, :, idx].cpu(), self.vp[:, :, idx].cpu()
 
@@ -662,6 +727,7 @@ class LLMEngine:
         chain hashes so the next submit's _try_admit_cached adopts them
         with zero prefill compute. Returns the number of NEW pages written
         (already-registered hashes are reused, not rewritten)."""
+        self._require_paged("import_kv_pages")
         with self.lock:
             pairs = self.pool.import_pages(list(page_hashes))
             new = [(i, p) for i, (p, is_new) in enumerate(pairs) if is_new]

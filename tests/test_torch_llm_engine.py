@@ -1,13 +1,15 @@
-"""Parity of ray_tpu_torch/serve/llm.py's paged LLMEngine against
-ray_tpu/serve/llm.py's, on the ``tiny`` preset in f32 with the same
-weights (the JAX engine's own seeded init, carried over by
-``params_from_jax``). Greedy tokens must be identical.
+"""Parity of ray_tpu_torch/serve/llm.py's LLMEngine against
+ray_tpu/serve/llm.py's, in both KV layouts (paged and contiguous) and with
+int8 weights, on the ``tiny`` preset in f32 with the same weights (the JAX
+engine's own seeded init, carried over by ``params_from_jax``). Greedy
+tokens must be identical.
 
 Also here: the port imports neither jax nor ray_tpu (a source scan), its
 entry points refuse to run on a CUDA-less machine unless asked for the
 CPU, and chip_smoke.py refuses to run without CUDA or outside a checkout.
 """
 
+import inspect
 import re
 import subprocess
 import sys
@@ -25,21 +27,24 @@ from ray_tpu_torch.models import llama  # noqa: E402
 from ray_tpu_torch.serve.llm import LLMEngine  # noqa: E402
 
 
-def _engines(**kw):
+def _engines(kv_layout="paged", **kw):
     """A JAX engine and a port engine with the same config and weights
     (drive the JAX one inside jax_reference())."""
     attn = kw.pop("attn_impl", None)
+    window = kw.pop("sliding_window", None)
     with jax_reference() as ref:
-        jcfg = ref.llama.PRESETS["tiny"].replace(dtype=jnp.float32)
+        jcfg = ref.llama.PRESETS["tiny"].replace(dtype=jnp.float32,
+                                                 sliding_window=window)
         if attn:
             jcfg = jcfg.replace(attn_impl=attn)
-        je = ref.llm.LLMEngine(cfg=jcfg, kv_layout="paged", seed=0, **kw)
+        je = ref.llm.LLMEngine(cfg=jcfg, kv_layout=kv_layout, seed=0, **kw)
         params = jax_tree_to_np(je.params)
-    tcfg = llama.PRESETS["tiny"].replace(dtype=torch.float32)
+    tcfg = llama.PRESETS["tiny"].replace(dtype=torch.float32,
+                                         sliding_window=window)
     if attn:
         tcfg = tcfg.replace(attn_impl=attn)
     te = LLMEngine(cfg=tcfg, params=llama.params_from_jax(params, "cpu"),
-                   device="cpu", **kw)
+                   kv_layout=kv_layout, device="cpu", **kw)
     return je, te
 
 
@@ -114,7 +119,8 @@ def test_preemption_matches_jax():
 
 
 def test_temperature_sampling_stays_in_vocab():
-    te = LLMEngine(preset="tiny", page_size=16, device="cpu")
+    te = LLMEngine(preset="tiny", kv_layout="paged", page_size=16,
+                   device="cpu")
     reqs = [te.submit([1, 2, 3], max_new_tokens=9, temperature=0.8),
             te.submit([4, 5, 6], max_new_tokens=9)]
     while te.has_work():
@@ -123,19 +129,22 @@ def test_temperature_sampling_stays_in_vocab():
     assert all(0 <= t < 256 for r in reqs for t in r.generated)
     # the greedy row is unaffected by its sampled neighbour
     assert reqs[1].generated == LLMEngine(
-        preset="tiny", page_size=16, device="cpu").generate(
+        preset="tiny", kv_layout="paged", page_size=16,
+        device="cpu").generate(
             [4, 5, 6], max_new_tokens=9)
 
 
 def test_export_import_kv_pages_round_trip():
-    src = LLMEngine(preset="tiny", page_size=16, device="cpu")
+    src = LLMEngine(preset="tiny", kv_layout="paged", page_size=16,
+                    device="cpu")
     prompt = list(range(1, 40))
     src.generate(prompt, max_new_tokens=2)
     hashes = list(src.pool.hash_to_page)
     pages = [src.pool.hash_to_page[h] for h in hashes]
     k, v = src.export_kv_pages(pages)
     assert k.shape == (2, 2, len(pages), 16, 16)
-    dst = LLMEngine(preset="tiny", page_size=16, device="cpu")
+    dst = LLMEngine(preset="tiny", kv_layout="paged", page_size=16,
+                    device="cpu")
     assert dst.import_kv_pages(hashes, k, v) == len(pages)
     assert dst.import_kv_pages(hashes, k, v) == 0     # already registered
     k2, v2 = dst.export_kv_pages([dst.pool.hash_to_page[h] for h in hashes])
@@ -147,12 +156,111 @@ def test_export_import_kv_pages_round_trip():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        LLMEngine(preset="tiny", kv_layout="contiguous", device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        LLMEngine(preset="tiny", quantize="int8", device="cpu")
     with pytest.raises(ValueError):
         LLMEngine(preset="tiny", quantize="int4", device="cpu")
+    with pytest.raises(NotImplementedError, match="sharded"):
+        LLMEngine(preset="tiny", mesh=object(), device="cpu")
+
+
+# --- the contiguous layout and int8 weights ---------------------------------------
+
+
+def test_default_layout_matches_jax():
+    with jax_reference() as ref:
+        jdef = inspect.signature(ref.llm.LLMEngine).parameters
+    tdef = inspect.signature(LLMEngine).parameters
+    assert tdef["kv_layout"].default == jdef["kv_layout"].default == \
+        "contiguous"
+    eng = LLMEngine(preset="tiny", device="cpu")
+    assert eng.kv_layout == "contiguous" and eng.pool is None
+    assert eng.cache.k.shape == (2, 8, 128, 2, 16)
+    with pytest.raises(ValueError, match="paged"):
+        eng.export_kv_pages([1])
+
+
+def test_contiguous_generate_matches_jax_and_known_tokens():
+    je, te = _engines("contiguous")
+    with jax_reference():
+        jt = je.generate([1, 2, 3, 4, 5], max_new_tokens=6)
+    tt = te.generate([1, 2, 3, 4, 5], max_new_tokens=6)
+    assert jt == tt == [35, 235, 215, 5, 21, 5]
+
+
+def test_contiguous_chunked_prefill_matches_jax():
+    je, te = _engines("contiguous", prefill_chunk=8)
+    rng = np.random.default_rng(4)
+    waves = [[rng.integers(0, 256, 30).tolist(),
+              rng.integers(0, 256, 5).tolist()],
+             [rng.integers(0, 256, 19).tolist()]]
+    with jax_reference():
+        jt = _drive(je, waves, 6)
+    tt = _drive(te, waves, 6)
+    assert tt == jt
+    assert all(len(t) == 6 for t in tt)
+
+
+def test_contiguous_more_requests_than_slots_matches_jax():
+    # 5 requests on 2 slots: queued requests take the rows that finished
+    # ones leave, over stale cache contents
+    je, te = _engines("contiguous", max_slots=2, max_seq_len=64)
+    rng = np.random.default_rng(5)
+    waves = [[rng.integers(0, 256, int(n)).tolist() for n in (9, 20, 3)],
+             [rng.integers(0, 256, int(n)).tolist() for n in (14, 6)]]
+    with jax_reference():
+        jt = _drive(je, waves, 7)
+    tt = _drive(te, waves, 7)
+    assert tt == jt
+
+
+@pytest.mark.parametrize("attn_impl,plen", [("xla", 40), ("flash", 127)])
+def test_contiguous_sliding_window_matches_jax(attn_impl, plen):
+    je, te = _engines("contiguous", sliding_window=16, attn_impl=attn_impl,
+                      max_seq_len=256)
+    prompt = np.random.default_rng(6).integers(0, 256, plen).tolist()
+    with jax_reference():
+        jt = je.generate(prompt, max_new_tokens=20)
+    assert te.generate(prompt, max_new_tokens=20) == jt
+    with pytest.raises(ValueError, match="sliding_window"):
+        LLMEngine(cfg=te.cfg, params=te.params, kv_layout="paged",
+                  device="cpu")
+
+
+@pytest.mark.parametrize("kv_layout", ["contiguous", "paged"])
+def test_int8_engine_matches_jax(kv_layout):
+    """The JAX engine quantizes its own seeded init; the port gets the same
+    float init and quantizes it itself."""
+    with jax_reference() as ref:
+        jcfg = ref.llama.PRESETS["tiny"].replace(dtype=jnp.float32)
+        je = ref.llm.LLMEngine(cfg=jcfg, kv_layout=kv_layout, seed=0,
+                               page_size=16, quantize="int8")
+        floats = jax_tree_to_np(ref.llama.init_params(
+            jax.random.PRNGKey(0), jcfg.replace(param_dtype=jcfg.dtype)))
+        rng = np.random.default_rng(7)
+        waves = [[rng.integers(0, 256, 21).tolist(), [1, 2, 3, 4, 5]]]
+        jt = _drive(je, waves, 8)
+        jq = jax_tree_to_np(je.params)
+    te = LLMEngine(cfg=llama.PRESETS["tiny"].replace(dtype=torch.float32),
+                   params=llama.params_from_jax(floats, "cpu"),
+                   kv_layout=kv_layout, page_size=16, quantize="int8",
+                   device="cpu")
+    assert te.params["layers"]["wq"]["q8"].dtype == torch.int8
+    assert np.array_equal(te.params["lm_head"]["q8"].numpy(),
+                          jq["lm_head"]["q8"])
+    assert _drive(te, waves, 8) == jt
+
+
+def test_paged_matches_contiguous():
+    """Same params, same prompts: the paged engine must produce the exact
+    greedy tokens the contiguous engine does (the JAX suite's test of the
+    same name, on the port)."""
+    cont = LLMEngine(preset="tiny", max_slots=4, max_seq_len=64, seed=3,
+                     device="cpu")
+    paged = LLMEngine(preset="tiny", max_slots=4, max_seq_len=64, seed=3,
+                      kv_layout="paged", page_size=8, device="cpu")
+    for p in ([1, 2, 3], [7, 8, 9, 10, 11], [4] * 17):
+        a = cont.generate(p, max_new_tokens=12)
+        b = paged.generate(p, max_new_tokens=12)
+        assert a == b, (p, a, b)
 
 
 def test_engine_raises_without_cuda_unless_cpu_is_asked(monkeypatch):

@@ -1,12 +1,14 @@
-"""Parity of ray_tpu_torch/ops/paged_attention.py (kernel K6 and its plain
-versions) against ray_tpu/ops/paged_attention.py.
+"""Parity of ray_tpu_torch/ops/paged_attention.py (kernels K6 and K5 and
+their plain versions) against ray_tpu/ops/paged_attention.py.
 
 Inputs come from numpy with a fixed seed, in f32. Off-TPU the JAX
-``paged_decode_attention_inplace`` takes its reference, which the port's
-plain version must match: outputs on live rows within 1e-5 (f32 sums in
-another order), pools exactly (the same values are copied to the same
-rows). The CUDA kernel is held against the plain version in the
-``cuda``-marked tests, which skip without a card.
+``paged_decode_attention_inplace`` and ``paged_attention`` take their
+references, which the port's wrappers must match on the CPU: K6's outputs
+on live rows within 1e-5 (f32 sums in another order) and its pools exactly
+(the same values are copied to the same rows); K5's outputs on live rows
+within 1e-6 (the same einsums on the same f32 inputs). The CUDA kernels
+are held against the plain versions in the ``cuda``-marked tests, which
+skip without a card.
 """
 
 import numpy as np
@@ -162,3 +164,136 @@ def test_kernel_matches_plain_on_card(dtype):
     assert (err <= pa.kernel_tolerance(o_ref)[live]).all()
     assert torch.equal(kp, kr) and torch.equal(vp, vr)
     assert (o[~live] == 0).all()
+
+
+# --- K5: read-only paged decode attention ---------------------------------------
+
+READ_TOL = 1e-6
+POISON = 1e3
+
+
+def make_read_case(H, KV, HD=16, seed=1):
+    """Six slots over pages of 8 (maxP 4): slot 0 has length 0 and an
+    all-trash table row; slot 3 holds one page and its other entries point
+    at trash page 0; slots 4 and 5 share their first two (full) pages. Also
+    returns, per slot, the pool rows past its length that only it owns
+    (and the trash page), which may hold anything."""
+    lengths = [0, 9, 16, 5, 25, 32]
+    case = make_case(6, H, KV, HD, 8, 4, lengths, share=(4, 5, 2), seed=seed)
+    table = case["page_table"]
+    table[0, :] = 0
+    table[3, 1:] = 0
+    dead = np.zeros(case["k_pool"].shape[1:3], bool)     # [NP, ps]
+    dead[0] = True
+    for s, n in enumerate(lengths):
+        for j in range(4):
+            page = table[s, j]
+            lo = min(max(n - j * 8, 0), 8)
+            if page != 0 and lo < 8:
+                dead[page, lo:] = True
+    return case, dead
+
+
+def _poisoned(case, dead, value):
+    out = dict(case)
+    for k in ("k_pool", "v_pool"):
+        pool = case[k].copy()
+        pool[:, dead] = value
+        out[k] = pool
+    return out
+
+
+READ_ARGS = ("q", "k_pool", "v_pool", "page_table", "lengths")
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("H,KV", [(4, 2), (2, 2), (8, 1)])
+def test_paged_attention_matches_jax(H, KV, jnp):
+    case, dead = make_read_case(H, KV)
+    poisoned = _poisoned(case, dead, POISON)
+    live = case["lengths"] > 0
+    outs = []
+    for c in (case, poisoned):
+        with jax_reference() as ref:
+            jo = np.asarray(ref.paged_attention.paged_attention(
+                *(jnp.asarray(c[k]) for k in READ_ARGS)))
+        t = {k: torch.from_numpy(c[k].copy()) for k in READ_ARGS}
+        before = pa.launches_read
+        o = pa.paged_attention(*(t[k] for k in READ_ARGS))
+        assert pa.launches_read == before       # the CPU takes the plain path
+        assert o.shape == (6, H, 16) and o.dtype == torch.float32
+        np.testing.assert_allclose(to_np(o)[live], jo[live], atol=READ_TOL,
+                                   rtol=0)
+        # read-only: the pools are untouched
+        assert np.array_equal(t["k_pool"].numpy(), c["k_pool"])
+        assert np.array_equal(t["v_pool"].numpy(), c["v_pool"])
+        outs.append(to_np(o))
+    # rows past each length (and the trash page) do not reach live outputs
+    np.testing.assert_allclose(outs[1][live], outs[0][live], atol=READ_TOL,
+                               rtol=0)
+
+
+def test_paged_attention_reads_what_k6_wrote():
+    """K5 over the pools K6 just wrote, with the same q and lengths, gives
+    K6's output (both plain versions on the CPU)."""
+    case = make_case(6, 4, 2, 16, 8, 4, [0, 9, 16, 5, 25, 32],
+                     share=(4, 5, 2))
+    o6, kp, vp, t = run_torch(case, pa.paged_decode_attention_inplace)
+    o5 = pa.paged_attention(t["q"], kp, vp, t["page_table"], t["lengths"])
+    live = case["lengths"] > 0
+    torch.testing.assert_close(o5[live], o6[live], atol=READ_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV", [(4, 2), (8, 8)])
+def test_paged_attention_kernel_matches_plain_on_card(dtype, H, KV):
+    """K5 against its plain version: live rows within kernel_tolerance,
+    dead rows zero, the pools unchanged byte for byte; NaN in every row
+    past a length (and in the trash page) reaches no output, since the
+    kernel reads no such row."""
+    require_cuda()
+    case, dead = make_read_case(H, KV, HD=128)
+    dev = {k: torch.from_numpy(case[k]).cuda() for k in READ_ARGS}
+    for k in ("q", "k_pool", "v_pool"):
+        dev[k] = dev[k].to(dtype)
+    o_ref = pa.paged_attention_reference(*(dev[k] for k in READ_ARGS))
+    dmask = torch.from_numpy(dead).cuda()
+    for k in ("k_pool", "v_pool"):
+        dev[k][:, dmask] = float("nan")
+    kp0, vp0 = dev["k_pool"].clone(), dev["v_pool"].clone()
+    before = pa.launches_read
+    o = pa.paged_attention(*(dev[k] for k in READ_ARGS))
+    torch.cuda.synchronize()
+    assert pa.launches_read == before + 1
+    live = dev["lengths"] > 0
+    assert torch.isfinite(o.float()[live]).all()
+    err = (o.float() - o_ref.float()).abs()[live]
+    assert (err <= pa.kernel_tolerance(o_ref)[live]).all()
+    assert (o[~live] == 0).all()
+    # byte for byte (NaN != NaN, so compare the bits)
+    assert torch.equal(_bits(dev["k_pool"]), _bits(kp0))
+    assert torch.equal(_bits(dev["v_pool"]), _bits(vp0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_reads_what_k6_wrote_on_card(dtype):
+    require_cuda()
+    case = make_case(6, 4, 2, 128, 8, 4, [0, 9, 16, 5, 25, 32],
+                     share=(4, 5, 2))
+    dev = {k: torch.from_numpy(v).cuda() for k, v in case.items()}
+    for k in ("q", "k_new", "v_new", "k_pool", "v_pool"):
+        dev[k] = dev[k].to(dtype)
+    o6, kp, vp = pa.paged_decode_attention_inplace(
+        dev["q"], dev["k_new"], dev["v_new"], dev["k_pool"], dev["v_pool"],
+        dev["page_table"], dev["lengths"])
+    o5 = pa.paged_attention(dev["q"], kp, vp, dev["page_table"],
+                            dev["lengths"])
+    torch.cuda.synchronize()
+    live = dev["lengths"] > 0
+    err = (o5.float() - o6.float()).abs()[live]
+    assert (err <= pa.kernel_tolerance(o6)[live]).all()
