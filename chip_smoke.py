@@ -7,13 +7,16 @@ printing one JSON line:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA;
 2. build: the kernels from ray_tpu_torch/csrc, one nvcc each, in parallel;
 3. k6 / k5 / k1: each kernel against its plain PyTorch version on the card,
-   at the 7b serving shapes and at a GQA shape (the 1b preset), in bf16
-   and f32, held elementwise within the bound of the ops module's
-   ``kernel_tolerance``; for K6 the pools after the write too (every byte
-   equal to the plain version's, and only the new rows changed), for K5
-   the pools unchanged byte for byte and K5 over the pools K6 just wrote
-   against K6's output; times of the kernel, the plain version and (K1)
-   SDPA, beside the bound;
+   at the 7b serving shapes and at a GQA shape (the 1b preset; K1 also
+   debug-125m's head dim 64 and ragged S, T > S), in bf16 and f32, held
+   elementwise within the bound of the ops module's ``kernel_tolerance``;
+   for K6 the pools after the write too (every byte equal to the plain
+   version's, and only the new rows changed), for K5 the pools unchanged
+   byte for byte and K5 over the pools K6 just wrote against K6's output;
+   for K1 the profiler's kernel names (bf16 at head dims 64/128 runs the
+   TMA/wgmma kernel and nothing else); times of the kernel (CUPTI device
+   time, and CUDA events), the plain version and (K1) SDPA with the names
+   of its kernels, beside the bound;
 4. card_vs_cpu: the 7b width cut to 2 layers, f32, the same weights in the
    port's paged LLMEngine on the card (kernels) and on the CPU (plain
    versions): greedy tokens identical, first-step logits within a stated
@@ -35,9 +38,9 @@ printing one JSON line:
    at all 32 layers, bf16, contiguous KV, int8 weights, flash prefill, 16
    slots, max_seq 2048, the engine phase's 12 requests: int8 bytes at rest,
    peak memory, decode tokens/s, TTFT and a decode block's profile;
-8. k2 / k3k4: the sliding-window forward (K2) and the backward kernels (K3
-   dQ, K4 dK/dV) against their plain versions at the 1b train shape and
-   others, in bf16 and f32, within ``kernel_tolerance`` /
+8. k2 / k3k4: the sliding-window forward (K2, checked as K1 is) and the
+   backward kernels (K3 dQ, K4 dK/dV) against their plain versions at the
+   1b train shape and others, in bf16 and f32, within ``kernel_tolerance`` /
    ``grad_tolerance``; times beside the bound, the plain version and SDPA
    (with a band mask; its backward);
 9. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
@@ -47,7 +50,9 @@ printing one JSON line:
 10. train: the training main path, the 1b preset at full width and 16
    layers, bf16 compute, remat, flash, B 8 S 1024, 10 steps after a
    warm-up: falling finite losses, exact K1/K3/K4 launch counts, step time,
-   tokens/s, MFU, peak memory and one step's device profile;
+   tokens/s, MFU, peak memory and one step's device profile (whose forward
+   attention kernels must all be the TMA/wgmma one, as in the engines'
+   prefill profiles);
 11. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
@@ -126,22 +131,33 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, names=None, per_call=None) -> float:
     """Mean device milliseconds of the kernels one fn() call launches
     (CUPTI, under torch.profiler), after a warm-up: the kernels' own time,
     which cuda_ms cannot give when launching a call takes the host longer
-    than the card takes to run it (the paged kernels, ~0.08 ms)."""
+    than the card takes to run it (the paged kernels, ~0.08 ms). The
+    kernels' names are added to the set `names` where one is given.
+    CUPTI now and then drops kernels from a trace: where `per_call` (the
+    kernels one call launches) is given, a trace with another count is
+    taken again, up to 3 times; otherwise a trace with none is."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ms for _, ms in kernel_events(prof)) / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = list(kernel_events(prof))
+        if (len(events) == per_call * iters if per_call is not None
+                else events):
+            break
+    if names is not None:
+        names.update(name for name, _ in events)
+    return sum(ms for _, ms in events) / iters
 
 
 def kernel_events(prof):
@@ -160,12 +176,17 @@ def kernel_events(prof):
 
 
 def ptxas_report(log: Path) -> dict:
-    """{kernel entry: "registers, spills"} from nvcc's -Xptxas -v log."""
+    """{kernel entry: "registers, spills"} from nvcc's -Xptxas -v log, and
+    under "notes" every warning or performance note (a setmaxnreg that
+    ptxas ignored, wgmma serialised)."""
     import re
 
     out, name = {}, None
     for ln in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if re.search(r"warning|setmaxnreg|serialized|Performance Loss", ln,
+                     re.IGNORECASE):
+            out.setdefault("notes", []).append(ln.strip())
         if m:
             name = m.group(1)
         elif name and "spill stores" in ln:
@@ -374,88 +395,12 @@ def phase_k5():
     return cases
 
 
-# --- K1: flash attention forward --------------------------------------------
+# --- K1 / K2: the flash forward ---------------------------------------------
 
 
-def k1_case(*, B, S, H, KV, D, dtype, causal, seed, timed=True):
-    import numpy as np
-    import torch
-
-    from ray_tpu_torch.ops import flash_attention as fa
-
-    rng = np.random.default_rng(seed)
-    dt = getattr(torch, dtype)
-
-    def t(x):
-        return torch.as_tensor(x).to(device="cuda", dtype=dt)
-
-    q = t(rng.standard_normal((B, S, H, D)))
-    k = t(rng.standard_normal((B, S, KV, D)))
-    v = t(rng.standard_normal((B, S, KV, D)))
-    before = fa.launches
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-    # the bound assumes the plain version's bf16 products sum in f32
-    mm = torch.backends.cuda.matmul
-    reduced = mm.allow_bf16_reduced_precision_reduction
-    mm.allow_bf16_reduced_precision_reduction = False
-    try:
-        ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
-    finally:
-        mm.allow_bf16_reduced_precision_reduction = reduced
-    torch.cuda.synchronize()
-    if fa.launches != before + 1:
-        raise AssertionError("K1 wrapper did not launch its kernel")
-    err, over = held(out, ref,
-                     fa.kernel_tolerance(q, k, v, ref, causal=causal))
-    lse_err = float((lse - lse_ref).abs().max())
-    finite = bool(torch.isfinite(out.float()).all())
-    res = {"shape": f"B={B} S=T={S} H={H} KV={KV} D={D}", "dtype": dtype,
-           "causal": causal, "max_abs_err": err, "max_err_over_tol": over,
-           "tol": "1e-4" if dtype == "float32"
-           else "2^-7 (attention of |v| + |plain|) + 1e-5",
-           "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL}
-    ok = finite and over <= 1.0 and lse_err <= LSE_TOL
-    if timed:
-        res["kernel_ms"] = cuda_ms(
-            lambda: fa.flash_attention_fwd(q, k, v, causal=causal), iters=10)
-        fa.launches = before
-        res["plain_ms"] = cuda_ms(
-            lambda: fa.flash_attention_reference(q, k, v, causal=causal),
-            iters=3)
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        res["library_ms"] = cuda_ms(
-            lambda: sdpa(qh, kh, vh, is_causal=causal, enable_gqa=KV != H),
-            iters=10)
-        elt = torch.finfo(dt).bits // 8
-        pairs = S * (S + 1) // 2 if causal else S * S
-        flops = 4 * B * H * pairs * D
-        nbytes = elt * (2 * B * S * H * D + 2 * B * S * KV * D) + 4 * B * H * S
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
-    res["ok"] = ok
-    return res
-
-
-def phase_k1():
-    cases = []
-    for name, (H, KV) in (("7b", (32, 32)), ("1b-gqa", (16, 8))):
-        for dtype in ("bfloat16", "float32"):
-            r = k1_case(B=8, S=1024, H=H, KV=KV, D=128, dtype=dtype,
-                        causal=True, seed=2)
-            r["config"] = name
-            cases.append(r)
-    # the ragged edge (S not a multiple of the 64-row tile) and full
-    # (non-causal) attention, untimed
-    for dtype in ("bfloat16", "float32"):
-        for causal in (True, False):
-            r = k1_case(B=2, S=200, H=16, KV=8, D=128, dtype=dtype,
-                        causal=causal, seed=3, timed=False)
-            r["config"] = "ragged"
-            cases.append(r)
-    return cases
-
-
-# --- K2: the sliding-window forward -------------------------------------------
+# the symbol of the TMA/wgmma forward kernel, which every bf16 launch with
+# head dim 64 or 128 must run (csrc/flash_attention.cu)
+WGMMA_FWD_SYMBOL = "flash_fwd_wgmma_kernel"
 
 
 def band_pairs(S: int, T: int, causal: bool, window=None) -> int:
@@ -466,12 +411,21 @@ def band_pairs(S: int, T: int, causal: bool, window=None) -> int:
     return sum(max(0, min(s + 1, T) - max(0, s - w + 1)) for s in range(S))
 
 
-def k2_case(*, B, S, H, KV, D, window, dtype, seed, timed=True):
+def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
+             seed, timed=True):
+    """One forward case (K1, or K2 under a window) against the plain
+    version on the same inputs: out within kernel_tolerance, the LSE within
+    LSE_TOL; the profiler's kernel names (bf16 with head dim 64 or 128 must
+    run WGMMA_FWD_SYMBOL and nothing else). Timed: the kernel by CUDA
+    events (cuda_ms, through the wrapper) and by CUPTI device time
+    (device_ms), the plain version, SDPA (with a band mask under a window)
+    and the names of the kernels SDPA launched, beside the bound."""
     import numpy as np
     import torch
 
     from ray_tpu_torch.ops import flash_attention as fa
 
+    T = T or S
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
 
@@ -479,69 +433,128 @@ def k2_case(*, B, S, H, KV, D, window, dtype, seed, timed=True):
         return torch.as_tensor(x).to(device="cuda", dtype=dt)
 
     q = t(rng.standard_normal((B, S, H, D)))
-    k = t(rng.standard_normal((B, S, KV, D)))
-    v = t(rng.standard_normal((B, S, KV, D)))
-    before = fa.launches_window
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    k = t(rng.standard_normal((B, T, KV, D)))
+    v = t(rng.standard_normal((B, T, KV, D)))
+    counter = "launches_window" if window else "launches"
+    before = (fa.launches, fa.launches_window)
+
+    def run():
+        return fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+    out, lse = run()
+    # the bound assumes the plain version's bf16 products sum in f32
     mm = torch.backends.cuda.matmul
     reduced = mm.allow_bf16_reduced_precision_reduction
     mm.allow_bf16_reduced_precision_reduction = False
     try:
-        ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=True,
+        ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal,
                                                     window=window)
     finally:
         mm.allow_bf16_reduced_precision_reduction = reduced
     torch.cuda.synchronize()
-    if fa.launches_window != before + 1:
-        raise AssertionError("K2 wrapper did not launch its kernel")
-    err, over = held(out, ref, fa.kernel_tolerance(q, k, v, ref, causal=True,
+    if getattr(fa, counter) != before[counter == "launches_window"] + 1:
+        raise AssertionError("forward wrapper did not launch its kernel")
+    err, over = held(out, ref, fa.kernel_tolerance(q, k, v, ref,
+                                                   causal=causal,
                                                    window=window))
     lse_err = float((lse - lse_ref).abs().max())
     finite = bool(torch.isfinite(out.float()).all())
-    res = {"shape": f"B={B} S=T={S} H={H} KV={KV} D={D} window={window}",
-           "dtype": dtype, "max_abs_err": err, "max_err_over_tol": over,
+    names: set = set()
+    dev = device_ms(run, iters=10, names=names, per_call=1)
+    wgmma = dtype == "bfloat16" and D in (64, 128)
+    ran_new = names == {n for n in names if WGMMA_FWD_SYMBOL in n} and \
+        bool(names)
+    shape = f"B={B} S={S} T={T} H={H} KV={KV} D={D}"
+    res = {"shape": shape + (f" window={window}" if window else ""),
+           "dtype": dtype, "causal": causal, "max_abs_err": err,
+           "max_err_over_tol": over,
            "tol": "1e-4" if dtype == "float32"
            else "2^-7 (attention of |v| + |plain|) + 1e-5",
-           "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL}
-    ok = finite and over <= 1.0 and lse_err <= LSE_TOL
+           "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+           "kernel_names": sorted(names),
+           "expects_wgmma_kernel": wgmma, "ran_wgmma_kernel_only": ran_new}
+    ok = (finite and over <= 1.0 and lse_err <= LSE_TOL
+          and (ran_new or not wgmma))
     if timed:
-        res["kernel_ms"] = cuda_ms(lambda: fa.flash_attention_fwd(
-            q, k, v, causal=True, window=window), iters=10)
-        fa.launches_window = before
-        res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_reference(
-            q, k, v, causal=True, window=window), iters=3)
+        res["kernel_ms"] = dev
+        res["event_ms"] = cuda_ms(run, iters=10)
+        res["plain_ms"] = cuda_ms(
+            lambda: fa.flash_attention_reference(q, k, v, causal=causal,
+                                                 window=window), iters=3)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        band = fa.band_mask(S, S, causal=True, window=window, device="cuda")
+        mask = (fa.band_mask(S, T, causal=True, window=window,
+                             device="cuda") if window or (causal and T != S)
+                else None)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        res["library_ms"] = cuda_ms(
-            lambda: sdpa(qh, kh, vh, attn_mask=band, enable_gqa=KV != H),
-            iters=10)
+
+        def lib():
+            return sdpa(qh, kh, vh, attn_mask=mask,
+                        is_causal=causal and mask is None,
+                        enable_gqa=KV != H)
+
+        res["library_ms"] = cuda_ms(lib, iters=10)
+        lib_names: set = set()
+        res["library_device_ms"] = device_ms(lib, iters=10, names=lib_names)
+        res["library_kernels"] = sorted(lib_names)
         elt = torch.finfo(dt).bits // 8
-        pairs = band_pairs(S, S, True, window)
-        flops = 4 * B * H * pairs * D
-        nbytes = elt * (2 * B * S * H * D + 2 * B * S * KV * D) + 4 * B * H * S
+        flops = 4 * B * H * band_pairs(S, T, causal, window) * D
+        nbytes = elt * (2 * B * S * H * D + 2 * B * T * KV * D) + 4 * B * H * S
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
-    fa.launches_window = before
+    # comparison and timing launches are not main-path launches
+    fa.launches, fa.launches_window = before
     res["ok"] = ok
     return res
 
 
-def phase_k2():
-    """K2 at the 1b train shape (B 8, S 1024, H 16, KV 8, D 128) with
-    windows 256 and 1024 (the whole causal band), and ragged S = T = 200
-    with window 64, in bf16 and f32."""
+def phase_k1():
+    """K1 timed at the 7b prefill shape (B 8, S = T = 1024, H = KV = 32, D
+    128, causal), the 1b GQA shape (H 16, KV 8) and debug-125m's heads (H =
+    KV = 12, D 64), in bf16 and f32; untimed: ragged S = T = 200 causal and
+    full, S = T = 1000 (a ragged last 128-row tile), S = T = 130 (one row
+    past a tile), T = 512 > S = 256 (forward_with_cache's cache row)."""
     cases = []
-    for window in (256, 1024):
+    timed = (("7b", dict(H=32, KV=32, D=128)),
+             ("1b-gqa", dict(H=16, KV=8, D=128)),
+             ("debug-125m", dict(H=12, KV=12, D=64)))
+    for name, shape in timed:
         for dtype in ("bfloat16", "float32"):
-            r = k2_case(B=8, S=1024, H=16, KV=8, D=128, window=window,
-                        dtype=dtype, seed=20)
-            r["config"] = f"1b-w{window}"
+            r = fwd_case(B=8, S=1024, **shape, dtype=dtype, seed=2)
+            r["config"] = name
             cases.append(r)
-    for dtype in ("bfloat16", "float32"):
-        r = k2_case(B=2, S=200, H=16, KV=8, D=128, window=64, dtype=dtype,
-                    seed=21, timed=False)
-        r["config"] = "ragged-w64"
-        cases.append(r)
+    untimed = (("ragged", dict(S=200), True), ("ragged-full", dict(S=200),
+                                                False),
+               ("s1000", dict(S=1000), True), ("s130", dict(S=130), True),
+               ("t512-s256", dict(S=256, T=512), True))
+    for name, shape, causal in untimed:
+        for dtype in ("bfloat16", "float32"):
+            r = fwd_case(B=2, H=16, KV=8, D=128, **shape, causal=causal,
+                         dtype=dtype, seed=3, timed=False)
+            r["config"] = name
+            cases.append(r)
+    return cases
+
+
+def phase_k2():
+    """K2 timed at the 1b train shape (B 8, S 1024, H 16, KV 8, D 128) with
+    windows 256 and 1024 (the whole causal band), and at debug-125m's heads
+    (H = KV = 12, D 64) with window 256, in bf16 and f32; untimed: ragged
+    S = T = 200 with window 64, S = T = 1000 with window 200."""
+    cases = []
+    timed = (("1b-w256", dict(H=16, KV=8, D=128, window=256)),
+             ("1b-w1024", dict(H=16, KV=8, D=128, window=1024)),
+             ("debug-125m-w256", dict(H=12, KV=12, D=64, window=256)))
+    for name, shape in timed:
+        for dtype in ("bfloat16", "float32"):
+            r = fwd_case(B=8, S=1024, **shape, dtype=dtype, seed=20)
+            r["config"] = name
+            cases.append(r)
+    for name, S, window in (("ragged-w64", 200, 64), ("s1000-w200", 1000,
+                                                       200)):
+        for dtype in ("bfloat16", "float32"):
+            r = fwd_case(B=2, S=S, H=16, KV=8, D=128, window=window,
+                         dtype=dtype, seed=21, timed=False)
+            r["config"] = name
+            cases.append(r)
     return cases
 
 
@@ -813,6 +826,8 @@ def phase_train():
     # one step's device time by kernel class, after the counted run
     res["profile_step"] = device_profile(lambda: step(state, batch),
                                          lambda: step(state, batch))
+    res["step_ran_wgmma_fwd_only"] = ran_wgmma_fwd_only(res["profile_step"])
+    res["ok"] = res["ok"] and res["step_ran_wgmma_fwd_only"]
     return res
 
 
@@ -996,8 +1011,11 @@ def phase_engine():
     res["ok"] = (res["all_finished_64"] and res["prefix_hits"] >= 1
                  and all(v > 0 for v in launches.values()))
     res.update(profile_windows(eng, rng))
+    res["prefill_ran_wgmma_fwd_only"] = ran_wgmma_fwd_only(
+        res["profile_prefill"])
     res["k5_path"] = k5_path(eng)
-    res["ok"] = res["ok"] and res["k5_path"]["ok"]
+    res["ok"] = (res["ok"] and res["k5_path"]["ok"]
+                 and res["prefill_ran_wgmma_fwd_only"])
     return res
 
 
@@ -1190,6 +1208,9 @@ def phase_engine_contiguous():
 
     res["dequant_ms_per_step"] = cuda_ms(dequantize_all, iters=3)
     res.update(profile_windows(eng, rng))
+    res["prefill_ran_wgmma_fwd_only"] = ran_wgmma_fwd_only(
+        res["profile_prefill"])
+    res["ok"] = res["ok"] and res["prefill_ran_wgmma_fwd_only"]
     return res
 
 
@@ -1236,7 +1257,15 @@ def device_profile(timed, profiled):
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
             "device_ms_by_class": by, "device_events": n_kernels,
-            "top_kernels_ms": top}
+            "top_kernels_ms": top,
+            "flash_kernels": sorted(n for n in by_name if "flash_" in n)}
+
+
+def ran_wgmma_fwd_only(profile) -> bool:
+    """A bf16 window's forward attention launches (K1/K2) all ran the
+    TMA/wgmma kernel, and there was at least one."""
+    fwd = [n for n in profile["flash_kernels"] if "flash_fwd_" in n]
+    return bool(fwd) and all(WGMMA_FWD_SYMBOL in n for n in fwd)
 
 
 # --- driver -----------------------------------------------------------------
@@ -1259,47 +1288,87 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "train": phase_train}
 
 
-def main() -> int:
+def _start() -> bool:
+    """Checks and settings every run shares; False where the run cannot
+    go on (outside a checkout, or no CUDA)."""
     if not (REPO / "ray_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(ray_tpu_torch/ not found beside it)", file=sys.stderr)
-        return 2
+        return False
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; this script drives "
               "the port on an NVIDIA GPU", file=sys.stderr)
-        return 2
+        return False
     sys.path.insert(0, str(REPO))
     # f32 stays f32 on the card (no TF32) for every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi_line()
-    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+    emit("device", nvidia_smi=nvidia_smi_line(),
+         name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    return True
+
+
+def _run_phase(ph: str) -> bool:
+    if ph == "build":
+        from ray_tpu_torch.ops import _build
+
+        t0 = time.perf_counter()
+        took = _build.build()
+        logs = {n: ptxas_report(_build.BUILD_DIR / f"{n}.log")
+                for n in _build.KERNEL_SOURCES
+                if (_build.BUILD_DIR / f"{n}.log").is_file()}
+        emit("build", seconds=time.perf_counter() - t0, per_source_s=took,
+             ptxas=logs)
+        return True
+    if ph in KERNEL_PHASES:
+        cases = KERNEL_PHASES[ph]()
+        emit(ph, cases=cases)
+        return all(c["ok"] for c in cases)
+    t0 = time.perf_counter()
+    r = PATH_PHASES[ph]()
+    emit(ph, **r, phase_s=time.perf_counter() - t0)
+    return bool(r["ok"])
+
+
+def run_phases(names) -> int:
+    """Run the named phases only (the build first where named), every one
+    of them whatever the others give, for work on one kernel:
+    ``python3 -c 'import chip_smoke; chip_smoke.run_phases(["build",
+    "k1", "k2"])'``. Results go to chiprun_out/chip_smoke_phases.json. Not
+    the full run: it prints no kernels line and no ok line, and returns 1
+    where a phase failed."""
+    if not _start():
+        return 2
+    ok = True
+    for ph in names:
+        try:
+            good = _run_phase(ph)
+        except Exception:
+            traceback.print_exc()
+            good = False
+        if not good:
+            print(f"chip_smoke.py: phase {ph} failed", file=sys.stderr)
+        ok &= good
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_phases.json").write_text(
+        json.dumps(RESULTS, indent=1, default=str))
+    return 0 if ok else 1
+
+
+def main() -> int:
+    if not _start():
+        return 2
+    import torch
+
+    smi = RESULTS["phases"]["device"]["nvidia_smi"]
     ok = True
     try:
         for ph in PHASES:
-            if ph == "build":
-                from ray_tpu_torch.ops import _build
-
-                t0 = time.perf_counter()
-                took = _build.build()
-                logs = {n: ptxas_report(_build.BUILD_DIR / f"{n}.log")
-                        for n in _build.KERNEL_SOURCES
-                        if (_build.BUILD_DIR / f"{n}.log").is_file()}
-                emit("build", seconds=time.perf_counter() - t0,
-                     per_source_s=took, ptxas=logs)
-            elif ph in KERNEL_PHASES:
-                cases = KERNEL_PHASES[ph]()
-                emit(ph, cases=cases)
-                ok &= all(c["ok"] for c in cases)
-            else:
-                t0 = time.perf_counter()
-                r = PATH_PHASES[ph]()
-                emit(ph, **r, phase_s=time.perf_counter() - t0)
-                ok &= r["ok"]
+            ok &= _run_phase(ph)
             if not ok:
                 print(f"chip_smoke.py: phase {ph} failed", file=sys.stderr)
                 break

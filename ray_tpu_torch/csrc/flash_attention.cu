@@ -4,53 +4,78 @@
 // Replaces ray_tpu/ops/flash_attention.py:_fwd_kernel_loop (K1, reached
 // through _flash_fwd_loop) and _fwd_kernel_stream (K2, the sliding window,
 // reached through _flash_fwd with window > 0): out = softmax(q k^T /
-// sqrt(D)) v per query head, with the log-sum-exp of each row, q [B, S, H,
-// D], k/v [B, T, KV, D], GQA through kv_head = h / (H / KV) with no K/V
-// broadcast. Under a window W (causal only) key t is visible to query s iff
-// 0 <= s - t < W; a query tile then starts at the K/V tile holding key
-// q0 - W + 1, so tiles below the band are never loaded and the cost is
-// O(S * W), which is what K2's clamped index map buys on the TPU. K2 is
-// the WINDOW instantiation of the same kernels, so K1's code is unchanged.
+// sqrt(D)) v per query head, with the natural-log log-sum-exp of each row,
+// q [B, S, H, D], k/v [B, T, KV, D], GQA through kv_head = h / (H / KV) with
+// no K/V broadcast. Causal attention is aligned at position 0 (key t is
+// visible to query s iff t <= s, also when T > S). Under a window W (causal
+// only) also s - t < W; a query tile then starts at the K/V tile holding
+// key q0 - W + 1, so tiles below the band are never loaded and the cost is
+// O(S * W), which is what K2's clamped index map buys on the TPU. K2 is the
+// WINDOW instantiation of the same kernels.
 //
 // Bound on this card: causal attention does 2 * S^2 * D flops a head against
 // 8 * S * D bytes of bf16 q/k/v/o, ~S/4 flops a byte, so prefill buckets up
 // to ~1200 tokens are bound by bytes and longer ones by tensor-core
-// operations. Either way the S x T scores must never reach device memory.
-// One block of 4 warps owns a 64-row query tile (16 rows a warp) of one
-// (batch, head) and streams 64-row K/V tiles up to the diagonal when causal
-// (the tiles above it are never loaded).
+// operations. Either way the S x T scores must never reach device memory,
+// and only wgmma reaches the tensor cores' full rate.
 //
-// bf16 (the serving path), FlashAttention-2 style: the Q fragments, the
-// scores, the probabilities and the f32 output accumulator all live in
-// registers, in the layouts of mma.sync.m16n8k16 (the score accumulators
-// are repacked in place as the A operand of p.v); K/V tiles reach shared
-// memory through cp.async, double-buffered so the next tile loads while
-// this one computes, and reach the tensor cores through ldmatrix (.trans
-// for V). Rows are padded by 16 bytes so the 8 rows of an ldmatrix hit
-// distinct banks. p is rounded to bf16 before p.v and l sums the f32 p, as
-// the TPU kernel does. wgmma/TMA is later work.
+// Three kernels, chosen explicitly by dtype and head dim in launch_d:
 //
-// f32 (parity runs): exact f32 FMAs on the CUDA cores through shared-memory
-// tiles, so the f32 path agrees with the plain version to rounding.
+// bf16, head dims 64 and 128 (every card preset), flash_fwd_wgmma_kernel:
+// persistent, one block of 3 warpgroups an SM (192 KB of shared memory),
+// each walking its share of the work tiles: 128 query rows of one (batch,
+// head), against 128-row K/V tiles (up to the diagonal when causal, from
+// the band's first tile under a window; tiles above or below are never
+// loaded). Work tiles go heaviest first inside groups of (batch, head)
+// pairs whose K/V fit in L2, in a snake order over the blocks.
+// Warpgroup 0 is the producer: after setmaxnreg.dec one thread issues TMA
+// loads (4-D tensor maps over (D, heads, seq, batch), 128-byte swizzle, so
+// a box past S or T is zero-filled inside its own batch) of each tile's Q
+// and of K/V into a 2-stage ring, with "full" mbarriers (complete_tx byte
+// counts) and "empty" ones the consumers arrive on (K and V apart, and Q,
+// so the next tile's Q loads while this one ends). Warpgroups 1-2 are
+// consumers (setmaxnreg.inc), 64 query rows each: S = Q K^T by wgmma
+// m64n128k16 with both operands in shared memory, the online softmax in
+// registers (one FMA and one ex2 an element in log2 units; the LSE written
+// is natural-log), then O += P V by wgmma with P from registers, rounded
+// to bf16 as the TPU kernel rounds it, and V as an MN-major shared
+// operand. The accumulators' rows are those of mma.sync (g and g+8 of each
+// warp's 16), so a row's max and sum combine over its 4 lanes by shuffles.
+// Only tiles that cross the diagonal, the band's lower edge or the ragged
+// end are masked. The epilogue writes O / l through stmatrix into an O
+// buffer and stores it with TMA (rows past S are clipped) while the next
+// tile starts; rows < S also get their LSE. The consumers' CUDA-core work
+// (the softmax), not the tensor cores, sets its pace at the 7b shape.
 //
-// The ragged edge (S or T not a multiple of 64) is masked: rows past T are
-// zero-filled and scored -1e30, rows past S are not stored. A row whose
-// keys in a tile are all masked (the band's first tile under a window)
-// gets p = 0 there: the exponent is taken against 0 while the row's
-// running max is still -1e30.
+// bf16, head dims 16 and 32 (no card preset; the tiny preset runs on the
+// CPU), flash_fwd_bf16_kernel: FlashAttention-2 style on mma.sync.m16n8k16,
+// 4 warps a 64-row query tile, K/V tiles through cp.async double buffers
+// and ldmatrix, rows padded by 16 bytes against bank conflicts.
+//
+// f32 (parity runs), flash_fwd_f32_kernel: exact f32 FMAs on the CUDA cores
+// through shared-memory tiles, so the f32 path agrees with the plain
+// version to rounding.
+//
+// The ragged edge (S or T not a multiple of the tile) is masked: rows past
+// T read as zeros and are scored -1e30, rows past S are not stored. A row
+// whose keys in a tile are all masked (the band's first tile under a
+// window) gets p = 0 there: the exponent is taken against 0 while the
+// row's running max is still -1e30.
 
 #include <cstdint>
+#include <numeric>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows a block
+constexpr int BQ = 64;   // query rows a block (mma.sync and f32 kernels)
 constexpr int BK = 64;   // key rows a tile
 constexpr int NT = 128;  // 4 warps x 16 query rows
 
-// ------------------------------------------------------------------ bf16 ---
+// ----------------------------------------- bf16, mma.sync (head dims <= 32) ---
 
 template <int D, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
@@ -269,6 +294,372 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
   }
 }
 
+// ------------------------------------------------- bf16, TMA + wgmma ---
+
+constexpr int WG_BQ = 128;     // query rows a work tile: 64 per consumer group
+constexpr int WG_BK = 128;     // key rows a K/V tile
+constexpr int WG_NT = 384;     // producer group + 2 consumer groups
+constexpr int WG_STAGES = 2;   // K/V ring depth
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+struct WgmmaSmem {
+  static constexpr int HALF = 128 * 128;  // bytes of a 64-column box of 128 rows
+  static constexpr int TILE = HALF * (D / 64);  // a 128-row tile, D columns
+  static constexpr int Q = 0;
+  static constexpr int O = TILE;  // the epilogue's output tile
+  static constexpr int K = O + TILE;
+  static constexpr int V = K + WG_STAGES * TILE;
+  static constexpr int BAR = V + WG_STAGES * TILE;
+  // q_full, q_empty, then k_full, v_full, k_empty, v_empty (one each a
+  // stage); + 1024 to align the tiles
+  static constexpr size_t kBytes = BAR + 8 * (2 + 4 * WG_STAGES) + 1024;
+};
+
+// The work tiles (128 query rows of one batch and head) in the order the
+// blocks take them. (Batch, head) pairs go in groups of `hbg` whose K/V
+// fit in L2 together (a group's query tiles share them, so the K/V are
+// read from device memory about once); inside a group the causal tiles
+// near the end, which do the most work, go first, then the pairs. Block c
+// takes tile r * G + c in even rounds r and r * G + G-1-c in odd ones (G
+// blocks), so each block's sum of work evens out.
+struct WorkTiles {
+  int n_qt, H, HB, hbg, n;  // query tiles a head, heads, heads x batches,
+                            // pairs a group, all tiles
+  __device__ int at(int round, int c, int G) const {
+    return round * G + ((round & 1) ? G - 1 - c : c);
+  }
+  __device__ void decode(int w, int& q0, int& h, int& b) const {
+    const int group = w / (n_qt * hbg);  // every earlier group is full
+    const int g0 = group * hbg;
+    const int size = min(hbg, HB - g0);
+    const int in = w - g0 * n_qt;
+    const int hb = g0 + in % size;
+    q0 = (n_qt - 1 - in / size) * WG_BQ;
+    h = hb % H;
+    b = hb / H;
+  }
+};
+
+template <int D, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse, int B,
+    int S, int T_len, int H, int KV, int window, float scale_log2, int hbg) {
+  using L = WgmmaSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::Q, sO = base + L::O;
+  const uint32_t sK = base + L::K, sV = base + L::V;
+  const uint32_t q_full = base + L::BAR, q_empty = q_full + 8;
+  auto k_full = [&](int st) { return q_full + 8 * (2 + st); };
+  auto v_full = [&](int st) { return q_full + 8 * (2 + WG_STAGES + st); };
+  auto k_empty = [&](int st) { return q_full + 8 * (2 + 2 * WG_STAGES + st); };
+  auto v_empty = [&](int st) { return q_full + 8 * (2 + 3 * WG_STAGES + st); };
+
+  const int n_qt = (S + WG_BQ - 1) / WG_BQ;
+  const WorkTiles work{n_qt, H, H * B, hbg, n_qt * H * B};
+  // the K/V tiles a query tile reads: up to the diagonal when causal, from
+  // the band's first under a window (tiles above or below are never loaded)
+  auto kv_range = [&](int q0, int& kt_lo, int& n_tiles) {
+    int n_k = (T_len + WG_BK - 1) / WG_BK;
+    kt_lo = 0;
+    if (CAUSAL) {
+      n_k = min(n_k, q0 / WG_BK + 1);
+      if (WINDOW) kt_lo = max(0, q0 - window + 1) / WG_BK;
+    }
+    n_tiles = max(0, n_k - kt_lo);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);  // one arrival per consumer warp
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 8);
+      mbar_init(v_empty(st), 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread walks the block's work tiles and keeps Q
+    // and the K/V ring full by TMA, running ahead into the next tile ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // K/V tiles loaded so far: the ring's position
+      for (int r = 0, n = 0;; ++r, ++n) {
+        const int w = work.at(r, blockIdx.x, gridDim.x);
+        if (w >= work.n) break;
+        int q0, h, b, kt_lo, n_tiles;
+        work.decode(w, q0, h, b);
+        kv_range(q0, kt_lo, n_tiles);
+        const int kvh = h / (H / KV);
+        // the consumers are done with the previous tile's Q
+        if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+        mbar_expect_tx(q_full, L::TILE);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sQ + c * L::HALF, &tm_q, q_full, c * 64, h, q0, b);
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int st = it % WG_STAGES;
+          const uint32_t prev = ((it / WG_STAGES) - 1) & 1;
+          const int k0 = (kt_lo + i) * WG_BK;
+          const uint32_t kt = sK + st * L::TILE, vt = sV + st * L::TILE;
+          // K and V are released apart (K once q k^T is done): wait for
+          // the consumers to free this stage's previous tile
+          if (it >= WG_STAGES) mbar_wait(k_empty(st), prev);
+          mbar_expect_tx(k_full(st), L::TILE);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load_4d(kt + c * L::HALF, &tm_k, k_full(st), c * 64, kvh, k0,
+                        b);
+          if (it >= WG_STAGES) mbar_wait(v_empty(st), prev);
+          mbar_expect_tx(v_full(st), L::TILE);
+          for (int c = 0; c < D / 64; ++c)
+            tma_load_4d(vt + c * L::HALF, &tm_v, v_full(st), c * 64, kvh, k0,
+                        b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: group cw owns query rows q0 + 64 cw .. + 63 of each
+    // work tile ----
+    setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;  // accumulator rows g and g + 8 of the warp's 16
+    const int t4 = lane & 3;  // column pair within an 8-column n-tile
+    const uint32_t q_rows = sQ + cw * 64 * 128;  // this group's 64 rows
+    const uint32_t o_rows = sO + cw * 64 * 128;
+    auto release = [&](uint32_t bar) {  // this warp is done with a buffer
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    int it = 0;
+    for (int r = 0, n = 0;; ++r, ++n) {
+      const int w = work.at(r, blockIdx.x, gridDim.x);
+      if (w >= work.n) break;
+      int q0, h, b, kt_lo, n_tiles;
+      work.decode(w, q0, h, b);
+      kv_range(q0, kt_lo, n_tiles);
+      const int row0 = q0 + cw * 64 + warp * 16;  // the warp's first row
+      const int row_a = row0 + g;
+      const int row_b = row_a + 8;
+
+      float o[D / 2];  // f32 output accumulator: d-tile j in o[4j .. 4j+3]
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m_a = -1e30f, m_b = -1e30f;  // running max (log2 units)
+      float l_a = 0.f, l_b = 0.f;        // this thread's share of row sums
+
+      mbar_wait(q_full, n & 1);
+      if (n_tiles == 0) release(q_empty);
+      for (int i = 0; i < n_tiles; ++i, ++it) {
+        const int st = it % WG_STAGES;
+        const uint32_t ph = (it / WG_STAGES) & 1;
+        const int k0 = (kt_lo + i) * WG_BK;
+        const uint32_t kt = sK + st * L::TILE, vt = sV + st * L::TILE;
+
+        // s = q k^T: key n-tile j of rows g (s[4j], s[4j+1]) and g+8 (+2,
+        // +3)
+        float s[64];
+        mbar_wait(k_full(st), ph);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < D / 16; ++ks) {
+          // 16 columns = 32 bytes a k-step inside a 128-byte atom
+          const uint32_t off = (ks / 4) * L::HALF + (ks % 4) * 32;
+          wgmma_m64n128k16_ss(s, sw128_desc(q_rows + off, 16, 1024),
+                              sw128_desc(kt + off, 16, 1024), ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        release(k_empty(st));
+        if (i == n_tiles - 1) release(q_empty);
+
+        // mask (only tiles that cross the diagonal, the band's lower edge
+        // or the ragged end) the raw scores, then the online-softmax step in
+        // log2 units: the max of the raw scores (the scale is positive),
+        // then p = exp2(s * scale log2(e) - m) by one FMA
+        const bool edge = k0 + WG_BK > T_len ||
+                          (CAUSAL && k0 + WG_BK - 1 > row0) ||
+                          (WINDOW && row0 + 15 - k0 >= window);
+        float mx_a = -1e30f, mx_b = -1e30f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[4 * j + e];
+            if (edge) {
+              const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+              const int row = e < 2 ? row_a : row_b;
+              if (col >= T_len ||
+                  (CAUSAL && (col > row || (WINDOW && row - col >= window))))
+                x = -1e30f;
+            }
+            s[4 * j + e] = x;
+          }
+          mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+          mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+        }
+        const float mn_a = fmaxf(m_a, mx_a * scale_log2);
+        const float mn_b = fmaxf(m_b, mx_b * scale_log2);
+        const float al_a = ex2_approx(m_a - mn_a);
+        const float al_b = ex2_approx(m_b - mn_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        // under a window a row may have no visible key yet: exp against 0
+        // gives its masked p = 0 (without one, key 0 is in every row's
+        // first tile); a masked score becomes <= -1e30 scale log2(e)
+        const float e_a = WINDOW && mn_a <= -1e29f ? 0.f : mn_a;
+        const float e_b = WINDOW && mn_b <= -1e29f ? 0.f : mn_b;
+        float sum_a = 0.f, sum_b = 0.f;
+        // p, rounded to bf16, as the A fragments of p.v: the n-tiles 2kk
+        // and 2kk+1 of the scores are exactly the 16-key step kk
+        uint32_t pf[8][4];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          float p[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            p[e] = ex2_approx(
+                fmaf(s[8 * kk + e], scale_log2, (e & 2) ? -e_b : -e_a));
+          sum_a += p[0] + p[1] + p[4] + p[5];
+          sum_b += p[2] + p[3] + p[6] + p[7];
+          pf[kk][0] = pack_bf16(p[0], p[1]);
+          pf[kk][1] = pack_bf16(p[2], p[3]);
+          pf[kk][2] = pack_bf16(p[4], p[5]);
+          pf[kk][3] = pack_bf16(p[6], p[7]);
+        }
+        l_a = l_a * al_a + sum_a;
+        l_b = l_b * al_b + sum_b;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= al_a;
+          o[4 * j + 1] *= al_a;
+          o[4 * j + 2] *= al_b;
+          o[4 * j + 3] *= al_b;
+        }
+
+        // o += p v: V is MN-major (d contiguous), so a 16-key step is 16
+        // rows of V (2048 bytes) and the two 64-column boxes are LBO apart
+        mbar_wait(v_full(st), ph);
+        fence_regs(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint64_t dv = sw128_desc(vt + kk * 2048, L::HALF, 1024);
+          if constexpr (D == 128)
+            wgmma_m64n128k16_rs_tb(o, pf[kk], dv, 1);
+          else
+            wgmma_m64n64k16_rs_tb(o, pf[kk], dv, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        release(v_empty(st));
+      }
+
+      // epilogue: o / l in bf16 into this group's rows of O's buffer (the
+      // TMA box layout), then one TMA store, which clips rows past S; it
+      // runs on while the next tile starts
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      }
+      const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+      const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+      if (tid == 0) tma_store_wait_read();  // the last store has read O
+      named_bar_sync(1 + cw, 128);
+      {
+        const int mi = lane >> 3;  // the matrix whose row this lane addresses
+        const int rr = warp * 16 + (mi & 1) * 8 + (lane & 7);
+#pragma unroll
+        for (int j = 0; j < D / 8; j += 2) {
+          const int col = (j + (mi >> 1)) * 8;
+          const uint32_t addr = o_rows + (col / 64) * L::HALF + rr * 128 +
+                                ((((col % 64) / 8) ^ (rr & 7)) * 16);
+          stmatrix_x4(addr,
+                      pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a),
+                      pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b),
+                      pack_bf16(o[4 * j + 4] * inv_a, o[4 * j + 5] * inv_a),
+                      pack_bf16(o[4 * j + 6] * inv_b, o[4 * j + 7] * inv_b));
+        }
+      }
+      fence_proxy_async();
+      named_bar_sync(1 + cw, 128);
+      if (tid == 0) {
+        for (int c = 0; c < D / 64; ++c)
+          tma_store_4d(&tm_o, o_rows + c * L::HALF, c * 64, h,
+                       q0 + cw * 64, b);
+        tma_store_commit();
+      }
+      if (t4 == 0) {
+        float* lrow = lse + ((size_t)b * H + h) * S;
+        if (row_a < S) lrow[row_a] = m_a * LN2 + logf(fmaxf(l_a, 1e-30f));
+        if (row_b < S) lrow[row_b] = m_b * LN2 + logf(fmaxf(l_b, 1e-30f));
+      }
+    }
+    if (tid == 0) tma_store_wait_read();  // O's buffer outlives the store
+  }
+}
+
+template <int D>
+int launch_wgmma(int causal, int window, const void* q, const void* k,
+                 const void* v, void* o, void* lse, int B, int S, int T_len,
+                 int H, int KV, float scale, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mo;
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG_BQ);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, WG_BK);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, WG_BK);
+  if (rc == 0) rc = rt_bshd_map(&mo, o, B, S, H, D, 64);
+  if (rc != 0) return rc;
+  const size_t smem = WgmmaSmem<D>::kBytes;
+  auto kernel = window > 0 ? flash_fwd_wgmma_kernel<D, true, true>
+                : causal   ? flash_fwd_wgmma_kernel<D, true, false>
+                           : flash_fwd_wgmma_kernel<D, false, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // persistent: one block an SM, each walking its share of the work tiles
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (S + WG_BQ - 1) / WG_BQ;
+  const long long tiles = (long long)n_qt * H * B;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  // (batch, head) pairs a group: K/V of at most 32 MB of the 50 MB L2,
+  // rounded down to a multiple of m so that a group's tiles fill whole
+  // rounds of the grid (the snake order then balances inside each group)
+  const long long kv_bytes = 4ll * T_len * D;  // one kv head's K and V
+  const long long kv_heads = (32ll << 20) / kv_bytes;
+  const long long want = (kv_heads > 0 ? kv_heads : 1) * (H / KV);
+  const long long m = grid / std::gcd(grid, n_qt);
+  long long hbg = want / m * m;
+  if (hbg < m) hbg = m;
+  if (hbg > (long long)H * B) hbg = (long long)H * B;
+  kernel<<<grid, WG_NT, smem, st>>>(mq, mk, mv, mo, static_cast<float*>(lse),
+                                    B, S, T_len, H, KV, window, scale * LOG2E,
+                                    static_cast<int>(hbg));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32 ---
 
 template <int D>
@@ -419,19 +810,26 @@ int launch_d(int dtype, int causal, int window, const void* q,
              const void* k, const void* v, void* o, void* lse, int B, int S,
              int T_len, int H, int KV, float scale, cudaStream_t st) {
   if (dtype == RT_BF16) {
-    using T = __nv_bfloat16;
-    const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * (D + 8);
-    auto kernel = window > 0 ? flash_fwd_bf16_kernel<D, true, true>
-                  : causal   ? flash_fwd_bf16_kernel<D, true, false>
-                             : flash_fwd_bf16_kernel<D, false, false>;
-    cudaError_t err = rt_set_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((S + BQ - 1) / BQ, H, B);
-    kernel<<<grid, NT, smem, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o),
-        static_cast<float*>(lse), S, T_len, H, KV, window, scale);
-    return static_cast<int>(cudaGetLastError());
+    // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
+    // kernel is not even instantiated for them
+    if constexpr (D >= 64) {
+      return launch_wgmma<D>(causal, window, q, k, v, o, lse, B, S, T_len, H,
+                             KV, scale, st);
+    } else {
+      using T = __nv_bfloat16;
+      const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * (D + 8);
+      auto kernel = window > 0 ? flash_fwd_bf16_kernel<D, true, true>
+                    : causal   ? flash_fwd_bf16_kernel<D, true, false>
+                               : flash_fwd_bf16_kernel<D, false, false>;
+      cudaError_t err = rt_set_smem(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      dim3 grid((S + BQ - 1) / BQ, H, B);
+      kernel<<<grid, NT, smem, st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o),
+          static_cast<float*>(lse), S, T_len, H, KV, window, scale);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
   if (dtype == RT_F32) {
     const size_t smem = F32Tile<D>::kBytes;

@@ -6,8 +6,10 @@ Port of ``ray_tpu/ops/flash_attention.py``:
 - forward, ``flash_attention_fwd``: TPU kernels K1 (``_fwd_kernel_loop``,
   causal or full) and K2 (``_fwd_kernel_stream``, the sliding window) are
   one CUDA kernel here (``csrc/flash_attention.cu``) with a ``window``
-  argument: a block per (batch, head, 64-row query tile) streams only the
-  K/V tiles inside the causal band, so a window costs O(S * W);
+  argument, which streams only the K/V tiles inside the causal band, so a
+  window costs O(S * W). bf16 with head dim 64 or 128 runs the Hopper
+  kernel (TMA, mbarriers, warp-specialised ``wgmma``, 128-row tiles); bf16
+  with head dim 16 or 32 an ``mma.sync`` kernel; f32 exact CUDA-core FMAs;
 - backward, ``flash_attention_bwd``: the FlashAttention-2 split of the TPU
   kernels K3 (``_bwd_dq_kernel``) and K4 (``_bwd_dkdv_kernel``) in
   ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV

@@ -204,6 +204,19 @@ def test_kernel_tolerance_holds_rounding_not_a_dropped_tile():
             ).any(-1).any(-1).float().mean() > 0.9
 
 
+def _plain_on_card(q, k, v, causal, window=None):
+    """The plain version with its bf16 products summed in f32, which
+    kernel_tolerance assumes."""
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        return fa.flash_attention_reference(q, k, v, causal=causal,
+                                            window=window)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = reduced
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,causal", [(128, True), (200, True),
@@ -214,14 +227,7 @@ def test_kernel_matches_plain_on_card(dtype, S, causal):
                for a in make_qkv(2, S, 8, 4, 128, seed=3))
     before = fa.launches
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-    # kernel_tolerance assumes the plain version's bf16 products sum in f32
-    mm = torch.backends.cuda.matmul
-    reduced = mm.allow_bf16_reduced_precision_reduction
-    mm.allow_bf16_reduced_precision_reduction = False
-    try:
-        ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
-    finally:
-        mm.allow_bf16_reduced_precision_reduction = reduced
+    ref, lse_ref = _plain_on_card(q, k, v, causal)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     # elementwise: f32 within 1e-4, bf16 within 2^-7 (A + |plain|), A the
@@ -242,14 +248,7 @@ def test_window_kernel_matches_plain_on_card(dtype, S, window):
                for a in make_qkv(2, S, 8, 4, 128, seed=10))
     before, before_k1 = fa.launches_window, fa.launches
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
-    mm = torch.backends.cuda.matmul
-    reduced = mm.allow_bf16_reduced_precision_reduction
-    mm.allow_bf16_reduced_precision_reduction = False
-    try:
-        ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=True,
-                                                    window=window)
-    finally:
-        mm.allow_bf16_reduced_precision_reduction = reduced
+    ref, lse_ref = _plain_on_card(q, k, v, True, window)
     torch.cuda.synchronize()
     assert fa.launches_window == before + 1 and fa.launches == before_k1
     err = (out.float() - ref.float()).abs()
@@ -291,3 +290,79 @@ def test_bwd_kernels_match_plain_on_card(dtype, S, H, KV, D, causal, window):
     again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
                                    window=window)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _qkv_on_card(B, S, T, H, KV, D, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .cuda().to(torch.bfloat16)
+            for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T,H,KV,causal,window", [
+    (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
+    (200, 200, 16, 8, False, None), (1000, 1000, 16, 8, True, None),
+    (256, 512, 16, 8, True, None), (130, 300, 4, 4, False, None),
+    (200, 200, 16, 8, True, 64), (1000, 1000, 16, 8, True, 200),
+    (128, 128, 4, 4, True, 64), (256, 512, 16, 8, True, 200)])
+def test_wgmma_kernel_matches_plain_on_card(D, S, T, H, KV, causal, window):
+    """The TMA/wgmma kernel (bf16, head dims 64 and 128) against the plain
+    version: out elementwise within kernel_tolerance, the LSE within 1e-4,
+    for causal and full attention, GQA, windows, ragged S and T > S."""
+    require_cuda()
+    q, k, v = _qkv_on_card(2, S, T, H, KV, D, seed=13)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    ref, lse_ref = _plain_on_card(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
+    err = (out.float() - ref.float()).abs()
+    assert (err <= fa.kernel_tolerance(q, k, v, ref, causal=causal,
+                                       window=window)).all()
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_kernel_reads_no_row_past_t_or_outside_the_band(D):
+    """NaN where the kernel must not read: (a) memory just past the last
+    batch's T rows (TMA zero-fills the ragged tile inside its batch); (b)
+    K/V tiles above the last query tile's diagonal (T > S, causal); (c)
+    the first K/V tile under window 64, which no query tile from row 256 on
+    may load. The outputs those rows feed stay finite and within
+    kernel_tolerance of the plain version on clean inputs."""
+    require_cuda()
+
+    def check(out, ref, tol, rows=slice(None)):
+        assert bool(torch.isfinite(out[:, rows].float()).all())
+        assert ((out.float() - ref.float()).abs()[:, rows]
+                <= tol[:, rows]).all()
+
+    # (a) k and v are the front of NaN buffers, S = T = 200
+    q, k, v = _qkv_on_card(2, 200, 200, 16, 8, D, seed=14)
+    kn, vn = (torch.full((x.numel() + 4096,), float("nan"), device="cuda",
+                         dtype=x.dtype) for x in (k, v))
+    kp = kn[:k.numel()].view(k.shape).copy_(k)
+    vp = vn[:v.numel()].view(v.shape).copy_(v)
+    for causal in (True, False):
+        out, _ = fa.flash_attention_fwd(q, kp, vp, causal=causal)
+        ref, _ = _plain_on_card(q, k, v, causal)
+        check(out, ref, fa.kernel_tolerance(q, k, v, ref, causal=causal))
+    # (b) S = 300, T = 1000: rows from 384 on lie above every diagonal tile
+    q, k, v = _qkv_on_card(2, 300, 1000, 16, 8, D, seed=15)
+    ref, _ = _plain_on_card(q, k, v, True)
+    k[:, 384:], v[:, 384:] = float("nan"), float("nan")
+    out, _ = fa.flash_attention_fwd(q, k, v, causal=True)
+    check(out, ref, fa.kernel_tolerance(q, k[:, :384], v[:, :384], ref,
+                                        causal=True))
+    # (c) S = T = 1000, window 64: keys 0-127 poisoned; rows >= 256 never
+    # see them, and their query tiles start at tile 1
+    q, k, v = _qkv_on_card(2, 1000, 1000, 16, 8, D, seed=16)
+    ref, _ = _plain_on_card(q, k, v, True, 64)
+    tol = fa.kernel_tolerance(q, k, v, ref, causal=True, window=64)
+    k[:, :128], v[:, :128] = float("nan"), float("nan")
+    out, _ = fa.flash_attention_fwd(q, k, v, causal=True, window=64)
+    torch.cuda.synchronize()
+    check(out, ref, tol, rows=slice(256, None))
