@@ -37,12 +37,15 @@ printing one JSON line:
 7. engine_contiguous: the JAX engine's default configuration, the 7b preset
    at all 32 layers, bf16, contiguous KV, int8 weights, flash prefill, 16
    slots, max_seq 2048, the engine phase's 12 requests: int8 bytes at rest,
+   the setup's peak memory against them (and the int8 init's alone),
    peak memory, decode tokens/s, TTFT and a decode block's profile;
 8. k2 / k3k4: the sliding-window forward (K2, checked as K1 is) and the
    backward kernels (K3 dQ, K4 dK/dV) against their plain versions at the
    1b train shape and others, in bf16 and f32, within ``kernel_tolerance`` /
-   ``grad_tolerance``; times beside the bound, the plain version and SDPA
-   (with a band mask; its backward);
+   ``grad_tolerance``; CUPTI device times and CUDA events beside the
+   bound, the plain version and SDPA (with a band mask; its backward), and
+   the kernels' names (bf16 K3 at head dim 64 or 128 must run the TMA/wgmma
+   dQ kernel and nothing else);
 9. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
    card and on the CPU from one init, without and with a sliding window
    (the run on which K2 launches): losses, grad norms and params within
@@ -52,7 +55,7 @@ printing one JSON line:
    warm-up: falling finite losses, exact K1/K3/K4 launch counts, step time,
    tokens/s, MFU, peak memory and one step's device profile (whose forward
    attention kernels must all be the TMA/wgmma one, as in the engines'
-   prefill profiles);
+   prefill profiles, and its dQ kernels the TMA/wgmma dQ one);
 11. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
@@ -97,6 +100,10 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_MAX = 4 * 3e-4
 TRAIN_PARAM_FAR = 1e-5
 TRAIN_PARAM_FAR_SHARE = 1e-4
+# an int8 init's peak over what it leaves at rest (int8 weights, and the
+# engine's KV cache): one 2-D weight's f32 copy (0.52 GB for the 7b
+# embedding), never the float tree
+SETUP_PEAK_MARGIN_GB = 1.0
 
 RESULTS: dict = {"phases": {}}
 
@@ -398,9 +405,11 @@ def phase_k5():
 # --- K1 / K2: the flash forward ---------------------------------------------
 
 
-# the symbol of the TMA/wgmma forward kernel, which every bf16 launch with
-# head dim 64 or 128 must run (csrc/flash_attention.cu)
+# the symbols of the TMA/wgmma forward kernel (K1/K2) and dQ kernel (K3),
+# which every bf16 launch with head dim 64 or 128 must run
+# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
 WGMMA_FWD_SYMBOL = "flash_fwd_wgmma_kernel"
+WGMMA_DQ_SYMBOL = "flash_bwd_dq_wgmma_kernel"
 
 
 def band_pairs(S: int, T: int, causal: bool, window=None) -> int:
@@ -462,8 +471,7 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
     names: set = set()
     dev = device_ms(run, iters=10, names=names, per_call=1)
     wgmma = dtype == "bfloat16" and D in (64, 128)
-    ran_new = names == {n for n in names if WGMMA_FWD_SYMBOL in n} and \
-        bool(names)
+    ran_new = ran_only(names, WGMMA_FWD_SYMBOL)
     shape = f"B={B} S={S} T={T} H={H} KV={KV} D={D}"
     res = {"shape": shape + (f" window={window}" if window else ""),
            "dtype": dtype, "causal": causal, "max_abs_err": err,
@@ -563,8 +571,11 @@ def phase_k2():
 
 def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
     """K3 and K4 against the plain backward on the same (q, k, v, out, lse,
-    dO), dq/dk/dv elementwise within grad_tolerance; times of each kernel,
-    the plain backward and SDPA's backward (bf16 only)."""
+    dO), dq/dk/dv elementwise within grad_tolerance, bit-identical on a
+    second run. Timed: each kernel by CUPTI device time (device_ms) and by
+    CUDA events, with the names of the kernels it ran (bf16 K3 at head dim
+    64 or 128 must run WGMMA_DQ_SYMBOL and nothing else), the plain
+    backward and SDPA's backward (bf16 only), beside the bounds."""
     import numpy as np
     import torch
 
@@ -608,10 +619,25 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
     if timed:
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
                                               causal=causal, window=window)
-        res["k3_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, out, lse, g, causal=causal, window=window), iters=10)
-        res["k4_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_dkdv(
-            q, k, v, lse, g, delta, causal=causal, window=window), iters=10)
+
+        def k3():
+            fa.flash_attention_bwd_dq(q, k, v, out, lse, g, causal=causal,
+                                      window=window)
+
+        def k4():
+            fa.flash_attention_bwd_dkdv(q, k, v, lse, g, delta,
+                                        causal=causal, window=window)
+
+        for pre, fn in (("k3_", k3), ("k4_", k4)):
+            names: set = set()
+            res[pre + "kernel_ms"] = device_ms(fn, iters=10, names=names,
+                                               per_call=1)
+            res[pre + "event_ms"] = cuda_ms(fn, iters=10)
+            res[pre + "kernels"] = sorted(names)
+        if dtype == "bfloat16" and D in (64, 128):
+            res["ran_wgmma_dq_only"] = ran_only(res["k3_kernels"],
+                                                WGMMA_DQ_SYMBOL)
+            ok = ok and res["ran_wgmma_dq_only"]
         res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, g, causal=causal, window=window), iters=3)
         res["library_ms"] = None
@@ -624,8 +650,15 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
                 qh, kh, vh, attn_mask=mask,
                 is_causal=causal and mask is None, enable_gqa=KV != H)
             gh = g.transpose(1, 2).contiguous()
-            res["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-                o, (qh, kh, vh), gh, retain_graph=True), iters=10)
+
+            def lib():
+                torch.autograd.grad(o, (qh, kh, vh), gh, retain_graph=True)
+
+            res["library_ms"] = cuda_ms(lib, iters=10)
+            lib_names: set = set()
+            res["library_device_ms"] = device_ms(lib, iters=10,
+                                                 names=lib_names)
+            res["library_kernels"] = sorted(lib_names)
         elt = torch.finfo(dt).bits // 8
         pairs = band_pairs(S, S, causal, window)
         bshd, btkd, bhs = B * S * H * D, B * S * KV * D, B * H * S
@@ -827,7 +860,11 @@ def phase_train():
     res["profile_step"] = device_profile(lambda: step(state, batch),
                                          lambda: step(state, batch))
     res["step_ran_wgmma_fwd_only"] = ran_wgmma_fwd_only(res["profile_step"])
-    res["ok"] = res["ok"] and res["step_ran_wgmma_fwd_only"]
+    res["step_ran_wgmma_dq_only"] = ran_only(
+        [n for n in res["profile_step"]["flash_kernels"]
+         if "flash_bwd_dq_" in n], WGMMA_DQ_SYMBOL)
+    res["ok"] = (res["ok"] and res["step_ran_wgmma_fwd_only"]
+                 and res["step_ran_wgmma_dq_only"])
     return res
 
 
@@ -1154,7 +1191,10 @@ def phase_engine_contiguous():
     all 32 layers, bf16, contiguous KV (16 slots x 2048 tokens), int8
     weights, flash prefill; the engine phase's 12 requests (seed 5), 64
     tokens each, with the K1 counter set to 0 just before them and read
-    after; then the prefill and decode-block profiles."""
+    after; then the prefill and decode-block profiles. Memory gates: the
+    engine's setup peak within its int8 weights, KV cache and
+    SETUP_PEAK_MARGIN_GB, and the int8 init alone (4 layers) within its
+    int8 tree and the margin."""
     import numpy as np
     import torch
 
@@ -1162,10 +1202,24 @@ def phase_engine_contiguous():
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.serve.llm import LLMEngine
 
+    cfg = llama.PRESETS["7b"].replace(attn_impl="flash")
+    # the int8 init on its own, 4 layers of the 7b width: its peak stays
+    # within its int8 tree and one 2-D weight's f32 copy (the float tree
+    # whole would add 2.1 GB of bf16), which the engine's setup peak below
+    # cannot show: its KV cache, allocated after the weights, is larger
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p4 = llama.init_params_int8(
+        torch.Generator().manual_seed(0),
+        cfg.replace(n_layers=4, param_dtype=cfg.dtype), device="cuda")
+    init4 = {"int8_gb": sum(t.nbytes for t in _leaves(p4)) / 1e9,
+             "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9}
+    init4["ok"] = init4["peak_gb"] <= init4["int8_gb"] + SETUP_PEAK_MARGIN_GB
+    del p4
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = llama.PRESETS["7b"].replace(attn_impl="flash")
     eng = LLMEngine(cfg=cfg, max_slots=16, max_seq_len=2048, seed=0,
                     quantize="int8", device="cuda")
     torch.cuda.synchronize()
@@ -1193,9 +1247,21 @@ def phase_engine_contiguous():
            "setup_s": setup_s, "setup_peak_mem_gb": setup_peak,
            "weight_bytes_at_rest": weight_bytes, "int8_bytes": q8_bytes,
            "kv_cache_bytes": cache_bytes,
+           # the int8 engine never holds its float tree whole on the card
+           "setup_peak_limit_gb": (weight_bytes + cache_bytes) / 1e9
+           + SETUP_PEAK_MARGIN_GB,
            **engine_metrics(eng, reqs, m0, run_s), "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    res["ok"] = res["all_finished_64"] and launches["flash_attention_fwd"] > 0
+    res["setup_peak_ok"] = setup_peak <= res["setup_peak_limit_gb"]
+    res["int8_init_4_layers"] = init4
+    print(f"engine_contiguous: setup peak {setup_peak:.3f} GB <= int8 "
+          f"weights + KV cache + {SETUP_PEAK_MARGIN_GB} = "
+          f"{res['setup_peak_limit_gb']:.3f} GB: {res['setup_peak_ok']}; "
+          f"int8 init of 4 layers: peak {init4['peak_gb']:.3f} GB <= "
+          f"{init4['int8_gb']:.3f} + {SETUP_PEAK_MARGIN_GB}: {init4['ok']}",
+          flush=True)
+    res["ok"] = (res["all_finished_64"] and res["setup_peak_ok"]
+                 and init4["ok"] and launches["flash_attention_fwd"] > 0)
 
     def dequantize_all():
         # what one decode step spends on int8: every matmul weight
@@ -1261,11 +1327,16 @@ def device_profile(timed, profiled):
             "flash_kernels": sorted(n for n in by_name if "flash_" in n)}
 
 
+def ran_only(names, symbol) -> bool:
+    """Kernel names, at least one, all of them the kernel `symbol`."""
+    return bool(names) and all(symbol in n for n in names)
+
+
 def ran_wgmma_fwd_only(profile) -> bool:
     """A bf16 window's forward attention launches (K1/K2) all ran the
     TMA/wgmma kernel, and there was at least one."""
-    fwd = [n for n in profile["flash_kernels"] if "flash_fwd_" in n]
-    return bool(fwd) and all(WGMMA_FWD_SYMBOL in n for n in fwd)
+    return ran_only([n for n in profile["flash_kernels"] if "flash_fwd_" in n],
+                    WGMMA_FWD_SYMBOL)
 
 
 # --- driver -----------------------------------------------------------------
@@ -1427,7 +1498,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, "max_abs_err": err,
-                        "ms": c.get(pre + "ms" if pre else "kernel_ms"),
+                        "ms": c.get(pre + "kernel_ms"),
                         "plain_ms": c.get("plain_ms"),
                         "bound_ms": c.get(pre + "bound_ms"),
                         "bound_by": c.get(pre + "bound_by"),

@@ -6,7 +6,7 @@
 // q/dO/O [B, S, H, D], k/v [B, T, KV, D] and the forward's f32 log-sum-exp
 // lse [B, H, S], with P = exp(q k^T scale - lse) and
 // dS = P * (dO v^T - delta) * scale, delta = rowsum(O * dO):
-//   K3: dq = dS k           one block per (b, h, 64-row query tile);
+//   K3: dq = dS k           one block per (b, h, query tile);
 //   K4: dk = dS^T q, dv = P^T dO   one block per (b, kv_head, 64-key tile).
 // The causal band (and a sliding window W: key t visible to query s iff
 // 0 <= s - t < W) bounds both loops: K3 streams K/V tiles from the band's
@@ -29,8 +29,37 @@
 // [B, H, T, D] buffers of the TPU wrapper (_flash_pallas_bwd:421-422) do
 // not exist.
 //
-// bf16 (training): mma.sync.m16n8k16 with f32 accumulation in the fragment
-// layouts of K1 (mma.cuh). The recomputed scores and dP stay in f32
+// Kernels, chosen explicitly by dtype and head dim in launch_dq and
+// launch_dkdv:
+//
+// K3, bf16 at head dims 64 and 128 (every card preset),
+// flash_bwd_dq_wgmma_kernel, on K1's parts (hopper.cuh): one block of 3
+// warpgroups a 128-row query tile. Warpgroup 0 is the producer (after
+// setmaxnreg.dec): one thread loads the tile's Q and dO once by TMA (K1's
+// 4-D tensor maps, 128-byte swizzle, so a box past S or T is zero-filled
+// inside its own batch) and the band's 64-key K/V tiles into a 2-stage
+// ring with full and empty mbarriers (K freed after dS k, V after dO v^T).
+// Warpgroups 1-2 are consumers (setmaxnreg.inc), 64 query rows each: they
+// form delta from O and dO in device memory while the first tiles land;
+// then per K/V tile S = Q K^T and dP = dO V^T by wgmma m64n64k16 with both
+// operands in shared memory (K-major), P = exp2(S scale log2(e) - lse
+// log2(e)) by one FMA and ex2.approx while dO V^T runs, dS = P (dP -
+// delta) scale rounded to bf16 in registers, and dQ += dS K by wgmma with
+// dS from registers and K as the MN-major operand, exactly as K1 treats P
+// and V. 64-key tiles keep S, dP (32 f32 registers a thread each), dQ (64
+// at D 128) and the dS fragments (16) in registers without spills. Only
+// tiles that cross the diagonal, the band's lower edge or the ragged end
+// are masked; a tile no row of a group sees is only waited for and freed.
+// Blocks go heaviest query tile first, one (batch, head) after another,
+// which keeps a head's K/V in L2; on this card a persistent form, a global
+// heaviest-first order, a deeper ring, delta formed by the producer's
+// spare warps and the next tile's products queued behind dQ += dS K were
+// each slower (PERF.md, PR 6). At the 1b train shape it runs at ~30% of
+// the tensor cores' rate.
+//
+// bf16 at head dim 32 (K3) and bf16 K4: mma.sync.m16n8k16 with f32
+// accumulation in the fragment layouts of K1 (mma.cuh). The recomputed
+// scores and dP stay in f32
 // registers; P (for dV) and dS (for dK, dQ) are rounded to bf16 as the
 // A operand of the gradient products. K/V tiles (K3) and q/dO tiles (K4)
 // arrive through cp.async, double-buffered. A operands come from shared
@@ -48,6 +77,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -419,6 +449,349 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
   }
 }
 
+// ------------------------------------------ bf16 dQ, TMA + wgmma (K3) ---
+
+constexpr int WG_BQ = 128;    // query rows a block: 64 per consumer group
+constexpr int WG_BK = 64;     // key rows a K/V tile
+constexpr int WG_NT = 384;    // producer group + 2 consumer groups
+constexpr int WG_STAGES = 2;  // K/V ring depth
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct DqSmem {
+  static constexpr int HALF_Q = WG_BQ * 128;  // a 64-column box of Q or dO
+  static constexpr int TILE_Q = HALF_Q * (D / 64);
+  static constexpr int HALF_K = WG_BK * 128;  // a 64-column box of K or V
+  static constexpr int TILE_K = HALF_K * (D / 64);
+  static constexpr int Q = 0;
+  static constexpr int G = TILE_Q;  // dO
+  static constexpr int K = G + TILE_Q;
+  static constexpr int V = K + WG_STAGES * TILE_K;
+  static constexpr int DELTA = V + WG_STAGES * TILE_K;  // f32 [WG_BQ]
+  static constexpr int BAR = DELTA + 4 * WG_BQ;
+  // qg_full, then k_full, v_full, k_empty, v_empty (one each a stage);
+  // + 1024 to align the tiles
+  static constexpr size_t kBytes = BAR + 8 * (1 + 4 * WG_STAGES) + 1024;
+};
+
+// delta = rowsum(O * dO) in f32 of the 64 rows from `row0` of one (batch,
+// head), by a warpgroup (this is thread t), D / 8 threads a row with one
+// 16-byte chunk of O and of dO each; into dl[r] (r from 0) and, for
+// rows < S, into delta (from lrow).
+template <int D>
+__device__ __forceinline__ void group_delta(
+    const bf16* __restrict__ o, const bf16* __restrict__ g,
+    float* __restrict__ delta, float* dl, size_t head, size_t q_stride,
+    size_t lrow, int row0, int S, int t) {
+  constexpr int TPR = D / 8;
+  constexpr int RPP = 128 / TPR;  // rows a pass
+  const int c = (t % TPR) * 8;
+#pragma unroll
+  for (int r0 = 0; r0 < 64; r0 += RPP) {
+    const int r = r0 + t / TPR;
+    const int row = row0 + r;
+    float a = 0.f;
+    if (row < S) {
+      const size_t off = head + (size_t)row * q_stride + c;
+      const uint4 ov = __ldg(reinterpret_cast<const uint4*>(o + off));
+      const uint4 gv = __ldg(reinterpret_cast<const uint4*>(g + off));
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(op[i]);
+        const float2 y = __bfloat1622float2(gp[i]);
+        a = fmaf(x.x, y.x, a);
+        a = fmaf(x.y, y.y, a);
+      }
+    }
+#pragma unroll
+    for (int off = TPR / 2; off > 0; off >>= 1)
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+    if (t % TPR == 0) {
+      dl[r] = a;
+      if (row < S) delta[lrow + row] = a;
+    }
+  }
+}
+
+template <int D, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_g,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ o,
+    const bf16* __restrict__ g, const float* __restrict__ lse,
+    bf16* __restrict__ dq, float* __restrict__ delta, int S, int T_len,
+    int H, int KV, int window, float scale) {
+  using L = DqSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::Q, sG = base + L::G;
+  const uint32_t sK = base + L::K, sV = base + L::V;
+  unsigned char* aligned = smem_tiles + (base - smem_u32(smem_tiles));
+  float* dl_sh = reinterpret_cast<float*>(aligned + L::DELTA);
+  const uint32_t qg_full = base + L::BAR;
+  auto k_full = [&](int st) { return qg_full + 8 * (1 + st); };
+  auto v_full = [&](int st) { return qg_full + 8 * (1 + WG_STAGES + st); };
+  auto k_empty = [&](int st) {
+    return qg_full + 8 * (1 + 2 * WG_STAGES + st);
+  };
+  auto v_empty = [&](int st) {
+    return qg_full + 8 * (1 + 3 * WG_STAGES + st);
+  };
+
+  // causal tiles near the end do the most work: schedule them first, one
+  // (batch, head) after another, so a head's K/V stay in L2 across its
+  // query tiles
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * WG_BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  // the K/V tiles of the band: up to the diagonal when causal, from the
+  // band's first under a window (tiles above or below are never loaded)
+  int n_k = (T_len + WG_BK - 1) / WG_BK;
+  int kt_lo = 0;
+  if (CAUSAL) {
+    n_k = min(n_k, (q0 + WG_BQ - 1) / WG_BK + 1);
+    if (WINDOW) kt_lo = max(0, q0 - window + 1) / WG_BK;
+  }
+  const int n_tiles = n_k - kt_lo;
+  const size_t q_stride = (size_t)H * D;
+  const size_t head = ((size_t)b * S * H + h) * D;
+  const size_t lrow = ((size_t)b * H + h) * S;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qg_full, 1);
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 8);  // one arrival per consumer warp
+      mbar_init(v_empty(st), 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread loads Q and dO once, then keeps the K/V
+    // ring full by TMA ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      const int kvh = h / (H / KV);
+      mbar_expect_tx(qg_full, 2 * L::TILE_Q);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sQ + c * L::HALF_Q, &tm_q, qg_full, c * 64, h, q0, b);
+        tma_load_4d(sG + c * L::HALF_Q, &tm_g, qg_full, c * 64, h, q0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % WG_STAGES;
+        const uint32_t prev = ((i / WG_STAGES) - 1) & 1;
+        const int k0 = (kt_lo + i) * WG_BK;
+        const uint32_t kt = sK + st * L::TILE_K, vt = sV + st * L::TILE_K;
+        // K is freed after dq += dS k, V after dP: each waits for its own
+        if (i >= WG_STAGES) mbar_wait(k_empty(st), prev);
+        mbar_expect_tx(k_full(st), L::TILE_K);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(kt + c * L::HALF_K, &tm_k, k_full(st), c * 64, kvh, k0,
+                      b);
+        if (i >= WG_STAGES) mbar_wait(v_empty(st), prev);
+        mbar_expect_tx(v_full(st), L::TILE_K);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(vt + c * L::HALF_K, &tm_v, v_full(st), c * 64, kvh, k0,
+                      b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: group cw owns query rows q0 + 64 cw .. + 63 ----
+  setmaxnreg_inc<232>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g8 = lane >> 2;  // accumulator rows g8 and g8 + 8 of the warp's 16
+  const int t4 = lane & 3;   // column pair within an 8-column n-tile
+  const int grow = q0 + cw * 64;  // the group's first row
+  const int row0 = grow + warp * 16;
+  const int row_a = row0 + g8;
+  const int row_b = row_a + 8;
+  // delta of the group's rows from device memory while the tiles land
+  group_delta<D>(o, g, delta, dl_sh + cw * 64, head, q_stride, lrow, grow, S,
+                 tid);
+  named_bar_sync(1 + cw, 128);
+  const float dl_a = dl_sh[cw * 64 + warp * 16 + g8];
+  const float dl_b = dl_sh[cw * 64 + warp * 16 + g8 + 8];
+  // P = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
+  const float scale_log2 = scale * LOG2E;
+  const float nl_a = row_a < S ? -lse[lrow + row_a] * LOG2E : 0.f;
+  const float nl_b = row_b < S ? -lse[lrow + row_b] * LOG2E : 0.f;
+  const uint32_t q_rows = sQ + cw * 64 * 128;  // this group's 64 rows
+  const uint32_t g_rows = sG + cw * 64 * 128;
+  auto release = [&](uint32_t bar) {  // this warp is done with a buffer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  float acc[D / 2];  // f32 dq: d-tile j in acc[4j .. 4j+3]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  // the tiles some row of this group sees are [i_lo, i_hi): those before
+  // (below its band) and after (above its diagonal, or all of them for a
+  // group wholly past S) are only waited for and released, in ring order
+  int i_lo = 0, i_hi = grow < S ? n_tiles : 0;
+  while (CAUSAL && i_hi > 0 && (kt_lo + i_hi - 1) * WG_BK > grow + 63) --i_hi;
+  while (WINDOW && i_lo < i_hi &&
+         grow - ((kt_lo + i_lo) * WG_BK + WG_BK - 1) >= window)
+    ++i_lo;
+  auto skip = [&](int i) {
+    const int st = i % WG_STAGES;
+    const uint32_t ph = (i / WG_STAGES) & 1;
+    mbar_wait(k_full(st), ph);
+    mbar_wait(v_full(st), ph);
+    release(v_empty(st));
+    release(k_empty(st));
+  };
+
+  mbar_wait(qg_full, 0);
+  for (int i = 0; i < i_lo; ++i) skip(i);
+  for (int i = i_lo; i < i_hi; ++i) {
+    const int st = i % WG_STAGES;
+    const uint32_t ph = (i / WG_STAGES) & 1;
+    const int k0 = (kt_lo + i) * WG_BK;
+    const uint32_t kt = sK + st * L::TILE_K, vt = sV + st * L::TILE_K;
+
+    // s = q k^T and dp = dO v^T: key n-tile j of rows g8 (x[4j], x[4j+1])
+    // and g8 + 8 (x[4j+2], x[4j+3]); two commit groups
+    float s[32], dp[32];
+    mbar_wait(k_full(st), ph);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      // 16 columns = 32 bytes a k-step inside a 128-byte atom
+      const uint32_t qo = (ks / 4) * L::HALF_Q + (ks % 4) * 32;
+      const uint32_t ko = (ks / 4) * L::HALF_K + (ks % 4) * 32;
+      wgmma_m64n64k16_ss(s, sw128_desc(q_rows + qo, 16, 1024),
+                         sw128_desc(kt + ko, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+    mbar_wait(v_full(st), ph);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t qo = (ks / 4) * L::HALF_Q + (ks % 4) * 32;
+      const uint32_t ko = (ks / 4) * L::HALF_K + (ks % 4) * 32;
+      wgmma_m64n64k16_ss(dp, sw128_desc(g_rows + qo, 16, 1024),
+                         sw128_desc(vt + ko, 16, 1024), ks > 0);
+    }
+    wgmma_commit();
+
+    // P from the saved lse while dO v^T runs: one FMA and one ex2 an
+    // element; 0 where masked (only tiles that cross the diagonal, the
+    // band's lower edge or the ragged end are masked)
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool edge = k0 + WG_BK > T_len ||
+                      (CAUSAL && k0 + WG_BK - 1 > row0) ||
+                      (WINDOW && row0 + 15 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2_approx(fmaf(s[4 * j + e], scale_log2,
+                                  e < 2 ? nl_a : nl_b));
+        if (edge) {
+          const int col = k0 + j * 8 + t4 * 2 + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          if (col >= T_len ||
+              (CAUSAL && (col > row || (WINDOW && row - col >= window))))
+            p = 0.f;
+        }
+        s[4 * j + e] = p;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    release(v_empty(st));
+
+    // dS = P (dP - delta) scale, rounded to bf16 as the A fragments of
+    // dS k: the n-tiles 2kk and 2kk+1 are exactly the 16-key step kk
+    uint32_t df[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        x[e] = s[8 * kk + e] * (dp[8 * kk + e] - ((e & 2) ? dl_b : dl_a)) *
+               scale;
+      df[kk][0] = pack_bf16(x[0], x[1]);
+      df[kk][1] = pack_bf16(x[2], x[3]);
+      df[kk][2] = pack_bf16(x[4], x[5]);
+      df[kk][3] = pack_bf16(x[6], x[7]);
+    }
+
+    // dq += dS k: K is MN-major here (d contiguous), so a 16-key step is
+    // 16 rows of K (2048 bytes) and its 64-column boxes are LBO apart
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dk = sw128_desc(kt + kk * 2048, L::HALF_K, 1024);
+      if constexpr (D == 128)
+        wgmma_m64n128k16_rs_tb(acc, df[kk], dk, 1);
+      else
+        wgmma_m64n64k16_rs_tb(acc, df[kk], dk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(k_empty(st));
+  }
+  for (int i = max(i_hi, i_lo); i < n_tiles; ++i) skip(i);
+
+  // epilogue: dq in bf16, rows < S (each element summed by this thread
+  // alone, in the order of the tiles: deterministic)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_b : row_a;
+    if (row >= S) continue;
+    bf16* out = dq + head + (size_t)row * q_stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + t4 * 2) =
+          __floats2bfloat162_rn(acc[4 * j + half * 2],
+                                acc[4 * j + half * 2 + 1]);
+  }
+}
+
+template <int D>
+int launch_dq_wgmma(int causal, int window, const void* q, const void* k,
+                    const void* v, const void* o, const void* g,
+                    const void* lse, void* dq, void* delta, int B, int S,
+                    int T_len, int H, int KV, float scale, cudaStream_t st) {
+  CUtensorMap mq, mg, mk, mv;
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG_BQ);
+  if (rc == 0) rc = rt_bshd_map(&mg, g, B, S, H, D, WG_BQ);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, WG_BK);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, WG_BK);
+  if (rc != 0) return rc;
+  const size_t smem = DqSmem<D>::kBytes;
+  auto kernel = window > 0 ? flash_bwd_dq_wgmma_kernel<D, true, true>
+                : causal   ? flash_bwd_dq_wgmma_kernel<D, true, false>
+                           : flash_bwd_dq_wgmma_kernel<D, false, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((S + WG_BQ - 1) / WG_BQ, H, B);
+  kernel<<<grid, WG_NT, smem, st>>>(
+      mq, mg, mk, mv, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      static_cast<bf16*>(dq), static_cast<float*>(delta), S, T_len, H, KV,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32 ---
 
 template <int D>
@@ -695,19 +1068,27 @@ int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
               float scale, cudaStream_t st) {
   dim3 grid((S + BQ - 1) / BQ, H, B);
   if (dtype == RT_BF16) {
-    const size_t smem = sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * (D + 8) +
-                        sizeof(float) * BQ;
-    auto kernel = causal ? flash_bwd_dq_bf16_kernel<D, true>
-                         : flash_bwd_dq_bf16_kernel<D, false>;
-    cudaError_t err = rt_set_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, NT, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-        static_cast<const bf16*>(g), static_cast<const float*>(lse),
-        static_cast<bf16*>(dq), static_cast<float*>(delta), S, T_len, H, KV,
-        window, scale);
-    return static_cast<int>(cudaGetLastError());
+    // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
+    // kernel is not even instantiated for them
+    if constexpr (D >= 64) {
+      return launch_dq_wgmma<D>(causal, window, q, k, v, o, g, lse, dq,
+                                delta, B, S, T_len, H, KV, scale, st);
+    } else {
+      const size_t smem =
+          sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * (D + 8) +
+          sizeof(float) * BQ;
+      auto kernel = causal ? flash_bwd_dq_bf16_kernel<D, true>
+                           : flash_bwd_dq_bf16_kernel<D, false>;
+      cudaError_t err = rt_set_smem(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid, NT, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+          static_cast<const bf16*>(g), static_cast<const float*>(lse),
+          static_cast<bf16*>(dq), static_cast<float*>(delta), S, T_len, H,
+          KV, window, scale);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
   if (dtype == RT_F32) {
     const size_t smem = F32Bwd<D>::kBytes;

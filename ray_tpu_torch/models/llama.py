@@ -134,43 +134,70 @@ def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
     }
 
 
-def init_params(generator: torch.Generator, cfg: LlamaConfig
-                ) -> Dict[str, Any]:
+def init_params(generator: torch.Generator, cfg: LlamaConfig,
+                leaf=None) -> Dict[str, Any]:
     """Random weights on the generator's device, in cfg.param_dtype: the
     JAX shapes and scales (normal / sqrt(fan_in), embed * 0.02). The
     numbers differ from jax.random's; tests share weights through
-    params_from_jax instead."""
+    params_from_jax instead. ``leaf(path, tensor)``, where given, replaces
+    each leaf as soon as it is drawn, before the next one is
+    (``init_params_int8`` quantizes there)."""
     pd = cfg.param_dtype
     dev = generator.device
-
-    def norm(shape):
-        return torch.ones(shape, dtype=pd, device=dev)
-
-    def normal(shape, std):
-        return torch.empty(shape, dtype=pd, device=dev).normal_(
-            0.0, std, generator=generator)
-
-    def dense(shape, fan_in):
-        return normal(shape, fan_in ** -0.5)
-
-    L, D, H, KV, HD, Fd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff)
-    return {
-        "embed": normal((cfg.vocab_size, D), 0.02),
+    L, D, H, KV, HD, Fd, V = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
+                              cfg.vocab_size)
+    # (shape, std) in the order the leaves are drawn; std None: ones (norms)
+    specs = {
+        "embed": ((V, D), 0.02),
         "layers": {
-            "attn_norm": norm((L, D)),
-            "wq": dense((L, D, H * HD), D),
-            "wk": dense((L, D, KV * HD), D),
-            "wv": dense((L, D, KV * HD), D),
-            "wo": dense((L, H * HD, D), H * HD),
-            "ffn_norm": norm((L, D)),
-            "w_gate": dense((L, D, Fd), D),
-            "w_up": dense((L, D, Fd), D),
-            "w_down": dense((L, Fd, D), Fd),
+            "attn_norm": ((L, D), None),
+            "wq": ((L, D, H * HD), D ** -0.5),
+            "wk": ((L, D, KV * HD), D ** -0.5),
+            "wv": ((L, D, KV * HD), D ** -0.5),
+            "wo": ((L, H * HD, D), (H * HD) ** -0.5),
+            "ffn_norm": ((L, D), None),
+            "w_gate": ((L, D, Fd), D ** -0.5),
+            "w_up": ((L, D, Fd), D ** -0.5),
+            "w_down": ((L, Fd, D), Fd ** -0.5),
         },
-        "final_norm": norm((D,)),
-        "lm_head": dense((D, cfg.vocab_size), D),
+        "final_norm": ((D,), None),
+        "lm_head": ((D, V), D ** -0.5),
     }
+
+    def make(path, spec):
+        if isinstance(spec, dict):
+            return {k: make(path + (k,), s) for k, s in spec.items()}
+        shape, std = spec
+        if std is None:
+            w = torch.ones(shape, dtype=pd, device=dev)
+        else:
+            w = torch.empty(shape, dtype=pd, device=dev).normal_(
+                0.0, std, generator=generator)
+        return leaf(path, w) if leaf else w
+
+    return make((), specs)
+
+
+def init_params_int8(generator: torch.Generator, cfg: LlamaConfig,
+                     device=None) -> Dict[str, Any]:
+    """``quantize_params_int8(init_params(generator, cfg), device)`` made
+    leaf by leaf: each leaf is drawn on the generator's device and
+    quantized onto `device` before the next one is drawn, so the float
+    tree never exists whole on either device. The same tree bit for bit:
+    the draws are init_params' own, and the quantization gives the same
+    bits on the CPU and on the card."""
+
+    def leaf(path, w):
+        tree = w
+        for k in reversed(path):
+            tree = {k: tree}
+        tree = quantize_params_int8(tree, device)
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    return init_params(generator, cfg, leaf)
 
 
 def num_params(cfg: LlamaConfig) -> int:
@@ -207,7 +234,7 @@ def _is_q8(w) -> bool:
     return isinstance(w, dict) and "q8" in w
 
 
-def quantize_params_int8(params) -> Dict[str, Any]:
+def quantize_params_int8(params, device=None) -> Dict[str, Any]:
     """Weight-only per-output-channel int8 quantization for serving (int8
     is not differentiable; training never sees it). Matmul weights (embed,
     lm_head, the per-layer projections) become {"q8": int8, "s8": bf16
@@ -215,42 +242,53 @@ def quantize_params_int8(params) -> Dict[str, Any]:
     layer weights; norms stay float. Idempotent: quantized leaves pass
     through. The scale is max |w| / 127 over the input axes, in f32; q8 =
     round(w / s) (half to even, as jnp.round) clipped to [-127, 127], so
-    the tree equals the JAX one bit for bit. Layer weights are quantized
-    one layer at a time, which bounds the f32 transient to one layer."""
+    the tree equals the JAX one bit for bit. The result lies on `device`
+    (default: each leaf's own). Each 2-D weight (embed, lm_head, one layer
+    of a layer weight) is quantized in place in its own f32 copy on
+    `device`, which bounds the float transient there to that copy."""
 
-    def quant_one(f):
-        axes = tuple(range(f.ndim - 1))
-        m = torch.amax(f.abs(), dim=axes, keepdim=True)
+    def move(w):
+        return w if device is None else w.to(device)
+
+    def quant_one(w):
+        # a private f32 copy of a 2-D weight on `device`, quantized in
+        # place: the transient is that copy alone
+        f = w.to(device=device or w.device, dtype=torch.float32, copy=True)
+        lo, hi = torch.aminmax(f, dim=0, keepdim=True)
+        m = torch.maximum(hi, -lo)   # max |w| over the input axis
         # a tensor divisor: CUDA turns division by a Python scalar into a
         # product with its reciprocal, which may differ in the last bit
         s = m / torch.full_like(m, 127.0)
         s = torch.clamp(s, min=1e-8)
-        q = torch.clamp(torch.round(f / s), -127, 127).to(torch.int8)
+        q = f.div_(s).round_().clamp_(-127, 127).to(torch.int8)
         return q, s.to(torch.bfloat16)
 
     def quant(w, keep_first: bool):
-        if _is_q8(w) or w.ndim < 2 or not w.is_floating_point():
-            return w
+        if _is_q8(w):
+            return {k: move(x) for k, x in w.items()}
+        if w.ndim < 2 or not w.is_floating_point():
+            return move(w)
         if not keep_first:
-            q, s = quant_one(w.float())
+            q, s = quant_one(w)
             return {"q8": q, "s8": s}
-        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-        s = torch.empty((w.shape[0], *([1] * (w.ndim - 2)), w.shape[-1]),
-                        dtype=torch.bfloat16, device=w.device)
+        dev = w.device if device is None else device
+        q = torch.empty(w.shape, dtype=torch.int8, device=dev)
+        s = torch.empty((w.shape[0], 1, w.shape[-1]), dtype=torch.bfloat16,
+                        device=dev)
         for i in range(w.shape[0]):
-            q[i], s[i] = quant_one(w[i].float())
+            q[i], s[i] = quant_one(w[i])
         return {"q8": q, "s8": s}
 
     out = {}
     for k, v in params.items():
         if k == "layers":
-            out[k] = {kk: (vv if kk.endswith("norm")
+            out[k] = {kk: (move(vv) if kk.endswith("norm")
                            else quant(vv, keep_first=True))
                       for kk, vv in v.items()}
         elif k in ("embed", "lm_head"):
             out[k] = quant(v, keep_first=False)
         else:
-            out[k] = v
+            out[k] = move(v)
     return out
 
 
@@ -338,6 +376,23 @@ def _rope_tables(theta: float, seq_len: int, head_dim: int, device=None):
     the JAX version is a jitted, inlined function)."""
     return _rope_tables_cached(float(theta), int(seq_len), int(head_dim),
                                str(torch.device(device or "cpu")))
+
+
+def _rope_at(cfg: LlamaConfig, offset, S: int, device):
+    """(cos, sin) [S, HD/2] of positions offset .. offset + S - 1, the
+    start clamped to [0, max_seq_len - S] so the slice fits, as
+    dynamic_slice_in_dim clamps it. `offset` is an int or a 0-d tensor
+    (a sequence shard's offset), which is clamped on its device, with no
+    host sync."""
+    cos, sin = _rope_tables(cfg.rope_theta, cfg.max_seq_len, cfg.head_dim,
+                            device)
+    hi = cfg.max_seq_len - S
+    if isinstance(offset, torch.Tensor):
+        rows = (offset.to(device=cos.device, dtype=torch.long).clamp(0, hi)
+                + torch.arange(S, device=cos.device))
+        return cos[rows], sin[rows]
+    st = max(0, min(int(offset), hi))
+    return cos[st:st + S], sin[st:st + S]
 
 
 def _rotate(x, c, s):
@@ -460,10 +515,7 @@ def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
     if isinstance(pos_offset, int) and pos_offset == 0:
         cos, sin = _rope_tables(cfg.rope_theta, S, cfg.head_dim, x.device)
     else:
-        cos, sin = _rope_tables(cfg.rope_theta, cfg.max_seq_len,
-                                cfg.head_dim, x.device)
-        cos = cos[pos_offset:pos_offset + S]
-        sin = sin[pos_offset:pos_offset + S]
+        cos, sin = _rope_at(cfg, pos_offset, S, x.device)
 
     def body(x, lp):
         return _layer(x, lp, cfg, cos, sin)[0]
@@ -692,11 +744,7 @@ def forward_with_cache(params, tokens, cache: KVCache, cfg: LlamaConfig,
     B, S = tokens.shape
     offset = int(offset)
     x = _embed(params, tokens, dt)
-    cos_full, sin_full = _rope_tables(cfg.rope_theta, cfg.max_seq_len,
-                                      cfg.head_dim, x.device)
-    # dynamic_slice_in_dim clamps its start so the slice fits
-    st = max(0, min(offset, cfg.max_seq_len - S))
-    cos, sin = cos_full[st:st + S], sin_full[st:st + S]
+    cos, sin = _rope_at(cfg, offset, S, x.device)
     for i, lp in enumerate(_unstack_layers(params["layers"])):
         x, _ = _layer(x, lp, cfg, cos, sin,
                       cache=(cache.k[i], cache.v[i], offset))

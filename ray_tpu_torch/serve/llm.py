@@ -21,7 +21,9 @@ Common to both:
 - ``step_n``: n decode steps with ON-DEVICE greedy/temperature sampling
   and one host fetch per block (``step`` is ``step_n(1)``);
 - ``quantize="int8"``: weight-only int8 (``llama.quantize_params_int8``),
-  applied after the init or to a caller's params (idempotent).
+  made leaf by leaf as the init draws them on the host
+  (``llama.init_params_int8``), or applied to a caller's params
+  (idempotent).
 
 PyTorch replaces ``jax.jit`` with eager calls: the caches are updated in
 place by the kernels and scatters (where JAX donates them), and the
@@ -116,8 +118,21 @@ class LLMEngine:
         self.max_queue_depth = max_queue_depth
         if params is None:
             # serving holds no master weights: init in the compute dtype
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            params = llama.init_params(gen, cfg.replace(param_dtype=cfg.dtype))
+            icfg = cfg.replace(param_dtype=cfg.dtype)
+            if quantize == "int8":
+                # drawn on the host, as the JAX engine draws off the CPU,
+                # and quantized leaf by leaf onto the device, one layer's
+                # slice at a time: the float tree never exists whole on
+                # the card (7b: 13.5 GB of bf16 beside 6.7 GB of int8; a
+                # 70b int8 engine would not fit an 80 GB card otherwise).
+                # The host generator gives the card the CPU engine's int8
+                # tree bit for bit from one seed; the quantization's f32
+                # passes run on the card, and the host only draws.
+                params = llama.init_params_int8(
+                    torch.Generator().manual_seed(seed), icfg, device=dev)
+            else:
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                params = llama.init_params(gen, icfg)
         if quantize == "int8":
             # weight-only int8: device memory at rest halves against bf16
             # (7B: ~6.7 GB); idempotent, so a quantized tree passes through

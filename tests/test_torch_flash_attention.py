@@ -366,3 +366,102 @@ def test_wgmma_kernel_reads_no_row_past_t_or_outside_the_band(D):
     out, _ = fa.flash_attention_fwd(q, k, v, causal=True, window=64)
     torch.cuda.synchronize()
     check(out, ref, tol, rows=slice(256, None))
+
+
+def _dq_case_on_card(S, T, H, KV, D, causal, window, seed):
+    """(q, k, v, out, lse, dO) in bf16 on the card, out and lse from the
+    forward kernel."""
+    q, k, v = _qkv_on_card(2, S, T, H, KV, D, seed=seed)
+    g = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        q.shape).astype(np.float32)).cuda().to(torch.bfloat16)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    return q, k, v, out, lse, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T,H,KV,causal,window", [
+    (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
+    (200, 200, 16, 8, True, None), (200, 200, 16, 8, False, None),
+    (1000, 1000, 16, 8, True, None), (1000, 1000, 4, 4, False, None),
+    (200, 200, 4, 4, True, None), (200, 200, 16, 8, True, 64),
+    (1000, 1000, 16, 8, True, 200), (128, 128, 4, 4, True, 64),
+    (256, 512, 16, 8, True, None)])
+def test_wgmma_dq_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
+                                               window):
+    """K3's TMA/wgmma kernel (bf16, head dims 64 and 128): dq elementwise
+    within grad_tolerance of the plain backward, delta = rowsum(out * dO)
+    within its f32 rounding (D-long sums in another order: D 2^-23 rowsum
+    |out dO|), and both bit-identical on a second run (no atomics), for
+    causal and full attention, GQA and H = KV, windows, ragged 128-row
+    tiles and T > S."""
+    require_cuda()
+    q, k, v, out, lse, g = _dq_case_on_card(S, T, H, KV, D, causal, window,
+                                            seed=17)
+    before = fa.launches_dq
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                          causal=causal, window=window)
+    dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                            causal=causal, window=window)
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+    tol = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                            window=window)[0]
+    torch.cuda.synchronize()
+    assert fa.launches_dq == before + 2
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert bool(torch.isfinite(dq.float()).all())
+    assert ((dq.float() - plain[0].float()).abs() <= tol).all()
+    og = out.float() * g.float()
+    delta_ref = og.sum(-1).transpose(1, 2)
+    delta_tol = D * 2.0 ** -23 * og.abs().sum(-1).transpose(1, 2) + 1e-7
+    assert ((delta - delta_ref).abs() <= delta_tol).all()
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_dq_kernel_reads_no_row_past_t_or_outside_the_band(D):
+    """NaN where K3 must not read: (a) memory just past the last batch's T
+    rows of k and v (TMA zero-fills the ragged tile inside its batch); (b)
+    K/V tiles above the last query tile's diagonal (T > S, causal); (c)
+    keys 0-127 under window 64, which no query tile from row 256 on may
+    load. dq stays finite and within grad_tolerance of the plain backward
+    on clean inputs, in the rows those tiles feed."""
+    require_cuda()
+
+    def check(q, k, v, out, lse, g, kp, vp, causal, window=None,
+              rows=slice(None)):
+        plain = fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, g, causal=causal, window=window)
+        tol = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                                window=window)[0]
+        dq, _ = fa.flash_attention_bwd_dq(q, kp, vp, out, lse, g,
+                                          causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(dq[:, rows].float()).all())
+        assert ((dq.float() - plain[0].float()).abs()[:, rows]
+                <= tol[:, rows]).all()
+
+    # (a) k and v are the front of NaN buffers, S = T = 200
+    for causal in (True, False):
+        q, k, v, out, lse, g = _dq_case_on_card(200, 200, 16, 8, D, causal,
+                                                None, seed=19)
+        kn, vn = (torch.full((x.numel() + 4096,), float("nan"),
+                             device="cuda", dtype=x.dtype) for x in (k, v))
+        kp = kn[:k.numel()].view(k.shape).copy_(k)
+        vp = vn[:v.numel()].view(v.shape).copy_(v)
+        check(q, k, v, out, lse, g, kp, vp, causal)
+    # (b) S = 300, T = 1000: keys from 384 on lie above every diagonal tile
+    q, k, v, out, lse, g = _dq_case_on_card(300, 1000, 16, 8, D, True, None,
+                                            seed=21)
+    kp, vp = k.clone(), v.clone()
+    kp[:, 384:], vp[:, 384:] = float("nan"), float("nan")
+    check(q, k, v, out, lse, g, kp, vp, True)
+    # (c) S = T = 1000, window 64: keys 0-127 poisoned; rows >= 256 never
+    # see them, and their query tiles start at key 192
+    q, k, v, out, lse, g = _dq_case_on_card(1000, 1000, 16, 8, D, True, 64,
+                                            seed=23)
+    kp, vp = k.clone(), v.clone()
+    kp[:, :128], vp[:, :128] = float("nan"), float("nan")
+    check(q, k, v, out, lse, g, kp, vp, True, 64, rows=slice(256, None))

@@ -105,6 +105,30 @@ def test_prefill_matches_jax(tiny, attn_impl, P):
     np.testing.assert_allclose(to_np(tv), jv, atol=TOL, rtol=0)
 
 
+def test_forward_clamps_rope_offset_like_jax(tiny):
+    """pos_offset past max_seq_len - S: JAX's dynamic_slice_in_dim clamps
+    the RoPE start to max_seq_len - S (tiny: 128 - 64), so offset 100 gives
+    offset 64's logits; the port clamps an int and a 0-d tensor offset the
+    same way. Within TOL of JAX; the clamped offsets exactly equal."""
+    jcfg, tcfg, params = tiny
+    assert tcfg.max_seq_len == 128
+    toks = np.random.default_rng(10).integers(0, 256, size=(1, 64)).astype(
+        np.int32)
+    with jax_reference() as ref:
+        jl = np.asarray(ref.llama.forward(params, jnp.asarray(toks), jcfg,
+                                          pos_offset=100))
+    tp = llama.params_from_jax(params, "cpu")
+    tt = torch.from_numpy(toks)
+    at64 = llama.forward(tp, tt, tcfg, pos_offset=64)
+    for off in (100, torch.tensor(100)):
+        tl = llama.forward(tp, tt, tcfg, pos_offset=off)
+        np.testing.assert_allclose(to_np(tl), jl, atol=TOL, rtol=0)
+        assert torch.equal(tl, at64)
+    # a tensor offset inside the table is not moved
+    assert torch.equal(llama.forward(tp, tt, tcfg, pos_offset=torch.tensor(7)),
+                       llama.forward(tp, tt, tcfg, pos_offset=7))
+
+
 def test_fused_matmuls_match_unfused(tiny):
     _, tcfg, params = tiny
     tp = llama.params_from_jax(params, "cpu")

@@ -249,6 +249,34 @@ def test_int8_engine_matches_jax(kv_layout):
     assert _drive(te, waves, 8) == jt
 
 
+def test_int8_engine_init_is_quantize_of_init():
+    """With params=None an int8 engine draws its init on the host and
+    quantizes it leaf by leaf (llama.init_params_int8): the tree equals
+    quantize_params_int8 of the whole host init from the same seed bit for
+    bit, and an engine given that tree generates the same tokens."""
+    eng = LLMEngine(preset="tiny", quantize="int8", seed=3, device="cpu")
+    cfg = eng.cfg.replace(param_dtype=eng.cfg.dtype)
+    want = llama.quantize_params_int8(
+        llama.init_params(torch.Generator().manual_seed(3), cfg))
+
+    def leaves(t, p=""):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], f"{p}/{k}")
+        else:
+            yield p, t
+
+    got, exp = dict(leaves(eng.params)), dict(leaves(want))
+    assert got.keys() == exp.keys() and "/lm_head/q8" in got
+    for k, t in exp.items():
+        assert got[k].dtype == t.dtype and torch.equal(got[k], t), k
+    given = LLMEngine(cfg=eng.cfg, params=want, quantize="int8",
+                      device="cpu")
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    assert eng.generate(prompt, max_new_tokens=8) == \
+        given.generate(prompt, max_new_tokens=8)
+
+
 def test_paged_matches_contiguous():
     """Same params, same prompts: the paged engine must produce the exact
     greedy tokens the contiguous engine does (the JAX suite's test of the
