@@ -44,8 +44,8 @@ printing one JSON line:
    1b train shape and others, in bf16 and f32, within ``kernel_tolerance`` /
    ``grad_tolerance``; CUPTI device times and CUDA events beside the
    bound, the plain version and SDPA (with a band mask; its backward), and
-   the kernels' names (bf16 K3 at head dim 64 or 128 must run the TMA/wgmma
-   dQ kernel and nothing else);
+   the kernels' names (bf16 K3 and K4 at head dim 64 or 128 must run the
+   TMA/wgmma dQ and dK/dV kernels and nothing else);
 9. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
    card and on the CPU from one init, without and with a sliding window
    (the run on which K2 launches): losses, grad norms and params within
@@ -55,7 +55,7 @@ printing one JSON line:
    warm-up: falling finite losses, exact K1/K3/K4 launch counts, step time,
    tokens/s, MFU, peak memory and one step's device profile (whose forward
    attention kernels must all be the TMA/wgmma one, as in the engines'
-   prefill profiles, and its dQ kernels the TMA/wgmma dQ one);
+   prefill profiles, and its dQ and dK/dV kernels the TMA/wgmma ones);
 11. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
@@ -143,27 +143,29 @@ def device_ms(fn, iters: int = 20, names=None, per_call=None) -> float:
     (CUPTI, under torch.profiler), after a warm-up: the kernels' own time,
     which cuda_ms cannot give when launching a call takes the host longer
     than the card takes to run it (the paged kernels, ~0.08 ms). The
-    kernels' names are added to the set `names` where one is given.
-    CUPTI now and then drops kernels from a trace: where `per_call` (the
-    kernels one call launches) is given, a trace with another count is
-    taken again, up to 3 times; otherwise a trace with none is."""
+    kernels' names (from every trace taken) are added to the set `names`
+    where one is given. CUPTI now and then drops kernels from a trace, and
+    late in a long run it can drop every kernel of a few traces in a row:
+    where `per_call` (the kernels one call launches) is given, a trace
+    with another count is taken again, up to 10 times; otherwise a trace
+    with none is, up to 3 times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(3 if per_call is None else 10):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         events = list(kernel_events(prof))
+        if names is not None:
+            names.update(name for name, _ in events)
         if (len(events) == per_call * iters if per_call is not None
                 else events):
             break
-    if names is not None:
-        names.update(name for name, _ in events)
     return sum(ms for _, ms in events) / iters
 
 
@@ -405,11 +407,12 @@ def phase_k5():
 # --- K1 / K2: the flash forward ---------------------------------------------
 
 
-# the symbols of the TMA/wgmma forward kernel (K1/K2) and dQ kernel (K3),
-# which every bf16 launch with head dim 64 or 128 must run
-# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
+# the symbols of the TMA/wgmma forward kernel (K1/K2), dQ kernel (K3) and
+# dK/dV kernel (K4), which every bf16 launch with head dim 64 or 128 must
+# run (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
 WGMMA_FWD_SYMBOL = "flash_fwd_wgmma_kernel"
 WGMMA_DQ_SYMBOL = "flash_bwd_dq_wgmma_kernel"
+WGMMA_DKDV_SYMBOL = "flash_bwd_dkdv_wgmma_kernel"
 
 
 def band_pairs(S: int, T: int, causal: bool, window=None) -> int:
@@ -573,9 +576,10 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
     """K3 and K4 against the plain backward on the same (q, k, v, out, lse,
     dO), dq/dk/dv elementwise within grad_tolerance, bit-identical on a
     second run. Timed: each kernel by CUPTI device time (device_ms) and by
-    CUDA events, with the names of the kernels it ran (bf16 K3 at head dim
-    64 or 128 must run WGMMA_DQ_SYMBOL and nothing else), the plain
-    backward and SDPA's backward (bf16 only), beside the bounds."""
+    CUDA events, with the names of the kernels it ran (bf16 K3 and K4 at
+    head dim 64 or 128 must run WGMMA_DQ_SYMBOL and WGMMA_DKDV_SYMBOL and
+    nothing else), the plain backward and SDPA's backward (bf16 only),
+    beside the bounds."""
     import numpy as np
     import torch
 
@@ -637,7 +641,10 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
         if dtype == "bfloat16" and D in (64, 128):
             res["ran_wgmma_dq_only"] = ran_only(res["k3_kernels"],
                                                 WGMMA_DQ_SYMBOL)
-            ok = ok and res["ran_wgmma_dq_only"]
+            res["ran_wgmma_dkdv_only"] = ran_only(res["k4_kernels"],
+                                                  WGMMA_DKDV_SYMBOL)
+            ok = (ok and res["ran_wgmma_dq_only"]
+                  and res["ran_wgmma_dkdv_only"])
         res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, g, causal=causal, window=window), iters=3)
         res["library_ms"] = None
@@ -863,8 +870,12 @@ def phase_train():
     res["step_ran_wgmma_dq_only"] = ran_only(
         [n for n in res["profile_step"]["flash_kernels"]
          if "flash_bwd_dq_" in n], WGMMA_DQ_SYMBOL)
+    res["step_ran_wgmma_dkdv_only"] = ran_only(
+        [n for n in res["profile_step"]["flash_kernels"]
+         if "flash_bwd_dkdv_" in n], WGMMA_DKDV_SYMBOL)
     res["ok"] = (res["ok"] and res["step_ran_wgmma_fwd_only"]
-                 and res["step_ran_wgmma_dq_only"])
+                 and res["step_ran_wgmma_dq_only"]
+                 and res["step_ran_wgmma_dkdv_only"])
     return res
 
 

@@ -6,8 +6,8 @@
 // q/dO/O [B, S, H, D], k/v [B, T, KV, D] and the forward's f32 log-sum-exp
 // lse [B, H, S], with P = exp(q k^T scale - lse) and
 // dS = P * (dO v^T - delta) * scale, delta = rowsum(O * dO):
-//   K3: dq = dS k           one block per (b, h, query tile);
-//   K4: dk = dS^T q, dv = P^T dO   one block per (b, kv_head, 64-key tile).
+//   K3: dq = dS k                  one block per (b, h, query tile);
+//   K4: dk = dS^T q, dv = P^T dO   one block per (b, kv_head, key tile).
 // The causal band (and a sliding window W: key t visible to query s iff
 // 0 <= s - t < W) bounds both loops: K3 streams K/V tiles from the band's
 // first tile to the diagonal, K4 streams query tiles from the diagonal to
@@ -57,7 +57,30 @@
 // each slower (PERF.md, PR 6). At the 1b train shape it runs at ~30% of
 // the tensor cores' rate.
 //
-// bf16 at head dim 32 (K3) and bf16 K4: mma.sync.m16n8k16 with f32
+// K4, bf16 at head dims 64 and 128, flash_bwd_dkdv_wgmma_kernel: K3's
+// design with the roles of queries and keys swapped. One block of 3
+// warpgroups owns 128 keys of one (batch, kv head). The producer's thread
+// 0 loads the block's K and V once by TMA (128-row boxes of the same 4-D
+// maps) and streams the band's (query head of the group, 64-row query
+// tile) pairs, a Q and a dO tile each, into a 2-stage ring (Q freed after
+// dK += dS^T q, dO after dV += P^T dO); its warp 1 puts each tile's 64
+// columns of lse (as -lse log2(e)) and delta beside them in shared memory
+// (a full barrier of 32 arrivals a stage, freed with Q). Each consumer
+// owns 64 keys and works in the key-row frame: S^T = K Q^T and dP^T = V
+// dO^T by wgmma m64n64k16 with K/V as the K-major A and Q/dO as the
+// K-major B; P^T = exp2(S^T scale log2(e) - lse log2(e)) by one FMA and
+// ex2.approx; dV += P^T dO and dK += dS^T q with P^T and dS^T rounded to
+// bf16 in registers and dO/q as the MN-major B, exactly as K3 treats K.
+// dK and dV (64 + 64 f32 registers a thread at D 128) stay in registers
+// across every query head of the group, so the consumers run at
+// FlashAttention-3's 240 registers and the producer at 24. A query tile
+// no key of a group sees (the block's diagonal tile for the second group,
+// tiles past the window for the first) is only waited for and freed, in
+// ring order. Each thread needs lse and delta at 16 query columns a tile:
+// read from device memory on the consumers' chain, their latency doubled
+// the kernel's time (PERF.md).
+//
+// bf16 at head dim 32 (K3 and K4): mma.sync.m16n8k16 with f32
 // accumulation in the fragment layouts of K1 (mma.cuh). The recomputed
 // scores and dP stay in f32
 // registers; P (for dV) and dS (for dK, dQ) are rounded to bf16 as the
@@ -792,6 +815,366 @@ int launch_dq_wgmma(int causal, int window, const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------- bf16 dK/dV, TMA + wgmma (K4) ---
+
+constexpr int WG4_BK = 128;  // keys a block: 64 per consumer group
+constexpr int WG4_BQ = 64;   // query rows a Q/dO tile
+
+template <int D>
+struct DkdvSmem {
+  static constexpr int HALF_K = WG4_BK * 128;  // a 64-column box of K or V
+  static constexpr int TILE_K = HALF_K * (D / 64);
+  static constexpr int HALF_Q = WG4_BQ * 128;  // a 64-column box of Q or dO
+  static constexpr int TILE_Q = HALF_Q * (D / 64);
+  static constexpr int K = 0;
+  static constexpr int V = TILE_K;
+  static constexpr int Q = V + TILE_K;
+  static constexpr int G = Q + WG_STAGES * TILE_Q;  // dO
+  // f32 [stage][-lse log2(e) of the tile's 64 query columns, then delta]
+  static constexpr int COLS = G + WG_STAGES * TILE_Q;
+  static constexpr int BAR = COLS + 4 * 2 * WG4_BQ * WG_STAGES;
+  // kv_full, then q_full, g_full, q_empty, g_empty, c_full (one each a
+  // stage); + 1024 to align the tiles
+  static constexpr size_t kBytes = BAR + 8 * (1 + 5 * WG_STAGES) + 1024;
+};
+
+template <int D, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_g,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int S, int T_len, int H, int KV, int window,
+    float scale) {
+  using L = DkdvSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
+  const uint32_t sK = base + L::K, sV = base + L::V;
+  const uint32_t sQ = base + L::Q, sG = base + L::G;
+  unsigned char* aligned = smem_tiles + (base - smem_u32(smem_tiles));
+  float* cols_sh = reinterpret_cast<float*>(aligned + L::COLS);
+  const uint32_t kv_full = base + L::BAR;
+  auto q_full = [&](int st) { return kv_full + 8 * (1 + st); };
+  auto g_full = [&](int st) { return kv_full + 8 * (1 + WG_STAGES + st); };
+  auto q_empty = [&](int st) {
+    return kv_full + 8 * (1 + 2 * WG_STAGES + st);
+  };
+  auto g_empty = [&](int st) {
+    return kv_full + 8 * (1 + 3 * WG_STAGES + st);
+  };
+  auto c_full = [&](int st) {
+    return kv_full + 8 * (1 + 4 * WG_STAGES + st);
+  };
+
+  // under causal attention the first key blocks see the most query tiles:
+  // block x is the x-th heaviest of its (batch, kv head), and the blocks go
+  // one (batch, kv head) after another, so its Q/dO stay in L2
+  const int k0 = blockIdx.x * WG4_BK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int groups = H / KV;
+  // the query tiles of the band: from the diagonal when causal, up to the
+  // last one the block's last key sees under a window (tiles before or
+  // after are never loaded)
+  int qt_lo = 0, qt_hi = (S + WG4_BQ - 1) / WG4_BQ;
+  if (CAUSAL) {
+    qt_lo = k0 / WG4_BQ;
+    if (WINDOW)
+      qt_hi = min(qt_hi, (k0 + WG4_BK - 1 + window - 1) / WG4_BQ + 1);
+  }
+  const int nq = max(0, qt_hi - qt_lo);
+  const int n_tiles = groups * nq;  // (query head of the group, query tile)
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(q_full(st), 1);
+      mbar_init(g_full(st), 1);
+      mbar_init(q_empty(st), 8);  // one arrival per consumer warp
+      mbar_init(g_empty(st), 8);
+      mbar_init(c_full(st), 32);  // one arrival per lane of producer warp 1
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread loads K and V once, then keeps the Q/dO
+    // ring full by TMA; warp 1 puts each tile's lse and delta columns
+    // beside it ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * L::TILE_K);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sK + c * L::HALF_K, &tm_k, kv_full, c * 64, kvh, k0, b);
+        tma_load_4d(sV + c * L::HALF_K, &tm_v, kv_full, c * 64, kvh, k0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % WG_STAGES;
+        const uint32_t prev = ((i / WG_STAGES) - 1) & 1;
+        const int h = kvh * groups + i / nq;
+        const int q0 = (qt_lo + i % nq) * WG4_BQ;
+        const uint32_t qt = sQ + st * L::TILE_Q, gt = sG + st * L::TILE_Q;
+        // Q is freed after dk += dS^T q, dO after dv += P^T dO: each waits
+        // for its own
+        if (i >= WG_STAGES) mbar_wait(q_empty(st), prev);
+        mbar_expect_tx(q_full(st), L::TILE_Q);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(qt + c * L::HALF_Q, &tm_q, q_full(st), c * 64, h, q0,
+                      b);
+        if (i >= WG_STAGES) mbar_wait(g_empty(st), prev);
+        mbar_expect_tx(g_full(st), L::TILE_Q);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(gt + c * L::HALF_Q, &tm_g, g_full(st), c * 64, h, q0,
+                      b);
+      }
+    } else if (threadIdx.x / 32 == 1) {
+      // lane l: query columns 2l and 2l + 1 of each tile, 0 from S on; the
+      // stage is free again once Q is (the consumers read it before dk)
+      const int c = 2 * (threadIdx.x % 32);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % WG_STAGES;
+        if (i >= WG_STAGES)
+          mbar_wait(q_empty(st), ((i / WG_STAGES) - 1) & 1);
+        const size_t lrow = ((size_t)b * H + kvh * groups + i / nq) * S;
+        const int col = (qt_lo + i % nq) * WG4_BQ + c;
+        float* cs = cols_sh + st * 2 * WG4_BQ;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = col + e < S;
+          cs[c + e] = in ? -lse[lrow + col + e] * LOG2E : 0.f;
+          cs[WG4_BQ + c + e] = in ? delta[lrow + col + e] : 0.f;
+        }
+        mbar_arrive(c_full(st));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: group cw owns keys k0 + 64 cw .. + 63, in the key-row
+  // frame: S^T = K Q^T, dP^T = V dO^T; two f32 accumulators (dK, dV)
+  // need FlashAttention-3's 240 registers, not K3's 232 ----
+  setmaxnreg_inc<240>();
+  const int cw = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g8 = lane >> 2;  // accumulator rows g8 and g8 + 8 of the warp's 16
+  const int t4 = lane & 3;   // column pair within an 8-column n-tile
+  const int gk = k0 + cw * 64;  // the group's first key
+  const int key0 = gk + warp * 16;
+  const int key_a = key0 + g8;  // accumulator rows: keys key_a, key_a + 8
+  // P = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t k_rows = sK + cw * 64 * 128;  // this group's 64 keys
+  const uint32_t v_rows = sV + cw * 64 * 128;
+  auto release = [&](uint32_t bar) {  // this warp is done with a buffer
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  auto skip = [&](int i) {
+    const int st = i % WG_STAGES;
+    const uint32_t ph = (i / WG_STAGES) & 1;
+    mbar_wait(q_full(st), ph);
+    mbar_wait(g_full(st), ph);
+    release(g_empty(st));
+    release(q_empty(st));
+  };
+
+  // f32 dk and dv across every query head of the group: d-tile j in
+  // x[4j .. 4j+3]
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  // the query tiles some key of this group sees are [j_lo, j_hi) of each
+  // head's nq: those before (above its diagonal: the block's first tile
+  // for the second group) and after (past its window, or all of them for
+  // a group wholly past T) are only waited for and released, in ring order
+  int j_lo = 0, j_hi = gk < T_len ? nq : 0;
+  if (CAUSAL) j_lo = min(j_hi, gk / WG4_BQ - qt_lo);
+  if (WINDOW)
+    j_hi = max(j_lo, min(j_hi, (gk + 63 + window - 1) / WG4_BQ + 1 - qt_lo));
+
+  mbar_wait(kv_full, 0);
+  for (int hg = 0; hg < groups; ++hg) {
+    const int i0 = hg * nq;
+    for (int j = 0; j < j_lo; ++j) skip(i0 + j);
+    for (int j = j_lo; j < j_hi; ++j) {
+      const int i = i0 + j;
+      const int st = i % WG_STAGES;
+      const uint32_t ph = (i / WG_STAGES) & 1;
+      const int q0 = (qt_lo + j) * WG4_BQ;
+      const uint32_t qt = sQ + st * L::TILE_Q, gt = sG + st * L::TILE_Q;
+
+      // s^T = k q^T and dp^T = v dO^T: query n-tile jj of keys g8
+      // (x[4jj], x[4jj+1]) and g8 + 8 (x[4jj+2], x[4jj+3]); two commit
+      // groups
+      float s[32], dp[32];
+      mbar_wait(q_full(st), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        // 16 columns = 32 bytes a k-step inside a 128-byte atom
+        const uint32_t ko = (ks / 4) * L::HALF_K + (ks % 4) * 32;
+        const uint32_t qo = (ks / 4) * L::HALF_Q + (ks % 4) * 32;
+        wgmma_m64n64k16_ss(s, sw128_desc(k_rows + ko, 16, 1024),
+                           sw128_desc(qt + qo, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      mbar_wait(g_full(st), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t ko = (ks / 4) * L::HALF_K + (ks % 4) * 32;
+        const uint32_t qo = (ks / 4) * L::HALF_Q + (ks % 4) * 32;
+        wgmma_m64n64k16_ss(dp, sw128_desc(v_rows + ko, 16, 1024),
+                           sw128_desc(gt + qo, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+
+      // P^T by one FMA and one ex2 an element with -lse log2(e) of this
+      // thread's query columns 8jj + 2t4 + {0, 1} from the ring, 0 where
+      // masked (only tiles that cross the diagonal, the window's edge or
+      // S are masked; keys past T are zero-filled rows whose dk and dv
+      // are never stored)
+      const float* cs = cols_sh + st * 2 * WG4_BQ + 2 * t4;
+      mbar_wait(c_full(st), ph);
+      wgmma_wait<1>();
+      fence_regs(s);
+      const bool edge = q0 + WG4_BQ > S || (CAUSAL && key0 + 15 > q0) ||
+                        (WINDOW && q0 + WG4_BQ - 1 - key0 >= window);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 nl = *reinterpret_cast<const float2*>(cs + 8 * jj);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2_approx(
+              fmaf(s[4 * jj + e], scale_log2, (e & 1) ? nl.y : nl.x));
+          if (edge) {
+            const int col = q0 + jj * 8 + t4 * 2 + (e & 1);
+            const int ahead = col - key_a - (e < 2 ? 0 : 8);  // query - key
+            if (col >= S ||
+                (CAUSAL && (ahead < 0 || (WINDOW && ahead >= window))))
+              p = 0.f;
+          }
+          s[4 * jj + e] = p;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+
+      // P^T (for dv) and dS^T = P^T (dP^T - delta) scale (for dk), rounded
+      // to bf16 as A fragments: the n-tiles 2kk and 2kk+1 are exactly the
+      // 16-query step kk
+      uint32_t pf[4][4], df[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // delta of query columns 16kk + 2t4 + {0, 1} and 16kk + 8 + ...
+        const float2 d0 =
+            *reinterpret_cast<const float2*>(cs + WG4_BQ + 16 * kk);
+        const float2 d1 =
+            *reinterpret_cast<const float2*>(cs + WG4_BQ + 16 * kk + 8);
+        const float dl[4] = {d0.x, d0.y, d1.x, d1.y};
+        float x[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          x[e] = s[8 * kk + e] *
+                 (dp[8 * kk + e] - dl[((e >> 2) << 1) + (e & 1)]) * scale;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          df[kk][r] = pack_bf16(x[2 * r], x[2 * r + 1]);
+        }
+      }
+
+      // dv += P^T dO and dk += dS^T q: dO and q are MN-major here (d
+      // contiguous), so a 16-query step is 16 rows (2048 bytes) and their
+      // 64-column boxes are LBO apart
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dg = sw128_desc(gt + kk * 2048, L::HALF_Q, 1024);
+        if constexpr (D == 128)
+          wgmma_m64n128k16_rs_tb(dv_acc, pf[kk], dg, 1);
+        else
+          wgmma_m64n64k16_rs_tb(dv_acc, pf[kk], dg, 1);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dqt = sw128_desc(qt + kk * 2048, L::HALF_Q, 1024);
+        if constexpr (D == 128)
+          wgmma_m64n128k16_rs_tb(dk_acc, df[kk], dqt, 1);
+        else
+          wgmma_m64n64k16_rs_tb(dk_acc, df[kk], dqt, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dv_acc);
+      release(g_empty(st));
+      wgmma_wait<0>();
+      fence_regs(dk_acc);
+      release(q_empty(st));
+    }
+    for (int j = max(j_hi, j_lo); j < nq; ++j) skip(i0 + j);
+  }
+
+  // epilogue: dk and dv in bf16, keys < T (each element summed by this
+  // thread alone, over the heads and tiles in order: deterministic)
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_a + 8 * half;
+    if (key >= T_len) continue;
+    const size_t off = (((size_t)b * T_len + key) * KV + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dk_acc[4 * j + half * 2],
+                                dk_acc[4 * j + half * 2 + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8 + t4 * 2) =
+          __floats2bfloat162_rn(dv_acc[4 * j + half * 2],
+                                dv_acc[4 * j + half * 2 + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_dkdv_wgmma(int causal, int window, const void* q, const void* k,
+                      const void* v, const void* g, const void* lse,
+                      const void* delta, void* dk, void* dv, int B, int S,
+                      int T_len, int H, int KV, float scale,
+                      cudaStream_t st) {
+  if (S == 0) {  // no query sees any key: the gradients are 0
+    const size_t bytes = sizeof(bf16) * (size_t)B * T_len * KV * D;
+    cudaError_t err = cudaMemsetAsync(dk, 0, bytes, st);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, st);
+    return static_cast<int>(err);
+  }
+  CUtensorMap mq, mg, mk, mv;
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG4_BQ);
+  if (rc == 0) rc = rt_bshd_map(&mg, g, B, S, H, D, WG4_BQ);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, WG4_BK);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, WG4_BK);
+  if (rc != 0) return rc;
+  const size_t smem = DkdvSmem<D>::kBytes;
+  auto kernel = window > 0 ? flash_bwd_dkdv_wgmma_kernel<D, true, true>
+                : causal   ? flash_bwd_dkdv_wgmma_kernel<D, true, false>
+                           : flash_bwd_dkdv_wgmma_kernel<D, false, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((T_len + WG4_BK - 1) / WG4_BK, KV, B);
+  kernel<<<grid, WG_NT, smem, st>>>(
+      mq, mg, mk, mv, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), S, T_len, H, KV, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32 ---
 
 template <int D>
@@ -1114,19 +1497,27 @@ int launch_dkdv(int dtype, int causal, int window, const void* q,
                 int T_len, int H, int KV, float scale, cudaStream_t st) {
   dim3 grid((T_len + BK - 1) / BK, KV, B);
   if (dtype == RT_BF16) {
-    const size_t smem = sizeof(bf16) * (size_t)(2 * BK + 4 * BQ) * (D + 8) +
-                        sizeof(float) * 4 * BQ;
-    auto kernel = causal ? flash_bwd_dkdv_bf16_kernel<D, true>
-                         : flash_bwd_dkdv_bf16_kernel<D, false>;
-    cudaError_t err = rt_set_smem(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, NT, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(g),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, T_len, H, KV,
-        window, scale);
-    return static_cast<int>(cudaGetLastError());
+    // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
+    // kernel is not even instantiated for them
+    if constexpr (D >= 64) {
+      return launch_dkdv_wgmma<D>(causal, window, q, k, v, g, lse, delta,
+                                  dk, dv, B, S, T_len, H, KV, scale, st);
+    } else {
+      const size_t smem =
+          sizeof(bf16) * (size_t)(2 * BK + 4 * BQ) * (D + 8) +
+          sizeof(float) * 4 * BQ;
+      auto kernel = causal ? flash_bwd_dkdv_bf16_kernel<D, true>
+                           : flash_bwd_dkdv_bf16_kernel<D, false>;
+      cudaError_t err = rt_set_smem(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid, NT, smem, st>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, T_len, H, KV,
+          window, scale);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
   if (dtype == RT_F32) {
     const size_t smem = F32Bwd<D>::kBytes;

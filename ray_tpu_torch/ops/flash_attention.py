@@ -15,10 +15,11 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV
   pass over key tiles, both recomputing P from the saved log-sum-exp, with
   no atomics (the gradients are deterministic, so a remat recompute is
-  bit-identical). bf16 dQ with head dim 64 or 128 runs the Hopper kernel
-  (TMA, mbarriers, warp-specialised ``wgmma``, 128-row query tiles); bf16
-  dQ with head dim 32 and bf16 dK/dV ``mma.sync`` kernels; f32 exact
-  CUDA-core FMAs;
+  bit-identical). bf16 with head dim 64 or 128 runs the Hopper kernels in
+  both passes (TMA, mbarriers, warp-specialised ``wgmma``): dQ over
+  128-row query tiles, dK/dV over 128-key blocks that stream every query
+  head of their kv head; bf16 with head dim 32 runs ``mma.sync`` kernels;
+  f32 exact CUDA-core FMAs;
 - ``_Flash``, a ``torch.autograd.Function``, takes the place of ``_flash``'s
   ``custom_vjp``.
 

@@ -465,3 +465,117 @@ def test_wgmma_dq_kernel_reads_no_row_past_t_or_outside_the_band(D):
     kp, vp = k.clone(), v.clone()
     kp[:, :128], vp[:, :128] = float("nan"), float("nan")
     check(q, k, v, out, lse, g, kp, vp, True, 64, rows=slice(256, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S,T,H,KV,causal,window", [
+    (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
+    (200, 200, 16, 8, True, None), (200, 200, 16, 8, False, None),
+    (1000, 1000, 16, 8, True, None), (1000, 1000, 4, 4, False, None),
+    (200, 200, 4, 4, True, None), (200, 200, 16, 8, True, 64),
+    (1000, 1000, 16, 8, True, 200), (128, 128, 4, 4, True, 64),
+    (256, 512, 16, 8, True, None)])
+def test_wgmma_dkdv_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
+                                                 window):
+    """K4's TMA/wgmma kernel (bf16, head dims 64 and 128), fed K3's delta:
+    dk and dv elementwise within grad_tolerance of the plain backward and
+    bit-identical on a second run (no atomics), for causal and full
+    attention, GQA and H = KV, windows, ragged 128-key blocks and 64-row
+    query tiles, and T > S."""
+    require_cuda()
+    q, k, v, out, lse, g = _dq_case_on_card(S, T, H, KV, D, causal, window,
+                                            seed=29)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g, causal=causal,
+                                         window=window)
+    before = fa.launches_dkdv
+    got = fa.flash_attention_bwd_dkdv(q, k, v, lse, g, delta, causal=causal,
+                                      window=window)
+    again = fa.flash_attention_bwd_dkdv(q, k, v, lse, g, delta,
+                                        causal=causal, window=window)
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+    tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    assert fa.launches_dkdv == before + 2
+    for a, b, t in zip(got, plain[1:], tols[1:]):
+        assert a.dtype == torch.bfloat16 and a.shape == k.shape
+        assert bool(torch.isfinite(a.float()).all())
+        assert ((a.float() - b.float()).abs() <= t).all()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_wgmma_dkdv_kernel_reads_no_row_past_s_or_outside_the_band(D):
+    """NaN where K4 must not read: (a) memory just past the last batch's S
+    rows of q and dO, and of lse and delta (TMA zero-fills the ragged
+    query tile inside its batch; the column loads stop at S); (b) query
+    rows 0-127 under causal attention, which no 128-key block from key 128
+    on may load (its band starts at its diagonal tile); (c) query rows
+    from 192 on under window 64, which the block of keys 0-127 may not
+    load (its last key's band ends at row 190). dk and dv stay finite and
+    within grad_tolerance of the plain backward on clean inputs, in the
+    key rows those blocks own."""
+    require_cuda()
+
+    def nan_front(x, extra=4096):
+        buf = torch.full((x.numel() + extra,), float("nan"), device="cuda",
+                         dtype=x.dtype)
+        return buf[:x.numel()].view(x.shape).copy_(x)
+
+    def check(q, k, v, out, lse, g, qp, gp, lp, dp, causal, window=None,
+              rows=slice(None)):
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+        plain = fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, g, causal=causal, window=window)
+        tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                                 window=window)
+        dpp = delta if dp is None else dp(delta)
+        got = fa.flash_attention_bwd_dkdv(qp, k, v, lp, gp, dpp,
+                                          causal=causal, window=window)
+        torch.cuda.synchronize()
+        for a, b, t in zip(got, plain[1:], tols[1:]):
+            assert bool(torch.isfinite(a[:, rows].float()).all())
+            assert ((a.float() - b.float()).abs()[:, rows]
+                    <= t[:, rows]).all()
+
+    # (a) q, dO, lse and delta are the front of NaN buffers, S = T = 200
+    for causal in (True, False):
+        q, k, v, out, lse, g = _dq_case_on_card(200, 200, 16, 8, D, causal,
+                                                None, seed=31)
+        check(q, k, v, out, lse, g, nan_front(q), nan_front(g),
+              nan_front(lse), nan_front, causal)
+    # (b) S = T = 1000, causal: query rows 0-127 poisoned
+    q, k, v, out, lse, g = _dq_case_on_card(1000, 1000, 16, 8, D, True,
+                                            None, seed=33)
+    qp, gp = q.clone(), g.clone()
+    qp[:, :128], gp[:, :128] = float("nan"), float("nan")
+    check(q, k, v, out, lse, g, qp, gp, lse, None, True,
+          rows=slice(128, None))
+    # (c) S = T = 1000, window 64: query rows from 192 on poisoned
+    q, k, v, out, lse, g = _dq_case_on_card(1000, 1000, 16, 8, D, True, 64,
+                                            seed=35)
+    qp, gp = q.clone(), g.clone()
+    qp[:, 192:], gp[:, 192:] = float("nan"), float("nan")
+    check(q, k, v, out, lse, g, qp, gp, lse, None, True, 64,
+          rows=slice(0, 128))
+
+
+@pytest.mark.cuda
+def test_wgmma_dkdv_kernel_gives_zero_grads_without_queries():
+    """S = 0 (no query sees any key): K4 at head dim 128 writes dk = dv =
+    0 for every key, as the plain backward gives, and counts its launch."""
+    require_cuda()
+    _, k, v = _qkv_on_card(2, 1, 200, 16, 8, 128, seed=37)
+    q = torch.empty((2, 0, 16, 128), device="cuda", dtype=torch.bfloat16)
+    lse = torch.empty((2, 16, 0), device="cuda")
+    delta = torch.empty((2, 16, 0), device="cuda")
+    before = fa.launches_dkdv
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, lse, q, delta)
+    torch.cuda.synchronize()
+    assert fa.launches_dkdv == before + 1
+    assert dk.shape == k.shape and dv.shape == v.shape
+    assert not dk.any() and not dv.any()
