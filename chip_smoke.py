@@ -56,7 +56,18 @@ printing one JSON line:
    tokens/s, MFU, peak memory and one step's device profile (whose forward
    attention kernels must all be the TMA/wgmma one, as in the engines'
    prefill profiles, and its dQ and dK/dV kernels the TMA/wgmma ones);
-11. kernels: one line with every kernel's numbers;
+11. train_sharded: the train phase's recipe through the sharded entry
+   points (make_train_state_init / make_train_step / loss_fn with mesh=
+   a 1-rank NCCL mesh and rules=ShardingRules.fsdp_tp()): losses within
+   TRAIN_SHARDED_LOSS_RTOL of the train phase's, its exact launch counts,
+   only the three TMA/wgmma flash kernels in a step's profile, params and
+   AdamW moments as DTensors; step time, tokens/s and peak memory;
+12. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
+   and rules=fsdp_tp over the engine phase's first wave: every greedy
+   request's tokens equal to the engine phase's; decode tokens/s and peak
+   memory. On one rank every placement is Replicate: these two prove the
+   mesh plumbing and the kernels under it, not collectives;
+13. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -104,6 +115,13 @@ TRAIN_PARAM_FAR_SHARE = 1e-4
 # engine's KV cache): one 2-D weight's f32 copy (0.52 GB for the 7b
 # embedding), never the float tree
 SETUP_PEAK_MARGIN_GB = 1.0
+
+# the sharded train step on a 1-rank mesh against the train phase: every
+# placement is Replicate, so the step runs the train phase's kernels in
+# its order; only the loss is a sum over the global token count where the
+# unsharded one is a mean (its last bit). The losses must agree within
+# 1e-5 relative (f32 rounding of the ~10-to-2 losses, with headroom)
+TRAIN_SHARDED_LOSS_RTOL = 1e-5
 
 RESULTS: dict = {"phases": {}}
 
@@ -879,6 +897,110 @@ def phase_train():
     return res
 
 
+def phase_train_sharded():
+    """The train phase's recipe (1b, 16 layers, bf16 compute, f32 masters,
+    flash, remat, f32_logits False, adamw(3e-4, weight_decay=0.01), B 8,
+    S 1024, seed 0, the same batch) through the sharded entry points: a
+    1-rank NCCL mesh (``local_mesh(MeshSpec(fsdp=-1))``) under
+    ``ShardingRules.fsdp_tp()``, params and AdamW moments as DTensors,
+    the init drawn leaf by leaf. One warm-up step, then 10 with the launch
+    counters set to 0 just before them. On one rank every placement is
+    Replicate: this proves the mesh plumbing and the kernels under it,
+    not collectives."""
+    import functools
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.parallel.mesh import MeshSpec, local_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+
+    base = RESULTS["phases"]["train"]
+    B, S, steps = 8, 1024, 10
+    cfg = llama.PRESETS["1b"].replace(attn_impl="flash", remat=True,
+                                      f32_logits=False)
+    t0 = time.perf_counter()
+    mesh = local_mesh(MeshSpec(fsdp=-1))
+    rules = ShardingRules.fsdp_tp()
+    init, state_sh = ts.make_train_state_init(
+        functools.partial(llama.init_params, cfg=cfg),
+        ts.adamw(3e-4, weight_decay=0.01), mesh, rules,
+        llama.param_specs(cfg), device="cuda")
+    state = init(0)
+    step = ts.make_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg, mesh=mesh, rules=rules),
+        mesh=mesh, rules=rules, state_shardings=state_sh)
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(B, S + 1)), device="cuda")
+    batch = {"tokens": tokens}
+    state, m = step(state, batch)           # warm-up
+    warm_loss = float(m["loss"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_launches()
+    losses, norms = [], []
+    t_run = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = _train_launches()
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    step_s = run_s / steps
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, base["losses"])]
+    moments = [v for st in state.opt_state.state.values()
+               for k, v in st.items() if k != "step"]
+    res = {"cfg": "the train phase's, through make_train_state_init / "
+                  "make_train_step with mesh (1 rank, NCCL, "
+                  "MeshSpec(fsdp=-1)) and rules (fsdp_tp)",
+           "mesh": str(mesh), "setup_s": setup_s,
+           "warmup_loss": warm_loss, "losses": losses, "grad_norms": norms,
+           "train_losses": base["losses"],
+           "loss_max_rel_diff": max(rel), "loss_rel_tol":
+           TRAIN_SHARDED_LOSS_RTOL,
+           "losses_bit_identical": losses == base["losses"],
+           "grad_norms_bit_identical": norms == base["grad_norms"],
+           "step_s": step_s, "tokens_per_s": B * S / step_s,
+           "train_step_s": base["step_s"],
+           "train_tokens_per_s": base["tokens_per_s"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "train_peak_mem_gb": base["peak_mem_gb"],
+           "params_are_dtensors": all(isinstance(p, DTensor) for p in
+                                      ts._leaves(state.params)),
+           "opt_state_dtensors": len(moments) > 0 and all(
+               isinstance(v, DTensor) for v in moments),
+           "launches": launches,
+           "launches_expected": base["launches_expected"]}
+    res["ok"] = (all(np.isfinite(losses)) and max(rel) <=
+                 TRAIN_SHARDED_LOSS_RTOL
+                 and launches == base["launches_expected"]
+                 and res["params_are_dtensors"] and res["opt_state_dtensors"])
+    res["profile_step"] = device_profile(lambda: step(state, batch),
+                                         lambda: step(state, batch))
+    flash = res["profile_step"]["flash_kernels"]
+    res["step_ran_wgmma_fwd_only"] = ran_wgmma_fwd_only(res["profile_step"])
+    res["step_ran_wgmma_dq_only"] = ran_only(
+        [n for n in flash if "flash_bwd_dq_" in n], WGMMA_DQ_SYMBOL)
+    res["step_ran_wgmma_dkdv_only"] = ran_only(
+        [n for n in flash if "flash_bwd_dkdv_" in n], WGMMA_DKDV_SYMBOL)
+    res["step_ran_only_three_flash_kernels"] = all(
+        any(sym in n for sym in (WGMMA_FWD_SYMBOL, WGMMA_DQ_SYMBOL,
+                                 WGMMA_DKDV_SYMBOL)) for n in flash)
+    res["ok"] = (res["ok"] and res["step_ran_wgmma_fwd_only"]
+                 and res["step_ran_wgmma_dq_only"]
+                 and res["step_ran_wgmma_dkdv_only"]
+                 and res["step_ran_only_three_flash_kernels"])
+    return res
+
+
 # --- the port's engine --------------------------------------------------------
 
 
@@ -1055,7 +1177,8 @@ def phase_engine():
            "prompt_lens": [len(p) for p in wave1 + wave2],
            "setup_s": setup_s, **engine_metrics(eng, reqs, m0, run_s),
            "launches": launches,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "tokens": [r.generated for r in reqs]}
     res["ok"] = (res["all_finished_64"] and res["prefix_hits"] >= 1
                  and all(v > 0 for v in launches.values()))
     res.update(profile_windows(eng, rng))
@@ -1064,6 +1187,71 @@ def phase_engine():
     res["k5_path"] = k5_path(eng)
     res["ok"] = (res["ok"] and res["k5_path"]["ok"]
                  and res["prefill_ran_wgmma_fwd_only"])
+    return res
+
+
+def phase_engine_sharded():
+    """The engine phase's paged engine (7b, 32 layers, bf16, flash, page 64,
+    16 slots, max_seq 2048, seed 0) built with ``mesh=`` (1 rank, NCCL)
+    and ``rules=ShardingRules.fsdp_tp()``: the weights rest as DTensors
+    and each is gathered at its use (on one rank, its local tensor). It
+    serves the engine phase's first wave (8 requests, request 3 sampled
+    at temperature 0.8), driven as that phase drives it, with the launch
+    counters set to 0 just before; every greedy request's tokens must be
+    the engine phase's."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.parallel.mesh import MeshSpec, local_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    base = RESULTS["phases"]["engine"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = llama.PRESETS["7b"].replace(attn_impl="flash")
+    eng = LLMEngine(cfg=cfg, max_slots=16, max_seq_len=2048,
+                    kv_layout="paged", page_size=64, seed=0, device="cuda",
+                    mesh=local_mesh(MeshSpec(fsdp=-1)),
+                    rules=ShardingRules.fsdp_tp())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wave1, _ = engine_requests(np.random.default_rng(5), cfg.vocab_size)
+    m0 = dict(eng.metrics)
+    pa.launches = 0
+    fa.launches = 0
+    t_run = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=64,
+                       temperature=0.8 if i == 3 else 0.0)
+            for i, p in enumerate(wave1)]
+    while eng.has_work():
+        eng.step_n(8)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"paged_decode_attention_inplace": pa.launches,
+                "flash_attention_fwd": fa.launches}
+    greedy = [i for i in range(len(wave1)) if i != 3]
+    same = [reqs[i].generated == base["tokens"][i] for i in greedy]
+    res = {"cfg": "the engine phase's paged 7b engine with mesh (1 rank, "
+                  "NCCL) and rules (fsdp_tp); its first wave",
+           "prompt_lens": [len(p) for p in wave1], "setup_s": setup_s,
+           **engine_metrics(eng, reqs, m0, run_s),
+           "engine_decode_tokens_per_s": base["decode_tokens_per_s"],
+           "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "engine_peak_mem_gb": base["peak_mem_gb"],
+           "weights_are_dtensors": all(
+               isinstance(v, DTensor) for v in
+               [eng.params["embed"], eng.params["lm_head"],
+                *eng.params["layers"].values()]),
+           "greedy_requests": greedy, "greedy_tokens_equal": same}
+    res["ok"] = (res["all_finished_64"] and all(same)
+                 and res["weights_are_dtensors"]
+                 and all(v > 0 for v in launches.values()))
     return res
 
 
@@ -1355,7 +1543,7 @@ def ran_wgmma_fwd_only(profile) -> bool:
 
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
-          "train_card_vs_cpu", "train")
+          "train_card_vs_cpu", "train", "train_sharded", "engine_sharded")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -1367,7 +1555,8 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "card_vs_cpu_contiguous": phase_card_vs_cpu_contiguous,
                "engine_contiguous": phase_engine_contiguous,
                "train_card_vs_cpu": phase_train_card_vs_cpu,
-               "train": phase_train}
+               "train": phase_train, "train_sharded": phase_train_sharded,
+               "engine_sharded": phase_engine_sharded}
 
 
 def _start() -> bool:
@@ -1416,6 +1605,14 @@ def _run_phase(ph: str) -> bool:
     return bool(r["ok"])
 
 
+def _stop_group() -> None:
+    """End the one-rank process group the sharded phases started."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def run_phases(names) -> int:
     """Run the named phases only (the build first where named), every one
     of them whatever the others give, for work on one kernel:
@@ -1435,6 +1632,7 @@ def run_phases(names) -> int:
         if not good:
             print(f"chip_smoke.py: phase {ph} failed", file=sys.stderr)
         ok &= good
+    _stop_group()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_phases.json").write_text(
         json.dumps(RESULTS, indent=1, default=str))
@@ -1458,6 +1656,7 @@ def main() -> int:
         traceback.print_exc()
         ok = False
     finally:
+        _stop_group()
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke.json").write_text(
             json.dumps(RESULTS, indent=1, default=str))
@@ -1473,15 +1672,18 @@ def main() -> int:
 
     # main-path launches: each path's run with the counters set to 0 just
     # before it (serving: engine, its K5 path, card_vs_cpu_contiguous (the
-    # serving run on which K2 launches) and engine_contiguous; training:
-    # train, and train_card_vs_cpu, the run on which K2 launches)
+    # serving run on which K2 launches), engine_contiguous and
+    # engine_sharded; training: train, train_card_vs_cpu (the run on which
+    # K2 launches) and train_sharded)
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
                  ph["card_vs_cpu_contiguous"]["launches"],
              "engine_contiguous": ph["engine_contiguous"]["launches"],
              "train": ph["train"]["launches"],
-             "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"]}
+             "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"],
+             "train_sharded": ph["train_sharded"]["launches"],
+             "engine_sharded": ph["engine_sharded"]["launches"]}
     k1, k2, k34 = case("k1", "7b"), case("k2", "1b-w256"), case("k3k4", "1b")
     rows = [
         ("flash_attention_fwd", "ray_tpu_torch/csrc/flash_attention.cu",

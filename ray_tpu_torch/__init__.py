@@ -13,7 +13,10 @@ kernel and touches no device. Entry points take ``device=None`` (meaning
 version.
 """
 
-__all__ = ["ops", "models", "serve", "parallel", "resolve_device"]
+import sys
+
+__all__ = ["ops", "models", "serve", "parallel", "resolve_device",
+           "is_dtensor"]
 
 
 def resolve_device(device=None):
@@ -27,3 +30,11 @@ def resolve_device(device=None):
             "CUDA is not available; pass device='cpu' to run the port's "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether x is a ``torch.distributed.tensor.DTensor`` (a sharded
+    param), without importing that module: no DTensor exists until
+    something has imported it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)

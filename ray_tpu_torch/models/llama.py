@@ -34,8 +34,16 @@ are updated IN PLACE where the JAX version donates them to ``jax.jit``.
 ``params_from_jax`` turns the JAX param tree (as numpy) into these
 tensors, so the weights cross over by plain copy.
 
-Not ported yet (ROADMAP.md): sharded training (``mesh``/``rules`` raise)
-and ``forward_sp``/``forward_pp``.
+Sharded (``mesh=``/``rules=``, params as DTensors placed by
+``param_specs`` and the rules): ``forward``/``loss_fn`` compute each rank's
+batch rows on local tensors. Every weight is gathered at its use over the
+data axes (all-gather forward, reduce-scatter or all-reduce of its
+gradient backward, through DTensor's ``redistribute``); the ``tp`` axis
+splits attention and the MLP Megatron-style (local heads, column- and
+row-parallel matmuls, ``parallel.sharding``'s f and g all-reduces). The
+serving functions take sharded params too and gather each weight whole at
+its use. ``forward_sp``/``forward_pp`` (sequence and pipeline parallel)
+wait for ROADMAP.md queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ray_tpu_torch import is_dtensor
 
 
 @dataclass(frozen=True)
@@ -180,15 +190,19 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
 
 
 def init_params_int8(generator: torch.Generator, cfg: LlamaConfig,
-                     device=None) -> Dict[str, Any]:
+                     device=None, place=None) -> Dict[str, Any]:
     """``quantize_params_int8(init_params(generator, cfg), device)`` made
     leaf by leaf: each leaf is drawn on the generator's device and
     quantized onto `device` before the next one is drawn, so the float
     tree never exists whole on either device. The same tree bit for bit:
     the draws are init_params' own, and the quantization gives the same
-    bits on the CPU and on the card."""
+    bits on the CPU and on the card. ``place(path, w)``, where given,
+    shards each leaf (a DTensor of this rank's block) before it is
+    quantized."""
 
     def leaf(path, w):
+        if place is not None:
+            w = place(path, w)
         tree = w
         for k in reversed(path):
             tree = {k: tree}
@@ -248,14 +262,17 @@ def quantize_params_int8(params, device=None) -> Dict[str, Any]:
     `device`, which bounds the float transient there to that copy."""
 
     def move(w):
-        return w if device is None else w.to(device)
+        return w if device is None or is_dtensor(w) else w.to(device)
 
-    def quant_one(w):
+    def quant_one(w, groups=()):
         # a private f32 copy of a 2-D weight on `device`, quantized in
         # place: the transient is that copy alone
         f = w.to(device=device or w.device, dtype=torch.float32, copy=True)
         lo, hi = torch.aminmax(f, dim=0, keepdim=True)
         m = torch.maximum(hi, -lo)   # max |w| over the input axis
+        for g in groups:             # ... over its shards on other ranks
+            torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
+                                         group=g)
         # a tensor divisor: CUDA turns division by a Python scalar into a
         # product with its reciprocal, which may differ in the last bit
         s = m / torch.full_like(m, 127.0)
@@ -263,21 +280,45 @@ def quantize_params_int8(params, device=None) -> Dict[str, Any]:
         q = f.div_(s).round_().clamp_(-127, 127).to(torch.int8)
         return q, s.to(torch.bfloat16)
 
-    def quant(w, keep_first: bool):
-        if _is_q8(w):
-            return {k: move(x) for k, x in w.items()}
-        if w.ndim < 2 or not w.is_floating_point():
-            return move(w)
+    def quant_local(w, keep_first: bool, groups=()):
         if not keep_first:
-            q, s = quant_one(w)
-            return {"q8": q, "s8": s}
+            q, s = quant_one(w, groups)
+            return q, s
         dev = w.device if device is None else device
         q = torch.empty(w.shape, dtype=torch.int8, device=dev)
         s = torch.empty((w.shape[0], 1, w.shape[-1]), dtype=torch.bfloat16,
                         device=dev)
         for i in range(w.shape[0]):
-            q[i], s[i] = quant_one(w[i])
-        return {"q8": q, "s8": s}
+            q[i], s[i] = quant_one(w[i], groups)
+        return q, s
+
+    def quant(w, keep_first: bool):
+        if _is_q8(w):
+            return {k: move(x) for k, x in w.items()}
+        if w.ndim < 2 or not w.is_floating_point():
+            return move(w)
+        if not is_dtensor(w):
+            q, s = quant_local(w, keep_first)
+            return {"q8": q, "s8": s}
+        # a sharded weight: quantize this rank's block, the max taken over
+        # the input axis' shards on the ranks that share its columns
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from ray_tpu_torch.parallel.sharding import contiguous_stride
+
+        in_dim = 1 if keep_first else 0
+        names = w.device_mesh.mesh_dim_names
+        groups = [w.device_mesh.get_group(names[i])
+                  for i, p in enumerate(w.placements) if p == Shard(in_dim)]
+        q, s = quant_local(w.to_local(), keep_first, groups)
+        s_pl = [Replicate() if p == Shard(in_dim) else p
+                for p in w.placements]
+        s_shape = w.shape[:in_dim] + (1,) + w.shape[in_dim + 1:]
+        return {"q8": DTensor.from_local(q, w.device_mesh, w.placements,
+                                         shape=w.shape, stride=w.stride()),
+                "s8": DTensor.from_local(s, w.device_mesh, s_pl,
+                                         shape=s_shape,
+                                         stride=contiguous_stride(s_shape))}
 
     out = {}
     for k, v in params.items():
@@ -292,22 +333,38 @@ def quantize_params_int8(params, device=None) -> Dict[str, Any]:
     return out
 
 
+def _whole(w):
+    """A param leaf as a whole local tensor: a DTensor (a sharded param)
+    is gathered here, at its use; a plain tensor passes."""
+    if is_dtensor(w):
+        from ray_tpu_torch.parallel.sharding import gathered
+
+        return gathered(w)
+    return w
+
+
 def _dq(w, dt):
     """One weight in the compute dtype; int8 leaves dequantize here, at
     their use (a bf16 copy on the card, where XLA fused the convert into
-    the consuming dot)."""
+    the consuming dot). Sharded leaves are gathered whole first."""
     if _is_q8(w):
-        return w["q8"].to(dt) * w["s8"].to(dt)
-    return w.to(dt)
+        return _whole(w["q8"]).to(dt) * _whole(w["s8"]).to(dt)
+    return _whole(w).to(dt)
 
 
 def _unbind(v):
     """A stacked [L, ...] leaf (or {"q8", "s8"} pair) as L per-layer
-    views."""
+    views. A DTensor that every rank holds whole and that takes no
+    gradient (serving) is unbound as its local tensor."""
     if isinstance(v, dict):
         cols = {k: _unbind(x) for k, x in v.items()}
         n = len(next(iter(cols.values())))
         return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    if is_dtensor(v) and not v.requires_grad:
+        from torch.distributed.tensor import Replicate
+
+        if all(isinstance(p, Replicate) for p in v.placements):
+            v = v.to_local()
     return v.unbind(0)
 
 
@@ -352,13 +409,15 @@ def _embed(params, tokens, dt):
     them (never the whole [V, D] table)."""
     w = params["embed"]
     if _is_q8(w):
-        return w["q8"][tokens.long()].to(dt) * w["s8"].to(dt)
-    return w[tokens.long()].to(dt)
+        return (_whole(w["q8"])[tokens.long()].to(dt)
+                * _whole(w["s8"]).to(dt))
+    return _whole(w)[tokens.long()].to(dt)
 
 
 def rms_norm(x, scale, eps):
     var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * _whole(scale).to(
+        x.dtype)
 
 
 @functools.lru_cache(maxsize=16)
@@ -432,7 +491,7 @@ def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0):
     if cfg.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} (sequence parallel) is not ported "
-            f"yet (ROADMAP.md queue 1, sequence and pipeline parallel)")
+            f"yet (ROADMAP.md queue 1 item 8)")
     # flash builds positions from 0, so offset chunks take the xla path,
     # which honors q_offset
     at_origin = isinstance(q_offset, int) and q_offset == 0
@@ -444,16 +503,23 @@ def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0):
     return _attention_xla(q, k, v, causal, q_offset, window=win)
 
 
-def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False):
+def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False,
+           tp=None):
     """One transformer block. x: [B, S, D]. cache: (k, v, offset) with k/v
     one layer's [B, max_seq, KV, HD] cache, written IN PLACE at offset, or
     None. collect_kv=True returns this layer's (k, v) for cache seeding;
-    otherwise the second value is the (k, v) cache or None."""
+    otherwise the second value is the (k, v) cache or None. tp (a
+    ``_TensorParallel``): lp holds this rank's column blocks of wq/wk/wv/
+    w_gate/w_up and row blocks of wo/w_down, attention runs on its
+    H/tp query heads and the KV/tp kv heads they read, and the block
+    outputs are summed over the tp ranks."""
     B, S, D = x.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n = tp.size if tp is not None else 1
+    H, KV, HD = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim
     dt = cfg.dtype
+    f, g = (tp.f, tp.g) if tp is not None else (_same, _same)
 
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = f(rms_norm(x, lp["attn_norm"], cfg.norm_eps))
     if cfg.fused_matmuls:
         wqkv = torch.cat([_dq(lp["wq"], dt), _dq(lp["wk"], dt),
                           _dq(lp["wv"], dt)], dim=-1)
@@ -482,9 +548,9 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False):
     else:
         attn = _attention(q, k, v, cfg, causal=True)
     attn = attn.reshape(B, S, H * HD)
-    x = x + attn @ _dq(lp["wo"], dt)
+    x = x + g(attn @ _dq(lp["wo"], dt))
 
-    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    h = f(rms_norm(x, lp["ffn_norm"], cfg.norm_eps))
     if cfg.fused_matmuls:
         w_gu = torch.cat([_dq(lp["w_gate"], dt), _dq(lp["w_up"], dt)],
                          dim=-1)
@@ -493,10 +559,175 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False):
     else:
         gate = F.silu(h @ _dq(lp["w_gate"], dt))
         up = h @ _dq(lp["w_up"], dt)
-    x = x + (gate * up) @ _dq(lp["w_down"], dt)
+    x = x + g((gate * up) @ _dq(lp["w_down"], dt))
     if collect_kv:
         return x, (k, v)
     return x, new_cache
+
+
+def _same(x):
+    return x
+
+
+# per-layer weights split by the tp axis at their use: column-parallel
+# (the output dim, dim 1 of a layer's [in, out]) and row-parallel (dim 0)
+_TP_COLUMNS = ("wq", "wk", "wv", "w_gate", "w_up")
+_TP_ROWS = ("wo", "w_down")
+
+
+class _TensorParallel(NamedTuple):
+    size: int
+    groups: list
+
+    def f(self, x):
+        """Megatron's f: before the column-parallel matmuls."""
+        from ray_tpu_torch.parallel.sharding import sum_in_backward
+
+        return sum_in_backward(x, self.groups)
+
+    def g(self, x):
+        """Megatron's g: after a row-parallel matmul."""
+        from ray_tpu_torch.parallel.sharding import sum_in_forward
+
+        return sum_in_forward(x, self.groups)
+
+
+class _MeshPlan:
+    """How the sharded forward runs on `mesh` under `rules`: each rank
+    computes its rows of the [batch, seq, embed] activation (the rules'
+    placement of it) on local tensors. A weight is made local at its use
+    (``use``): redistributed to whole over every mesh axis but tp (an
+    all-gather of its fsdp shards), and over tp to the block its rank
+    computes with (column or row block of a layer's projections; embed,
+    lm_head and the norms whole). Its gradient is declared Partial over
+    the data axes (each rank's rows contribute a part), so the backward of
+    the redistribute reduce-scatters (fsdp) or all-reduces (dp) it into
+    the param's own placement; over tp it is the rank's block (or, for
+    weights whole on every tp rank, the same on each)."""
+
+    def __init__(self, cfg: LlamaConfig, mesh, rules):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        from ray_tpu_torch.parallel import sharding as sh
+
+        if mesh is None or rules is None:
+            raise ValueError("the sharded forward takes mesh= and rules= "
+                             "together")
+        self.mesh = mesh
+        names = sh.axis_names(mesh)
+        sizes = sh.axis_sizes(mesh)
+        self.act = _act_placements(mesh, rules)
+        self.rows = _act_constraint(mesh, rules)
+        data = [n for n, p in zip(names, self.act) if isinstance(p, Shard)]
+        self.data_groups = sh.mesh_groups(mesh, data)
+        n_tp = sizes["tp"]
+        self.tp = None
+        if n_tp > 1:
+            for what, dim in (("n_heads", cfg.n_heads),
+                              ("n_kv_heads", cfg.n_kv_heads),
+                              ("d_ff", cfg.d_ff)):
+                if dim % n_tp:
+                    raise ValueError(f"tp={n_tp} does not divide {what}="
+                                     f"{dim}")
+            self.tp = _TensorParallel(n_tp, sh.mesh_groups(mesh, ["tp"]))
+        self._pl = {}
+        for name in ("embed", "lm_head", "final_norm", "attn_norm",
+                     "ffn_norm") + _TP_COLUMNS + _TP_ROWS:
+            split = (Shard(1) if name in _TP_COLUMNS else
+                     Shard(0) if name in _TP_ROWS else Replicate())
+            use = tuple(split if a == "tp" and self.tp is not None
+                        else Replicate() for a in names)
+            grad = tuple(Partial() if a in data else u
+                         for a, u in zip(names, use))
+            self._pl[name] = (use, grad)
+
+    def use(self, name: str, w):
+        """A weight (a DTensor) as the local tensor this rank computes
+        with."""
+        if not is_dtensor(w):
+            raise TypeError(
+                f"{name}: a sharded forward takes params placed as DTensors "
+                f"(parallel.sharding.shard_params, or make_train_state_init "
+                f"with a mesh), got {type(w).__name__}")
+        if self._as_is(name, tuple(w.placements)):
+            return w.to_local()
+        use, grad = self._pl[name]
+        return w.redistribute(self.mesh, use).to_local(grad_placements=grad)
+
+    def _as_is(self, name: str, placements) -> bool:
+        """Whether a weight of these placements is used as it rests, its
+        gradient too (every placement of a 1-rank mesh; a weight no data or
+        tp axis touches): then it is simply made local, no redistribute."""
+        return placements == self._pl[name][0] == self._pl[name][1]
+
+    def layers(self, layers):
+        """The stacked [L, ...] leaves as L per-layer dicts. A leaf whose
+        layers are used as they rest is made local once and unbound as a
+        plain tensor; the others are unbound as DTensors, each layer's
+        slice made local at its use (``layer``), inside the layer's
+        checkpointed body."""
+        from torch.distributed.tensor import Shard
+
+        def per_layer(placements):
+            # a stacked leaf's placements read on one layer's slice
+            if Shard(0) in placements:
+                return None
+            return tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                         for p in placements)
+
+        return _unstack_layers({
+            k: v.to_local() if self._as_is(k, per_layer(v.placements))
+            else v for k, v in layers.items()})
+
+    def layer(self, lp):
+        return {k: self.use(k, v) if is_dtensor(v) else v
+                for k, v in lp.items()}
+
+    def whole(self, x_local, shape):
+        """Local rows back as the global DTensor of `shape`."""
+        from torch.distributed.tensor import DTensor
+
+        from ray_tpu_torch.parallel.sharding import contiguous_stride
+
+        return DTensor.from_local(x_local, self.mesh, self.act,
+                                  shape=torch.Size(shape),
+                                  stride=contiguous_stride(shape))
+
+
+def _act_placements(mesh, rules):
+    """The DTensor placement of the [batch, seq, embed] activation."""
+    from torch.distributed.tensor import Shard
+
+    from ray_tpu_torch.parallel import sharding as sh
+
+    act = sh.spec_placements(
+        sh.logical_to_mesh(("batch", "seq", None), rules, mesh), mesh)
+    if Shard(1) in act:
+        raise NotImplementedError(
+            "a sequence sharded over sp runs in forward_sp, which is not "
+            "ported yet (ROADMAP.md queue 1 item 8)")
+    return act
+
+
+def _act_constraint(mesh, rules):
+    """JAX pins the [batch, seq, embed] activation to its rules sharding.
+    The port computes each rank's rows on local tensors, so the activation
+    keeps that placement by construction: the constraint is the
+    redistribution of the forward's input to it (a DTensor redistributed,
+    a whole tensor cut to this rank's block), then made local. The
+    identity without a mesh."""
+    if mesh is None or rules is None:
+        return _same
+    from ray_tpu_torch.parallel.sharding import local_shard
+
+    act = _act_placements(mesh, rules)
+
+    def rows(x):
+        if is_dtensor(x):
+            return x.redistribute(mesh, act).to_local()
+        return local_shard(x, mesh, act, "batch")
+
+    return rows
 
 
 def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
@@ -504,29 +735,62 @@ def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
     """Teacher-forced logits. tokens: [B, S] int -> [B, S, vocab] (f32
     unless ``cfg.f32_logits`` is False). pos_offset shifts RoPE positions.
     Differentiable in the params; each layer runs under ``_checkpoint``
-    when ``cfg.remat``."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "sharded forward (mesh/rules) is not ported yet (ROADMAP.md "
-            "queue 1 item 4)")
+    when ``cfg.remat``.
+
+    mesh+rules: params are DTensors (``parallel.sharding.shard_params`` by
+    ``param_specs``); tokens a DTensor or the whole [B, S] tensor, cut to
+    this rank's rows (``_act_constraint``); the result is the global
+    logits as a DTensor of the activation's placement. Each layer's
+    weights are gathered inside its checkpointed body, so remat gathers
+    them again in the backward, and tp splits the block (``_MeshPlan``)."""
     dt = cfg.dtype
+    plan = _MeshPlan(cfg, mesh, rules) if (mesh is not None or
+                                           rules is not None) else None
     B, S = tokens.shape
-    x = _embed(params, tokens, dt)
+    if plan is not None:
+        tokens = plan.rows(tokens)
+
+    def use(name, w):
+        return plan.use(name, w) if plan is not None else w
+
+    x = _embed({"embed": use("embed", params["embed"])}, tokens, dt)
     if isinstance(pos_offset, int) and pos_offset == 0:
         cos, sin = _rope_tables(cfg.rope_theta, S, cfg.head_dim, x.device)
     else:
         cos, sin = _rope_at(cfg, pos_offset, S, x.device)
+    tp = plan.tp if plan is not None else None
 
     def body(x, lp):
-        return _layer(x, lp, cfg, cos, sin)[0]
+        if plan is not None:
+            lp = plan.layer(lp)
+        return _layer(x, lp, cfg, cos, sin, tp=tp)[0]
 
     if cfg.remat:
         body = _checkpoint(body, cfg)
-    for lp in _unstack_layers(params["layers"]):
+    layers = (plan.layers(params["layers"]) if plan is not None
+              else _unstack_layers(params["layers"]))
+    for lp in layers:
         x = body(x, lp)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ _dq(params["lm_head"], dt)
-    return logits.float() if cfg.f32_logits else logits
+    x = rms_norm(x, use("final_norm", params["final_norm"]), cfg.norm_eps)
+    logits = x @ _dq(use("lm_head", params["lm_head"]), dt)
+    logits = logits.float() if cfg.f32_logits else logits
+    if plan is None:
+        return logits
+    return plan.whole(logits, (B, S, logits.shape[-1]))
+
+
+def forward_sp(params, tokens, cfg: LlamaConfig, mesh):
+    """Sequence-parallel forward (ring or Ulysses attention over sp)."""
+    raise NotImplementedError(
+        "forward_sp (sequence parallel) is not ported yet (ROADMAP.md "
+        "queue 1 item 8)")
+
+
+def forward_pp(params, tokens, cfg: LlamaConfig, mesh, num_microbatches=None):
+    """Pipeline-parallel forward (layers split into pp stages)."""
+    raise NotImplementedError(
+        "forward_pp (pipeline parallel) is not ported yet (ROADMAP.md "
+        "queue 1 item 8)")
 
 
 def loss_fn(params, batch, cfg: LlamaConfig, mesh=None, rules=None):
@@ -534,7 +798,16 @@ def loss_fn(params, batch, cfg: LlamaConfig, mesh=None, rules=None):
     {"inputs": [B, S], "targets": [B, S]}, each with an optional "mask"
     (for "tokens" [B, S+1], whose first column is dropped). nll =
     logsumexp(logits in f32) - the target's logit, with no [B, S, V]
-    log_softmax."""
+    log_softmax.
+
+    Routing as in JAX: ring/ulysses attention with sp > 1 goes to
+    ``forward_sp`` and pp > 1 to ``forward_pp`` (both wait for queue 1
+    item 8). With mesh+rules, batch leaves are DTensors or whole tensors;
+    each rank sums its rows' nll and divides by the GLOBAL token (or mask)
+    count, and the parts are summed over the data ranks (forward only:
+    each rank back-propagates its own part, and the weights' redistribute
+    sums the gradients), so the loss is the global batch mean on every
+    rank, masks differing by rank included."""
     if "tokens" in batch:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
         mask = batch.get("mask")
@@ -543,10 +816,42 @@ def loss_fn(params, batch, cfg: LlamaConfig, mesh=None, rules=None):
     else:
         inputs, targets = batch["inputs"], batch["targets"]
         mask = batch.get("mask")
-    logits = forward(params, inputs, cfg, mesh=mesh, rules=rules)
+    sizes = {}
+    if mesh is not None:
+        from ray_tpu_torch.parallel.sharding import axis_sizes
+
+        sizes = axis_sizes(mesh)
+    if cfg.attn_impl in ("ring", "ulysses") and sizes.get("sp", 1) > 1:
+        logits = forward_sp(params, inputs, cfg, mesh)
+    elif sizes.get("pp", 1) > 1:
+        logits = forward_pp(params, inputs, cfg, mesh)
+    else:
+        logits = forward(params, inputs, cfg, mesh=mesh, rules=rules)
+    if not is_dtensor(logits):
+        return _nll_mean(logits, targets, mask)
+    from ray_tpu_torch.parallel.sharding import sum_in_forward
+
+    plan = _MeshPlan(cfg, mesh, rules)
+    n_tokens = targets.numel()
+    logits, targets = logits.to_local(), plan.rows(targets)
+    nll = _nll(logits, targets)
+    if mask is None:
+        part = nll.sum() / n_tokens
+    else:
+        mask = plan.rows(mask).to(nll.dtype)
+        count = sum_in_forward(mask.sum(), plan.data_groups)
+        part = (nll * mask).sum() / torch.clamp(count, min=1.0)
+    return sum_in_forward(part, plan.data_groups)
+
+
+def _nll(logits, targets):
     lse = torch.logsumexp(logits.float(), dim=-1)
     ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0].float()
-    nll = lse - ll
+    return lse - ll
+
+
+def _nll_mean(logits, targets, mask):
+    nll = _nll(logits, targets)
     if mask is None:
         return nll.mean()
     mask = mask.to(nll.dtype)

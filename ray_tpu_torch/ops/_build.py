@@ -123,3 +123,17 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.rt_cuda_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def reject_dtensor(what: str, *tensors) -> None:
+    """A kernel reads its inputs through ``data_ptr()``; a DTensor's storage
+    is only this rank's shard, so a wrapper that took one would compute on
+    part of the tensor as if it were the whole. Raise instead, on any
+    device: the caller passes local tensors (``DTensor.to_local()``, or
+    inside ``local_map``)."""
+    from ray_tpu_torch import is_dtensor
+
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(
+            f"{what}: got a DTensor; kernel wrappers take local tensors "
+            f"(pass DTensor.to_local(), or call inside local_map)")

@@ -260,6 +260,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     lse [B,H,S] f32). CUDA tensors launch the kernel (K1, or K2 under a
     window); CPU tensors take the plain version."""
     global launches, launches_window
+    _build.reject_dtensor("flash_attention_fwd", q, k, v)
     w = _window(window)
     if w and not causal:
         raise ValueError("window= requires causal=True")
@@ -302,6 +303,7 @@ def flash_attention_bwd_dq(q, k, v, out, lse, g, *, causal: bool = True,
     """K3 on CUDA tensors: (dq in q.dtype, delta = rowsum(out * g) f32
     [B, H, S], which K4 reads)."""
     global launches_dq
+    _build.reject_dtensor("flash_attention_bwd_dq", q, k, v, out, lse, g)
     w = _window(window)
     q, k, v, out, lse, g = _bwd_inputs("flash_attention_bwd_dq", q, k, v,
                                        out, lse, g)
@@ -326,6 +328,7 @@ def flash_attention_bwd_dkdv(q, k, v, lse, g, delta, *, causal: bool = True,
                              window: Optional[int] = None):
     """K4 on CUDA tensors, from K3's delta: (dk, dv) in k.dtype."""
     global launches_dkdv
+    _build.reject_dtensor("flash_attention_bwd_dkdv", q, k, v, lse, g, delta)
     w = _window(window)
     q, k, v, _, lse, g = _bwd_inputs("flash_attention_bwd_dkdv", q, k, v,
                                      q, lse, g)
@@ -357,6 +360,7 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
     the output cotangent g [B,S,H,D], from the forward's out and lse. CUDA
     tensors launch K3 (dQ, and delta = rowsum(out * g) for K4) then K4
     (dK/dV); CPU tensors take the plain version."""
+    _build.reject_dtensor("flash_attention_bwd", q, k, v, out, lse, g)
     w = _window(window)
     if w and not causal:
         raise ValueError("window= requires causal=True")
@@ -397,4 +401,5 @@ def flash_attention(q, k, v, *, causal: bool = True,
     in q, k and v. Query and key positions both start at 0 (causal keeps
     key t for query s iff s >= t); window=W (causal only) keeps only the
     last W keys, s - t < W (Mistral-style sliding window)."""
+    _build.reject_dtensor("flash_attention", q, k, v)
     return _Flash.apply(q, k, v, causal, _window(window))

@@ -187,6 +187,8 @@ def paged_decode_attention_inplace(q, k_new, v_new, k_pool, v_pool,
     output rows are zeros on the card (garbage on the CPU); callers mask
     them."""
     global launches
+    _build.reject_dtensor("paged_decode_attention_inplace", q, k_new, v_new,
+                          k_pool, v_pool, page_table, lengths)
     if not q.is_cuda:
         return paged_decode_attention_inplace_reference(
             q, k_new, v_new, k_pool, v_pool, page_table, lengths)
@@ -201,6 +203,8 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
     token (its k/v already in the pool). Length-0 slots output zeros on the
     card (garbage on the CPU, as in JAX); callers mask them."""
     global launches_read
+    _build.reject_dtensor("paged_attention", q, k_pool, v_pool, page_table,
+                          lengths)
     if not q.is_cuda:
         return paged_attention_reference(q, k_pool, v_pool, page_table,
                                          lengths)

@@ -30,8 +30,16 @@ place by the kernels and scatters (where JAX donates them), and the
 device-resident decode state (last tokens, masks, temperatures, lengths,
 page table) is uploaded only when slot membership changes, as in JAX.
 
-Not ported yet (ROADMAP.md): mesh sharding, the cluster metrics
-instruments (the local ``metrics`` dict stays) and ``LLMServer``.
+``mesh=``/``rules=`` (together): the weights rest in their shards as
+DTensors placed by ``llama.param_specs`` and the rules (drawn leaf by leaf
+and placed as drawn; int8 quantizes each shard after, its scale the max
+over the GLOBAL input dim, so the tree gathered back is the unsharded
+engine's bit for bit). Prefill and decode gather each weight whole at its
+use and keep the KV pools whole; tensor-parallel compute in them (K6/K5
+over kv-head-sharded pools) is ROADMAP.md queue 1 item 12.
+
+Not ported yet (ROADMAP.md): the cluster metrics instruments (the local
+``metrics`` dict stays) and ``LLMServer``.
 """
 
 from __future__ import annotations
@@ -89,10 +97,11 @@ class LLMEngine:
                  prefill_chunk: Optional[int] = None,
                  quantize: Optional[str] = None, device=None):
         self.device = dev = resolve_device(device)
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "sharded serving is not ported yet (ROADMAP.md queue 1, "
-                "with parallel/)")
+        if (mesh is None) != (rules is None):
+            raise ValueError("LLMEngine takes mesh= and rules= together")
+        if mesh is not None and mesh.device_type != dev.type:
+            raise ValueError(f"the mesh is on {mesh.device_type!r} but the "
+                             f"engine's device is {dev.type!r}")
         if quantize is not None and quantize != "int8":
             raise ValueError(f"quantize must be 'int8', got {quantize!r}")
         if kv_layout not in ("contiguous", "paged"):
@@ -116,6 +125,16 @@ class LLMEngine:
         self.max_slots = max_slots
         self.eos = eos_token
         self.max_queue_depth = max_queue_depth
+        # sharded (mesh + rules): every weight is placed by param_specs and
+        # the rules as a DTensor holding this rank's shard (shard first,
+        # quantize after, as JAX does); prefill and decode gather each
+        # weight whole at its use
+        place = None
+        if mesh is not None:
+            from ray_tpu_torch.parallel import sharding
+
+            place = sharding.leaf_placer(mesh, llama.param_specs(cfg), rules,
+                                         dev)
         if params is None:
             # serving holds no master weights: init in the compute dtype
             icfg = cfg.replace(param_dtype=cfg.dtype)
@@ -128,11 +147,17 @@ class LLMEngine:
                 # The host generator gives the card the CPU engine's int8
                 # tree bit for bit from one seed; the quantization's f32
                 # passes run on the card, and the host only draws.
+                # Sharded, each leaf is placed as drawn and its shard
+                # quantized, the scale's max taken over every shard.
                 params = llama.init_params_int8(
-                    torch.Generator().manual_seed(seed), icfg, device=dev)
+                    torch.Generator().manual_seed(seed), icfg, device=dev,
+                    place=place)
             else:
                 gen = torch.Generator(device=dev).manual_seed(seed)
-                params = llama.init_params(gen, icfg)
+                params = llama.init_params(gen, icfg, place)
+        elif mesh is not None:
+            params = sharding.shard_params(mesh, params,
+                                           llama.param_specs(cfg), rules, dev)
         if quantize == "int8":
             # weight-only int8: device memory at rest halves against bf16
             # (7B: ~6.7 GB); idempotent, so a quantized tree passes through

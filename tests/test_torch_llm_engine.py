@@ -156,10 +156,18 @@ def test_export_import_kv_pages_round_trip():
 
 
 def test_unported_options_raise():
+    """Unknown options raise; mesh= and rules= come together (the sharded
+    engine itself, and a mesh that does not divide a dim, are held on 2
+    ranks in tests/test_torch_parallel_engine.py)."""
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+
     with pytest.raises(ValueError):
         LLMEngine(preset="tiny", quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
+    with pytest.raises(ValueError, match="together"):
         LLMEngine(preset="tiny", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="together"):
+        LLMEngine(preset="tiny", rules=ShardingRules.fsdp_tp(),
+                  device="cpu")
 
 
 # --- the contiguous layout and int8 weights ---------------------------------------

@@ -254,16 +254,35 @@ def test_eval_step_and_global_norm(tiny):
 
 
 def test_mesh_raises_not_implemented(tiny):
+    """What the sharded path does not run raises: sequence parallelism
+    (ring attention with sp > 1) and pipeline parallelism (pp > 1) route
+    to forward_sp / forward_pp, which wait for ROADMAP.md queue 1 item 8;
+    a mesh whose axis sizes do not divide a dim names the dim. (Sizes are
+    read from a MeshSpec: no process group needed.)"""
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+    from ray_tpu_torch.parallel.sharding import ShardingRules, shard_params
+
     _, tcfg, params = tiny
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ts.make_train_step(lambda p, b: 0.0, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ts.make_train_state_init(lambda g: {}, ts.adamw(1e-3), mesh=object(),
-                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        llama.forward(llama.params_from_jax(params, "cpu"),
-                      torch.zeros((1, 4), dtype=torch.int32), tcfg,
-                      mesh=object())
+    tp = llama.params_from_jax(params, "cpu")
+    batch = {"tokens": torch.from_numpy(_tokens(8))}
+    rules = ShardingRules.fsdp_tp()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        llama.loss_fn(tp, batch, tcfg.replace(attn_impl="ring"),
+                      mesh=MeshSpec(sp=2), rules=rules)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        llama.loss_fn(tp, batch, tcfg, mesh=MeshSpec(pp=2), rules=rules)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        llama.forward(tp, batch["tokens"], tcfg, mesh=MeshSpec(sp=2),
+                      rules=ShardingRules.full())
+    with pytest.raises(ValueError, match="tp=3 does not divide n_heads=4"):
+        llama.forward(tp, batch["tokens"], tcfg, mesh=MeshSpec(tp=3),
+                      rules=rules)
+    with pytest.raises(ValueError, match=r"dim 0 of shape \(256, 64\)"):
+        shard_params(MeshSpec(tp=3), tp, llama.param_specs(tcfg), rules)
+    with pytest.raises(ValueError, match="rules="):
+        ts.make_train_step(lambda p, b: 0.0, mesh=MeshSpec(dp=2))
+    with pytest.raises(ValueError, match="mesh= and rules="):
+        llama.forward(tp, batch["tokens"], tcfg, rules=rules)
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
@@ -288,6 +307,9 @@ def test_port_imports_no_jax_and_no_reference():
         "'ray_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import ray_tpu_torch.parallel.train_step\n"
+        "import ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
+        "import ray_tpu_torch.parallel.presets\n"
+        "from ray_tpu_torch.parallel import MeshSpec, sharded_jit\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'ray_tpu' or "
         "k.startswith('ray_tpu.'))\n"
@@ -298,7 +320,7 @@ def test_port_imports_no_jax_and_no_reference():
                          text=True, env=env, cwd=str(REPO), timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert bad == "[]" and int(n) >= 10
+    assert bad == "[]" and int(n) >= 13
 
 
 @pytest.mark.cuda
