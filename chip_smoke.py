@@ -67,7 +67,17 @@ printing one JSON line:
    request's tokens equal to the engine phase's; decode tokens/s and peak
    memory. On one rank every placement is Replicate: these two prove the
    mesh plumbing and the kernels under it, not collectives;
-13. kernels: one line with every kernel's numbers;
+13. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
+   GPU detected without an override): an actor with ``num_gpus=1`` builds
+   the engine phase's paged 7b engine in a worker process and serves the
+   engine_sharded phase's wave 1 through one method call (K1 and K6
+   counted in that process): greedy tokens equal to the engine phase's,
+   the engine's tokens counter read back from the cluster's metrics, its
+   KV pool in the memory plane while requests are live; the device tier
+   (the bf16 embedding put in the actor: same-process get is the tensor,
+   the driver's get bit-exact); the no-op round trip and the staging
+   rate; after ``shutdown()`` no process of the session alive;
+14. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -1255,6 +1265,220 @@ def phase_engine_sharded():
     return res
 
 
+class _EngineActor:
+    """The runtime phase's actor (``num_gpus=1``): the engine phase's paged
+    7b engine (32 layers, bf16, flash prefill, page 64, 16 slots, max_seq
+    2048, seed 0) built in a worker process that the port's nodelet
+    started, reached from the driver through ``remote``/``get`` only."""
+
+    def __init__(self):
+        import torch
+
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.serve.llm import LLMEngine
+
+        t0 = time.perf_counter()
+        cfg = llama.PRESETS["7b"].replace(attn_impl="flash")
+        self.eng = LLMEngine(cfg=cfg, max_slots=16, max_seq_len=2048,
+                             kv_layout="paged", page_size=64, seed=0,
+                             device="cuda")
+        torch.cuda.synchronize()
+        self.setup_s = time.perf_counter() - t0
+        self.ref = None
+
+    def ping(self):
+        return None
+
+    def serve_wave(self, wave1):
+        """The engine_sharded phase's drive of wave 1 (request 3 sampled
+        at 0.8, step_n(8) until done), with this process's K1/K6 counters
+        set to 0 just before. After the first block, with every request
+        live, the KV pool's record is read back from the cluster's memory
+        plane; at the end the telemetry is flushed so the tokens counter
+        reaches the GCS."""
+        import os
+
+        import torch
+
+        import ray_tpu_torch
+        from ray_tpu_torch.core import runtime as _rt
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.ops import paged_attention as pa
+        from ray_tpu_torch.util import state
+
+        eng = self.eng
+        m0 = dict(eng.metrics)
+        pa.launches = 0
+        fa.launches = 0
+        t_run = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=64,
+                           temperature=0.8 if i == 3 else 0.0)
+                for i, p in enumerate(wave1)]
+        eng.step_n(8)
+        t_mem = time.perf_counter()
+        live = sum(1 for r in reqs if not r.done_event.is_set())
+        _rt.get_runtime().flush_task_events(wait=True)
+        rep = state.memory_report(top_n=200)
+        kv = [r for r in rep.get("top_holders", [])
+              if r.get("subsystem") == "kv"]
+        kv_expected = eng.pool.used_pages * eng.pool.page_nbytes
+        mem_s = time.perf_counter() - t_mem
+        while eng.has_work():
+            eng.step_n(8)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_run - mem_s
+        launches = {"paged_decode_attention_inplace": pa.launches,
+                    "flash_attention_fwd": fa.launches}
+        _rt.get_runtime().flush_task_events(wait=True)
+        return {"pid": os.getpid(), "setup_s": self.setup_s,
+                "actor_id": ray_tpu_torch.get_runtime_context()
+                .get_actor_id(),
+                "replica_tag": eng._m_tokens._default_tags.get("replica"),
+                **engine_metrics(eng, reqs, m0, run_s),
+                "launches": launches,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "requests_live_at_memory_read": live,
+                "kv_records": kv, "kv_expected_bytes": kv_expected,
+                "memory_subsystem_bytes": rep.get("subsystem_bytes"),
+                "tokens": [r.generated for r in reqs]}
+
+    def put_embed(self):
+        """Put the engine's bf16 embedding (a CUDA tensor) into the object
+        store's device tier: same-process ``get`` must return the tensor
+        itself. Returns the ref (held here too, so the object outlives
+        the call) and a digest of the tensor's bytes."""
+        import hashlib
+
+        import torch
+
+        import ray_tpu_torch
+
+        emb = self.eng.params["embed"]
+        self.ref = ray_tpu_torch.put(emb)
+        same = ray_tpu_torch.get(self.ref) is emb
+        host = emb.detach().cpu().contiguous()
+        return {"ref": [self.ref], "same_process_identity": same,
+                "sha256": hashlib.sha256(
+                    host.view(torch.int16).numpy().tobytes()).hexdigest(),
+                "nbytes": emb.numel() * emb.element_size(),
+                "dtype": str(emb.dtype), "shape": list(emb.shape),
+                "device": str(emb.device)}
+
+
+def phase_runtime():
+    """The runtime path: ``ray_tpu_torch.init(num_cpus=4)`` on this node
+    (its GPU detected, no override), an actor with ``num_gpus=1`` holding
+    the engine phase's paged 7b engine, the engine_sharded phase's wave 1
+    served through one method call (K1 and K6 launched in the worker),
+    the actor's no-op round trip, the device tier (put of the bf16
+    embedding in the actor, get in the driver), then ``shutdown()`` and no
+    process of the session left."""
+    import gc
+    import hashlib
+    import os
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.core import runtime as _rt
+    from ray_tpu_torch.core.node import pid_alive, session_pids
+    from ray_tpu_torch.models import llama
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the daemons and workers import the port from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+    base = RESULTS["phases"]["engine"]
+    cfg = llama.PRESETS["7b"]
+    wave1, _ = engine_requests(np.random.default_rng(5), cfg.vocab_size)
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_cpus=4)
+    init_s = time.perf_counter() - t0
+    res = {"cfg": "the engine phase's paged 7b engine in an actor "
+                  "(num_gpus=1); the engine_sharded phase's wave 1",
+           "nvidia_smi": RESULTS["phases"]["device"]["nvidia_smi"],
+           "init_s": init_s}
+    pids = {p.pid: "daemon" for p in info["procs"]}
+    try:
+        res["cluster_resources"] = ray_tpu_torch.cluster_resources()
+        actor = ray_tpu_torch.remote(num_gpus=1)(_EngineActor).remote()
+        t_up = time.perf_counter()
+        ray_tpu_torch.get(actor.ping.remote(), timeout=900)
+        res["actor_up_s"] = time.perf_counter() - t_up
+        t_call = time.perf_counter()
+        wave = ray_tpu_torch.get(actor.serve_wave.remote(wave1), timeout=900)
+        res["serve_wave_call_s"] = time.perf_counter() - t_call
+        rtt = []
+        for _ in range(100):
+            t = time.perf_counter()
+            ray_tpu_torch.get(actor.ping.remote(), timeout=60)
+            rtt.append(time.perf_counter() - t)
+        res["noop_round_trip_ms_median"] = statistics.median(rtt) * 1e3
+        put = ray_tpu_torch.get(actor.put_embed.remote(), timeout=300)
+        t = time.perf_counter()
+        got = ray_tpu_torch.get(put["ref"][0], timeout=300)
+        stage_s = time.perf_counter() - t
+        digest = hashlib.sha256(got.contiguous().view(torch.int16)
+                                .numpy().tobytes()).hexdigest()
+        res["device_tier"] = {
+            **{k: v for k, v in put.items() if k != "ref"},
+            "remote_get_s": stage_s,
+            "staging_gb_per_s": put["nbytes"] / stage_s / 1e9,
+            "remote_dtype": str(got.dtype), "remote_shape": list(got.shape),
+            "remote_device": str(got.device),
+            "remote_bit_exact": digest == put["sha256"]}
+        del got
+        raw = _rt.get_runtime().gcs_call(
+            "kv_get", ns="metrics", key=b"ray_tpu_serve_tokens_generated")
+        series = json.loads(raw)["series"] if raw else []
+        counted = sum(x.get("value", 0.0) for x in series
+                      if x.get("tags", {}).get("replica")
+                      == wave["replica_tag"])
+        res["tokens_counter"] = counted
+        pids[wave["pid"]] = "actor"
+        pids.update(session_pids(pids))
+        ray_tpu_torch.kill(actor)
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.time() + 30
+    while time.time() < deadline and any(pid_alive(p) for p in pids):
+        time.sleep(0.5)
+    res["session_pids"] = {str(p): m for p, m in pids.items()}
+    res["pids_alive_after_shutdown"] = [p for p in pids if pid_alive(p)]
+    res.update({k: v for k, v in wave.items() if k != "tokens"})
+    res["tokens"] = wave["tokens"]
+    greedy = [i for i in range(len(wave1)) if i != 3]
+    same = [wave["tokens"][i] == base["tokens"][i] for i in greedy]
+    kv_ok = any(r["nbytes"] == wave["kv_expected_bytes"] > 0
+                for r in wave["kv_records"])
+    dt = res["device_tier"]
+    res.update({
+        "greedy_requests": greedy, "greedy_tokens_equal": same,
+        "engine_decode_tokens_per_s": base["decode_tokens_per_s"],
+        "engine_sharded_decode_tokens_per_s":
+            RESULTS["phases"].get("engine_sharded", {})
+            .get("decode_tokens_per_s"),
+        "gates": {
+            "gpu_detected": res["cluster_resources"].get("GPU") == 1.0,
+            "greedy_tokens_equal": all(same),
+            "all_finished_64": wave["all_finished_64"],
+            "k1_k6_launched": all(v > 0 for v in wave["launches"].values()),
+            "tokens_counter": counted == wave["tokens_generated"] > 0,
+            "kv_in_memory_plane": kv_ok
+            and wave["requests_live_at_memory_read"] > 0,
+            "device_tier_identity": dt["same_process_identity"],
+            "device_tier_bit_exact": dt["remote_bit_exact"]
+            and dt["remote_dtype"] == "torch.bfloat16"
+            and dt["remote_device"] == "cpu"
+            and dt["remote_shape"] == dt["shape"],
+            "no_process_left": not res["pids_alive_after_shutdown"]}})
+    res["ok"] = all(res["gates"].values())
+    return res
+
+
 def k5_path(eng):
     """The K5 path: ``paged_attention`` on every layer of the live engine's
     pools, page table and lengths (16 slots at ~1000 tokens), with a seeded
@@ -1543,7 +1767,8 @@ def ran_wgmma_fwd_only(profile) -> bool:
 
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
-          "train_card_vs_cpu", "train", "train_sharded", "engine_sharded")
+          "train_card_vs_cpu", "train", "train_sharded", "engine_sharded",
+          "runtime")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -1556,7 +1781,8 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "engine_contiguous": phase_engine_contiguous,
                "train_card_vs_cpu": phase_train_card_vs_cpu,
                "train": phase_train, "train_sharded": phase_train_sharded,
-               "engine_sharded": phase_engine_sharded}
+               "engine_sharded": phase_engine_sharded,
+               "runtime": phase_runtime}
 
 
 def _start() -> bool:
@@ -1673,8 +1899,9 @@ def main() -> int:
     # main-path launches: each path's run with the counters set to 0 just
     # before it (serving: engine, its K5 path, card_vs_cpu_contiguous (the
     # serving run on which K2 launches), engine_contiguous and
-    # engine_sharded; training: train, train_card_vs_cpu (the run on which
-    # K2 launches) and train_sharded)
+    # engine_sharded, and runtime's actor (counted in its worker process);
+    # training: train, train_card_vs_cpu (the run on which K2 launches) and
+    # train_sharded)
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
@@ -1683,7 +1910,8 @@ def main() -> int:
              "train": ph["train"]["launches"],
              "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"],
              "train_sharded": ph["train_sharded"]["launches"],
-             "engine_sharded": ph["engine_sharded"]["launches"]}
+             "engine_sharded": ph["engine_sharded"]["launches"],
+             "runtime": ph["runtime"]["launches"]}
     k1, k2, k34 = case("k1", "7b"), case("k2", "1b-w256"), case("k3k4", "1b")
     rows = [
         ("flash_attention_fwd", "ray_tpu_torch/csrc/flash_attention.cu",

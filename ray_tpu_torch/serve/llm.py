@@ -38,8 +38,11 @@ engine's bit for bit). Prefill and decode gather each weight whole at its
 use and keep the KV pools whole; tensor-parallel compute in them (K6/K5
 over kv-head-sharded pools) is ROADMAP.md queue 1 item 12.
 
-Not ported yet (ROADMAP.md): the cluster metrics instruments (the local
-``metrics`` dict stays) and ``LLMServer``.
+Cluster metrics: the engine records TTFT, admission seconds, decode-block
+seconds and generated tokens into ``util.metrics`` instruments tagged with
+its replica (the actor id from the runtime context, "driver" or "local"),
+beside the local ``metrics`` dict, as JAX's engine does. Not ported yet
+(ROADMAP.md queue 1 item 6): ``LLMServer``.
 """
 
 from __future__ import annotations
@@ -215,13 +218,42 @@ class LLMEngine:
         self._masks_dirty = True
         self.metrics = {"requests": 0, "tokens_generated": 0,
                         "ttft_sum": 0.0, "ttft_count": 0}
+        # Cluster-visible instruments (util.metrics -> batched telemetry
+        # reports), replica-tagged so the future serve router can read
+        # per-replica admission cost and TTFT percentiles from the GCS.
+        # The plain dict above stays the local stats() view.
+        from ray_tpu_torch.util import metrics as _um
+        try:
+            import ray_tpu_torch
+            replica = (ray_tpu_torch.get_runtime_context().get_actor_id()
+                       or "driver")
+        except Exception:
+            replica = "local"
+        tag = {"replica": str(replica)[:16]}
+        self._m_ttft = _um.Histogram(
+            "ray_tpu_serve_ttft_s", "time to first token per request",
+            boundaries=[0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30],
+            tag_keys=("replica",)).set_default_tags(tag)
+        self._m_admit = _um.Counter(
+            "ray_tpu_serve_admit_s", "seconds spent in request admission",
+            tag_keys=("replica",)).set_default_tags(tag)
+        self._m_decode_block = _um.Histogram(
+            "ray_tpu_serve_decode_block_s",
+            "fused decode-block wall seconds",
+            boundaries=[0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5],
+            tag_keys=("replica",)).set_default_tags(tag)
+        self._m_tokens = _um.Counter(
+            "ray_tpu_serve_tokens_generated", "generated tokens",
+            tag_keys=("replica",)).set_default_tags(tag)
 
     def _record_first_token(self, r, now: float) -> None:
         """Client-visible TTFT, once per request (re-admission after a
         recompute-preemption must not reset it or double-count)."""
         r.first_token_time = now
-        self.metrics["ttft_sum"] += now - r.submit_time
+        ttft = now - r.submit_time
+        self.metrics["ttft_sum"] += ttft
         self.metrics["ttft_count"] += 1
+        self._m_ttft.observe(ttft)
 
     def _tensor(self, a, dtype=torch.int32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -384,6 +416,7 @@ class LLMEngine:
             if r.first_token_time is None:
                 self._record_first_token(r, now)
             self.metrics["tokens_generated"] += 1
+            self._m_tokens.inc()
             if (self.kv_layout == "paged" and self.prefix_caching
                     and r._filled < self.max_seq):
                 # register this prompt's FULL pages for later hits (they
@@ -656,6 +689,7 @@ class LLMEngine:
                 if r.first_token_time is None:   # defensive: admission
                     self._record_first_token(r, now)  # normally did this
                 self.metrics["tokens_generated"] += 1
+                self._m_tokens.inc()
                 self._maybe_finish(r)
             r.progress.set()
 
@@ -672,8 +706,9 @@ class LLMEngine:
         blocks)."""
         t_adm = time.time()
         self._admit()
-        self.metrics["admit_s"] = \
-            self.metrics.get("admit_s", 0.0) + (time.time() - t_adm)
+        adm = time.time() - t_adm
+        self.metrics["admit_s"] = self.metrics.get("admit_s", 0.0) + adm
+        self._m_admit.inc(adm)
         with self.lock:
             active_reqs, active_mask, temps, occupied = self._snapshot()
         if not active_reqs:
@@ -732,6 +767,7 @@ class LLMEngine:
             self.metrics.get("decode_blocks", 0) + 1
         self.metrics["decode_block_tokens"] = \
             self.metrics.get("decode_block_tokens", 0) + n_eff
+        self._m_decode_block.observe(now - t_blk)
         self._emit_block(active_reqs, toks)
         with self.lock:
             return sum(1 for s in self.slots if s is not None)

@@ -1,8 +1,8 @@
 """Host-side page allocator for the paged KV cache.
 
 Port of ray_tpu/serve/paged_kv.py (numpy only, copied so the port imports
-nothing of ray_tpu). The one change: the memory-plane hook (_track_mem)
-is a no-op until the observability layer is ported.
+nothing of ray_tpu). Occupied pages report to the port's memory plane
+(observability/memory.py) as a "kv" record, as the reference's do.
 
 The device side (pools + kernel) is ops/paged_attention.py +
 llama.decode_step_paged; this is the bookkeeping half: a free list of
@@ -34,6 +34,18 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+_memory_mod = None
+
+
+def _memattr():
+    """Lazy memory-attribution tracker (keeps this module import-light)."""
+    global _memory_mod
+    if _memory_mod is None:
+        from ray_tpu_torch.observability import memory
+        _memory_mod = memory.tracker()
+    return _memory_mod
+
+
 def page_chain_hashes(tokens, page_size: int) -> List[bytes]:
     """Chain hash per FULL page of `tokens`: h_i = H(h_{i-1} || page_i).
     Position-dependent by construction, so page content alone never
@@ -60,6 +72,8 @@ class PagePool:
         # engine provides it, occupied pages register with the memory
         # plane as a synthetic "kv" record (see _track_mem)
         self.page_nbytes = int(page_nbytes)
+        self._mem_key = f"kvpool:{id(self):x}"
+        self._mem_tracked = False
         # LIFO free list; page 0 reserved as trash
         self.free: List[int] = list(range(num_pages - 1, 0, -1))
         self.table = np.zeros((max_slots, max_pages_per_slot), np.int32)
@@ -97,8 +111,20 @@ class PagePool:
         return self.pages_for(tokens) <= self.available_pages
 
     def _track_mem(self) -> None:
-        """Mirror occupied-page bytes into the memory plane: a no-op until
-        the observability layer is ported (ROADMAP.md queue 1, runtime substrate)."""
+        """Mirror occupied-page bytes (incl. evictable cached pages —
+        they still hold device memory) into the memory plane."""
+        if not self.page_nbytes:
+            return
+        held = self.used_pages   # includes parked evictable pages
+        mem = _memattr()
+        if held > 0:
+            mem.attribute(self._mem_key, "kv", held * self.page_nbytes,
+                          store=False, pages=held,
+                          evictable=len(self.evictable))
+            self._mem_tracked = True
+        elif self._mem_tracked:
+            mem.release(self._mem_key)
+            self._mem_tracked = False
 
     def _unregister(self, page: int) -> None:
         h = self.page_to_hash.pop(page, None)

@@ -5,7 +5,9 @@
 loaded through stub parent packages: ``types.ModuleType`` objects with
 ``__path__`` set for ``ray_tpu``, ``ray_tpu.serve``, ``ray_tpu.util`` and
 ``ray_tpu.observability``, plus a no-op ``ray_tpu.util.metrics``. The
-stubs live in ``sys.modules`` only inside ``jax_reference()``: on exit every
+stubs (and ``ray_tpu.core.runtime``, reduced to the two functions the
+serializer needs, see ``_runtime_stub``) live in ``sys.modules`` only
+inside ``jax_reference()``: on exit every
 ``ray_tpu*`` entry is put back as it was, because xdist's ``loadfile``
 runs other test files in the same worker process and they must see the
 real package. The loaded reference modules are kept between uses and
@@ -29,7 +31,11 @@ _STUB_PACKAGES = ("ray_tpu", "ray_tpu.serve", "ray_tpu.util",
                   "ray_tpu.observability")
 _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.ops.paged_attention",
                       "ray_tpu.ops.flash_attention", "ray_tpu.serve.llm",
-                      "ray_tpu.serve.paged_kv", "ray_tpu.parallel.train_step")
+                      "ray_tpu.serve.paged_kv", "ray_tpu.parallel.train_step",
+                      # runtime modules that load without core/rpc.py
+                      "ray_tpu.core.ids", "ray_tpu.core.config",
+                      "ray_tpu.core.serialization",
+                      "ray_tpu.core.scheduling_policy")
 _loaded: dict = {}
 
 
@@ -54,6 +60,25 @@ class _NoopInstrument:
         pass
 
 
+def _runtime_stub():
+    """``ray_tpu.core.runtime`` with only the two functions
+    ``core/serialization.py`` imports from it (its pickler asks whether a
+    function's module is importable by workers), compiled from the
+    reference's own source: the real module imports ``core/rpc.py``."""
+    import ast
+
+    path = REPO / "ray_tpu" / "core" / "runtime.py"
+    tree = ast.parse(path.read_text())
+    keep = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name in ("_module_is_installed", "_dumps_function")]
+    m = types.ModuleType("ray_tpu.core.runtime")
+    m.__file__ = str(path)
+    m.cloudpickle = __import__("cloudpickle")
+    exec(compile(ast.Module(body=keep, type_ignores=[]), str(path), "exec"),
+         m.__dict__)
+    return m
+
+
 def _install_stubs():
     for name in _STUB_PACKAGES:
         m = types.ModuleType(name)
@@ -62,11 +87,13 @@ def _install_stubs():
     metrics = types.ModuleType("ray_tpu.util.metrics")
     metrics.Histogram = metrics.Counter = metrics.Gauge = _NoopInstrument
     sys.modules["ray_tpu.util.metrics"] = metrics
+    sys.modules["ray_tpu.core.runtime"] = _runtime_stub()
 
 
 class _Reference(types.SimpleNamespace):
     """The JAX reference modules: llama, paged_attention, flash_attention,
-    llm, paged_kv, train_step, mesh, sharding."""
+    llm, paged_kv, train_step, mesh, sharding; and of the runtime ids,
+    config, serialization, scheduling_policy and common."""
 
 
 @contextlib.contextmanager
@@ -97,7 +124,12 @@ def jax_reference():
             paged_kv=sys.modules["ray_tpu.serve.paged_kv"],
             train_step=sys.modules["ray_tpu.parallel.train_step"],
             mesh=sys.modules["ray_tpu.parallel.mesh"],
-            sharding=sys.modules["ray_tpu.parallel.sharding"])
+            sharding=sys.modules["ray_tpu.parallel.sharding"],
+            ids=sys.modules["ray_tpu.core.ids"],
+            config=sys.modules["ray_tpu.core.config"],
+            serialization=sys.modules["ray_tpu.core.serialization"],
+            scheduling_policy=sys.modules["ray_tpu.core.scheduling_policy"],
+            common=sys.modules["ray_tpu.core.common"])
     finally:
         for k in [k for k in sys.modules if _is_ray_tpu(k)]:
             del sys.modules[k]
