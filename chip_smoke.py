@@ -77,7 +77,23 @@ printing one JSON line:
    (the bf16 embedding put in the actor: same-process get is the tensor,
    the driver's get bit-exact); the no-op round trip and the staging
    rate; after ``shutdown()`` no process of the session alive;
-14. kernels: one line with every kernel's numbers;
+14. serve: the monolithic app through the serve layer: ``serve.run`` of an
+   ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
+   engine, decode_block 8) behind an ``LLMRouter`` with an HTTP route;
+   four greedy prompts one at a time through the router's streaming
+   handle, then again as HTTP POSTs (two plain, two ``?stream=1``), equal
+   token for token to an in-process engine run first on the same prompts
+   in the same order; then the engine phase's 12 requests streamed at
+   once; every stream's frames against its final frame, K1/K6 counted in
+   the replica, its tokens counter read back from the GCS, the router's
+   request count with no 429, no process left after shutdown;
+15. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
+   8 slots, page groups of 4 pages) behind ``DisaggRouter``; seven greedy
+   prompts one at a time, equal to the handoff replayed in process (engine
+   A prefills and exports each full group, a fresh engine B imports them
+   and generates); each group crossing the store once at its byte size,
+   every handoff acked, K1 in the prefill and K6 in the decode replica;
+16. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -1373,9 +1389,7 @@ def phase_runtime():
     the actor's no-op round trip, the device tier (put of the bf16
     embedding in the actor, get in the driver), then ``shutdown()`` and no
     process of the session left."""
-    import gc
     import hashlib
-    import os
     import statistics
 
     import numpy as np
@@ -1383,14 +1397,11 @@ def phase_runtime():
 
     import ray_tpu_torch
     from ray_tpu_torch.core import runtime as _rt
-    from ray_tpu_torch.core.node import pid_alive, session_pids
+    from ray_tpu_torch.core.node import session_pids
     from ray_tpu_torch.models import llama
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    # the daemons and workers import the port from this checkout
-    os.environ["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+    _free_device()
+    _checkout_on_pythonpath()
     base = RESULTS["phases"]["engine"]
     cfg = llama.PRESETS["7b"]
     wave1, _ = engine_requests(np.random.default_rng(5), cfg.vocab_size)
@@ -1443,11 +1454,8 @@ def phase_runtime():
         ray_tpu_torch.kill(actor)
     finally:
         ray_tpu_torch.shutdown()
-    deadline = time.time() + 30
-    while time.time() < deadline and any(pid_alive(p) for p in pids):
-        time.sleep(0.5)
+    res["pids_alive_after_shutdown"] = _alive_after(pids)
     res["session_pids"] = {str(p): m for p, m in pids.items()}
-    res["pids_alive_after_shutdown"] = [p for p in pids if pid_alive(p)]
     res.update({k: v for k, v in wave.items() if k != "tokens"})
     res["tokens"] = wave["tokens"]
     greedy = [i for i in range(len(wave1)) if i != 3]
@@ -1475,6 +1483,528 @@ def phase_runtime():
             and dt["remote_device"] == "cpu"
             and dt["remote_shape"] == dt["shape"],
             "no_process_left": not res["pids_alive_after_shutdown"]}})
+    res["ok"] = all(res["gates"].values())
+    return res
+
+
+# --- the serve layer ----------------------------------------------------------
+
+# any one get, stream item or HTTP call of the serve phases; a wedged
+# replica fails the phase instead of hanging it
+SERVE_TIMEOUT_S = 300.0
+SERVE_NEW_TOKENS = 64
+# full KV pages per handoff group of the disaggregated app
+SERVE_GROUP_PAGES = 4
+
+
+def _probe_class():
+    """``LLMServer`` with one method more, made here so that the server
+    itself gains none: ``probe`` flushes its process's telemetry (so the
+    tokens counter reaches the GCS) and returns that process's K1/K6
+    launch counts, its engine's replica tag and its pid. A class made in
+    a function pickles by value, so replicas need not import this
+    script."""
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    class ServeProbe(LLMServer):
+        def probe(self):
+            import os
+
+            from ray_tpu_torch.core import runtime as _rt
+            from ray_tpu_torch.ops import flash_attention as fa
+            from ray_tpu_torch.ops import paged_attention as pa
+
+            _rt.get_runtime().flush_task_events(wait=True)
+            return {"pid": os.getpid(),
+                    "replica_tag":
+                        self.engine._m_tokens._default_tags.get("replica"),
+                    "launches": {
+                        "flash_attention_fwd": fa.launches,
+                        "paged_decode_attention_inplace": pa.launches}}
+
+    return ServeProbe
+
+
+def _free_device():
+    """Drop what earlier phases left on the card before a phase starts."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _serve_prompts(V):
+    """The engine phase's 12 prompts (``engine_requests``, seed 5) as one
+    list: indexes 0-7 wave 1 (7 the first of the 512-token shared prefix),
+    8-11 wave 2 (8-10 sharing it)."""
+    import numpy as np
+
+    wave1, wave2 = engine_requests(np.random.default_rng(5), V)
+    return wave1 + wave2
+
+
+def _stream(handle, body):
+    """One stream through a router's handle, each item within
+    SERVE_TIMEOUT_S: its frames, the seconds to its first token frame and
+    to its end."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core import runtime as _rt
+
+    rt = _rt.get_runtime()
+    t0 = time.perf_counter()
+    gen = handle.options(stream=True).method("stream_request").remote(body)
+    frames, first = [], None
+    while True:
+        ref = rt.next_stream_ref(gen.task_id, len(frames) + 1,
+                                 timeout=SERVE_TIMEOUT_S)
+        if ref is None:
+            break
+        frames.append(ray_tpu_torch.get(ref, timeout=SERVE_TIMEOUT_S))
+        if first is None and frames[-1].get("tokens"):
+            first = time.perf_counter() - t0
+    return frames, first, time.perf_counter() - t0
+
+
+def _http(port, path, body, stream):
+    """One POST to the HTTP proxy: plain JSON (the router's ``__call__``)
+    or ``?stream=1`` (chunked frames of its ``stream_request``)."""
+    import http.client
+    import urllib.request
+
+    t0 = time.perf_counter()
+    if not stream:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            out = json.loads(r.read())
+            out["http_status"] = r.status
+        return out, time.perf_counter() - t0
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=SERVE_TIMEOUT_S)
+    try:
+        conn.request("POST", path + "?stream=1", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        frames = [json.loads(ln) for ln in resp.read().splitlines()
+                  if ln.strip()]
+        status = resp.status
+    finally:
+        conn.close()
+    return {"frames": frames, "http_status": status}, \
+        time.perf_counter() - t0
+
+
+def _frames_check(frames, n_new):
+    """A stream's contract: token frames then one final frame whose
+    ``n_tokens`` counts the tokens the frames carried, all n_new of them,
+    with no error. Returns (tokens, ok)."""
+    toks = [t for f in frames[:-1] for t in f.get("tokens", [])]
+    final = frames[-1] if frames else {}
+    ok = (bool(frames) and final.get("done") is True
+          and "error" not in final and final.get("status") is None
+          and final.get("n_tokens") == len(toks) == n_new
+          and all(f.get("tokens") and not f.get("done")
+                  for f in frames[:-1]))
+    return toks, ok
+
+
+def _replicas(name):
+    import ray_tpu_torch
+
+    ctl = ray_tpu_torch.get_actor("_serve_controller", namespace="serve")
+    return ray_tpu_torch.get(ctl.get_replicas.remote(name),
+                             timeout=SERVE_TIMEOUT_S)
+
+
+def _call_replica(replica, method):
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get(
+        replica.handle_request.remote(method, (), {}, None),
+        timeout=SERVE_TIMEOUT_S)
+
+
+def _tokens_counter(tag):
+    """The ``ray_tpu_serve_tokens_generated`` counter of one replica tag,
+    read back from the GCS."""
+    from ray_tpu_torch.core import runtime as _rt
+
+    raw = _rt.get_runtime().gcs_call(
+        "kv_get", ns="metrics", key=b"ray_tpu_serve_tokens_generated")
+    series = json.loads(raw)["series"] if raw else []
+    return sum(x.get("value", 0.0) for x in series
+               if x.get("tags", {}).get("replica") == tag)
+
+
+def _checkout_on_pythonpath():
+    """The runtime's daemons and workers import the port from this
+    checkout."""
+    import os
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+
+
+def _alive_after(pids, wait_s=30.0):
+    """The pids still alive ``wait_s`` after a session's shutdown."""
+    from ray_tpu_torch.core.node import pid_alive
+
+    deadline = time.time() + wait_s
+    while time.time() < deadline and any(pid_alive(p) for p in pids):
+        time.sleep(0.5)
+    return [p for p in pids if pid_alive(p)]
+
+
+def _serve_session(object_store_memory=None):
+    """``ray_tpu_torch.init(num_cpus=8)`` with the checkout on the
+    daemons' PYTHONPATH; returns the session's daemon pids."""
+    import ray_tpu_torch
+
+    _checkout_on_pythonpath()
+    sys_cfg = ({"object_store_memory": int(object_store_memory)}
+               if object_store_memory else None)
+    info = ray_tpu_torch.init(num_cpus=8, _system_config=sys_cfg)
+    return {p.pid: "daemon" for p in info["procs"]}
+
+
+def _end_session(pids):
+    """``serve.shutdown()`` and ``shutdown()``; the pids (of the session's
+    daemons, replicas and workers) still alive 30 s later."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core.node import session_pids
+
+    pids.update(session_pids(pids))
+    try:
+        serve.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+    return _alive_after(pids)
+
+
+def phase_serve(preset="7b", device="cuda"):
+    """The monolithic app behind the router: ``serve.run`` of an
+    ``LLMServer`` replica (the engine phase's paged engine: 32 layers,
+    bf16, flash, page 64, 16 slots, max_seq 2048, seed 0; decode_block 8)
+    behind an ``LLMRouter`` with an HTTP route. Four greedy prompts (two
+    unique, two sharing the 512-token prefix; 64 new tokens each) go one
+    at a time through the router's streaming handle, then again as HTTP
+    POSTs (two plain, two ``?stream=1``); their tokens must equal an
+    in-process engine's with the replica's configuration, run first on
+    the same prompts in the same order (one request at a time gives each
+    step the replica's shapes, and the order its prefix cache). Then the
+    engine phase's 12 requests (request 3 at temperature 0.8) stream at
+    once. ``preset``/``device`` rehearse the phase on the CPU
+    (``"tiny"``, ``"cpu"``: no GPU unit, the kernels' plain versions)."""
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.serve.llm_router import LLMRouter
+
+    _free_device()
+    cfg = llama.PRESETS[preset].replace(attn_impl="flash")
+    ekw = dict(cfg=cfg, max_slots=16, max_seq_len=2048, kv_layout="paged",
+               page_size=64, seed=0, device=device)
+    allp = _serve_prompts(cfg.vocab_size)
+    seq_idx = [0, 2, 7, 8]          # two unique, two sharing the prefix
+    prompts = [allp[i] for i in seq_idx]
+    n_new = SERVE_NEW_TOKENS
+
+    t0 = time.perf_counter()
+    eng = LLMEngine(**ekw)
+    ref = [[eng.generate(p, n_new) for p in prompts] for _ in range(2)]
+    ref_s = time.perf_counter() - t0
+    del eng
+    _free_device()
+
+    res = {"cfg": f"{preset}, {cfg.n_layers} layers, flash, paged page 64, "
+                  "16 slots, max_seq 2048, seed 0, decode_block 8; "
+                  "LLMRouter (affinity) + HTTP proxy",
+           "nvidia_smi": RESULTS["phases"].get("device", {})
+           .get("nvidia_smi"),
+           "prompt_idx": seq_idx, "prompt_lens": [len(p) for p in prompts],
+           "reference_s": ref_s}
+    pids = _serve_session()
+    try:
+        port = serve.start(http_port=0)
+        gpu = {"num_gpus": 1} if device == "cuda" else {}
+        llm = serve.deployment(
+            _probe_class(), name="llm7b", num_replicas=1,
+            ray_actor_options=gpu).bind(decode_block=8,
+                                        max_queue_depth=None, **ekw)
+        app = serve.deployment(LLMRouter, name="llm7b_router",
+                               num_replicas=1).bind(llm, policy="affinity")
+        t = time.perf_counter()
+        handle = serve.run(app, route_prefix="/llm")
+        res["deploy_s"] = time.perf_counter() - t
+        (rep,) = _replicas("llm7b")
+        bodies = [{"prompt": p, "max_new_tokens": n_new} for p in prompts]
+
+        handle_toks, http_toks, streams_ok, ttft_seq = [], [], [], []
+        for body in bodies:
+            frames, first, _ = _stream(handle, body)
+            toks, ok = _frames_check(frames, n_new)
+            handle_toks.append(toks)
+            streams_ok.append(ok)
+            ttft_seq.append(first)
+        http_status = []
+        for i, body in enumerate(bodies):
+            out, _ = _http(port, "/llm", body, stream=i >= 2)
+            http_status.append(out["http_status"])
+            if i >= 2:
+                toks, ok = _frames_check(out["frames"], n_new)
+                streams_ok.append(ok)
+            else:
+                toks = out.get("tokens")
+            http_toks.append(toks)
+
+        wave = [None] * len(allp)
+
+        def one(i):
+            wave[i] = _stream(handle, {
+                "prompt": allp[i], "max_new_tokens": n_new,
+                "temperature": 0.8 if i == 3 else 0.0})
+
+        threads = [threading.Thread(target=one, args=(i,), daemon=True)
+                   for i in range(len(allp))]
+        t_wave = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_TIMEOUT_S)
+        wave_s = time.perf_counter() - t_wave
+        wave_done = [w is not None for w in wave]
+        wave_checks = [_frames_check(w[0], n_new) if w else ([], False)
+                       for w in wave]
+        streams_ok += [ok for _, ok in wave_checks]
+        wave_toks = [t for t, _ in wave_checks]
+        ttft_wave = [w[1] for w in wave if w and w[1] is not None]
+
+        probe = _call_replica(rep, "probe")
+        pids[probe["pid"]] = "replica"
+        stats = _call_replica(rep, "stats")
+        rstats = ray_tpu_torch.get(handle.method("stats").remote(),
+                                   timeout=SERVE_TIMEOUT_S)
+        counted = _tokens_counter(probe["replica_tag"])
+    finally:
+        alive = _end_session(pids)
+    n_requests = 2 * len(prompts) + len(allp)
+    n_wave_tok = sum(len(t) for t in wave_toks)
+    res.update({
+        "launches": probe["launches"],
+        "handle_tokens_equal": [a == b for a, b in zip(handle_toks, ref[0])],
+        "http_tokens_equal": [a == b for a, b in zip(http_toks, ref[1])],
+        "http_status": http_status, "streams_ok": streams_ok,
+        "ttft_sequential_s": ttft_seq,
+        "wave": {"requests": len(allp), "finished": sum(wave_done),
+                 "wall_s": wave_s, "tokens": n_wave_tok,
+                 "decode_tokens_per_s": n_wave_tok / wave_s,
+                 "ttft_mean_s": (sum(ttft_wave) / len(ttft_wave)
+                                 if ttft_wave else None),
+                 "ttft_max_s": max(ttft_wave) if ttft_wave else None},
+        "engine_phase": {k: RESULTS["phases"].get("engine", {}).get(k)
+                         for k in ("decode_tokens_per_s", "ttft_mean_s",
+                                   "ttft_max_s")},
+        "replica_stats": {k: stats.get(k) for k in (
+            "requests", "tokens_generated", "mean_ttft_s", "ttft_p50_s",
+            "ttft_p99_s", "prefix_cache", "decode_block_s",
+            "decode_blocks")},
+        "router_stats": {k: rstats.get(k) for k in (
+            "requests", "shed", "replica_shed", "reroutes",
+            "affinity_picks")},
+        "tokens_counter": counted, "pids_alive_after_shutdown": alive,
+        "tokens": {"handle": handle_toks, "http": http_toks,
+                   "wave": wave_toks}})
+    res["gates"] = {
+        "handle_tokens_equal": all(res["handle_tokens_equal"]),
+        "http_tokens_equal": all(res["http_tokens_equal"])
+        and http_status == [200] * len(prompts),
+        "wave_all_finished_64": all(wave_done)
+        and all(len(t) == n_new for t in wave_toks),
+        "streams_ok": all(streams_ok),
+        "k1_k6_launched": all(v > 0 for v in probe["launches"].values()),
+        "tokens_counter": counted == stats.get("tokens_generated")
+        == n_requests * n_new,
+        "router_counts_every_request": rstats.get("requests") == n_requests
+        and not rstats.get("shed") and not rstats.get("replica_shed"),
+        "no_process_left": not alive}
+    res["ok"] = all(res["gates"].values())
+    return res
+
+
+def phase_serve_disagg(preset="7b", device="cuda"):
+    """One prefill and one decode replica behind ``DisaggRouter`` on one
+    card (0.5 GPU unit each): the serve phase's engine with 8 slots, page
+    groups of 4 pages. Seven greedy prompts, one at a time: the four
+    sharing the 512-token prefix, two unique ones of 256 tokens or more
+    and the shortest, which exports nothing. Reference: the handoff
+    replayed in process in the same order: engine A (the replicas'
+    configuration) runs ``generate(p, 1)`` and exports each full group of
+    ``p`` as ``prefill_request`` does; a fresh engine B imports the groups
+    (``import_kv_pages``) and runs ``generate(p, 64)``. The app's tokens
+    must equal B's; each group must cross the store once."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.disagg import DisaggRouter
+    from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.serve.paged_kv import page_chain_hashes
+
+    _free_device()
+    cfg = llama.PRESETS[preset].replace(attn_impl="flash")
+    ps, gp, n_new = 64, SERVE_GROUP_PAGES, SERVE_NEW_TOKENS
+    ekw = dict(cfg=cfg, max_slots=8, max_seq_len=2048, kv_layout="paged",
+               page_size=ps, seed=0, device=device)
+    allp = _serve_prompts(cfg.vocab_size)
+    shared_idx = [7, 8, 9, 10]
+    others = [i for i in range(len(allp)) if i not in shared_idx]
+    unique_idx = [i for i in others if len(allp[i]) >= gp * ps][:2]
+    short_idx = min(others, key=lambda i: len(allp[i]))
+    idx = shared_idx[:2] + unique_idx[:1] + [short_idx] + shared_idx[2:] \
+        + unique_idx[1:]
+    prompts = [allp[i] for i in idx]
+
+    t0 = time.perf_counter()
+    A, B = LLMEngine(**ekw), LLMEngine(**ekw)
+    ref, groups, group_hashes = [], [], []
+    for p in prompts:
+        A.generate(p, 1)
+        per_page = page_chain_hashes(p, ps)
+        n_groups = len(A.pool.match_prefix(per_page)) // gp
+        for g in range(n_groups):
+            p0, p1 = g * gp, (g + 1) * gp
+            k, v = A.export_kv_pages(A.pool.match_prefix(per_page[:p1])[p0:p1])
+            B.import_kv_pages(per_page[p0:p1], k, v)
+            group_hashes.append(per_page[p1 - 1])
+        groups.append(n_groups)
+        ref.append(B.generate(p, n_new))
+    ref_s = time.perf_counter() - t0
+    kv_dtype_bytes = A.kp.element_size()
+    del A, B
+    _free_device()
+    distinct = len(set(group_hashes))
+    group_bytes = (2 * cfg.n_layers * cfg.n_kv_heads * gp * ps
+                   * (cfg.d_model // cfg.n_heads) * kv_dtype_bytes)
+
+    res = {"cfg": f"{preset}, {cfg.n_layers} layers, flash, paged page "
+                  f"{ps}, 8 slots per engine, max_seq 2048, seed 0, "
+                  f"group_pages {gp}; one prefill + one decode replica",
+           "nvidia_smi": RESULTS["phases"].get("device", {})
+           .get("nvidia_smi"),
+           "prompt_idx": idx, "prompt_lens": [len(p) for p in prompts],
+           "groups_per_prompt": groups, "distinct_groups": distinct,
+           "group_bytes": group_bytes, "reference_s": ref_s}
+    # every distinct group stays in the store with room to spare: none
+    # spills
+    store = max(2 * 1024**3, distinct * group_bytes + 1024**3)
+    res["object_store_memory"] = store
+    pids = _serve_session(object_store_memory=store)
+    try:
+        gpu = {"num_gpus": 0.5} if device == "cuda" else {}
+        probe_cls = _probe_class()
+        kw = dict(decode_block=8, max_queue_depth=None, group_pages=gp,
+                  **ekw)
+        prefill = serve.deployment(
+            probe_cls, name="dz_prefill", num_replicas=1,
+            ray_actor_options=gpu).bind(mode="prefill", **kw)
+        decode = serve.deployment(
+            probe_cls, name="dz_decode", num_replicas=1,
+            ray_actor_options=gpu).bind(mode="decode", **kw)
+        app = serve.deployment(DisaggRouter, name="dz_router",
+                               num_replicas=1).bind(
+            decode, prefill_app=prefill, policy="affinity")
+        t = time.perf_counter()
+        handle = serve.run(app)
+        res["deploy_s"] = time.perf_counter() - t
+        (pf,) = _replicas("dz_prefill")
+        (dec,) = _replicas("dz_decode")
+        got, streams_ok, ttft = [], [], []
+        for p in prompts:
+            frames, first, _ = _stream(handle, {"prompt": p,
+                                                "max_new_tokens": n_new})
+            toks, ok = _frames_check(frames, n_new)
+            got.append(toks)
+            streams_ok.append(ok)
+            ttft.append(first)
+        rstats = ray_tpu_torch.get(handle.method("stats").remote(),
+                                   timeout=SERVE_TIMEOUT_S)
+        # the router acks each handoff fire-and-forget: wait for them
+        deadline = time.time() + 30
+        while True:
+            pf_stats = _call_replica(pf, "stats")
+            if pf_stats.get("handoff_acked", 0) >= len(prompts) \
+                    or time.time() > deadline:
+                break
+            time.sleep(0.2)
+        dec_stats = _call_replica(dec, "stats")
+        probes = {"prefill": _call_replica(pf, "probe"),
+                  "decode": _call_replica(dec, "probe")}
+        for role, pr in probes.items():
+            pids[pr["pid"]] = role
+    finally:
+        alive = _end_session(pids)
+    launches = {n: sum(pr["launches"][n] for pr in probes.values())
+                for n in probes["prefill"]["launches"]}
+    serve_ph = RESULTS["phases"].get("serve", {})
+    mono = {}
+    if serve_ph:
+        # the serve phase's tokens of the same prompts: its sequential
+        # passes where it sent the prompt one at a time, else its wave
+        for i, toks in zip(serve_ph["prompt_idx"],
+                           serve_ph["tokens"]["handle"]):
+            mono[i] = toks
+        for i, toks in enumerate(serve_ph["tokens"]["wave"]):
+            mono.setdefault(i, toks)
+    agree = [sum(a == b for a, b in zip(t, mono[i])) if i in mono else None
+             for i, t in zip(idx, got)]
+    mono_ttft = dict(zip(serve_ph.get("prompt_idx", []),
+                         serve_ph.get("ttft_sequential_s", [])))
+    ex = {k[len("handoff_"):]: v for k, v in pf_stats.items()
+          if k.startswith("handoff_")}
+    ad = {k[len("adopt_"):]: v for k, v in dec_stats.items()
+          if k.startswith("adopt_")}
+    res.update({
+        "launches": launches,
+        "launches_by_replica": {r: pr["launches"]
+                                for r, pr in probes.items()},
+        "tokens_equal": [a == b for a, b in zip(got, ref)],
+        "streams_ok": streams_ok,
+        "router_stats": {k: rstats.get(k) for k in (
+            "requests", "handoffs", "handoffs_lost", "shed",
+            "prefill_reroutes", "reroutes")},
+        "exporter": ex, "adopter": ad,
+        "export_gb_per_s": (ex.get("put_bytes", 0)
+                            / max(ex.get("export_s", 0.0), 1e-9) / 1e9),
+        "adopt_gb_per_s": (ad.get("adopted_bytes", 0)
+                           / max(ad.get("adopt_s", 0.0), 1e-9) / 1e9),
+        "ttft_s": ttft,
+        "ttft_monolithic_s": [mono_ttft.get(i) for i in idx],
+        "monolithic_tokens_agree": agree,
+        "pids_alive_after_shutdown": alive, "tokens": got})
+    res["gates"] = {
+        "tokens_equal_replayed_handoff": all(res["tokens_equal"]),
+        "streams_ok": all(streams_ok),
+        "handoffs": rstats.get("handoffs") == len(prompts)
+        and rstats.get("handoffs_lost") == 0,
+        "each_group_crosses_once": ex.get("puts") == distinct
+        and ex.get("reused_groups") == len(group_hashes) - distinct,
+        "put_bytes": ex.get("put_bytes") == distinct * group_bytes,
+        "adopted_bytes": ad.get("adopted_groups") == len(group_hashes)
+        and ad.get("adopted_bytes") == len(group_hashes) * group_bytes,
+        "every_handoff_acked": ex.get("acked") == len(prompts)
+        and ex.get("inflight_handoffs") == 0,
+        "k1_in_prefill_k6_in_decode":
+            probes["prefill"]["launches"]["flash_attention_fwd"] > 0
+            and probes["decode"]["launches"]
+            ["paged_decode_attention_inplace"] > 0,
+        "no_process_left": not alive}
     res["ok"] = all(res["gates"].values())
     return res
 
@@ -1768,7 +2298,7 @@ def ran_wgmma_fwd_only(profile) -> bool:
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
           "train_card_vs_cpu", "train", "train_sharded", "engine_sharded",
-          "runtime")
+          "runtime", "serve", "serve_disagg")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -1782,7 +2312,8 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "train_card_vs_cpu": phase_train_card_vs_cpu,
                "train": phase_train, "train_sharded": phase_train_sharded,
                "engine_sharded": phase_engine_sharded,
-               "runtime": phase_runtime}
+               "runtime": phase_runtime, "serve": phase_serve,
+               "serve_disagg": phase_serve_disagg}
 
 
 def _start() -> bool:
@@ -1899,9 +2430,10 @@ def main() -> int:
     # main-path launches: each path's run with the counters set to 0 just
     # before it (serving: engine, its K5 path, card_vs_cpu_contiguous (the
     # serving run on which K2 launches), engine_contiguous and
-    # engine_sharded, and runtime's actor (counted in its worker process);
-    # training: train, train_card_vs_cpu (the run on which K2 launches) and
-    # train_sharded)
+    # engine_sharded, runtime's actor (counted in its worker process), and
+    # the serve phases' replicas (counted in theirs: serve's one replica,
+    # serve_disagg's prefill and decode replicas summed); training: train,
+    # train_card_vs_cpu (the run on which K2 launches) and train_sharded)
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
@@ -1911,7 +2443,9 @@ def main() -> int:
              "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"],
              "train_sharded": ph["train_sharded"]["launches"],
              "engine_sharded": ph["engine_sharded"]["launches"],
-             "runtime": ph["runtime"]["launches"]}
+             "runtime": ph["runtime"]["launches"],
+             "serve": ph["serve"]["launches"],
+             "serve_disagg": ph["serve_disagg"]["launches"]}
     k1, k2, k34 = case("k1", "7b"), case("k2", "1b-w256"), case("k3k4", "1b")
     rows = [
         ("flash_attention_fwd", "ray_tpu_torch/csrc/flash_attention.cu",

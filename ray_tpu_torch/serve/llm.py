@@ -41,16 +41,22 @@ over kv-head-sharded pools) is ROADMAP.md queue 1 item 12.
 Cluster metrics: the engine records TTFT, admission seconds, decode-block
 seconds and generated tokens into ``util.metrics`` instruments tagged with
 its replica (the actor id from the runtime context, "driver" or "local"),
-beside the local ``metrics`` dict, as JAX's engine does. Not ported yet
-(ROADMAP.md queue 1 item 6): ``LLMServer``.
+beside the local ``metrics`` dict, as JAX's engine does.
+
+``LLMServer`` is the serve deployment around the engine (a copy of JAX's):
+a decode thread drives every engine it hosts (the default one, the
+multiplexed models and the retiring ones), and it serves the monolithic,
+prefill and decode roles of disaggregated serving (``serve/disagg.py``).
 """
 
 from __future__ import annotations
 
+import asyncio
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,6 +64,21 @@ import torch
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.serve.paged_kv import PagePool, page_chain_hashes
+
+logger = logging.getLogger("ray_tpu_torch.serve.llm")
+
+
+def _place_params(tree, dev):
+    """An unsharded param tree on ``dev``, one leaf at a time, so a host
+    tree never exists twice on the card: tensors move (a leaf already on
+    ``dev`` is kept as it is), numpy arrays become tensors
+    (``llama.params_from_jax``: bf16 stays bf16, int8 ``q8`` leaves stay
+    integer)."""
+    if isinstance(tree, dict):
+        return {k: _place_params(v, dev) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return llama.params_from_jax(tree, dev)
 
 
 class LLMQueueFull(Exception):
@@ -161,6 +182,11 @@ class LLMEngine:
         elif mesh is not None:
             params = sharding.shard_params(mesh, params,
                                            llama.param_specs(cfg), rules, dev)
+        else:
+            # a caller's tree may lie on the host (JAX's engine computes on
+            # numpy leaves where they are; a ModelRegistry fetch gives CPU
+            # tensors): place it on the device leaf by leaf
+            params = _place_params(params, dev)
         if quantize == "int8":
             # weight-only int8: device memory at rest halves against bf16
             # (7B: ~6.7 GB); idempotent, so a quantized tree passes through
@@ -816,3 +842,514 @@ class LLMEngine:
             self.vp[:, :, idx] = torch.as_tensor(v)[:, :, sel].to(
                 self.device, self.vp.dtype)
             return len(new)
+
+
+class LLMServer:
+    """Serve deployment hosting an engine; a background thread drives the
+    decode loop so concurrent requests batch continuously.
+
+    Threads and the card. Three threads touch an engine: the decode
+    thread (``_loop``: prefill and decode, so the flash and paged kernels
+    launch from it), the thread that constructs it (the replica's, or
+    ``asyncio.to_thread`` for a multiplexed model) and the executor
+    threads of the disaggregated handoff (``export_kv_pages`` /
+    ``import_kv_pages`` under ``engine.lock``). PyTorch's current stream
+    is per thread and starts as the device's default stream; nothing here
+    sets another, so all three enqueue on the one default stream of the
+    engine's device and see each other's work in order: a page exported
+    after a decode step reads what that step wrote, and a page imported
+    before an admission is on the device before the admission's kernels
+    read it. The kernel wrappers launch on ``torch.cuda.current_stream``
+    of their tensors' device, which is that stream.
+
+    Engine kwargs (``device`` included) pass through ``**kw``; the
+    replica's engine runs on ``resolve_device(device)``: CUDA unless the
+    caller asks for the CPU. A replica needs no ``GPU`` resource unit to
+    use the card, as JAX's replicas take ``jax.devices()[0]`` without a
+    ``TPU`` unit: a deployment that wants the units asks for them in
+    ``ray_actor_options``."""
+
+    def __init__(self, preset: str = "tiny", max_slots: int = 8,
+                 eos_token: int = -1, params=None, cfg=None,
+                 decode_block: int = 8, mode: str = "monolithic",
+                 group_pages: Optional[int] = None,
+                 retained_groups: Optional[int] = None,
+                 use_directory: bool = True,
+                 multiplexed: bool = False,
+                 max_models: Optional[int] = None,
+                 models: Optional[Dict[str, dict]] = None, **kw):
+        if mode not in ("monolithic", "prefill", "decode"):
+            raise ValueError(f"unknown LLMServer mode {mode!r}")
+        if multiplexed and mode != "monolithic":
+            raise ValueError("model multiplexing needs mode='monolithic'")
+        if mode != "monolithic":
+            # disagg handoff is expressed in physical KV pages + chain
+            # hashes: contiguous caches have neither
+            kw.setdefault("kv_layout", "paged")
+            if kw["kv_layout"] != "paged" or not kw.get("prefix_caching",
+                                                        True):
+                raise ValueError("disagg modes need kv_layout='paged' "
+                                 "with prefix_caching on")
+        from ray_tpu_torch.core.config import GLOBAL_CONFIG as _gc
+        self.mode = mode
+        self.group_pages = (group_pages if group_pages is not None
+                            else _gc.serve_disagg_group_pages)
+        self.retained_groups = (retained_groups if retained_groups
+                                is not None
+                                else _gc.serve_disagg_retained_groups)
+        self.use_directory = use_directory
+        self._exporter = None   # lazy: needs the in-actor runtime
+        self._adopter = None
+        self.engine = LLMEngine(cfg=cfg, params=params, preset=preset,
+                                max_slots=max_slots, eos_token=eos_token, **kw)
+        # --- model multiplexing (serve/multiplex.py) ------------------------
+        # Model id "" (or absent) always means the default engine above;
+        # named models resolve through a _ModelCache of per-model
+        # LLMEngines bounded by serve_max_models_per_replica. The LRU's
+        # unloader parks the evicted engine on `_retiring` so the decode
+        # loop finishes its in-flight generations before dropping it —
+        # evicting a busy model must not kill live streams.
+        self.multiplexed = multiplexed
+        self._engine_kwargs = dict(cfg=cfg, params=params, preset=preset,
+                                   max_slots=max_slots, eos_token=eos_token,
+                                   **kw)
+        self._model_spec: Dict[str, dict] = dict(models or {})
+        self._model_registry = None   # lazy: needs the in-actor runtime
+        # `_retiring` is shared between the event-loop thread (unloader
+        # appends) and the decode thread (filter-reassign): both sides
+        # take this lock, or an engine appended mid-filter is lost and
+        # its in-flight streams never step again
+        self._retire_lock = threading.Lock()
+        self._retiring: List[LLMEngine] = []
+        self._unpublished: set = set()
+        from ray_tpu_torch.serve.multiplex import _ModelCache
+        self._models = _ModelCache(
+            type(self)._load_model,
+            max_models if max_models is not None
+            else _gc.serve_max_models_per_replica,
+            unloader=type(self)._unload_model)
+        # fused decode steps per host sync (1 = lowest latency per token,
+        # higher = fewer host round-trips; new arrivals wait at most one
+        # block for admission)
+        self.decode_block = decode_block
+        self._wake = threading.Event()
+        self._stop = False
+        self._draining = False
+        # decode-loop progress beacon: armed while the engine has
+        # admitted work, ticked per decode block — a wedged device step
+        # (or a deadlocked engine lock) flags as a StallEvent instead of
+        # silently freezing every in-flight stream
+        from ray_tpu_torch.observability import health as _health
+        self._beacon = _health.beacon("serve:decode", deadline_s=30.0)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _engines(self) -> List["LLMEngine"]:
+        """Every engine the decode loop must drive: default + resident
+        multiplexed models + evicted-but-still-busy retirees. Runs on
+        the decode thread while the event loop loads/evicts models, so
+        it reads the cache's immutable snapshot — never the live
+        OrderedDict."""
+        engines = [self.engine]
+        engines.extend(self._models.values_snapshot())
+        with self._retire_lock:
+            engines.extend(self._retiring)
+        return engines
+
+    def _loop(self):
+        while not self._stop:
+            worked = False
+            try:
+                for eng in self._engines():
+                    if eng.has_work():
+                        if not self._beacon.busy:
+                            self._beacon.arm(queue=self.queue_len())
+                        eng.step_n(self.decode_block)
+                        self._beacon.tick()
+                        worked = True
+                if self._retiring:
+                    # a retiree with no admitted work left has finished
+                    # its in-flight generations; drop it (engine GC
+                    # frees pages)
+                    with self._retire_lock:
+                        self._retiring = [e for e in self._retiring
+                                          if e.has_work()]
+            except Exception:
+                # one engine's bad step must not kill the decode thread
+                # — that would freeze every stream on the replica, not
+                # just the failing one
+                logger.exception("decode loop step failed; continuing")
+                time.sleep(0.05)
+                continue
+            if not worked:
+                self._beacon.disarm()
+                self._wake.wait(timeout=0.01)
+                self._wake.clear()
+        self._beacon.disarm()
+
+    # ---- model multiplexing ------------------------------------------------
+
+    def _registry(self):
+        if self._model_registry is None:
+            from ray_tpu_torch.serve.multiplex import ModelRegistry
+            self._model_registry = ModelRegistry()
+        return self._model_registry
+
+    def _fetch_published(self, model_id: str):
+        """Blocking: resolve published weights from the object store.
+        Returns None ONLY when the id is genuinely unpublished (the
+        engine then inits from its preset/spec). Registry or fetch
+        failures propagate so the load fails loudly — a transient store
+        timeout must not silently serve default weights under the
+        requested model id."""
+        reg = self._registry()
+        if not reg.contains(model_id):
+            return None
+        return reg.fetch(model_id)
+
+    async def _load_model(self, model_id: str) -> "LLMEngine":
+        """_ModelCache loader: build the per-model engine. Weights come
+        from the ModelRegistry when published (one pinned store copy
+        shared by every replica on the node); engine construction (the
+        weights' placement on the device) runs off the event loop."""
+        params = await asyncio.to_thread(self._fetch_published, model_id)
+        kw = dict(self._engine_kwargs)
+        kw.update(self._model_spec.get(model_id, {}))
+        if params is not None:
+            kw["params"] = params
+        return await asyncio.to_thread(LLMEngine, **kw)
+
+    def _unload_model(self, model_id: str, engine: "LLMEngine"):
+        """_ModelCache unloader: retire, don't kill — the decode loop
+        keeps driving the engine until its in-flight generations finish,
+        then drops the last reference (page pool + weights free)."""
+        with self._retire_lock:
+            self._retiring.append(engine)
+        self._wake.set()
+
+    async def _engine_for(self, model_id: str) -> "LLMEngine":
+        if not model_id:
+            return self.engine
+        if not self.multiplexed:
+            raise LLMQueueFull(
+                f"replica is not multiplexed; cannot serve model "
+                f"{model_id!r}")
+        eng = await self._models.get(self, model_id)
+        self._wake.set()
+        return eng
+
+    async def load_model(self, model_id: str) -> List[str]:
+        """Controller scale-up entry: warm-load `model_id` on this
+        replica and (re)publish it to the router-visible set."""
+        self._unpublished.discard(model_id)
+        await self._engine_for(model_id)
+        return self.loaded_models()
+
+    def unpublish_model(self, model_id: str) -> bool:
+        """Controller scale-down step 1: stop advertising the model so
+        routers drain away; the engine stays resident until
+        unload_model()."""
+        if model_id in self._models.cache:
+            self._unpublished.add(model_id)
+            return True
+        return False
+
+    async def unload_model(self, model_id: str) -> bool:
+        """Controller scale-down step 2 (after the per-model queue
+        drains): evict the engine through the retiring path."""
+        self._unpublished.discard(model_id)
+        return await self._models.unload(self, model_id)
+
+    def loaded_models(self) -> List[str]:
+        """Models this replica ADVERTISES (resident minus draining) —
+        what rides report_load to the router/controller."""
+        return [m for m in self._models.models()
+                if m not in self._unpublished]
+
+    def model_queue_len(self, model_id: str) -> int:
+        """Backlog of one model's engine (0 if not resident) — the
+        controller's unpublish->drain->unload poll target."""
+        eng = self._models.cache.get(model_id)
+        if eng is None:
+            return 0
+        with eng.lock:
+            return (len(eng.pending)
+                    + sum(1 for s in eng.slots if s is not None))
+
+    def model_stats(self) -> Dict[str, Any]:
+        """Per-model view for the controller's autoscaler tick."""
+        return {
+            "models": self.loaded_models(),
+            "resident": self._models.models(),
+            "queues": {m: self.model_queue_len(m)
+                       for m in self._models.models()},
+            "loads": self._models.load_count,
+            "evictions": self._models.eviction_count,
+            "retiring": len(self._retiring),
+            "draining": self._draining,
+        }
+
+    async def __call__(self, request) -> Dict[str, Any]:
+        # handle-call payloads arrive as dicts; HTTP POSTs arrive as
+        # http_proxy.Request objects (same duality stream_request handles)
+        if not isinstance(request, dict):
+            request = request.json()
+        prompt = list(request["prompt"])
+        from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id
+        model = str(request.get("model") or get_multiplexed_model_id() or "")
+        try:
+            if self._draining:
+                raise LLMQueueFull("replica draining; retry elsewhere")
+            if model and model in self._unpublished:
+                raise LLMQueueFull(f"model {model!r} draining on this "
+                                   "replica; retry elsewhere")
+            eng = await self._engine_for(model)
+            req = eng.submit(prompt,
+                             int(request.get("max_new_tokens", 32)),
+                             float(request.get("temperature", 0.0)))
+        except LLMQueueFull as e:
+            from ray_tpu_torch.serve.http_proxy import Response
+
+            return Response({"error": str(e)}, status_code=429,
+                            headers={"Retry-After": "1"})
+        except Exception as e:
+            from ray_tpu_torch.serve.http_proxy import Response
+
+            return Response({"error": f"model load failed: {e}"},
+                            status_code=500)
+        self._wake.set()
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, req.done_event.wait)
+        if req.error:
+            from ray_tpu_torch.serve.http_proxy import Response
+
+            return Response({"error": req.error}, status_code=400)
+        ttft = (req.first_token_time - req.submit_time
+                if req.first_token_time else None)
+        return {"tokens": req.generated, "ttft_s": ttft}
+
+    async def stream_request(self, request) -> Any:
+        """Token-streaming endpoint (the proxy's streaming contract; ref:
+        serve response streaming): yields each newly generated token batch
+        as soon as the decode loop lands it, finishing with a stats line.
+        `request` is an http_proxy.Request (?stream=1) or a plain dict
+        (handle calls)."""
+        body = request if isinstance(request, dict) else request.json()
+        from ray_tpu_torch.serve.multiplex import get_multiplexed_model_id
+        model = str(body.get("model") or get_multiplexed_model_id() or "")
+        try:
+            if self._draining:
+                raise LLMQueueFull("replica draining; retry elsewhere")
+            if model and model in self._unpublished:
+                raise LLMQueueFull(f"model {model!r} draining on this "
+                                   "replica; retry elsewhere")
+            eng = await self._engine_for(model)
+            req = eng.submit(list(body["prompt"]),
+                             int(body.get("max_new_tokens", 32)),
+                             float(body.get("temperature", 0.0)))
+        except LLMQueueFull as e:
+            # streaming contract has no status line mid-stream: shed as a
+            # typed first frame so clients can back off like on the 429
+            yield {"error": str(e), "status": 429, "done": True}
+            return
+        except Exception as e:
+            # model load failed: typed 503 first frame — the router
+            # avoids this replica and retries the stream elsewhere
+            yield {"error": f"model load failed: {e}", "status": 503,
+                   "done": True}
+            return
+        self._wake.set()
+        loop = asyncio.get_running_loop()
+        # stream-progress beacon (shared across this replica's streams):
+        # ticked per yielded frame, armed while any stream is waiting on
+        # the decode loop — no frames across the deadline = stall
+        from ray_tpu_torch.observability import health as _health
+        sbeacon = _health.beacon("serve:stream", deadline_s=60.0)
+        if not sbeacon.busy:
+            sbeacon.arm(streaming=True)
+        cursor = 0
+        while True:
+            new = req.generated[cursor:]
+            if new:
+                cursor += len(new)
+                sbeacon.tick()
+                yield {"tokens": new}
+            elif req.done_event.is_set():
+                # done was observed AFTER an empty snapshot; tokens may
+                # have landed between the two — drain once more
+                new = req.generated[cursor:]
+                if new:
+                    cursor += len(new)
+                    yield {"tokens": new}
+                break
+            else:
+                req.progress.clear()
+                if len(req.generated) > cursor or req.done_event.is_set():
+                    continue   # progress raced the clear
+                await loop.run_in_executor(None, req.progress.wait, 1.0)
+        ttft = (req.first_token_time - req.submit_time
+                if req.first_token_time else None)
+        sbeacon.tick()
+        sbeacon.disarm()
+        out = {"done": True, "n_tokens": cursor, "ttft_s": ttft}
+        if req.error:
+            out["error"] = req.error
+        yield out
+
+    # ---- disaggregated serving (serve/disagg.py) ---------------------------
+
+    def _ensure_transfer(self):
+        """Lazily build the kv_transfer plumbing — both ends need the
+        in-actor runtime (zero-copy put/get + gcs_call)."""
+        from ray_tpu_torch.serve.kv_transfer import (HandoffAdopter,
+                                               HandoffExporter,
+                                               PrefixDirectory)
+        if self._adopter is None:
+            self._adopter = HandoffAdopter()
+        if self._exporter is None and self.mode == "prefill":
+            import uuid
+            directory = PrefixDirectory() if self.use_directory else None
+            self._exporter = HandoffExporter(
+                owner=f"llm-{uuid.uuid4().hex[:12]}",
+                page_tokens=self.engine.pool.page_size,
+                group_pages=self.group_pages,
+                retained_groups=self.retained_groups,
+                directory=directory)
+
+    async def prefill_request(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """mode="prefill": fill the prompt's KV pages (one generated
+        token's worth of engine work — prefill + registration; the token
+        is discarded, decode regenerates it bitwise-identically at
+        temperature 0), export the leading full page GROUPS through the
+        zero-copy store, and return the handoff envelope."""
+        assert self.mode == "prefill", self.mode
+        self._ensure_transfer()
+        body = body if isinstance(body, dict) else body.json()
+        prompt = list(body["prompt"])
+        res = await self.__call__({"prompt": prompt, "max_new_tokens": 1,
+                                   "temperature": 0.0})
+        if not isinstance(res, dict):   # Response: shed or engine error
+            status = getattr(res, "status_code", 500)
+            return {"error": (res.body or {}).get("error", "prefill failed"),
+                    "status": status}
+        eng = self.engine
+        ps = eng.pool.page_size
+        per_page = page_chain_hashes(prompt, ps)
+        with eng.lock:
+            cached = eng.pool.match_prefix(per_page)
+        # export only groups whose every page is registered (admission
+        # keeps >=1 tail token un-paged, so the final partial group
+        # never exports — the decode side tail-prefills it)
+        n_groups = len(cached) // self.group_pages
+        export_tokens = prompt[:n_groups * self.group_pages * ps]
+
+        def payload_for_group(s: int, e: int) -> dict:
+            p0, p1 = s // ps, e // ps
+            with eng.lock:
+                pages = eng.pool.match_prefix(per_page[:p1])[p0:p1]
+                if len(pages) != p1 - p0:
+                    raise RuntimeError("page group evicted before export")
+                k, v = eng.export_kv_pages(pages)
+            return {"k": k, "v": v, "page_hashes": per_page[p0:p1]}
+
+        # store puts + directory registration are blocking runtime calls
+        # — banned on the event-loop thread (raylint blocking-in-async)
+        envelope = await asyncio.to_thread(
+            self._exporter.export,
+            export_tokens, payload_for_group,
+            lambda p: int(p["k"].nbytes) + int(p["v"].nbytes),
+            prompt_len=len(prompt))
+        return {"envelope": envelope,
+                "matched_tokens": len(export_tokens)}
+
+    def ack_handoff(self, handoff_id: str) -> bool:
+        if self._exporter is None:
+            return False
+        return self._exporter.ack(handoff_id)
+
+    async def adopt_decode(self, envelope: Dict[str, Any], body) -> Any:
+        """mode="decode": map the envelope's page groups in from the
+        store (engine.import_kv_pages — registered + evictable, no
+        prefill compute), then serve the request through the normal
+        streaming path: admission's _try_admit_cached adopts the
+        imported pages and only the un-paged tail prefills."""
+        assert self.mode == "decode", self.mode
+        self._ensure_transfer()
+        try:
+            # blocking zero-copy gets: executor thread, not the loop
+            payloads = await asyncio.to_thread(self._adopter.adopt, envelope)
+            for payload in payloads:
+                self.engine.import_kv_pages(payload["page_hashes"],
+                                            payload["k"], payload["v"])
+        except Exception:
+            # exporter (or its store) died before we mapped the pages
+            # in: tell the router to re-prefill on a survivor
+            yield {"handoff_lost": True, "done": True}
+            return
+        async for frame in self.stream_request(body):
+            if isinstance(frame, dict) and frame.get("done") \
+                    and "handoff_id" not in frame and not frame.get("error"):
+                frame = dict(frame)
+                frame["handoff_id"] = envelope.get("handoff_id")
+            yield frame
+
+    def queue_len(self) -> int:
+        """Engine-side backlog: requests queued for admission plus slots
+        mid-generation. The serve Replica adds this to its own RPC
+        in-flight count, so the controller's autoscaler and the LLM
+        router's pressure score both see work the engine has ACCEPTED
+        but not finished — not just the RPCs currently parked in
+        stream_request. Multiplexed replicas sum across every engine
+        (default + per-model + retiring)."""
+        total = 0
+        for eng in self._engines():
+            with eng.lock:
+                total += (len(eng.pending)
+                          + sum(1 for s in eng.slots if s is not None))
+        return total
+
+    def drain(self) -> None:
+        """Stop accepting new work; in-flight generations run to
+        completion. New submissions shed with LLMQueueFull, which the
+        LLM router reads as 'route elsewhere' — the scale-down protocol
+        (ServeController._drain_then_kill) then polls queue_len() to 0
+        before killing the actor."""
+        self._draining = True
+        if self._exporter is not None:
+            # unpin retained + in-flight page groups and withdraw our
+            # global-directory entries before the controller kills us
+            self._exporter.close()
+
+    def stats(self) -> Dict[str, Any]:
+        m = dict(self.engine.metrics)
+        with self.engine.lock:
+            m["pending"] = len(self.engine.pending)
+            m["active_slots"] = sum(
+                1 for s in self.engine.slots if s is not None)
+            m["max_slots"] = self.engine.max_slots
+        m["draining"] = self._draining
+        m["mode"] = self.mode
+        if self.multiplexed:
+            # advertised set + per-model backlog: the router folds these
+            # into its stats map (warm-replica routing) and report_load
+            # (per-model autoscaling)
+            m["models"] = self.loaded_models()
+            m["model_queue"] = {mm: self.model_queue_len(mm)
+                                for mm in self._models.models()}
+            m["model_loads"] = self._models.load_count
+            m["model_evictions"] = self._models.eviction_count
+        if self._exporter is not None:
+            m.update({f"handoff_{k}": v
+                      for k, v in self._exporter.stats().items()})
+        if self._adopter is not None:
+            m.update({f"adopt_{k}": v
+                      for k, v in self._adopter.stats().items()})
+        if m["ttft_count"]:
+            m["mean_ttft_s"] = m["ttft_sum"] / m["ttft_count"]
+            p50 = self.engine._m_ttft.quantile(0.5)
+            if p50 is not None:
+                m["ttft_p50_s"] = p50
+                m["ttft_p99_s"] = self.engine._m_ttft.quantile(0.99)
+        if getattr(self.engine, "pool", None) is not None:
+            m["prefix_cache"] = self.engine.pool.cache_stats()
+        return m

@@ -127,3 +127,26 @@ def test_reap_orphaned_creating_entries(stores):
     assert a.reap_creating(300) == 0
     del v3
     a.abort(oid2)
+
+
+def test_concurrent_first_builds_never_load_a_partial_library(tmp_path):
+    """Six processes building the library into one empty directory at
+    once (a test run whose workers each start a cluster on a fresh
+    checkout) all load a whole library. The JAX package's in-place
+    ``make`` races here: a process dlopens a file another is still
+    writing ("file too short") and its nodelet dies at startup."""
+    import subprocess
+    import sys
+
+    code = (
+        "import ctypes, sys\n"
+        "import ray_tpu_torch.native as n\n"
+        "n.BUILD_DIR = sys.argv[1]\n"
+        "n.OBJSTORE_SO = sys.argv[1] + '/libraytpu_objstore.so'\n"
+        "ctypes.CDLL(n.ensure_built())\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)],
+                              stderr=subprocess.PIPE)
+             for _ in range(6)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0] * 6, errs
+    assert [f.name for f in tmp_path.iterdir()] == ["libraytpu_objstore.so"]

@@ -31,7 +31,8 @@ _STUB_PACKAGES = ("ray_tpu", "ray_tpu.serve", "ray_tpu.util",
                   "ray_tpu.observability")
 _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.ops.paged_attention",
                       "ray_tpu.ops.flash_attention", "ray_tpu.serve.llm",
-                      "ray_tpu.serve.paged_kv", "ray_tpu.parallel.train_step",
+                      "ray_tpu.serve.paged_kv", "ray_tpu.serve.kv_transfer",
+                      "ray_tpu.parallel.train_step",
                       # runtime modules that load without core/rpc.py
                       "ray_tpu.core.ids", "ray_tpu.core.config",
                       "ray_tpu.core.serialization",
@@ -92,7 +93,8 @@ def _install_stubs():
 
 class _Reference(types.SimpleNamespace):
     """The JAX reference modules: llama, paged_attention, flash_attention,
-    llm, paged_kv, train_step, mesh, sharding; and of the runtime ids,
+    llm, paged_kv, kv_transfer, train_step, mesh, sharding; and of the
+    runtime ids,
     config, serialization, scheduling_policy and common."""
 
 
@@ -122,6 +124,7 @@ def jax_reference():
             flash_attention=sys.modules["ray_tpu.ops.flash_attention"],
             llm=sys.modules["ray_tpu.serve.llm"],
             paged_kv=sys.modules["ray_tpu.serve.paged_kv"],
+            kv_transfer=sys.modules["ray_tpu.serve.kv_transfer"],
             train_step=sys.modules["ray_tpu.parallel.train_step"],
             mesh=sys.modules["ray_tpu.parallel.mesh"],
             sharding=sys.modules["ray_tpu.parallel.sharding"],

@@ -6,6 +6,9 @@ runtime tests import from here instead:
 
 - ``ray_start_regular`` / ``ray_start_cluster``: conftest's fixtures of
   the same names, on ``ray_tpu_torch`` (ref: python/ray/tests/conftest.py);
+- ``ray_start_8cpu``: ``ray_start_regular`` with 8 CPUs, for the serve
+  tests whose fleets need more actors at once than 4 CPUs place (the
+  JAX package's serve tests define it in each file);
 - ``reap_orphans`` (session-scoped, autouse in every module that imports
   it): kills this run's ``python -m ray_tpu_torch.core.*`` daemons that an
   earlier run orphaned (PPID 1: chaos, GCS-FT and cluster tests SIGKILL
@@ -123,6 +126,18 @@ def ray_start_regular():
 
     info = ray_tpu_torch.init(
         num_cpus=4, ignore_reinit_error=True,
+        _system_config={"health_check_period_s": 0.2,
+                        "worker_idle_timeout_s": 60.0})
+    yield info
+    ray_tpu_torch.shutdown()
+
+
+@pytest.fixture(scope="function")
+def ray_start_8cpu():
+    import ray_tpu_torch
+
+    info = ray_tpu_torch.init(
+        num_cpus=8, ignore_reinit_error=True,
         _system_config={"health_check_period_s": 0.2,
                         "worker_idle_timeout_s": 60.0})
     yield info
