@@ -62,12 +62,27 @@ printing one JSON line:
    TRAIN_SHARDED_LOSS_RTOL of the train phase's, its exact launch counts,
    only the three TMA/wgmma flash kernels in a step's profile, params and
    AdamW moments as DTensors; step time, tokens/s and peak memory;
-12. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
+12. trainer: the train layer through ``DataParallelTrainer`` (BASELINE
+   target 1): GPT-2 card vs CPU (the 125m width cut to 2 layers, f32, 2
+   AdamW steps, within the train_card_vs_cpu bounds); GPT-2 125M at full
+   width and all 12 layers (bf16 compute, f32 params, remat, B 8 S 1024)
+   in a train worker holding one GPU unit, 20 steps with a DCP checkpoint
+   every 5, dying after the step-10 one and resuming from it under
+   FailureConfig(max_failures=1): losses finite, falling and bit for bit
+   those of an uninterrupted run (deterministic algorithms), the result's
+   checkpoint loaded in the driver equal to the worker's last saved
+   params, the worker's peak memory under the card's, no flash kernel
+   launched; the 1b Llama recipe cut to 4 layers for 3 steps in a worker,
+   its K1/K3/K4 launches exact and its losses within
+   TRAIN_SHARDED_LOSS_RTOL of the same run in process; no process left
+   after ``shutdown()``; step time, tokens/s, MFU, peak memory, DCP
+   seconds and bytes and a GPT-2 step's device profile;
+13. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
    and rules=fsdp_tp over the engine phase's first wave: every greedy
    request's tokens equal to the engine phase's; decode tokens/s and peak
    memory. On one rank every placement is Replicate: these two prove the
    mesh plumbing and the kernels under it, not collectives;
-13. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
+14. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
    GPU detected without an override): an actor with ``num_gpus=1`` builds
    the engine phase's paged 7b engine in a worker process and serves the
    engine_sharded phase's wave 1 through one method call (K1 and K6
@@ -77,7 +92,7 @@ printing one JSON line:
    (the bf16 embedding put in the actor: same-process get is the tensor,
    the driver's get bit-exact); the no-op round trip and the staging
    rate; after ``shutdown()`` no process of the session alive;
-14. serve: the monolithic app through the serve layer: ``serve.run`` of an
+15. serve: the monolithic app through the serve layer: ``serve.run`` of an
    ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
    engine, decode_block 8) behind an ``LLMRouter`` with an HTTP route;
    four greedy prompts one at a time through the router's streaming
@@ -87,13 +102,13 @@ printing one JSON line:
    once; every stream's frames against its final frame, K1/K6 counted in
    the replica, its tokens counter read back from the GCS, the router's
    request count with no 429, no process left after shutdown;
-15. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
+16. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
    8 slots, page groups of 4 pages) behind ``DisaggRouter``; seven greedy
    prompts one at a time, equal to the handoff replayed in process (engine
    A prefills and exports each full group, a fresh engine B imports them
    and generates); each group crossing the store once at its byte size,
    every handoff acked, K1 in the prefill and K6 in the decode replica;
-16. kernels: one line with every kernel's numbers;
+17. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -767,6 +782,34 @@ def _reset_train_launches():
     fa.launches = fa.launches_window = fa.launches_dq = fa.launches_dkdv = 0
 
 
+def _card_vs_cpu_steps(out):
+    """Training steps on the card against the CPU: `out` maps "cuda" and
+    "cpu" to ([(loss, grad norm) per step], the params' leaves after the
+    last step); the train_card_vs_cpu bounds decide "ok"."""
+    import numpy as np
+
+    (mc, pc), (mh, ph) = out["cuda"], out["cpu"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mc, mh))
+    gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(mc, mh))
+    dmax, far, n = 0.0, 0, 0
+    for a, b in zip(pc, ph):
+        d = (a.detach().cpu() - b.detach()).abs()
+        dmax = max(dmax, float(d.max()))
+        far += int((d > TRAIN_PARAM_FAR).sum())
+        n += d.numel()
+    r = {"losses_card": [m[0] for m in mc],
+         "losses_cpu": [m[0] for m in mh],
+         "grad_norms_card": [m[1] for m in mc],
+         "grad_norms_cpu": [m[1] for m in mh],
+         "loss_max_rel_err": loss_rel, "grad_norm_max_rel_err": gn_rel,
+         "param_max_abs_err": dmax, "param_far_share": far / n}
+    r["ok"] = (loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_LOSS_RTOL
+               and dmax <= TRAIN_PARAM_MAX
+               and far / n <= TRAIN_PARAM_FAR_SHARE
+               and all(np.isfinite(m[0]) for m in mc))
+    return r
+
+
 def phase_train_card_vs_cpu():
     """The 1b width (d_model 2048, H 16, KV 8, d_ff 5632, vocab 32000) cut
     to 2 layers, f32 without TF32, flash, remat "none", adamw(3e-4,
@@ -813,25 +856,7 @@ def phase_train_card_vs_cpu():
             out[dev] = (ms, ts._leaves(state.params))
             if dev == "cuda":
                 torch.cuda.synchronize()
-        (mc, pc), (mh, ph) = out["cuda"], out["cpu"]
-        loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(mc, mh))
-        gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(mc, mh))
-        dmax, far, n = 0.0, 0, 0
-        for a, b in zip(pc, ph):
-            d = (a.detach().cpu() - b.detach()).abs()
-            dmax = max(dmax, float(d.max()))
-            far += int((d > TRAIN_PARAM_FAR).sum())
-            n += d.numel()
-        r = {"losses_card": [m[0] for m in mc],
-             "losses_cpu": [m[0] for m in mh],
-             "grad_norms_card": [m[1] for m in mc],
-             "grad_norms_cpu": [m[1] for m in mh],
-             "loss_max_rel_err": loss_rel, "grad_norm_max_rel_err": gn_rel,
-             "param_max_abs_err": dmax, "param_far_share": far / n}
-        r["ok"] = (loss_rel <= TRAIN_LOSS_RTOL and gn_rel <= TRAIN_LOSS_RTOL
-                   and dmax <= TRAIN_PARAM_MAX
-                   and far / n <= TRAIN_PARAM_FAR_SHARE
-                   and all(np.isfinite(m[0]) for m in mc))
+        r = _card_vs_cpu_steps(out)
         res["runs"][f"window={window}"] = r
         ok = ok and r["ok"]
     res["launches"] = _train_launches()
@@ -1024,6 +1049,438 @@ def phase_train_sharded():
                  and res["step_ran_wgmma_dq_only"]
                  and res["step_ran_wgmma_dkdv_only"]
                  and res["step_ran_only_three_flash_kernels"])
+    return res
+
+
+# --- the train layer ------------------------------------------------------------
+
+# the trainer phase's GPT-2 run: TRAINER_STEPS steps on one batch, a
+# checkpoint (session.report with state=) every TRAINER_EVERY, and on the
+# first attempt a death (os._exit) right after the TRAINER_DIE_AFTER one
+TRAINER_STEPS, TRAINER_EVERY, TRAINER_DIE_AFTER = 20, 5, 10
+# its Llama run: the train phase's recipe cut to this many layers and steps
+TRAINER_LLAMA_LAYERS, TRAINER_LLAMA_STEPS = 4, 3
+
+
+def _params_digest(params) -> str:
+    """sha256 of a param tree's leaves (in ``_leaves`` order) as the bytes
+    of their f32 host copies: the worker's last saved params and the
+    checkpoint the driver loads are compared through it."""
+    import hashlib
+
+    import torch
+
+    from ray_tpu_torch.parallel import train_step as ts
+
+    h = hashlib.sha256()
+    for t in ts._leaves(params):
+        h.update(t.detach().to("cpu", torch.float32).contiguous()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _trainer_gpt2_loop(config):
+    """The GPT-2 loop of the trainer phase, run in a train worker: the
+    `preset` (bf16 compute, f32 params, remat as the preset has it) from
+    seed 0 on the worker's device (CUDA unless `device` is "cpu"), the
+    port's make_train_step with adamw(3e-4, weight_decay=0.01) on one
+    batch of seeded tokens [B, S + 1]; every step reported, every
+    `every`-th with its state (a DCP checkpoint). Deterministic
+    algorithms (the embedding gather's backward sorts where it would add
+    with atomics), so a resumed attempt can equal an uninterrupted one bit
+    for bit. On a first attempt (no checkpoint) it dies at `die_after`,
+    right after that step's checkpoint. The last report carries the DCP
+    save and restore seconds and bytes, the peak memory and the flash
+    kernels' launch counts of this process."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.train import session
+
+    torch.use_deterministic_algorithms(True)
+    dev = session.get_device(config.get("device"))
+    cuda = dev.type == "cuda"
+    cfg = gpt2.PRESETS[config["preset"]]
+    init, _ = ts.make_train_state_init(
+        lambda g: gpt2.init_params(g, cfg),
+        ts.adamw(3e-4, weight_decay=0.01), device=dev)
+    state = init(0)
+    ck = session.get_checkpoint()
+    restore_s = None
+    if ck is not None:
+        t0 = time.perf_counter()
+        state = ts.load_state_dict(state, ck.load_state())
+        if cuda:
+            torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    B, S = config["batch"]
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(
+        config["seed"]).integers(0, cfg.vocab_size, size=(B, S + 1)),
+        device=dev)}
+    step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg))
+    _reset_train_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    saves, nbytes = [], 0
+    for _ in range(state.step, config["steps"]):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])               # waits for the step
+        metrics = {"step": state.step, "loss": loss,
+                   "grad_norm": float(m["grad_norm"]),
+                   "step_s": time.perf_counter() - t0,
+                   "resumed": ck is not None, "pid": os.getpid()}
+        if state.step % config["every"]:
+            session.report(metrics)
+            continue
+        if state.step == config["steps"]:
+            metrics["params_sha256"] = _params_digest(state.params)
+        tree = ts.state_dict(state)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in pytree.tree_leaves(tree)
+                     if isinstance(t, torch.Tensor))
+        t0 = time.perf_counter()
+        session.report(metrics, state=tree)
+        saves.append(time.perf_counter() - t0)
+        if ck is None and state.step == config.get("die_after"):
+            os._exit(1)
+    session.report({
+        "final": True, "pid": os.getpid(), "dcp_save_s": saves,
+        "dcp_restore_s": restore_s, "dcp_bytes": nbytes,
+        "deterministic": torch.are_deterministic_algorithms_enabled(),
+        "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                           else None),
+        "card_mem_bytes": (torch.cuda.get_device_properties(dev)
+                           .total_memory if cuda else None),
+        "launches": _train_launches()})
+
+
+def _trainer_llama_run(device, preset, layers, batch, steps):
+    """The train phase's Llama recipe (flash, remat, f32_logits False,
+    adamw(3e-4, weight_decay=0.01), seed 0, tokens from seed 7) cut to
+    `layers` and `steps`: its losses, and the flash kernels' launches in
+    this process over those steps."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = llama.PRESETS[preset].replace(n_layers=layers, attn_impl="flash",
+                                        remat=True, f32_logits=False)
+    init, _ = ts.make_train_state_init(
+        lambda g: llama.init_params(g, cfg),
+        ts.adamw(3e-4, weight_decay=0.01), device=device)
+    state = init(0)
+    B, S = batch
+    tokens = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(B, S + 1)), device=device)
+    step = ts.make_train_step(lambda p, b: llama.loss_fn(p, b, cfg))
+    _reset_train_launches()
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, {"tokens": tokens})
+        losses.append(float(m["loss"]))
+    return losses, _train_launches()
+
+
+def _trainer_llama_loop(config):
+    """``_trainer_llama_run`` in a train worker, on its device."""
+    import os
+
+    from ray_tpu_torch.train import session
+
+    losses, launches = _trainer_llama_run(
+        session.get_device(config.get("device")), config["preset"],
+        config["layers"], config["batch"], config["steps"])
+    session.report({"losses": losses, "launches": launches,
+                    "pid": os.getpid()})
+
+
+def _gpt2_card_vs_cpu():
+    """The 125m width (d_model 768, 12 heads, d_ff 3072, vocab 50257) cut
+    to 2 layers, f32 without TF32, adamw(3e-4, weight_decay=0.01), B 2,
+    S 256: 2 steps on the card and on the CPU from one seeded init, held
+    to the train_card_vs_cpu bounds. (The key bias's exact gradient is 0,
+    so both step on rounding noise there, at most 2 lr a step apart: its
+    1,536 elements stay within TRAIN_PARAM_MAX and are 2.9e-5 of the
+    params, under TRAIN_PARAM_FAR_SHARE.)"""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = gpt2.PRESETS["125m"].replace(n_layers=2, dtype=torch.float32)
+    params0 = gpt2.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(2, 257)).astype(np.int64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        init, _ = ts.make_train_state_init(
+            lambda g: params0, ts.adamw(3e-4, weight_decay=0.01),
+            device=dev)
+        state = init(0)
+        step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg))
+        batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+        ms = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        out[dev] = (ms, ts._leaves(state.params))
+    return {"cfg": "125m width, 2 layers, f32, adamw(3e-4, "
+                   "weight_decay=0.01), B 2 S 256, 2 steps",
+            "loss_rel_tol": TRAIN_LOSS_RTOL, "param_max_tol": TRAIN_PARAM_MAX,
+            "param_far_tol": TRAIN_PARAM_FAR,
+            "param_far_share_max": TRAIN_PARAM_FAR_SHARE,
+            **_card_vs_cpu_steps(out)}
+
+
+def _gpt2_step_profile(preset, batch):
+    """Where one GPT-2 step's time goes (``device_profile``), in this
+    process, as the trainer's worker runs it: the `preset` from seed 0,
+    its batch, deterministic algorithms (switched off again after)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import train_step as ts
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = gpt2.PRESETS[preset]
+        init, _ = ts.make_train_state_init(
+            lambda g: gpt2.init_params(g, cfg),
+            ts.adamw(3e-4, weight_decay=0.01), device="cuda")
+        state = init(0)
+        B, S = batch
+        b = {"tokens": torch.as_tensor(np.random.default_rng(7).integers(
+            0, cfg.vocab_size, size=(B, S + 1)), device="cuda")}
+        step = ts.make_train_step(lambda p, x: gpt2.loss_fn(p, x, cfg))
+        step(state, b)                      # warm-up
+        return device_profile(lambda: step(state, b), lambda: step(state, b))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def _history(result, **match):
+    return [m for m in result.metrics_history
+            if all(m.get(k) == v for k, v in match.items())]
+
+
+def phase_trainer(device="cuda", gpt2_preset="125m", llama_preset="1b",
+                  batch=(8, 1024)):
+    """The train layer (BASELINE target 1, the GPT-2 125M single-host
+    trainer) through ``DataParallelTrainer``. On the card: (1) GPT-2 card
+    against CPU (``_gpt2_card_vs_cpu``); then, in a session of
+    ``ray_tpu_torch.init`` (the GPU detected, no override), each run in
+    one train worker holding one GPU unit: (2) the `gpt2_preset` at full
+    width and depth through ``_trainer_gpt2_loop`` with
+    FailureConfig(max_failures=1), dying once after its step-10
+    checkpoint and resuming from it, against the same loop run again
+    without the death: losses bit for bit (deterministic algorithms),
+    falling and finite; ``result.checkpoint`` loaded in the driver equals
+    the worker's last saved params; the worker's peak memory under the
+    card's; no flash kernel launched (GPT-2 reaches none); (3) the train
+    phase's Llama recipe cut to 4 layers and 3 steps in a worker: its
+    flash launches exact, its losses within TRAIN_SHARDED_LOSS_RTOL of
+    the same run in this process (run after the session, its launches
+    not counted). After ``shutdown()`` no process of the session alive.
+    Step time, tokens/s, MFU (6 N tokens + 12 L B S^2 d_model over 989
+    TFLOP/s), peak memory, the DCP seconds and bytes and one GPT-2 step's
+    device profile (run in this process) as information.
+    `device` "cpu" with small presets rehearses it on the CPU (every gate
+    passes but the flash launch counts: the plain versions launch
+    nothing)."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.core.node import session_pids
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import (CheckpointConfig, DataParallelTrainer,
+                                     FailureConfig, RunConfig, ScalingConfig)
+
+    _free_device()
+    _checkout_on_pythonpath()
+    cuda = device == "cuda"
+    res = {"cfg": f"gpt2 {gpt2_preset} (bf16 compute, f32 params, remat), "
+                  f"B {batch[0]} S {batch[1]}, {TRAINER_STEPS} steps, a "
+                  f"checkpoint every {TRAINER_EVERY}, death after step "
+                  f"{TRAINER_DIE_AFTER}; llama {llama_preset} cut to "
+                  f"{TRAINER_LLAMA_LAYERS} layers, {TRAINER_LLAMA_STEPS} "
+                  "steps; one train worker, one GPU unit"}
+    if cuda:
+        res["card_vs_cpu"] = _gpt2_card_vs_cpu()
+        _free_device()
+    scaling = (ScalingConfig(num_workers=1, use_gpu=True, gpus_per_worker=1)
+               if cuda else ScalingConfig(num_workers=1, use_gpu=False))
+    loop_cfg = {"preset": gpt2_preset, "batch": list(batch),
+                "steps": TRAINER_STEPS, "every": TRAINER_EVERY, "seed": 7,
+                "device": None if cuda else "cpu"}
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_cpus=4)
+    res["init_s"] = time.perf_counter() - t0
+    pids = {p.pid: "daemon" for p in info["procs"]}
+    try:
+        res["cluster_resources"] = ray_tpu_torch.cluster_resources()
+
+        def fit(loop, name, config, failures=0):
+            t = time.perf_counter()
+            out = DataParallelTrainer(
+                loop, train_loop_config=config, scaling_config=scaling,
+                run_config=RunConfig(
+                    name=name, storage_path=root,
+                    failure_config=FailureConfig(max_failures=failures),
+                    checkpoint_config=CheckpointConfig(num_to_keep=2))).fit()
+            res[f"{name}_fit_s"] = time.perf_counter() - t
+            pids.update({m["pid"]: "worker" for m in out.metrics_history
+                         if "pid" in m})
+            return out
+
+        died = fit(_trainer_gpt2_loop, "gpt2_died",
+                   {**loop_cfg, "die_after": TRAINER_DIE_AFTER}, failures=1)
+        whole = fit(_trainer_gpt2_loop, "gpt2_whole", loop_cfg)
+        t = time.perf_counter()
+        saved = died.checkpoint.load_state() if died.checkpoint else None
+        res["driver_restore_s"] = time.perf_counter() - t
+        llama_cfg = {"preset": llama_preset, "layers": TRAINER_LLAMA_LAYERS,
+                     "batch": list(batch), "steps": TRAINER_LLAMA_STEPS,
+                     "device": None if cuda else "cpu"}
+        lw = fit(_trainer_llama_loop, "llama", llama_cfg)
+        pids.update(session_pids(pids))
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    res["pids_alive_after_shutdown"] = _alive_after(pids)
+    res["session_pids"] = {str(p): m for p, m in pids.items()}
+    res["errors"] = [r.error for r in (died, whole, lw) if r.error]
+
+    # (2) GPT-2: the attempts, their losses, the checkpoint
+    steps = [m for m in whole.metrics_history if "loss" in m]
+    first = [m for m in _history(died, resumed=False) if "loss" in m]
+    second = [m for m in _history(died, resumed=True) if "loss" in m]
+    final = _history(whole, final=True)[-1] if _history(
+        whole, final=True) else {}
+    resumed_final = _history(died, final=True)[-1] if _history(
+        died, final=True) else {}
+    losses = [m["loss"] for m in steps]
+    by_step = {m["step"]: m["loss"] for m in steps}
+    res.update({
+        "gpt2_losses": losses,
+        "gpt2_grad_norms": [m["grad_norm"] for m in steps],
+        "attempt1_steps": [m["step"] for m in first],
+        "attempt2_steps": [m["step"] for m in second],
+        "resumed_losses": [m["loss"] for m in second],
+        "uninterrupted_losses_same_steps": [by_step.get(m["step"])
+                                            for m in second],
+        "resumed_bit_equal": bool(second) and all(
+            m["loss"] == by_step.get(m["step"]) for m in first + second),
+        "resumed_max_rel_diff": max(
+            (abs(m["loss"] - by_step[m["step"]]) / abs(by_step[m["step"]])
+             for m in first + second if m["step"] in by_step),
+            default=None),
+        "deterministic": final.get("deterministic"),
+        "gpt2_launches": final.get("launches"),
+        "gpt2_resumed_launches": resumed_final.get("launches")})
+    last_saved = [m for m in second if "params_sha256" in m]
+    res["checkpoint_params_equal"] = bool(
+        saved is not None and last_saved
+        and saved["step"] == TRAINER_STEPS
+        and _params_digest(saved["params"])
+        == last_saved[-1]["params_sha256"])
+    step_s = [m["step_s"] for m in steps[1:]]
+    if step_s:
+        cfg = gpt2.PRESETS[gpt2_preset]
+        B, S = batch
+        med = statistics.median(step_s)
+        flops = (6 * gpt2.num_params(cfg) * B * S
+                 + 12 * cfg.n_layers * B * S * S * cfg.d_model)
+        res.update({"n_params": gpt2.num_params(cfg),
+                    "step_s_median": med, "step_s_all": step_s,
+                    "tokens_per_s": B * S / med,
+                    "model_flops_per_step": flops,
+                    "mfu_vs_989_tflops": flops / med / 989e12})
+    res.update({
+        "peak_mem_gb": (final.get("peak_mem_bytes") or 0) / 1e9,
+        "card_mem_gb": (final.get("card_mem_bytes") or 0) / 1e9,
+        "dcp_save_s": final.get("dcp_save_s"),
+        "dcp_restore_s": resumed_final.get("dcp_restore_s"),
+        "dcp_bytes": final.get("dcp_bytes")})
+
+    if cuda:
+        _free_device()
+        res["gpt2_profile_step"] = _gpt2_step_profile(gpt2_preset, batch)
+
+    # (3) Llama in a worker against the same run in this process
+    lrep = _history(lw)[-1] if lw.metrics_history else {}
+    _free_device()
+    ref_losses, _ = _trainer_llama_run(
+        device, llama_preset, TRAINER_LLAMA_LAYERS, batch,
+        TRAINER_LLAMA_STEPS)
+    worker_losses = lrep.get("losses") or []
+    L = TRAINER_LLAMA_LAYERS * TRAINER_LLAMA_STEPS
+    expect = {"flash_attention_fwd": 2 * L, "flash_attention_fwd_window": 0,
+              "flash_attention_bwd_dq": L, "flash_attention_bwd_dkdv": L}
+    rel = [abs(a - b) / abs(b) for a, b in zip(worker_losses, ref_losses)]
+    res.update({"llama_losses_worker": worker_losses,
+                "llama_losses_in_process": ref_losses,
+                "llama_loss_max_rel_diff": max(rel) if rel else None,
+                "llama_loss_rel_tol": TRAIN_SHARDED_LOSS_RTOL,
+                "llama_launches": lrep.get("launches"),
+                "llama_launches_expected": expect})
+    zero = {k: 0 for k in expect}
+    res["launches"] = {k: lrep.get("launches", {}).get(k, 0)
+                       + (final.get("launches") or {}).get(k, 0)
+                       + (resumed_final.get("launches") or {}).get(k, 0)
+                       for k in expect}
+    res["gates"] = {
+        "gpu_detected": (not cuda) or res["cluster_resources"].get("GPU")
+        == 1.0,
+        "card_vs_cpu": (not cuda) or res["card_vs_cpu"]["ok"],
+        "fits_ok": not res["errors"],
+        # every report up to the checkpoint resumed from reaches the
+        # history, those the trainer had not polled before the death from
+        # that checkpoint's record: attempt 1's steps are exactly
+        # 1 .. 10, attempt 2's 11 .. 20
+        "died_once_and_resumed": (
+            res["attempt1_steps"] == list(range(1, TRAINER_DIE_AFTER + 1))
+            and res["attempt2_steps"] == list(range(
+                TRAINER_DIE_AFTER + 1, TRAINER_STEPS + 1))),
+        "losses_finite_and_falling": (
+            len(losses) == TRAINER_STEPS and all(np.isfinite(losses))
+            and losses[-1] < losses[0]),
+        "resumed_bit_equal": res["resumed_bit_equal"],
+        "checkpoint_params_equal": res["checkpoint_params_equal"],
+        "peak_mem_under_card": (not cuda) or 0 < res["peak_mem_gb"]
+        < res["card_mem_gb"],
+        "gpt2_launches_zero": (final.get("launches") == zero
+                               and resumed_final.get("launches") == zero),
+        "llama_launches_exact": lrep.get("launches") == expect,
+        "llama_losses_match": (len(rel) == TRAINER_LLAMA_STEPS
+                               and all(np.isfinite(worker_losses))
+                               and max(rel) <= TRAIN_SHARDED_LOSS_RTOL),
+        "no_process_left": not res["pids_alive_after_shutdown"]}
+    res["ok"] = all(res["gates"].values())
     return res
 
 
@@ -2297,8 +2754,8 @@ def ran_wgmma_fwd_only(profile) -> bool:
 
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
-          "train_card_vs_cpu", "train", "train_sharded", "engine_sharded",
-          "runtime", "serve", "serve_disagg")
+          "train_card_vs_cpu", "train", "train_sharded", "trainer",
+          "engine_sharded", "runtime", "serve", "serve_disagg")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -2311,6 +2768,7 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "engine_contiguous": phase_engine_contiguous,
                "train_card_vs_cpu": phase_train_card_vs_cpu,
                "train": phase_train, "train_sharded": phase_train_sharded,
+               "trainer": phase_trainer,
                "engine_sharded": phase_engine_sharded,
                "runtime": phase_runtime, "serve": phase_serve,
                "serve_disagg": phase_serve_disagg}
@@ -2433,7 +2891,9 @@ def main() -> int:
     # engine_sharded, runtime's actor (counted in its worker process), and
     # the serve phases' replicas (counted in theirs: serve's one replica,
     # serve_disagg's prefill and decode replicas summed); training: train,
-    # train_card_vs_cpu (the run on which K2 launches) and train_sharded)
+    # train_card_vs_cpu (the run on which K2 launches), train_sharded and
+    # trainer's workers (counted in theirs: the GPT-2 runs, none, and the
+    # Llama run))
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
@@ -2442,6 +2902,7 @@ def main() -> int:
              "train": ph["train"]["launches"],
              "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"],
              "train_sharded": ph["train_sharded"]["launches"],
+             "trainer": ph["trainer"]["launches"],
              "engine_sharded": ph["engine_sharded"]["launches"],
              "runtime": ph["runtime"]["launches"],
              "serve": ph["serve"]["launches"],

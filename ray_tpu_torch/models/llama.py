@@ -148,7 +148,7 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
                 leaf=None) -> Dict[str, Any]:
     """Random weights on the generator's device, in cfg.param_dtype: the
     JAX shapes and scales (normal / sqrt(fan_in), embed * 0.02). The
-    numbers differ from jax.random's; tests share weights through
+    numbers differ from those jax.random draws; tests share weights through
     params_from_jax instead. ``leaf(path, tensor)``, where given, replaces
     each leaf as soon as it is drawn, before the next one is
     (``init_params_int8`` quantizes there)."""

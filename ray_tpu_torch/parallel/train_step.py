@@ -253,6 +253,29 @@ def make_train_step(loss_fn: Callable, optimizer=None, mesh=None,
     return step
 
 
+def state_dict(state: TrainState) -> Dict[str, Any]:
+    """The state as a tree of tensors and numbers, what a checkpoint
+    saves (the JAX ``TrainState`` is such a tree itself; here the
+    optimizer is an object): ``{"params": the param tree, "opt": the
+    optimizer's state_dict(), "step": int}``. The tensors are the live
+    ones, not copies."""
+    return {"params": state.params, "opt": state.opt_state.state_dict(),
+            "step": state.step}
+
+
+def load_state_dict(state: TrainState, tree: Dict[str, Any]) -> TrainState:
+    """``state`` with ``tree`` (a ``state_dict``, e.g. loaded from a
+    checkpoint, its tensors on any device) copied in: the params in
+    place, bit for bit, and the optimizer's state loaded (onto the
+    params' devices), so that the next step equals the one the saved
+    state would have taken."""
+    with torch.no_grad():
+        for p, t in zip(_leaves(state.params), _leaves(tree["params"])):
+            p.copy_(t)
+    state.opt_state.load_state_dict(tree["opt"])
+    return TrainState(state.params, state.opt_state, int(tree["step"]))
+
+
 def make_eval_step(loss_fn: Callable, mesh=None, rules=None,
                    state_shardings=None):
     """eval(state, batch) -> loss_fn(state.params, batch), without

@@ -7,7 +7,9 @@ ascending rank order — with exact arithmetic every order gives the same
 bits, which is what lets the suite demand bitwise-identical results
 across backends.
 
-Port of tests/test_collective.py, aimed at ray_tpu_torch.
+Port of tests/test_collective.py, aimed at ray_tpu_torch (its WorkerGroup
+case since the train layer was ported; its bench sweep waits with
+bench.py, ROADMAP.md queue 1 item 11).
 """
 
 import time
@@ -247,3 +249,31 @@ def test_backend_registry_and_auto_selection():
         assert "fake" in available_backends()
     finally:
         _BACKENDS.pop("fake", None)
+
+
+def test_train_worker_group_host_collective(ray_start_regular, tmp_path):
+    """WorkerGroup routes host-side exchanges through
+    ray_tpu_torch.collective: after init_host_collective every gang member
+    can allreduce."""
+    from ray_tpu_torch.train.worker_group import WorkerGroup
+
+    wg = WorkerGroup(num_workers=2, resources_per_worker={"CPU": 0.5})
+    try:
+        assert wg.init_host_collective("wg_col", backend="gather") == [True,
+                                                                       True]
+
+        def loop():
+            from ray_tpu_torch import collective as col
+            from ray_tpu_torch.train.session import get_context
+
+            rank = get_context().world_rank
+            total = col.allreduce(np.full((3,), float(rank + 1)), "wg_col")
+            return total.tolist()
+
+        wg.broadcast("setup", config={}, run_dir=str(tmp_path / "wg_col"),
+                     scaling=None, checkpoint=None, datasets=None)
+        outs = wg.broadcast("run", loop, {})
+        assert outs == [[3.0, 3.0, 3.0]] * 2     # 1 + 2 on both ranks
+        wg.destroy_host_collective("wg_col")
+    finally:
+        wg.shutdown()

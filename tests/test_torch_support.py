@@ -29,7 +29,8 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 _STUB_PACKAGES = ("ray_tpu", "ray_tpu.serve", "ray_tpu.util",
                   "ray_tpu.observability")
-_REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.ops.paged_attention",
+_REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.models.gpt2",
+                      "ray_tpu.ops.paged_attention",
                       "ray_tpu.ops.flash_attention", "ray_tpu.serve.llm",
                       "ray_tpu.serve.paged_kv", "ray_tpu.serve.kv_transfer",
                       "ray_tpu.parallel.train_step",
@@ -92,10 +93,10 @@ def _install_stubs():
 
 
 class _Reference(types.SimpleNamespace):
-    """The JAX reference modules: llama, paged_attention, flash_attention,
-    llm, paged_kv, kv_transfer, train_step, mesh, sharding; and of the
-    runtime ids,
-    config, serialization, scheduling_policy and common."""
+    """The JAX reference modules: llama, gpt2, paged_attention,
+    flash_attention, llm, paged_kv, kv_transfer, train_step, mesh,
+    sharding; and of the runtime ids, config, serialization,
+    scheduling_policy and common."""
 
 
 @contextlib.contextmanager
@@ -119,6 +120,7 @@ def jax_reference():
                             if _is_ray_tpu(k)})
         yield _Reference(
             llama=sys.modules["ray_tpu.models.llama"],
+            gpt2=sys.modules["ray_tpu.models.gpt2"],
             paged_attention=sys.modules["ray_tpu.ops.paged_attention"],
             # ray_tpu/ops/__init__.py rebinds the attribute to the function
             flash_attention=sys.modules["ray_tpu.ops.flash_attention"],
