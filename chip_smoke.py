@@ -77,12 +77,28 @@ printing one JSON line:
    TRAIN_SHARDED_LOSS_RTOL of the same run in process; no process left
    after ``shutdown()``; step time, tokens/s, MFU, peak memory, DCP
    seconds and bytes and a GPT-2 step's device profile;
-13. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
+13. data: the data layer (``ray_tpu_torch.data``) in a session of the
+   port's runtime: GPT-2 125M at full width trained from a Dataset
+   (``from_numpy`` of 96 rows of 1025 seeded tokens in 8 blocks,
+   ``map_batches``, ``random_shuffle``) through ``DataParallelTrainer``
+   in a worker holding one GPU unit, fed by ``iter_device_batches``
+   (pinned staging, a copy stream, events): 12 batches on the card equal
+   bit for bit to the driver's ``iter_batches``, 12 losses equal bit for
+   bit to the same loop run in process on host batches moved with a
+   plain ``.to("cuda")``, finite and falling; then the 1b preset at full
+   width and depth (bf16, flash) through ``BatchPredictor`` over 64 rows
+   of 512 seeded tokens in 8 blocks in a one-GPU actor: greedy tokens
+   and logits equal to the same predictor in process, K1 launched
+   exactly 16 x 8 times in the actor; no process left after
+   ``shutdown()``; step time, tokens/s, MFU, the host's wait in next(),
+   the copies' streams and overlap in a profiled window, the actor's
+   start, the checkpoint load and rows/s as information;
+14. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
    and rules=fsdp_tp over the engine phase's first wave: every greedy
    request's tokens equal to the engine phase's; decode tokens/s and peak
    memory. On one rank every placement is Replicate: these two prove the
    mesh plumbing and the kernels under it, not collectives;
-14. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
+15. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
    GPU detected without an override): an actor with ``num_gpus=1`` builds
    the engine phase's paged 7b engine in a worker process and serves the
    engine_sharded phase's wave 1 through one method call (K1 and K6
@@ -92,7 +108,7 @@ printing one JSON line:
    (the bf16 embedding put in the actor: same-process get is the tensor,
    the driver's get bit-exact); the no-op round trip and the staging
    rate; after ``shutdown()`` no process of the session alive;
-15. serve: the monolithic app through the serve layer: ``serve.run`` of an
+16. serve: the monolithic app through the serve layer: ``serve.run`` of an
    ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
    engine, decode_block 8) behind an ``LLMRouter`` with an HTTP route;
    four greedy prompts one at a time through the router's streaming
@@ -102,13 +118,13 @@ printing one JSON line:
    once; every stream's frames against its final frame, K1/K6 counted in
    the replica, its tokens counter read back from the GCS, the router's
    request count with no 429, no process left after shutdown;
-16. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
+17. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
    8 slots, page groups of 4 pages) behind ``DisaggRouter``; seven greedy
    prompts one at a time, equal to the handoff replayed in process (engine
    A prefills and exports each full group, a fresh engine B imports them
    and generates); each group crossing the store once at its byte size,
    every handoff acked, K1 in the prefill and K6 in the decode replica;
-17. kernels: one line with every kernel's numbers;
+18. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -1484,6 +1500,457 @@ def phase_trainer(device="cuda", gpt2_preset="125m", llama_preset="1b",
     return res
 
 
+# --- the data layer -------------------------------------------------------------
+
+# part 1: GPT-2 125M ingest: rows of DATA_SEQ + 1 seeded tokens in
+# DATA_BLOCKS blocks, DATA_STEPS steps of DATA_BATCH rows (all the rows)
+DATA_ROWS, DATA_BLOCKS, DATA_BATCH, DATA_STEPS = 96, 8, 8, 12
+DATA_SEQ, DATA_SEED, DATA_SHUFFLE_SEED = 1024, 11, 3
+DATA_PROFILE_STEPS = 3
+# part 2: Llama batch inference: rows of INFER_SEQ seeded tokens
+INFER_ROWS, INFER_BLOCKS, INFER_SEQ, INFER_SEED = 64, 8, 512, 12
+
+
+def _split_tokens(batch):
+    """The data phase's map_batches UDF: [B, S + 1] tokens into inputs
+    and next-token labels."""
+    t = batch["tokens"]
+    return {"input_ids": t[:, :-1], "labels": t[:, 1:]}
+
+
+def _batch_sha(batch) -> str:
+    """sha256 over a batch's columns (sorted by name), each as the bytes
+    of its C-contiguous host array: equal iff every value is."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        v = batch[k]
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        a = np.ascontiguousarray(v)
+        h.update(f"{k}:{a.dtype}:{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _data_gpt2_run(batches, device, preset, steps):
+    """The trainer phase's GPT-2 recipe (bf16 compute over f32 params,
+    remat as the preset has it, adamw(3e-4, weight_decay=0.01), seed 0)
+    over `steps` batches drawn from the iterator `batches` of
+    {"input_ids", "labels"} on `device`. Per step: the loss, the batch's
+    sha256 (after the step), whether every column was on `device`, the
+    step's seconds and the host's wait inside next(). Run under
+    deterministic algorithms by the caller."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = gpt2.PRESETS[preset]
+    init, _ = ts.make_train_state_init(
+        lambda g: gpt2.init_params(g, cfg),
+        ts.adamw(3e-4, weight_decay=0.01), device=device)
+    state = init(0)
+    step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg))
+    out = {"losses": [], "sha": [], "on_device": [], "step_s": [],
+           "next_wait_s": []}
+    it = iter(batches)
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        b = next(it)
+        t1 = time.perf_counter()
+        state, m = step(state, {"inputs": b["input_ids"].long(),
+                                "targets": b["labels"].long()})
+        loss = float(m["loss"])               # waits for the step
+        out["step_s"].append(time.perf_counter() - t1)
+        out["next_wait_s"].append(t1 - t0)
+        out["losses"].append(loss)
+        out["on_device"].append(all(t.device.type == device.type
+                                    for t in b.values()))
+        out["sha"].append(_batch_sha(b))
+    return out
+
+
+def _data_gpt2_loop(config):
+    """Part 1's train loop in a train worker: the dataset shard
+    "train" fed through ``iter_device_batches`` into ``_data_gpt2_run``
+    under deterministic algorithms, on the worker's device."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    from ray_tpu_torch.train import session
+
+    torch.use_deterministic_algorithms(True)
+    dev = session.get_device(config.get("device"))
+    shard = session.get_dataset_shard("train")
+    batches = shard.iter_device_batches(batch_size=config["batch"],
+                                        device=config.get("device"))
+    out = _data_gpt2_run(batches, dev, config["preset"], config["steps"])
+    session.report({**out, "pid": os.getpid(),
+                    "deterministic":
+                        torch.are_deterministic_algorithms_enabled()})
+
+
+def _data_copy_profile(it, preset, steps):
+    """``steps`` GPT-2 steps in this process fed by the device iterator
+    `it`, under torch.profiler (after one unprofiled step): each HtoD
+    copy's stream (from the chrome trace) and whether it overlaps a kernel
+    on another stream (the step before it), and the window's idle share
+    (1 - the union of kernel and copy intervals over the span from the
+    first to the last device event of the trace)."""
+    import json as _json
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = gpt2.PRESETS[preset]
+    init, _ = ts.make_train_state_init(
+        lambda g: gpt2.init_params(g, cfg),
+        ts.adamw(3e-4, weight_decay=0.01), device="cuda")
+    state = init(0)
+    step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg))
+
+    def one():
+        nonlocal state
+        b = next(it)
+        state, m = step(state, {"inputs": b["input_ids"].long(),
+                                "targets": b["labels"].long()})
+        float(m["loss"])
+
+    one()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = _json.load(f)
+    finally:
+        os.remove(path)
+    events = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X" and e.get("cat") in ("kernel",
+                                                          "gpu_memcpy")]
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream"))
+               for e in events if e["cat"] == "kernel"]
+    copies = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream"),
+               e["name"]) for e in events if e["cat"] == "gpu_memcpy"
+              and "HtoD" in e["name"]]
+    spans = sorted([(a, b) for a, b, _ in kernels]
+                   + [(a, b) for a, b, _, _ in copies])
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    return {
+        "htod_copies": [{"stream": s, "us": b - a, "name": n,
+                         "overlaps_kernels": any(
+                             ka < b and a < kb for ka, kb, ks in kernels
+                             if ks != s)}
+                        for a, b, s, n in copies],
+        "copy_streams": sorted({s for _, _, s, _ in copies}),
+        "kernel_streams": sorted({s for _, _, s in kernels}),
+        "window_us": window, "device_busy_us": busy,
+        "idle_share": (1.0 - busy / window) if window else None}
+
+
+def _counting_predictor():
+    """``FunctionPredictor`` counting K1 in its own process: the counters
+    are set to 0 when it is made from the checkpoint (just before its
+    blocks run) and each predicted block carries the launch count after
+    it, its pid, the checkpoint's load seconds and when the load began
+    (the host clock). Made in a function, so it pickles by value."""
+    from ray_tpu_torch.train import FunctionPredictor
+
+    class CountingPredictor(FunctionPredictor):
+        @classmethod
+        def from_checkpoint(cls, checkpoint, **kwargs):
+            t_wall, t0 = time.time(), time.perf_counter()
+            pred = super().from_checkpoint(checkpoint, **kwargs)
+            pred.load_s, pred.load_t = time.perf_counter() - t0, t_wall
+            _reset_train_launches()
+            return pred
+
+        def predict(self, batch):
+            import os
+
+            import numpy as np
+
+            out = super().predict(batch)
+            n = len(out[self.output_column])
+            out["k1_launches"] = np.full(
+                n, _train_launches()["flash_attention_fwd"])
+            out["pid"] = np.full(n, os.getpid())
+            out["load_s"] = np.full(n, self.load_s)
+            out["load_t"] = np.full(n, self.load_t)
+            return out
+
+    return CountingPredictor
+
+
+def _llama_greedy(params, tokens, cfg):
+    """apply_fn of part 2 (with `cfg` bound): each row's greedy next token
+    and its logit (f32), as [B, 2] f32 (token ids < 2^24 are exact)."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    last = llama.forward(params, tokens.long(), cfg)[:, -1].float()
+    tok = last.argmax(-1)
+    return torch.stack([tok.float(), last.gather(1, tok[:, None])[:, 0]],
+                       dim=-1)
+
+
+def phase_data(device="cuda", gpt2_preset="125m", llama_preset="1b"):
+    """The data layer (``ray_tpu_torch.data``) on the card, in a session
+    of ``ray_tpu_torch.init(num_cpus=4)`` (the GPU detected, no override).
+    (1) Train ingest, GPT-2 at the `gpt2_preset` (BASELINE target 1):
+    ``from_numpy`` of DATA_ROWS rows of DATA_SEQ + 1 seeded int32 tokens
+    in DATA_BLOCKS blocks, ``map_batches`` into input_ids/labels,
+    ``random_shuffle(seed)``, through ``DataParallelTrainer(datasets=
+    {"train": ds})`` to one train worker holding one GPU unit, whose loop
+    takes ``session.get_dataset_shard("train").iter_device_batches(
+    batch_size=DATA_BATCH)`` for DATA_STEPS steps of the trainer phase's
+    recipe under deterministic algorithms. Gates: every batch on the
+    device and bit-equal (sha256) to the driver's own ``iter_batches`` of
+    the same Dataset in the same order; the losses bit-equal to the same
+    loop run in this process on those host batches moved with a plain
+    ``.to("cuda")``; finite and falling. Information: step ms, tokens/s,
+    MFU (the trainer phase's formula), the host's wait inside next(),
+    and DATA_PROFILE_STEPS steps in this process under torch.profiler
+    (each HtoD copy's stream, its overlap with the step before it, the
+    window's idle share). (2) Batch inference with K1: the `llama_preset`
+    at full width and depth, bf16, attn_impl="flash", seeded params saved
+    as a Checkpoint; INFER_ROWS rows of INFER_SEQ seeded tokens in
+    INFER_BLOCKS blocks through ``BatchPredictor(ckpt, FunctionPredictor,
+    apply_fn=greedy).predict(ds, num_replicas=1, resources_per_replica=
+    {"GPU": 1})`` (a ``FunctionPredictor`` subclass that counts K1 in the
+    actor). Gates: the tokens equal and the logits bit-equal to the same
+    predictor run in this process over the same blocks; K1 launched
+    exactly n_layers x INFER_BLOCKS times in the actor. Information: the
+    actor's start, the checkpoint load, rows/s and tokens/s. After
+    ``shutdown()`` no process of the session alive. `device` "cpu" with
+    small presets rehearses it on the CPU (every gate passes but the K1
+    count: the plain versions launch nothing)."""
+    import functools
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.core.node import session_pids
+    from ray_tpu_torch.models import gpt2, llama
+    from ray_tpu_torch.train import (BatchPredictor, Checkpoint,
+                                     DataParallelTrainer, RunConfig,
+                                     ScalingConfig)
+
+    _free_device()
+    _checkout_on_pythonpath()
+    cuda = device == "cuda"
+    gcfg = gpt2.PRESETS[gpt2_preset]
+    S = min(DATA_SEQ, gcfg.max_seq_len)
+    lcfg = llama.PRESETS[llama_preset].replace(
+        attn_impl="flash", remat=False, dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16, f32_logits=False)
+    if not cuda:
+        lcfg = lcfg.replace(dtype=torch.float32, param_dtype=torch.float32)
+    SI = min(INFER_SEQ, lcfg.max_seq_len)
+    res = {"cfg": f"part 1: gpt2 {gpt2_preset}, {DATA_ROWS} rows of "
+                  f"{S + 1} tokens in {DATA_BLOCKS} blocks, map_batches, "
+                  f"random_shuffle, {DATA_STEPS} steps of {DATA_BATCH} "
+                  f"rows; part 2: llama {llama_preset} "
+                  f"({lcfg.n_layers} layers, d_model {lcfg.d_model}, "
+                  f"{'bf16' if cuda else 'f32'}, flash), {INFER_ROWS} rows "
+                  f"of {SI} tokens in {INFER_BLOCKS} blocks, one replica "
+                  "holding one GPU unit"}
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    tokens = np.random.default_rng(DATA_SEED).integers(
+        0, gcfg.vocab_size, size=(DATA_ROWS, S + 1), dtype=np.int32)
+    prompts = np.random.default_rng(INFER_SEED).integers(
+        0, lcfg.vocab_size, size=(INFER_ROWS, SI), dtype=np.int32)
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_cpus=4)
+    res["init_s"] = time.perf_counter() - t0
+    pids = {p.pid: "daemon" for p in info["procs"]}
+    try:
+        res["cluster_resources"] = ray_tpu_torch.cluster_resources()
+        # (1) train ingest
+        t = time.perf_counter()
+        ds = (rd.from_numpy({"tokens": tokens}, num_blocks=DATA_BLOCKS)
+              .map_batches(_split_tokens)
+              .random_shuffle(seed=DATA_SHUFFLE_SEED))
+        res["dataset_s"] = time.perf_counter() - t
+        res["dataset_blocks"] = ds.num_blocks()
+        host = list(ds.iter_batches(batch_size=DATA_BATCH, drop_last=True))
+        res["host_batches"] = len(host)
+        scaling = (ScalingConfig(num_workers=1, use_gpu=True,
+                                 gpus_per_worker=1) if cuda
+                   else ScalingConfig(num_workers=1, use_gpu=False))
+        t = time.perf_counter()
+        fit = DataParallelTrainer(
+            _data_gpt2_loop, scaling_config=scaling,
+            train_loop_config={"preset": gpt2_preset, "batch": DATA_BATCH,
+                               "steps": DATA_STEPS,
+                               "device": None if cuda else "cpu"},
+            run_config=RunConfig(name="data_ingest", storage_path=root),
+            datasets={"train": ds}).fit()
+        res["fit_s"] = time.perf_counter() - t
+        res["fit_error"] = fit.error
+        wrep = fit.metrics_history[-1] if fit.metrics_history else {}
+        if "pid" in wrep:
+            pids[wrep["pid"]] = "worker"
+        if cuda:
+            _free_device()
+            shard = ds.streaming_split(1)[0]
+            res["copy_profile"] = _data_copy_profile(
+                iter(shard.iter_device_batches(batch_size=DATA_BATCH)),
+                gpt2_preset, DATA_PROFILE_STEPS)
+
+        # (2) batch inference
+        gen = torch.Generator(device=device).manual_seed(0)
+        t = time.perf_counter()
+        params = llama.init_params(gen, lcfg)
+        ckpt = Checkpoint.from_state({"params": params},
+                                     os.path.join(root, "llama_ckpt"))
+        res["ckpt_save_s"] = time.perf_counter() - t
+        del params
+        _free_device()
+        ids = rd.from_numpy({"features": prompts}, num_blocks=INFER_BLOCKS)
+        res["infer_blocks"] = ids.num_blocks()
+        apply_fn = functools.partial(_llama_greedy, cfg=lcfg)
+        t_call, t = time.time(), time.perf_counter()
+        pred = BatchPredictor(
+            ckpt, _counting_predictor(), apply_fn=apply_fn,
+            device=None if cuda else "cpu").predict(
+            ids, num_replicas=1,
+            resources_per_replica={"GPU": 1} if cuda else None)
+        res["predict_s"] = time.perf_counter() - t
+        out_blocks = [ray_tpu_torch.get(r) for r in pred._block_refs]
+        in_blocks = [ray_tpu_torch.get(r) for r in ids._block_refs]
+        pids.update(session_pids(pids))
+    finally:
+        ray_tpu_torch.shutdown()
+    res["pids_alive_after_shutdown"] = _alive_after(pids)
+    res["session_pids"] = {str(p): m for p, m in pids.items()}
+
+    # (1) the worker's batches and losses against this process's
+    ref_dev = torch.device(device)
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        _free_device()
+        ref = _data_gpt2_run(
+            ({k: torch.from_numpy(np.array(v)).to(ref_dev)
+              for k, v in b.items()} for b in host),
+            ref_dev, gpt2_preset, DATA_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    host_sha = [_batch_sha(b) for b in host]
+    losses = wrep.get("losses") or []
+    res.update({
+        "worker_losses": losses, "in_process_losses": ref["losses"],
+        "batch_sha_equal": wrep.get("sha") == host_sha[:DATA_STEPS],
+        "in_process_sha_equal": ref["sha"] == host_sha[:DATA_STEPS],
+        "worker_batches_on_device": wrep.get("on_device"),
+        "deterministic": wrep.get("deterministic"),
+        "next_wait_ms_mean": (1e3 * statistics.mean(wrep["next_wait_s"])
+                              if wrep.get("next_wait_s") else None),
+        "next_wait_ms_max": (1e3 * max(wrep["next_wait_s"])
+                             if wrep.get("next_wait_s") else None),
+        "next_wait_ms_all": [1e3 * w for w in wrep.get("next_wait_s", [])]})
+    step_s = (wrep.get("step_s") or [])[1:]
+    if step_s:
+        B = DATA_BATCH
+        med = statistics.median(step_s)
+        flops = (6 * gpt2.num_params(gcfg) * B * S
+                 + 12 * gcfg.n_layers * B * S * S * gcfg.d_model)
+        res.update({"step_ms_median": 1e3 * med,
+                    "step_ms_all": [1e3 * s for s in step_s],
+                    "tokens_per_s": B * S / med,
+                    "mfu_vs_989_tflops": flops / med / 989e12,
+                    "in_process_step_ms_median":
+                        1e3 * statistics.median(ref["step_s"][1:])})
+
+    # (2) the actor's predictions against the same predictor in process
+    got = np.concatenate([b["predictions"] for b in out_blocks]) \
+        if out_blocks else np.zeros((0, 2), np.float32)
+    _free_device()
+    try:
+        local = _counting_predictor().from_checkpoint(
+            ckpt, apply_fn=apply_fn, device=None if cuda else "cpu")
+        want = np.concatenate([local.predict(b)["predictions"]
+                               for b in in_blocks])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del local
+    _free_device()
+    actor_launches = int(out_blocks[-1]["k1_launches"][0]) \
+        if out_blocks else None
+    expect = lcfg.n_layers * INFER_BLOCKS
+    res.update({
+        "tokens_equal": bool(got.shape == want.shape
+                             and np.array_equal(got[:, 0], want[:, 0])),
+        "logits_bit_equal": bool(got.shape == want.shape
+                                 and np.array_equal(got[:, 1], want[:, 1])),
+        "greedy_tokens_head": got[:8, 0].astype(int).tolist(),
+        "actor_k1_launches": actor_launches,
+        "actor_k1_launches_expected": expect,
+        "actor_pids": sorted({int(b["pid"][0]) for b in out_blocks}),
+        "actor_start_s": (float(out_blocks[0]["load_t"][0]) - t_call
+                          if out_blocks else None),
+        "ckpt_load_s": float(out_blocks[0]["load_s"][0])
+        if out_blocks else None,
+        "predict_rows_per_s": INFER_ROWS / res["predict_s"],
+        "predict_tokens_per_s": INFER_ROWS * SI / res["predict_s"]})
+    res["launches"] = {"flash_attention_fwd": actor_launches or 0}
+    res["gates"] = {
+        "gpu_detected": (not cuda) or res["cluster_resources"].get("GPU")
+        == 1.0,
+        "fit_ok": not fit.error,
+        "batches_on_device": bool(wrep.get("on_device")) and all(
+            wrep["on_device"]) and len(wrep["on_device"]) == DATA_STEPS,
+        "batches_bit_equal": res["batch_sha_equal"]
+        and res["in_process_sha_equal"],
+        "losses_bit_equal": len(losses) == DATA_STEPS
+        and losses == ref["losses"],
+        "losses_finite_and_falling": len(losses) == DATA_STEPS
+        and all(np.isfinite(losses)) and losses[-1] < losses[0],
+        "tokens_equal": res["tokens_equal"],
+        "logits_bit_equal": res["logits_bit_equal"],
+        "k1_launches_exact": actor_launches == expect,
+        "no_process_left": not res["pids_alive_after_shutdown"]}
+    res["ok"] = all(res["gates"].values())
+    return res
+
+
 # --- the port's engine --------------------------------------------------------
 
 
@@ -2754,7 +3221,7 @@ def ran_wgmma_fwd_only(profile) -> bool:
 
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
-          "train_card_vs_cpu", "train", "train_sharded", "trainer",
+          "train_card_vs_cpu", "train", "train_sharded", "trainer", "data",
           "engine_sharded", "runtime", "serve", "serve_disagg")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
@@ -2768,7 +3235,7 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "engine_contiguous": phase_engine_contiguous,
                "train_card_vs_cpu": phase_train_card_vs_cpu,
                "train": phase_train, "train_sharded": phase_train_sharded,
-               "trainer": phase_trainer,
+               "trainer": phase_trainer, "data": phase_data,
                "engine_sharded": phase_engine_sharded,
                "runtime": phase_runtime, "serve": phase_serve,
                "serve_disagg": phase_serve_disagg}
@@ -2893,7 +3360,8 @@ def main() -> int:
     # serve_disagg's prefill and decode replicas summed); training: train,
     # train_card_vs_cpu (the run on which K2 launches), train_sharded and
     # trainer's workers (counted in theirs: the GPT-2 runs, none, and the
-    # Llama run))
+    # Llama run); data: the batch predictor's actor (counted in its
+    # process))
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
@@ -2903,6 +3371,7 @@ def main() -> int:
              "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"],
              "train_sharded": ph["train_sharded"]["launches"],
              "trainer": ph["trainer"]["launches"],
+             "data": ph["data"]["launches"],
              "engine_sharded": ph["engine_sharded"]["launches"],
              "runtime": ph["runtime"]["launches"],
              "serve": ph["serve"]["launches"],

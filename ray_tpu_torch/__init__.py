@@ -27,7 +27,7 @@ import sys
 _SUBMODULES = frozenset((
     "api", "ops", "models", "serve", "parallel", "core", "native",
     "protobuf", "util", "observability", "dag", "collective", "dashboard",
-    "devtools", "runtime_env", "cluster_utils", "train"))
+    "devtools", "runtime_env", "cluster_utils", "train", "data"))
 _API = ("init", "shutdown", "is_initialized", "remote", "put", "get",
         "wait", "kill", "cancel", "get_actor", "method",
         "get_runtime_context", "nodes", "cluster_resources",
@@ -35,7 +35,8 @@ _API = ("init", "shutdown", "is_initialized", "remote", "put", "get",
         "ObjectRef", "ObjectRefGenerator", "ActorHandle", "exceptions",
         "__version__")
 
-__all__ = ["ops", "models", "serve", "parallel", "train", "resolve_device",
+__all__ = ["ops", "models", "serve", "parallel", "train", "data",
+           "resolve_device",
            "is_dtensor", *_API]
 
 

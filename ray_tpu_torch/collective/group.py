@@ -47,6 +47,10 @@ ACK_PREFIX = "__ack__:"
 #: bounded ack reap — bounds store usage for a peer that drains slowly.
 ZC_WINDOW_BYTES = 64 * 1024 * 1024
 
+#: the CPU each helper actor (a rank's mailbox, the group's coordinator)
+#: asks for: fractional, so that helpers lane-pack into shared workers
+HELPER_CPUS = 0.01
+
 
 def _is_timeout(v) -> bool:
     return isinstance(v, dict) and TIMEOUT_KEY in v
@@ -376,17 +380,18 @@ class GroupContext:
         # max_workers_per_node slot — many live groups would otherwise
         # exhaust the worker cap and wedge the next group's bootstrap.
         self.mailbox = _Mailbox.options(
-            name=mbx_name, num_cpus=0.01,
+            name=mbx_name, num_cpus=HELPER_CPUS,
             max_concurrency=max(4 * world_size, 16)).remote()
         if rank == 0:
             try:
                 self.coord = _Coordinator.options(
-                    name=coord_name, num_cpus=0.01,
+                    name=coord_name, num_cpus=HELPER_CPUS,
                     max_concurrency=max(world_size * 2, 4)).remote(world_size)
             except ValueError:
                 self.coord = _resolve_named(coord_name)
         else:
             self.coord = _resolve_named(coord_name)
+        self._await_helpers(self.timeout_s)
 
         try:
             node_id = ray_tpu_torch.get_runtime_context().get_node_id()
@@ -401,6 +406,41 @@ class GroupContext:
             timeout_s=max(self.timeout_s, 120.0))
         self.mailboxes = {e["rank"]: e["mailbox"] for e in table}
         self.topology = Topology.build({e["rank"]: e["node"] for e in table})
+
+    def _await_helpers(self, limit_s: float) -> None:
+        """Wait up to `limit_s` for this rank's mailbox and the group's
+        coordinator to answer a ping. Each asks for HELPER_CPUS, so none
+        is placed while every CPU is held (a gang whose workers take
+        every CPU): the wait then raises a CollectiveError naming the
+        shortfall, where the bootstrap allgather would block for its own
+        much longer budget and name no cause."""
+        pings = {"mailbox": self.mailbox.ping.remote(),
+                 "coordinator": self.coord.ping.remote()}
+        ready, _ = ray_tpu_torch.wait(list(pings.values()),
+                                      num_returns=len(pings),
+                                      timeout=limit_s)
+        ready_ids = {r.id for r in ready}
+        missing = [what for what, r in pings.items()
+                   if r.id not in ready_ids]
+        if not missing:
+            return
+        for helper in (self.mailbox, self.coord if self.rank == 0 else None):
+            try:
+                if helper is not None:
+                    ray_tpu_torch.kill(helper)
+            except Exception:
+                pass
+        try:
+            free = f"{ray_tpu_torch.available_resources().get('CPU', 0.0):g}"
+        except Exception:
+            free = "an unknown amount of"
+        raise CollectiveError(
+            f"collective group {self.name!r} rank {self.rank}: its "
+            f"{' and '.join(missing)} actor(s) were not placed within "
+            f"{limit_s:.1f}s. Each needs {HELPER_CPUS} CPU and the cluster "
+            f"has {free} CPU free: the gang's workers (or other actors) "
+            "hold every CPU. Leave a CPU free or give the workers less.",
+            group_name=self.name, op="bootstrap")
 
     # -- coordinator path (gather backend + bootstrap) -------------------
 

@@ -65,6 +65,7 @@ from ray_tpu_torch.collective.errors import CollectiveError
 from ray_tpu_torch.core.status import (ActorDiedError, ActorUnavailableError,
                                        NodeDiedError, TaskError,
                                        WorkerCrashedError)
+from ray_tpu_torch.train import session
 from ray_tpu_torch.train.checkpoint import Checkpoint
 from ray_tpu_torch.train.worker_group import WorkerGroup
 
@@ -253,6 +254,9 @@ class ElasticCoordinator:
         self.worker_res = trainer.scaling.worker_resources()
         self.run_tag = ""
         self.summary: Dict[str, Any] = {}
+        # (the generation's attempt tag, how many rank-0 reports the
+        # coordinator has polled in it): what a rebuild recovers after
+        self._polled: Tuple[str, int] = ("", 0)
         # Monotonic per-reporter sequence on gang-demand reports: the
         # GCS drops any report whose seq is <= the last one applied, so
         # a delayed/duplicated stale report (network reordering, chaos
@@ -393,7 +397,17 @@ class ElasticCoordinator:
                 # next generation loads it. Post-kill the directory is
                 # quiescent; a save interrupted by the kill leaves only
                 # an uncommitted tmp dir, which _complete() skips.
-                checkpoint = _latest_checkpoint(run_dir) or checkpoint
+                latest = _latest_checkpoint(run_dir)
+                # rank 0 ran on after the last poll (drain0 returns at
+                # its first fresh report) until the respawn killed it:
+                # the reports it made up to the checkpoint resumed from
+                # were saved with that checkpoint (the plain trainer's
+                # R2 record), so the history keeps no gap
+                attempt, seen0 = self._polled
+                for r in session.unpolled_reports(latest, attempt, seen0):
+                    result.metrics_history.append(r)
+                    result.metrics = r
+                checkpoint = latest or checkpoint
                 if self.el.refill or verdict == "grow":
                     want = (min(self.target, self.max_workers)
                             - group.num_workers)
@@ -452,6 +466,11 @@ class ElasticCoordinator:
         if self.el.step_deadline_s:
             elastic_meta["step_deadline_s"] = self.el.step_deadline_s
         shards = _split_datasets(trainer.datasets, world)
+        # this generation's tag: rank 0 writes the reports not yet polled
+        # into each checkpoint it saves (session._save_unacked)
+        attempt = f"{self.run_tag}:{generation}"
+        seen = [0] * world
+        self._polled = (attempt, 0)
         try:
             coordinator = None
             if world > 1 or trainer.backend.needs_coordinator:
@@ -469,7 +488,7 @@ class ElasticCoordinator:
                     trainer.config, run_dir, trainer.scaling,
                     checkpoint, shards[i], coordinator,
                     trainer.run_config.checkpoint_config.num_to_keep,
-                    trainer.backend, elastic_meta)
+                    trainer.backend, elastic_meta, attempt)
                 for i, w in enumerate(group.workers)])
             if col_group:
                 group.init_host_collective(group_name=col_group)
@@ -481,7 +500,6 @@ class ElasticCoordinator:
             return "remediate", policy
         run_refs = [w.run.remote(trainer.loop, trainer.config)
                     for w in group.workers]
-        seen = [0] * world
 
         def drain0() -> None:
             # Final polls of rank 0 before this generation is torn down.
@@ -506,6 +524,7 @@ class ElasticCoordinator:
                     result.metrics_history.append(r)
                     result.metrics = r
                 seen[0] += len(p["reports"])
+                self._polled = (attempt, seen[0])
                 if p["reports"] or p["finished"] or p["error"] \
                         or time.time() >= deadline:
                     return
@@ -535,6 +554,8 @@ class ElasticCoordinator:
                         result.metrics_history.append(r)
                         result.metrics = r
                 seen[i] += len(poll["reports"])
+                if i == 0:
+                    self._polled = (attempt, seen[0])
                 if poll["reports"]:
                     last_progress = time.time()
                     got_report = True

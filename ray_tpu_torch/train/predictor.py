@@ -6,8 +6,10 @@ python/ray/train/batch_predictor.py). The JAX package's ``JaxPredictor``
 (a jitted apply function) is ``FunctionPredictor`` here: it runs
 ``apply_fn(params, x)`` eagerly under ``torch.no_grad()`` on the params'
 device. ``TorchPredictor`` and ``TransformersPredictor`` are copies.
-``BatchPredictor.predict`` maps a predictor over a Dataset's blocks, and
-``data/`` is not ported yet (ROADMAP.md queue 1 item 17): it raises.
+``BatchPredictor.predict`` maps a predictor over a ``ray_tpu_torch.data``
+Dataset's blocks with an actor pool, as the reference does; a replica
+that should hold a card asks for it with
+``resources_per_replica={"GPU": 1}``.
 """
 
 from __future__ import annotations
@@ -57,10 +59,23 @@ class FunctionPredictor(Predictor):
 
     @classmethod
     def from_checkpoint(cls, checkpoint: Checkpoint, *,
-                        apply_fn: Callable, **kwargs) -> "FunctionPredictor":
+                        apply_fn: Callable, device=None,
+                        **kwargs) -> "FunctionPredictor":
+        """The param tree saved under "params" (or the whole tree), placed
+        on `device`: None means CUDA, as JAX's predictor computes on its
+        default device, and raises without it; "cpu" only when asked."""
+        import torch
+        from torch.utils import _pytree as pytree
+
+        import ray_tpu_torch
+
+        dev = ray_tpu_torch.resolve_device(device)
         state = checkpoint.load_state()
         params = state.get("params", state) if isinstance(state, dict) \
             else state
+        params = pytree.tree_map(
+            lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t,
+            params)
         return cls(apply_fn, params, **kwargs)
 
     def predict(self, batch):
@@ -90,11 +105,44 @@ class BatchPredictor:
     def predict(self, dataset, *, num_replicas: int = 1,
                 resources_per_replica: Optional[dict] = None,
                 batch_size: Optional[int] = None):
-        """A new Dataset of prediction blocks: an actor pool over the
-        dataset's blocks. ``data/`` (Dataset) is not ported yet."""
-        raise NotImplementedError(
-            "BatchPredictor.predict maps over a Dataset, and data/ is not "
-            "ported yet (ROADMAP.md queue 1 item 17)")
+        """Returns a new Dataset of prediction blocks."""
+        import ray_tpu_torch
+        from ray_tpu_torch.data.dataset import Dataset, _transform_block
+        from ray_tpu_torch.util.actor_pool import ActorPool
+
+        ckpt = self.checkpoint
+        pred_cls = self.predictor_cls
+        pred_kwargs = self.predictor_kwargs
+        ops = dataset._ops
+
+        @ray_tpu_torch.remote
+        class _PredActor:
+            def __init__(self):
+                self.predictor = pred_cls.from_checkpoint(ckpt,
+                                                          **pred_kwargs)
+
+            def predict_block(self, idx, block):
+                block = _transform_block(block, ops)
+                return idx, self.predictor.predict(block)
+
+        opts = {"resources": resources_per_replica} \
+            if resources_per_replica else {}
+        actors = [_PredActor.options(**opts).remote()
+                  for _ in range(num_replicas)]
+        pool = ActorPool(actors)
+        for i, ref in enumerate(dataset._block_refs):
+            pool.submit(lambda a, v: a.predict_block.remote(*v), (i, ref))
+        results = []
+        while pool.has_next():
+            results.append(pool.get_next())
+        for a in actors:
+            try:
+                ray_tpu_torch.kill(a)
+            except Exception:
+                pass
+        # pool yields in completion order; restore block order
+        results.sort(key=lambda ib: ib[0])
+        return Dataset([ray_tpu_torch.put(b) for _, b in results], [])
 
 
 class TorchPredictor(Predictor):

@@ -10,10 +10,9 @@ run dir) matches the reference. Where xgboost/lightgbm are not installed,
 their trainers keep the reference API and raise an actionable ImportError
 at construction.
 
-A copy of ``ray_tpu/train/sklearn.py`` over the port's trainer; sklearn is
-imported only in the fitting actor, so ``import ray_tpu_torch.train`` works
-where it is absent. A Dataset is recognised by its ``to_pandas`` (``data/``
-waits for ROADMAP.md queue 1 item 17).
+A copy of ``ray_tpu/train/sklearn.py`` over the port's trainer and
+``ray_tpu_torch.data``; sklearn is imported only in the fitting actor, so
+``import ray_tpu_torch.train`` works where it is absent.
 """
 
 from __future__ import annotations
@@ -75,11 +74,12 @@ class SklearnTrainer:
         self.run_config = run_config or RunConfig()
 
     def _xy(self, ds):
-        """Accept a Dataset (anything with ``to_pandas``), a pandas frame,
-        or (X, y)."""
+        """Accept a ray_tpu_torch.data.Dataset, a pandas frame, or (X, y)."""
+        from ray_tpu_torch.data.dataset import Dataset
+
         if isinstance(ds, tuple):
             return np.asarray(ds[0]), np.asarray(ds[1])
-        if hasattr(ds, "to_pandas"):
+        if isinstance(ds, Dataset):
             ds = ds.to_pandas()
         if self.label_column is None:
             raise ValueError("label_column is required for tabular input")

@@ -251,6 +251,31 @@ def test_backend_registry_and_auto_selection():
         _BACKENDS.pop("fake", None)
 
 
+def test_host_collective_without_a_free_cpu_raises(ray_start_regular):
+    """Q2: a gang whose workers hold every CPU leaves none for the group's
+    helper actors (HELPER_CPUS each). Setting the group up raises a
+    CollectiveError naming the shortfall within the group's timeout; it
+    does not block in the bootstrap allgather."""
+    from ray_tpu_torch.collective.errors import CollectiveError
+    from ray_tpu_torch.train.worker_group import WorkerGroup
+
+    cpus = ray_tpu_torch.cluster_resources()["CPU"]
+    wg = WorkerGroup(num_workers=int(cpus),
+                     resources_per_worker={"CPU": 1.0})
+    try:
+        t0 = time.monotonic()
+        with pytest.raises(CollectiveError, match="0 CPU free") as info:
+            try:
+                wg.init_host_collective("no_cpu", timeout_s=5.0)
+            except ray_tpu_torch.exceptions.TaskError as e:
+                raise e.cause
+        took = time.monotonic() - t0
+        assert "not placed within 5.0s" in str(info.value)
+        assert took < 5.0 + 20.0, took
+    finally:
+        wg.shutdown()
+
+
 def test_train_worker_group_host_collective(ray_start_regular, tmp_path):
     """WorkerGroup routes host-side exchanges through
     ray_tpu_torch.collective: after init_host_collective every gang member

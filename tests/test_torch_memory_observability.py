@@ -242,6 +242,25 @@ def test_pagepool_registers_kv_bytes():
     assert pool._mem_key not in t._recs
 
 
+def test_data_opbuffer_retags_blocks():
+    from ray_tpu_torch.data.execution.interfaces import (BlockMeta, OpBuffer,
+                                                         RefBundle)
+
+    class FakeRef:
+        def __init__(self, key):
+            self.id = key
+
+    t = tracker()
+    t.attribute("blk0", "user", 256)
+    buf = OpBuffer()
+    buf.append(RefBundle(FakeRef("blk0"), BlockMeta(nbytes=256, rows=4), 0))
+    assert t._recs["blk0"].subsystem == "data"
+    assert buf.nbytes == 256
+    buf.popleft()
+    assert t._recs["blk0"].access_count == 1
+    t.release("blk0")
+
+
 # ---------------------------------------------------------------- cluster
 
 
@@ -267,8 +286,9 @@ def _report(**kw):
 def test_attribution_covers_store_bytes(mem_cluster):
     """The tentpole invariant: after a mixed workload the per-subsystem
     store-backed attribution decomposes (>=99% of) the store's used
-    bytes. (The reference also runs a streaming-data pipeline here to
-    retag blocks as "data"; the data layer is not ported yet.)"""
+    bytes, and a data-plane subsystem actually appears."""
+    from ray_tpu_torch import data as rd
+
     refs = [ray_tpu_torch.put(np.full(1 << 18, i, np.uint8)) for i in range(4)]
 
     @ray_tpu_torch.remote
@@ -277,6 +297,9 @@ def test_attribution_covers_store_bytes(mem_cluster):
 
     task_refs = [produce.remote(i) for i in range(3)]
     _ = [ray_tpu_torch.get(r) for r in task_refs]   # read pins + temperature
+    # a small streaming-data run drives OpBuffer retags ("data")
+    ds = rd.from_items(list(range(200)), num_blocks=4).map(lambda x: x * 2)
+    assert len(ds.take_all()) == 200
 
     def covered():
         rep = _report()

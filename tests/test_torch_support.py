@@ -3,8 +3,9 @@
 ``import ray_tpu`` fails on Python >= 3.11 (``RpcTimeout``'s duplicate
 ``TimeoutError`` base at ray_tpu/core/rpc.py:92), so the JAX reference is
 loaded through stub parent packages: ``types.ModuleType`` objects with
-``__path__`` set for ``ray_tpu``, ``ray_tpu.serve``, ``ray_tpu.util`` and
-``ray_tpu.observability``, plus a no-op ``ray_tpu.util.metrics``. The
+``__path__`` set for ``ray_tpu``, ``ray_tpu.serve``, ``ray_tpu.util``,
+``ray_tpu.observability`` and ``ray_tpu.data``, plus a no-op
+``ray_tpu.util.metrics``. The
 stubs (and ``ray_tpu.core.runtime``, reduced to the two functions the
 serializer needs, see ``_runtime_stub``) live in ``sys.modules`` only
 inside ``jax_reference()``: on exit every
@@ -28,7 +29,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 _STUB_PACKAGES = ("ray_tpu", "ray_tpu.serve", "ray_tpu.util",
-                  "ray_tpu.observability")
+                  "ray_tpu.observability", "ray_tpu.data")
 _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.models.gpt2",
                       "ray_tpu.ops.paged_attention",
                       "ray_tpu.ops.flash_attention", "ray_tpu.serve.llm",
@@ -37,7 +38,13 @@ _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.models.gpt2",
                       # runtime modules that load without core/rpc.py
                       "ray_tpu.core.ids", "ray_tpu.core.config",
                       "ray_tpu.core.serialization",
-                      "ray_tpu.core.scheduling_policy")
+                      "ray_tpu.core.scheduling_policy",
+                      # the data layer's modules (numpy; the runtime is
+                      # imported only inside their remote paths)
+                      "ray_tpu.data.dataset", "ray_tpu.data.aggregate",
+                      "ray_tpu.data.grouped", "ray_tpu.data.preprocessors",
+                      "ray_tpu.data.execution.interfaces",
+                      "ray_tpu.data.execution.resource_manager")
 _loaded: dict = {}
 
 
@@ -95,8 +102,9 @@ def _install_stubs():
 class _Reference(types.SimpleNamespace):
     """The JAX reference modules: llama, gpt2, paged_attention,
     flash_attention, llm, paged_kv, kv_transfer, train_step, mesh,
-    sharding; and of the runtime ids, config, serialization,
-    scheduling_policy and common."""
+    sharding; of the runtime ids, config, serialization,
+    scheduling_policy and common; of the data layer dataset, aggregate,
+    grouped, preprocessors, interfaces and resource_manager."""
 
 
 @contextlib.contextmanager
@@ -134,7 +142,14 @@ def jax_reference():
             config=sys.modules["ray_tpu.core.config"],
             serialization=sys.modules["ray_tpu.core.serialization"],
             scheduling_policy=sys.modules["ray_tpu.core.scheduling_policy"],
-            common=sys.modules["ray_tpu.core.common"])
+            common=sys.modules["ray_tpu.core.common"],
+            dataset=sys.modules["ray_tpu.data.dataset"],
+            aggregate=sys.modules["ray_tpu.data.aggregate"],
+            grouped=sys.modules["ray_tpu.data.grouped"],
+            preprocessors=sys.modules["ray_tpu.data.preprocessors"],
+            interfaces=sys.modules["ray_tpu.data.execution.interfaces"],
+            resource_manager=sys.modules[
+                "ray_tpu.data.execution.resource_manager"])
     finally:
         for k in [k for k in sys.modules if _is_ray_tpu(k)]:
             del sys.modules[k]

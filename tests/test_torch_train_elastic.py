@@ -240,6 +240,29 @@ def _chaos_loop(config):
     return "done"
 
 
+def _late_kill_loop(config):
+    """The reference's chaos loop with the kill made `kill_delay_s` late:
+    rank `die_rank` exits hard that long after it reported `die_at`,
+    while its peers run on, report and checkpoint every step, one every
+    `step_s`."""
+    import os as _os
+    import time as _time
+
+    from ray_tpu_torch.train import session
+
+    ck = session.get_checkpoint()
+    start = ck.load_state()["step"] if ck else 0
+    for step in range(start, config["steps"]):
+        session.report({"step": step, "loss": 1.0 / (step + 1.0)},
+                       state={"step": step + 1})
+        if (ck is None and session.world_rank() == config["die_rank"]
+                and step == config["die_at"]):
+            _time.sleep(config["kill_delay_s"])
+            _os._exit(1)
+        _time.sleep(config["step_s"])
+    return "done"
+
+
 def _straggler_loop(config):
     """Rank 1 turns slow from `slow_from` on generation 1 only; every
     step is coupled through a host-collective allreduce, so the whole
@@ -330,6 +353,40 @@ def test_elastic_chaos_kill_resume(ray_start_regular, tmp_path):
     assert any(e.get("kind") == "remediation"
                and str(e.get("component", "")).startswith("train:chaos")
                for e in events)
+
+
+def test_elastic_late_kill_keeps_every_report(ray_start_regular, tmp_path):
+    """Q1: a kill 0.5 s late, the survivor reporting and checkpointing
+    every few ms meanwhile. The coordinator's last poll of rank 0 returns
+    at its first fresh report and rank 0 runs on until the rebuild kills
+    it; the reports it made up to the checkpoint the next generation
+    resumes from come back from that checkpoint's record, so the history
+    has every step. (Without that record the reports made between the
+    last poll and the kill are lost while their checkpoint is resumed
+    from: a gap.)"""
+    steps = 800
+    trainer = DataParallelTrainer(
+        _late_kill_loop,
+        train_loop_config={"steps": steps, "die_rank": 1, "die_at": 2,
+                           "kill_delay_s": 0.5, "step_s": 0.002},
+        scaling_config=ScalingConfig(
+            num_workers=2, use_gpu=False,
+            resources_per_worker={"CPU": 0.5},
+            elastic=ElasticConfig(min_workers=1,
+                                  poll_interval_s=0.1,
+                                  reserve_timeout_s=60.0,
+                                  drain_grace_s=2.0)),
+        run_config=RunConfig(
+            name="latekill", storage_path=str(tmp_path),
+            checkpoint_config=CheckpointConfig(num_to_keep=3)),
+        backend=Backend())
+    result = _fit_within(trainer, 240.0)
+    assert result.ok, result.error
+    rems = [e for e in result.elastic["remediations"]
+            if e["action"] == "remediate"]
+    assert rems and rems[0]["suspects"] == {"1": "died"}
+    got = sorted({r["step"] for r in result.metrics_history})
+    assert got == list(range(steps)), got
 
 
 def test_elastic_straggler_demotion(ray_start_regular, tmp_path):

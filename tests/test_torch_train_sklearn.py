@@ -3,8 +3,7 @@
 Reference test model: train/tests/test_sklearn_trainer.py.
 
 Port of tests/test_train_sklearn.py, aimed at ray_tpu_torch. Added: a
-Dataset is read through its ``to_pandas`` (the data layer waits for
-ROADMAP.md queue 1 item 17), so a stand-in with that method trains.
+``ray_tpu_torch.data`` Dataset trains, read through its ``to_pandas``.
 """
 
 import numpy as np
@@ -92,16 +91,16 @@ def test_sklearn_reads_a_dataset_through_to_pandas(ray_start_regular,
 
     from ray_tpu_torch.train import RunConfig
 
+    from ray_tpu_torch import data as rd
+
     X, y = _toy()
     df = pd.DataFrame(X, columns=list("abcd"))
     df["label"] = y
-
-    class Frames:
-        def to_pandas(self):
-            return df
+    ds = rd.from_pandas(df, num_blocks=4)
+    assert ds.num_blocks() == 4
 
     t = SklearnTrainer(
-        estimator=LogisticRegression(), datasets={"train": Frames()},
+        estimator=LogisticRegression(), datasets={"train": ds},
         label_column="label",
         run_config=RunConfig(storage_path=str(tmp_path), name="skds"))
     res = t.fit()

@@ -6,8 +6,8 @@ and prepare_model syncs replicas.
 
 Port of tests/test_train_torch.py, aimed at ray_tpu_torch. Added: the
 port's FunctionPredictor (the JAX package's JaxPredictor) from a DCP
-checkpoint of a GPT-2 param tree, and BatchPredictor's pointer to the
-data layer it waits for.
+checkpoint of a GPT-2 param tree, and BatchPredictor over a
+``ray_tpu_torch.data`` Dataset.
 """
 
 import numpy as np
@@ -146,9 +146,10 @@ def test_torch_predictor_roundtrip(tmp_path):
 
 def test_function_predictor_from_checkpoint(tmp_path):
     """FunctionPredictor.from_checkpoint restores a param tree saved with
-    DCP (under "params") and predicts apply_fn(params, features) without
-    gradients, on the params' device (the CPU here): the tiny GPT-2's
-    logits equal a direct forward."""
+    DCP (under "params") onto the device asked for (the CPU here; None
+    means CUDA) and predicts apply_fn(params, features) without
+    gradients, on the params' device: the tiny GPT-2's logits equal a
+    direct forward."""
     import torch
 
     from ray_tpu_torch.models import gpt2
@@ -159,7 +160,7 @@ def test_function_predictor_from_checkpoint(tmp_path):
     ck = Checkpoint.from_state({"params": params, "step": 3},
                                str(tmp_path / "ck"))
     pred = FunctionPredictor.from_checkpoint(
-        ck, apply_fn=lambda p, x: gpt2.forward(p, x, cfg))
+        ck, apply_fn=lambda p, x: gpt2.forward(p, x, cfg), device="cpu")
     assert pred.device == torch.device("cpu")
     x = np.random.default_rng(0).integers(0, 256, size=(2, 9))
     out = pred.predict({"features": x})
@@ -169,11 +170,23 @@ def test_function_predictor_from_checkpoint(tmp_path):
     np.testing.assert_array_equal(out["features"], x)
 
 
-def test_batch_predictor_waits_for_the_data_layer(tmp_path):
+def test_batch_predictor_waits_for_the_data_layer(cluster, tmp_path):
+    """The data layer has come: predict maps the predictor over the
+    Dataset's blocks in two actors and keeps their order."""
+    import torch
+
+    from ray_tpu_torch import data as rd
     from ray_tpu_torch.train import (BatchPredictor, Checkpoint,
                                      FunctionPredictor)
 
-    bp = BatchPredictor(Checkpoint(str(tmp_path)), FunctionPredictor,
-                        apply_fn=lambda p, x: x)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        bp.predict(object())
+    w = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    ckpt = Checkpoint.from_state({"w": w}, str(tmp_path / "ck"))
+    x = np.random.default_rng(3).standard_normal((10, 3)).astype(np.float32)
+    ds = rd.from_numpy({"features": x}, num_blocks=4)
+    out = BatchPredictor(ckpt, FunctionPredictor, device="cpu",
+                         apply_fn=lambda p, f: f @ p["w"]).predict(
+        ds, num_replicas=2)
+    assert out.num_blocks() == 4
+    got = np.concatenate([b["predictions"] for b in out.iter_batches(
+        batch_size=3)])
+    np.testing.assert_array_equal(got, (torch.as_tensor(x) @ w).numpy())
