@@ -62,7 +62,29 @@ printing one JSON line:
    TRAIN_SHARDED_LOSS_RTOL of the train phase's, its exact launch counts,
    only the three TMA/wgmma flash kernels in a step's profile, params and
    AdamW moments as DTensors; step time, tokens/s and peak memory;
-12. trainer: the train layer through ``DataParallelTrainer`` (BASELINE
+12. sp_pp: sequence and pipeline parallelism through ``forward_sp`` (ring,
+   then Ulysses) and ``forward_pp`` (gpipe, then 1f1b, M 2, flash) under
+   ``make_train_step`` on a 1-rank NCCL mesh (``ShardingRules.full()``):
+   the 1b preset at full width and 16 layers, bf16 compute over f32
+   masters, B 4 S 1024, two AdamW steps a route from one seeded init:
+   each first loss within SP_PP_LOSS_RTOL of forward's on the same batch
+   and weights, the pipeline's exact K1/K3/K4 launches, ms a step and
+   peak memory; then the four routes at the 1b width cut to 2 layers in
+   f32 without a mesh, card vs CPU (losses and grad norms within 1e-4,
+   each route's logits within LOGITS_TOL of forward's). One rank: no
+   collective runs;
+13. moe: the MoE model's 8x1b preset (~4.8 B params, 8 experts, top-2),
+   flash, bf16 compute: card vs CPU at 2 layers in f32 (the routing of
+   every layer equal, then the loss and every gradient); ``loss_fn`` at
+   all 16 layers, B 4 S 1024, timed with its peak memory; training at
+   full width cut to 4 layers, 5 AdamW steps after a warm-up, falling
+   finite losses, exact K1/K3/K4 launches, ms a step, tokens/s, peak
+   memory and a step's device profile;
+14. vit: ViT-B/16 (224 x 224, ~86 M params), bf16 over f32, B 64 seeded
+   images, 5 AdamW steps after a warm-up: falling finite losses, images/s,
+   peak memory and a step's profile; card vs CPU at 2 layers in f32. No
+   kernel of ours;
+15. trainer: the train layer through ``DataParallelTrainer`` (BASELINE
    target 1): GPT-2 card vs CPU (the 125m width cut to 2 layers, f32, 2
    AdamW steps, within the train_card_vs_cpu bounds); GPT-2 125M at full
    width and all 12 layers (bf16 compute, f32 params, remat, B 8 S 1024)
@@ -77,7 +99,7 @@ printing one JSON line:
    TRAIN_SHARDED_LOSS_RTOL of the same run in process; no process left
    after ``shutdown()``; step time, tokens/s, MFU, peak memory, DCP
    seconds and bytes and a GPT-2 step's device profile;
-13. data: the data layer (``ray_tpu_torch.data``) in a session of the
+16. data: the data layer (``ray_tpu_torch.data``) in a session of the
    port's runtime: GPT-2 125M at full width trained from a Dataset
    (``from_numpy`` of 96 rows of 1025 seeded tokens in 8 blocks,
    ``map_batches``, ``random_shuffle``) through ``DataParallelTrainer``
@@ -93,12 +115,12 @@ printing one JSON line:
    ``shutdown()``; step time, tokens/s, MFU, the host's wait in next(),
    the copies' streams and overlap in a profiled window, the actor's
    start, the checkpoint load and rows/s as information;
-14. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
+17. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
    and rules=fsdp_tp over the engine phase's first wave: every greedy
    request's tokens equal to the engine phase's; decode tokens/s and peak
    memory. On one rank every placement is Replicate: these two prove the
    mesh plumbing and the kernels under it, not collectives;
-15. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
+18. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
    GPU detected without an override): an actor with ``num_gpus=1`` builds
    the engine phase's paged 7b engine in a worker process and serves the
    engine_sharded phase's wave 1 through one method call (K1 and K6
@@ -108,7 +130,7 @@ printing one JSON line:
    (the bf16 embedding put in the actor: same-process get is the tensor,
    the driver's get bit-exact); the no-op round trip and the staging
    rate; after ``shutdown()`` no process of the session alive;
-16. serve: the monolithic app through the serve layer: ``serve.run`` of an
+19. serve: the monolithic app through the serve layer: ``serve.run`` of an
    ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
    engine, decode_block 8) behind an ``LLMRouter`` with an HTTP route;
    four greedy prompts one at a time through the router's streaming
@@ -118,13 +140,13 @@ printing one JSON line:
    once; every stream's frames against its final frame, K1/K6 counted in
    the replica, its tokens counter read back from the GCS, the router's
    request count with no 429, no process left after shutdown;
-17. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
+20. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
    8 slots, page groups of 4 pages) behind ``DisaggRouter``; seven greedy
    prompts one at a time, equal to the handoff replayed in process (engine
    A prefills and exports each full group, a fresh engine B imports them
    and generates); each group crossing the store once at its byte size,
    every handoff acked, K1 in the prefill and K6 in the decode replica;
-18. kernels: one line with every kernel's numbers;
+21. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -179,6 +201,18 @@ SETUP_PEAK_MARGIN_GB = 1.0
 # unsharded one is a mean (its last bit). The losses must agree within
 # 1e-5 relative (f32 rounding of the ~10-to-2 losses, with headroom)
 TRAIN_SHARDED_LOSS_RTOL = 1e-5
+
+# sp_pp: a route's first-step loss (bf16 compute, 16 layers, ~10.4 at the
+# seeded init) against forward's (flash) on the same batch and weights.
+# Ring and Ulysses round their attention once more to bf16 and sum in
+# another order (2^-8 relative an element), the pipeline runs 2
+# microbatches through other matmul shapes; the mean nll over 4096 tokens
+# moves far less than one element: 2e-3 relative
+SP_PP_LOSS_RTOL = 2e-3
+# moe card vs CPU, 2 layers at the 8x1b width in f32 (no TF32), the routing
+# equal first: every gradient leaf within 1e-4 of its own largest element
+# (f32 sums of 2048- and 5632-long products in another order, ~1e-6)
+MOE_GRAD_RTOL = 1e-4
 
 RESULTS: dict = {"phases": {}}
 
@@ -1065,6 +1099,472 @@ def phase_train_sharded():
                  and res["step_ran_wgmma_dq_only"]
                  and res["step_ran_wgmma_dkdv_only"]
                  and res["step_ran_only_three_flash_kernels"])
+    return res
+
+
+# --- sequence and pipeline parallel, MoE, ViT ----------------------------------
+
+
+def _route_loss(route: str, cfg, mesh, rules, M: int):
+    """(loss(params, batch), logits(params, inputs)) through one route:
+    "forward" (llama.forward), "ring"/"ulysses" (forward_sp) or
+    "gpipe"/"1f1b" (forward_pp with M microbatches, flash). On a mesh the
+    logits come back as a DTensor of one rank, whose local tensor is the
+    whole; the loss is the mean next-token nll of them."""
+    from ray_tpu_torch import is_dtensor
+    from ray_tpu_torch.models import llama
+
+    if route == "forward":
+        def logits(p, x):
+            return llama.forward(p, x, cfg, mesh=mesh, rules=rules)
+    elif route in ("ring", "ulysses"):
+        c = cfg.replace(attn_impl=route)
+
+        def logits(p, x):
+            return llama.forward_sp(p, x, c, mesh, rules=rules)
+    else:
+        c = cfg.replace(attn_impl="flash", pp_schedule=route)
+
+        def logits(p, x):
+            return llama.forward_pp(p, x, c, mesh, num_microbatches=M,
+                                    rules=rules)
+
+    def local(x):
+        return x.to_local() if is_dtensor(x) else x
+
+    def loss(p, b):
+        return llama._nll(local(logits(p, b["inputs"])),
+                          local(b["targets"])).mean()
+
+    return loss, lambda p, x: local(logits(p, x))
+
+
+SP_PP_ROUTES = ("ring", "ulysses", "gpipe", "1f1b")
+
+
+def _sp_pp_card_vs_cpu(cfg, B: int, S: int, device: str):
+    """The four routes (and forward) at `cfg` in f32 with no mesh (one
+    rank, one stage), from one init, on the card and on the CPU: each
+    route's loss and grad norm card vs CPU, and each route's logits
+    against forward's on the card."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, size=(B, S + 1)))
+    out = {}
+    for dev in (device, "cpu"):
+        batch = {"inputs": tokens[:, :-1].to(dev),
+                 "targets": tokens[:, 1:].to(dev)}
+        for route in ("forward",) + SP_PP_ROUTES:
+            p = ts._map(lambda t: t.to(dev, copy=True).requires_grad_(True),
+                        params)
+            loss_f, logits_f = _route_loss(route, cfg, None, None, 2)
+            with torch.no_grad():
+                lg = logits_f(p, batch["inputs"]).float().cpu()
+            loss = loss_f(p, batch)
+            loss.backward()
+            gn = float(ts.optax_global_norm([t.grad for t in
+                                             ts._leaves(p)]))
+            out[(dev, route)] = (float(loss.detach()), gn, lg)
+    runs = {}
+    ok = True
+    for route in SP_PP_ROUTES:
+        (lc, gc, xc), (lh, gh, _) = out[(device, route)], out[("cpu", route)]
+        fwd = out[(device, "forward")][2]
+        r = {"loss_card": lc, "loss_cpu": lh,
+             "loss_rel_err": abs(lc - lh) / abs(lh),
+             "grad_norm_rel_err": abs(gc - gh) / abs(gh),
+             "logits_vs_forward_max_abs_err": float((xc - fwd).abs().max())}
+        r["ok"] = (r["loss_rel_err"] <= TRAIN_LOSS_RTOL
+                   and r["grad_norm_rel_err"] <= TRAIN_LOSS_RTOL
+                   and r["logits_vs_forward_max_abs_err"] <= LOGITS_TOL)
+        runs[route] = r
+        ok = ok and r["ok"]
+    return {"cfg": f"{cfg.d_model} wide, {cfg.n_layers} layers, f32, no "
+                   f"mesh, B {B} S {S}", "loss_rel_tol": TRAIN_LOSS_RTOL,
+            "logits_tol": LOGITS_TOL, "routes": runs, "ok": ok}
+
+
+def phase_sp_pp(device="cuda", preset="1b", batch=(4, 1024),
+                check=("1b", 2, 2, 128)):
+    """Sequence and pipeline parallelism through their entry points on a
+    1-rank mesh (``local_mesh``; NCCL on the card): the `preset` at full
+    width and depth, bf16 compute over f32 masters, remat, B 4 S 1024,
+    ``ShardingRules.full()``; per route a fresh seeded init (the same
+    weights), the loss of forward (flash) on the batch, then two AdamW
+    steps (adamw(3e-4, weight_decay=0.01)) through ``make_train_step``
+    with the route's loss: ``forward_sp`` (ring, then Ulysses) and
+    ``forward_pp`` (gpipe, then 1f1b, M 2, flash). The first step's loss is
+    held against forward's within SP_PP_LOSS_RTOL; the second is timed.
+    The launch counters are zeroed before the four routes and read after:
+    the pipeline's K1 runs 2 M L times a gpipe step (the forward and remat's
+    recompute) and 3 M L a 1f1b step (its backward recomputes the stage
+    first), K3/K4 M L each; ring and Ulysses launch none. Then `check`
+    (preset, layers, B, S): the four routes in f32 without a mesh, card
+    against CPU (``_sp_pp_card_vs_cpu``). One rank: no collective runs.
+    The same two steps through ``forward`` (loss_fn's route on one rank)
+    come first, as the baseline of the routes' times; its launches, and
+    those of each route's profiled step, are not counted."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.parallel.mesh import MeshSpec, local_mesh
+    from ray_tpu_torch.parallel.sharding import ShardingRules
+
+    on_card = device == "cuda"
+    B, S = batch
+    M = 2
+    cfg = llama.PRESETS[preset].replace(attn_impl="flash", remat=True,
+                                        f32_logits=False)
+    mesh = local_mesh(MeshSpec(fsdp=-1), device=device)
+    rules = ShardingRules.full()
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(B, S + 1)), device=device)
+    batch_ = {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+    print("sp_pp: no collective ran: one rank", flush=True)
+    res = {"cfg": f"{preset}, {cfg.n_layers} layers, bf16 compute, f32 "
+                  f"master weights, remat, B {B} S {S}, full() on a 1-rank "
+                  f"mesh, adamw(3e-4, weight_decay=0.01), 2 steps a route",
+           "mesh": str(mesh), "collectives": "no collective ran: one rank",
+           "loss_rel_tol": SP_PP_LOSS_RTOL, "routes": {}}
+    ok = True
+    _reset_train_launches()
+    for route in ("forward",) + SP_PP_ROUTES:
+        before = _train_launches()
+        init, state_sh = ts.make_train_state_init(
+            functools.partial(llama.init_params, cfg=cfg),
+            ts.adamw(3e-4, weight_decay=0.01), mesh, rules,
+            llama.param_specs(cfg), device=device)
+        state = init(0)
+        base_loss, _ = _route_loss("forward", cfg, mesh, rules, M)
+        loss_f, _ = _route_loss(route, cfg, mesh, rules, M)
+        step = ts.make_train_step(loss_f, mesh=mesh, rules=rules,
+                                  state_shardings=state_sh)
+        fwd_launches = _train_launches()
+        with torch.no_grad():
+            want = float(base_loss(state.params, ts._place_batch(
+                batch_, ts.batch_sharding(mesh, rules, batch_))))
+        _set_train_launches(fwd_launches)     # forward's are not the path's
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        state, m = step(state, batch_)
+        first = float(m["loss"])
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch_)
+        second = float(m["loss"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        r = {"forward_loss": want, "loss_step1": first, "loss_step2": second,
+             "loss_rel_diff": abs(first - want) / abs(want),
+             "step_ms": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+             "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                             if on_card else None)}
+        r["ok"] = (bool(np.isfinite([first, second]).all())
+                   and r["loss_rel_diff"] <= SP_PP_LOSS_RTOL)
+        if route == "forward":
+            # the baseline's launches are not the path's
+            _set_train_launches(before)
+        if on_card:
+            counted = _train_launches()
+            r["profile_step"] = device_profile(
+                lambda: step(state, batch_), lambda: step(state, batch_))
+            _set_train_launches(counted)
+        res["routes"][route] = r
+        ok = ok and r["ok"]
+        del state, step
+        if on_card:
+            torch.cuda.empty_cache()
+    L = cfg.n_layers
+    launches = _train_launches()
+    expect = {"flash_attention_fwd": 2 * (2 * M * L + 3 * M * L),
+              "flash_attention_fwd_window": 0,
+              "flash_attention_bwd_dq": 2 * 2 * M * L,
+              "flash_attention_bwd_dkdv": 2 * 2 * M * L}
+    res.update(launches=launches, launches_expected=expect)
+    if check is not None:
+        cp, layers, cb, cs = check
+        ccfg = llama.PRESETS[cp].replace(n_layers=layers,
+                                         dtype=torch.float32,
+                                         attn_impl="flash", remat=True)
+        res["card_vs_cpu"] = _sp_pp_card_vs_cpu(ccfg, cb, cs, device)
+        ok = ok and res["card_vs_cpu"]["ok"]
+    res["ok"] = ok and launches == expect
+    return res
+
+
+def _set_train_launches(counts):
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    (fa.launches, fa.launches_window, fa.launches_dq,
+     fa.launches_dkdv) = (counts["flash_attention_fwd"],
+                          counts["flash_attention_fwd_window"],
+                          counts["flash_attention_bwd_dq"],
+                          counts["flash_attention_bwd_dkdv"])
+
+
+def _moe_routes(run):
+    """run() with every layer's top-k expert indices recorded (the MoE
+    FFN's input routed again beside it): (run's result, [idx per layer])."""
+    from ray_tpu_torch.models import moe
+
+    seen = []
+    real = moe._moe_ffn
+
+    def record(x, lp, cfg):
+        seen.append(moe._route(x.reshape(-1, x.shape[-1]), lp["router"],
+                               cfg)[2].cpu())
+        return real(x, lp, cfg)
+
+    moe._moe_ffn = record
+    try:
+        return run(), seen
+    finally:
+        moe._moe_ffn = real
+
+
+def _moe_card_vs_cpu(cfg, B: int, S: int, device: str):
+    """`cfg` in f32 from one init on the card and on the CPU: the routing
+    of every layer (equal, asserted before anything else is compared),
+    then the loss and every gradient."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import train_step as ts
+
+    params = moe.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.as_tensor(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, size=(B, S + 1)))
+    out = {}
+    for dev in (device, "cpu"):
+        p = ts._map(lambda t: t.to(dev, copy=True).requires_grad_(True),
+                    params)
+
+        def run():
+            loss = moe.loss_fn(p, {"tokens": tokens.to(dev)}, cfg)
+            loss.backward()
+            return float(loss.detach())
+
+        loss, routes = _moe_routes(run)
+        out[dev] = (loss, routes, ts._map(lambda t: t.grad.float().cpu(),
+                                          p))
+    (lc, rc, gc), (lh, rh, gh) = out[device], out["cpu"]
+    same = len(rc) == len(rh) == cfg.n_layers and all(
+        torch.equal(a, b) for a, b in zip(rc, rh))
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(ts._leaves(gc), ts._leaves(gh)))
+    r = {"cfg": f"{cfg.d_model} wide, {cfg.n_experts} experts, "
+                f"{cfg.n_layers} layers, f32, B {B} S {S}",
+         "routing_equal": same, "loss_card": lc, "loss_cpu": lh,
+         "loss_rel_err": abs(lc - lh) / abs(lh),
+         "grad_max_rel_err": grad_err, "loss_rel_tol": TRAIN_LOSS_RTOL,
+         "grad_rel_tol": MOE_GRAD_RTOL}
+    r["ok"] = (same and r["loss_rel_err"] <= TRAIN_LOSS_RTOL
+               and grad_err <= MOE_GRAD_RTOL)
+    return r
+
+
+def phase_moe(device="cuda", preset="8x1b", batch=(4, 1024),
+              train_layers=4, check=(2, 1, 128)):
+    """The MoE model at `preset` (8x1b: d_model 2048, 16 layers, H 16, KV 8,
+    d_ff 5632, 8 experts, top-2, capacity 1.5; ~4.8 B params), flash, bf16
+    compute over f32 params. First `check` (layers, B, S): the full width
+    cut to 2 layers in f32, card vs CPU (``_moe_card_vs_cpu``). Then, with
+    the launch counters zeroed: (a) ``loss_fn`` at all layers, B 4 S 1024,
+    a warm-up and 3 timed runs without gradients (K1 16 a run); (b) the
+    full width cut to `train_layers` layers (f32 masters + AdamW at ~16 B
+    a param: 16 layers would take ~77 GB before activations), adamw(3e-4,
+    weight_decay=0.01), a warm-up and 5 steps on one seeded batch: the
+    loss finite and falling (K1, K3, K4 once a layer a step: the model
+    has no remat, as in the reference)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import train_step as ts
+
+    on_card = device == "cuda"
+    B, S = batch
+    cfg = moe.PRESETS[preset].replace(attn_impl="flash")
+    res = {"cfg": f"{preset} ({moe.num_params(cfg) / 1e9:.3f} B params), "
+                  f"flash, bf16 compute, f32 params, B {B} S {S}",
+           "n_params": moe.num_params(cfg),
+           "capacity": moe.capacity(cfg, B * S),
+           "dispatch_shape": [B * S * cfg.top_k, cfg.n_experts,
+                              moe.capacity(cfg, B * S)]}
+    ok = True
+    if check is not None:
+        layers, cb, cs = check
+        res["card_vs_cpu"] = _moe_card_vs_cpu(
+            cfg.replace(n_layers=layers, dtype=torch.float32), cb, cs,
+            device)
+        ok = res["card_vs_cpu"]["ok"]
+
+    tokens = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, size=(B, S + 1)), device=device)
+    batch_ = {"tokens": tokens}
+    _reset_train_launches()
+    # (a) the forward and loss at all layers
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = moe.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg)
+    with torch.no_grad():
+        warm = float(moe.loss_fn(params, batch_, cfg))
+        if on_card:
+            torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fwd_losses = [float(moe.loss_fn(params, batch_, cfg))
+                      for _ in range(3)]
+        fwd_ms = (time.perf_counter() - t0) * 1e3 / 3
+    res["forward"] = {
+        "layers": cfg.n_layers, "setup_s": setup_s, "warmup_loss": warm,
+        "losses": fwd_losses, "ms": fwd_ms,
+        "tokens_per_s": B * S / fwd_ms * 1e3,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None)}
+    ok = ok and bool(np.isfinite([warm] + fwd_losses).all())
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) training at train_layers layers
+    tcfg = cfg.replace(n_layers=train_layers)
+    init, _ = ts.make_train_state_init(
+        functools.partial(moe.init_params, cfg=tcfg),
+        ts.adamw(3e-4, weight_decay=0.01), device=device)
+    state = init(0)
+    step = ts.make_train_step(lambda p, b: moe.loss_fn(p, b, tcfg))
+    state, m = step(state, batch_)              # warm-up
+    warm = float(m["loss"])
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, m = step(state, batch_)
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    launches = _train_launches()
+    L = train_layers
+    expect = {"flash_attention_fwd": 4 * cfg.n_layers + 6 * L,
+              "flash_attention_fwd_window": 0,
+              "flash_attention_bwd_dq": 6 * L,
+              "flash_attention_bwd_dkdv": 6 * L}
+    res["train"] = {
+        "layers": L, "n_params": moe.num_params(tcfg), "warmup_loss": warm,
+        "losses": losses, "step_ms": step_ms,
+        "tokens_per_s": B * S / step_ms * 1e3,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None)}
+    res.update(launches=launches, launches_expected=expect)
+    ok = (ok and bool(np.isfinite([warm] + losses).all())
+          and losses[-1] < warm and launches == expect)
+    if on_card:
+        res["train"]["profile_step"] = device_profile(
+            lambda: step(state, batch_), lambda: step(state, batch_))
+    res["ok"] = ok
+    return res
+
+
+def phase_vit(device="cuda", preset="base", batch=64, steps=5,
+              check=(2, 2)):
+    """ViT at `preset` (base: ViT-B/16, 224 x 224 x 3 images, patch 16,
+    d_model 768, 12 layers, 1000 classes; ~86 M params), bf16 compute over
+    f32 params, remat, adamw(3e-4, weight_decay=0.01): a warm-up and
+    `steps` steps on one batch of seeded images and labels, the loss
+    finite and falling; images/s, peak memory and a step's device
+    profile. Then `check` (layers, B): the full width cut to 2 layers in
+    f32, card vs CPU, the loss and grad norm within TRAIN_LOSS_RTOL. No
+    kernel of ours runs (the reference's ViT reaches no Pallas kernel)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.parallel import train_step as ts
+
+    on_card = device == "cuda"
+    cfg = vit.PRESETS[preset]
+    rng = np.random.default_rng(12)
+
+    def make_batch(n, c):
+        return {"images": torch.as_tensor(rng.standard_normal(
+            (n, c.image_size, c.image_size, c.channels)).astype(np.float32)),
+            "labels": torch.as_tensor(rng.integers(0, c.num_classes, n))}
+
+    b = {k: v.to(device) for k, v in make_batch(batch, cfg).items()}
+    init, _ = ts.make_train_state_init(
+        functools.partial(vit.init_params, cfg=cfg),
+        ts.adamw(3e-4, weight_decay=0.01), device=device)
+    state = init(0)
+    step = ts.make_train_step(lambda p, bb: vit.loss_fn(p, bb, cfg))
+    state, m = step(state, b)                   # warm-up
+    warm = float(m["loss"])
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    res = {"cfg": f"vit {preset} ({vit.num_params(cfg) / 1e6:.1f} M params)"
+                  f", bf16 compute, f32 params, remat, B {batch}, "
+                  f"adamw(3e-4, weight_decay=0.01)",
+           "n_params": vit.num_params(cfg), "warmup_loss": warm,
+           "losses": losses, "step_ms": step_ms,
+           "images_per_s": batch / step_ms * 1e3,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if on_card else None)}
+    ok = bool(np.isfinite([warm] + losses).all()) and losses[-1] < warm
+    if on_card:
+        res["profile_step"] = device_profile(lambda: step(state, b),
+                                             lambda: step(state, b))
+    del state, step
+    if check is not None:
+        layers, cb = check
+        ccfg = cfg.replace(n_layers=layers, dtype=torch.float32)
+        params = vit.init_params(torch.Generator().manual_seed(0), ccfg)
+        cbatch = make_batch(cb, ccfg)
+        out = {}
+        for dev in (device, "cpu"):
+            p = ts._map(lambda t: t.to(dev, copy=True).requires_grad_(True),
+                        params)
+            loss = vit.loss_fn(p, {k: v.to(dev) for k, v in cbatch.items()},
+                               ccfg)
+            loss.backward()
+            out[dev] = (float(loss.detach()), float(ts.optax_global_norm(
+                [t.grad for t in ts._leaves(p)])))
+        (lc, gc), (lh, gh) = out[device], out["cpu"]
+        res["card_vs_cpu"] = {
+            "cfg": f"{ccfg.d_model} wide, {layers} layers, f32, B {cb}",
+            "loss_card": lc, "loss_cpu": lh,
+            "loss_rel_err": abs(lc - lh) / abs(lh),
+            "grad_norm_rel_err": abs(gc - gh) / abs(gh),
+            "tol": TRAIN_LOSS_RTOL}
+        ok = (ok and res["card_vs_cpu"]["loss_rel_err"] <= TRAIN_LOSS_RTOL
+              and res["card_vs_cpu"]["grad_norm_rel_err"] <= TRAIN_LOSS_RTOL)
+    res["ok"] = ok
     return res
 
 
@@ -3221,8 +3721,9 @@ def ran_wgmma_fwd_only(profile) -> bool:
 
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
-          "train_card_vs_cpu", "train", "train_sharded", "trainer", "data",
-          "engine_sharded", "runtime", "serve", "serve_disagg")
+          "train_card_vs_cpu", "train", "train_sharded", "sp_pp", "moe",
+          "vit", "trainer", "data", "engine_sharded", "runtime", "serve",
+          "serve_disagg")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -3235,6 +3736,7 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "engine_contiguous": phase_engine_contiguous,
                "train_card_vs_cpu": phase_train_card_vs_cpu,
                "train": phase_train, "train_sharded": phase_train_sharded,
+               "sp_pp": phase_sp_pp, "moe": phase_moe, "vit": phase_vit,
                "trainer": phase_trainer, "data": phase_data,
                "engine_sharded": phase_engine_sharded,
                "runtime": phase_runtime, "serve": phase_serve,
@@ -3358,8 +3860,9 @@ def main() -> int:
     # engine_sharded, runtime's actor (counted in its worker process), and
     # the serve phases' replicas (counted in theirs: serve's one replica,
     # serve_disagg's prefill and decode replicas summed); training: train,
-    # train_card_vs_cpu (the run on which K2 launches), train_sharded and
-    # trainer's workers (counted in theirs: the GPT-2 runs, none, and the
+    # train_card_vs_cpu (the run on which K2 launches), train_sharded,
+    # sp_pp's pipeline routes, moe's forward and training, and trainer's
+    # workers (counted in theirs: the GPT-2 runs, none, and the
     # Llama run); data: the batch predictor's actor (counted in its
     # process))
     paths = {"engine": ph["engine"]["launches"],
@@ -3370,6 +3873,8 @@ def main() -> int:
              "train": ph["train"]["launches"],
              "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"],
              "train_sharded": ph["train_sharded"]["launches"],
+             "sp_pp": ph["sp_pp"]["launches"],
+             "moe": ph["moe"]["launches"],
              "trainer": ph["trainer"]["launches"],
              "data": ph["data"]["launches"],
              "engine_sharded": ph["engine_sharded"]["launches"],

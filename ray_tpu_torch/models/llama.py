@@ -42,8 +42,16 @@ gradient backward, through DTensor's ``redistribute``); the ``tp`` axis
 splits attention and the MLP Megatron-style (local heads, column- and
 row-parallel matmuls, ``parallel.sharding``'s f and g all-reduces). The
 serving functions take sharded params too and gather each weight whole at
-its use. ``forward_sp``/``forward_pp`` (sequence and pipeline parallel)
-wait for ROADMAP.md queue 1 item 8.
+its use.
+
+Sequence parallel (``forward_sp``): each sp rank runs ``forward`` on its
+chunk of the sequence, RoPE at its global offset, and attention is ring
+(``ops/ring_attention.py``) or Ulysses (``ops/ulysses.py``) over the sp
+axis; each rank's weight gradients are a part, summed over sp with the data
+axes'. Pipeline parallel (``forward_pp``): embedding and head on every
+stage, the layers split into pp stages of ``parallel/pipeline.py``'s trunk
+(``cfg.pp_schedule``: "gpipe" or "1f1b"); a stage with flash at S >= 128
+runs K1 and, in its backward, K3/K4.
 """
 
 from __future__ import annotations
@@ -73,7 +81,7 @@ class LlamaConfig:
     max_seq_len: int = 4096
     dtype: Any = torch.bfloat16        # activation/compute dtype
     param_dtype: Any = torch.float32   # master weights
-    attn_impl: str = "xla"             # "xla" | "flash" ("ring"/"ulysses" wait)
+    attn_impl: str = "xla"             # "xla" | "flash" | "ring" | "ulysses"
     # Mistral-style sliding window: each query sees only the last
     # `sliding_window` keys (None = full causal); flash runs K2, which never
     # loads K/V tiles outside the band. The paged path rejects it (as in JAX)
@@ -88,8 +96,7 @@ class LlamaConfig:
     # [B, S, vocab] logits in f32, or kept in the compute dtype (loss_fn
     # takes its logsumexp in f32 either way)
     f32_logits: bool = True
-    # accepted for the JAX config's sake: forward_pp (pipeline parallel)
-    # waits for ROADMAP.md queue 1 item 8
+    # forward_pp's schedule: "gpipe" | "1f1b" (parallel/pipeline.py)
     pp_schedule: str = "gpipe"
     # accepted for the JAX config's sake: the port's only layer loop is a
     # Python loop over the stacked [L, ...] params (JAX's scan_layers=False
@@ -152,13 +159,16 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     params_from_jax instead. ``leaf(path, tensor)``, where given, replaces
     each leaf as soon as it is drawn, before the next one is
     (``init_params_int8`` quantizes there)."""
-    pd = cfg.param_dtype
-    dev = generator.device
+    return draw_params(generator, init_specs(cfg), cfg.param_dtype, leaf)
+
+
+def init_specs(cfg: LlamaConfig) -> Dict[str, Any]:
+    """(shape, std) of every leaf, in the order init_params draws them;
+    std None: ones (norms)."""
     L, D, H, KV, HD, Fd, V = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                               cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
                               cfg.vocab_size)
-    # (shape, std) in the order the leaves are drawn; std None: ones (norms)
-    specs = {
+    return {
         "embed": ((V, D), 0.02),
         "layers": {
             "attn_norm": ((L, D), None),
@@ -175,14 +185,25 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
         "lm_head": ((D, V), D ** -0.5),
     }
 
+
+def draw_params(generator: torch.Generator, specs, dtype,
+                leaf=None) -> Dict[str, Any]:
+    """A tree of tensors drawn from `specs` (nested dicts of (shape, std);
+    std None: ones, 0.0: zeros, else normal(0, std)) on the generator's
+    device, leaf by leaf in the specs' order; ``leaf(path, tensor)``, where
+    given, replaces each leaf as soon as it is drawn."""
+    dev = generator.device
+
     def make(path, spec):
         if isinstance(spec, dict):
             return {k: make(path + (k,), s) for k, s in spec.items()}
         shape, std = spec
         if std is None:
-            w = torch.ones(shape, dtype=pd, device=dev)
+            w = torch.ones(shape, dtype=dtype, device=dev)
+        elif std == 0.0:
+            w = torch.zeros(shape, dtype=dtype, device=dev)
         else:
-            w = torch.empty(shape, dtype=pd, device=dev).normal_(
+            w = torch.empty(shape, dtype=dtype, device=dev).normal_(
                 0.0, std, generator=generator)
         return leaf(path, w) if leaf else w
 
@@ -486,12 +507,18 @@ def _attention_xla(q, k, v, causal: bool, q_offset=0, window=None):
     return out.reshape(B, S, H, D)
 
 
-def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0):
+def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0,
+               sp=None):
+    """sp: the ``parallel.spmd.Axis`` the sequence is laid over, for ring
+    and Ulysses (None: a 1-rank axis, the whole sequence here)."""
     win = cfg.sliding_window
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (sequence parallel) is not ported "
-            f"yet (ROADMAP.md queue 1 item 8)")
+    if win is not None and cfg.attn_impl in ("ring", "ulysses"):
+        # silently computing FULL attention here would train a different
+        # model than the config describes
+        raise ValueError(
+            "sliding_window is not supported with ring/ulysses attention "
+            "(the band would have to chase blocks around the ring); use "
+            "attn_impl='flash' or 'xla' for windowed models")
     # flash builds positions from 0, so offset chunks take the xla path,
     # which honors q_offset
     at_origin = isinstance(q_offset, int) and q_offset == 0
@@ -500,11 +527,19 @@ def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0):
         from ray_tpu_torch.ops.flash_attention import flash_attention
 
         return flash_attention(q, k, v, causal=True, window=win)
+    if cfg.attn_impl == "ring":
+        from ray_tpu_torch.ops.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, axis=sp)
+    if cfg.attn_impl == "ulysses":
+        from ray_tpu_torch.ops.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, axis=sp)
     return _attention_xla(q, k, v, causal, q_offset, window=win)
 
 
 def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False,
-           tp=None):
+           tp=None, sp=None):
     """One transformer block. x: [B, S, D]. cache: (k, v, offset) with k/v
     one layer's [B, max_seq, KV, HD] cache, written IN PLACE at offset, or
     None. collect_kv=True returns this layer's (k, v) for cache seeding;
@@ -512,7 +547,8 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False,
     ``_TensorParallel``): lp holds this rank's column blocks of wq/wk/wv/
     w_gate/w_up and row blocks of wo/w_down, attention runs on its
     H/tp query heads and the KV/tp kv heads they read, and the block
-    outputs are summed over the tp ranks."""
+    outputs are summed over the tp ranks. sp: the sequence's axis for ring
+    and Ulysses attention (``_attention``)."""
     B, S, D = x.shape
     n = tp.size if tp is not None else 1
     H, KV, HD = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim
@@ -546,7 +582,7 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False,
                           q_offset=offset)
         new_cache = (ck, cv)
     else:
-        attn = _attention(q, k, v, cfg, causal=True)
+        attn = _attention(q, k, v, cfg, causal=True, sp=sp)
     attn = attn.reshape(B, S, H * HD)
     x = x + g(attn @ _dq(lp["wo"], dt))
 
@@ -595,7 +631,8 @@ class _TensorParallel(NamedTuple):
 class _MeshPlan:
     """How the sharded forward runs on `mesh` under `rules`: each rank
     computes its rows of the [batch, seq, embed] activation (the rules'
-    placement of it) on local tensors. A weight is made local at its use
+    placement of it; with ``seq=True`` its chunk of the sequence too, for
+    ``forward_sp``) on local tensors. A weight is made local at its use
     (``use``): redistributed to whole over every mesh axis but tp (an
     all-gather of its fsdp shards), and over tp to the block its rank
     computes with (column or row block of a layer's projections; embed,
@@ -603,10 +640,15 @@ class _MeshPlan:
     the data axes (each rank's rows contribute a part), so the backward of
     the redistribute reduce-scatters (fsdp) or all-reduces (dp) it into
     the param's own placement; over tp it is the rank's block (or, for
-    weights whole on every tp rank, the same on each)."""
+    weights whole on every tp rank, the same on each).
 
-    def __init__(self, cfg: LlamaConfig, mesh, rules):
-        from torch.distributed.tensor import Partial, Replicate, Shard
+    ``split_tp=False`` (the MoE and ViT models): every weight is used
+    whole over every axis, tp included; the tp ranks then compute the same
+    rows, so the gradient is Replicate over tp."""
+
+    def __init__(self, cfg, mesh, rules, seq: bool = False,
+                 split_tp: bool = True):
+        from torch.distributed.tensor import Shard
 
         from ray_tpu_torch.parallel import sharding as sh
 
@@ -614,15 +656,16 @@ class _MeshPlan:
             raise ValueError("the sharded forward takes mesh= and rules= "
                              "together")
         self.mesh = mesh
-        names = sh.axis_names(mesh)
+        self.names = sh.axis_names(mesh)
         sizes = sh.axis_sizes(mesh)
-        self.act = _act_placements(mesh, rules)
-        self.rows = _act_constraint(mesh, rules)
-        data = [n for n, p in zip(names, self.act) if isinstance(p, Shard)]
-        self.data_groups = sh.mesh_groups(mesh, data)
+        self.act = _act_placements(mesh, rules, seq)
+        self.rows = _act_constraint(mesh, rules, seq)
+        self.data = [n for n, p in zip(self.names, self.act)
+                     if isinstance(p, Shard)]
+        self.data_groups = sh.mesh_groups(mesh, self.data)
         n_tp = sizes["tp"]
         self.tp = None
-        if n_tp > 1:
+        if n_tp > 1 and split_tp:
             for what, dim in (("n_heads", cfg.n_heads),
                               ("n_kv_heads", cfg.n_kv_heads),
                               ("d_ff", cfg.d_ff)):
@@ -630,35 +673,41 @@ class _MeshPlan:
                     raise ValueError(f"tp={n_tp} does not divide {what}="
                                      f"{dim}")
             self.tp = _TensorParallel(n_tp, sh.mesh_groups(mesh, ["tp"]))
-        self._pl = {}
-        for name in ("embed", "lm_head", "final_norm", "attn_norm",
-                     "ffn_norm") + _TP_COLUMNS + _TP_ROWS:
-            split = (Shard(1) if name in _TP_COLUMNS else
-                     Shard(0) if name in _TP_ROWS else Replicate())
-            use = tuple(split if a == "tp" and self.tp is not None
-                        else Replicate() for a in names)
-            grad = tuple(Partial() if a in data else u
-                         for a, u in zip(names, use))
-            self._pl[name] = (use, grad)
 
-    def use(self, name: str, w):
+    def _placements(self, name: str, lead: int):
+        """(use, grad) placements of weight `name`; `lead` stacked dims
+        ([L, ...] leaves: 1) before the weight's own."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        split = Replicate()
+        if self.tp is not None and name in _TP_COLUMNS:
+            split = Shard(1 + lead)
+        elif self.tp is not None and name in _TP_ROWS:
+            split = Shard(lead)
+        use = tuple(split if a == "tp" else Replicate() for a in self.names)
+        grad = tuple(Partial() if a in self.data else u
+                     for a, u in zip(self.names, use))
+        return use, grad
+
+    def use(self, name: str, w, lead: int = 0):
         """A weight (a DTensor) as the local tensor this rank computes
-        with."""
+        with; ``lead=1`` for a whole stacked [L, ...] leaf."""
         if not is_dtensor(w):
             raise TypeError(
                 f"{name}: a sharded forward takes params placed as DTensors "
                 f"(parallel.sharding.shard_params, or make_train_state_init "
                 f"with a mesh), got {type(w).__name__}")
-        if self._as_is(name, tuple(w.placements)):
+        use, grad = self._placements(name, lead)
+        if tuple(w.placements) == use == grad:
             return w.to_local()
-        use, grad = self._pl[name]
         return w.redistribute(self.mesh, use).to_local(grad_placements=grad)
 
     def _as_is(self, name: str, placements) -> bool:
         """Whether a weight of these placements is used as it rests, its
         gradient too (every placement of a 1-rank mesh; a weight no data or
         tp axis touches): then it is simply made local, no redistribute."""
-        return placements == self._pl[name][0] == self._pl[name][1]
+        use, grad = self._placements(name, 0)
+        return placements == use == grad
 
     def layers(self, layers):
         """The stacked [L, ...] leaves as L per-layer dicts. A leaf whose
@@ -679,6 +728,11 @@ class _MeshPlan:
             k: v.to_local() if self._as_is(k, per_layer(v.placements))
             else v for k, v in layers.items()})
 
+    def stacked(self, layers):
+        """The stacked [L, ...] leaves made local whole (``use`` with
+        lead 1), for the pipeline's stages."""
+        return {k: self.use(k, v, lead=1) for k, v in layers.items()}
+
     def layer(self, lp):
         return {k: self.use(k, v) if is_dtensor(v) else v
                 for k, v in lp.items()}
@@ -694,22 +748,26 @@ class _MeshPlan:
                                   stride=contiguous_stride(shape))
 
 
-def _act_placements(mesh, rules):
-    """The DTensor placement of the [batch, seq, embed] activation."""
+def _act_placements(mesh, rules, seq: bool = False):
+    """The DTensor placement of the [batch, seq, embed] activation. A
+    sequence laid over sp is forward_sp's (``seq``): ``forward`` computes
+    whole sequences."""
     from torch.distributed.tensor import Shard
 
     from ray_tpu_torch.parallel import sharding as sh
 
     act = sh.spec_placements(
         sh.logical_to_mesh(("batch", "seq", None), rules, mesh), mesh)
-    if Shard(1) in act:
+    if Shard(1) in act and not seq:
         raise NotImplementedError(
-            "a sequence sharded over sp runs in forward_sp, which is not "
-            "ported yet (ROADMAP.md queue 1 item 8)")
+            "a sequence sharded over sp runs in forward_sp (attn_impl "
+            "'ring' or 'ulysses'); forward computes whole sequences, where "
+            "JAX's GSPMD may also split them (ROADMAP.md, differences by "
+            "design)")
     return act
 
 
-def _act_constraint(mesh, rules):
+def _act_constraint(mesh, rules, seq: bool = False):
     """JAX pins the [batch, seq, embed] activation to its rules sharding.
     The port computes each rank's rows on local tensors, so the activation
     keeps that placement by construction: the constraint is the
@@ -720,7 +778,7 @@ def _act_constraint(mesh, rules):
         return _same
     from ray_tpu_torch.parallel.sharding import local_shard
 
-    act = _act_placements(mesh, rules)
+    act = _act_placements(mesh, rules, seq)
 
     def rows(x):
         if is_dtensor(x):
@@ -743,12 +801,23 @@ def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
     logits as a DTensor of the activation's placement. Each layer's
     weights are gathered inside its checkpointed body, so remat gathers
     them again in the backward, and tp splits the block (``_MeshPlan``)."""
-    dt = cfg.dtype
     plan = _MeshPlan(cfg, mesh, rules) if (mesh is not None or
                                            rules is not None) else None
     B, S = tokens.shape
     if plan is not None:
         tokens = plan.rows(tokens)
+    logits = _forward_local(params, tokens, cfg, pos_offset, plan)
+    if plan is None:
+        return logits
+    return plan.whole(logits, (B, S, logits.shape[-1]))
+
+
+def _forward_local(params, tokens, cfg: LlamaConfig, pos_offset, plan,
+                   sp=None):
+    """``forward`` on this rank's tokens (its rows, and under sp its
+    chunk): the local logits. sp: the sequence's axis (``_attention``)."""
+    dt = cfg.dtype
+    S = tokens.shape[1]
 
     def use(name, w):
         return plan.use(name, w) if plan is not None else w
@@ -763,7 +832,7 @@ def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
     def body(x, lp):
         if plan is not None:
             lp = plan.layer(lp)
-        return _layer(x, lp, cfg, cos, sin, tp=tp)[0]
+        return _layer(x, lp, cfg, cos, sin, tp=tp, sp=sp)[0]
 
     if cfg.remat:
         body = _checkpoint(body, cfg)
@@ -771,26 +840,118 @@ def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
               else _unstack_layers(params["layers"]))
     for lp in layers:
         x = body(x, lp)
+    return _head(x, params, cfg, use)
+
+
+def _head(x, params, cfg: LlamaConfig, use):
     x = rms_norm(x, use("final_norm", params["final_norm"]), cfg.norm_eps)
-    logits = x @ _dq(use("lm_head", params["lm_head"]), dt)
-    logits = logits.float() if cfg.f32_logits else logits
+    logits = x @ _dq(use("lm_head", params["lm_head"]), cfg.dtype)
+    return logits.float() if cfg.f32_logits else logits
+
+
+def _sp_plan(cfg, mesh, rules):
+    """forward_sp's plan: the rules with the sequence laid over sp (JAX's
+    ``in_specs=P(None, "sp")`` whatever the rules say of seq)."""
+    return _MeshPlan(cfg, mesh, rules and rules.with_(seq="sp"), seq=True)
+
+
+def forward_sp(params, tokens, cfg: LlamaConfig, mesh, rules=None):
+    """Sequence-parallel forward: the sequence sharded over the 'sp' mesh
+    axis. Two interchangeable exchanges: ring attention (K/V rotate around
+    the sp ring, ops/ring_attention.py) or Ulysses (head-scatter
+    all-to-all, ops/ulysses.py); cfg.attn_impl "ulysses" picks Ulysses,
+    anything else the ring. Each sp rank runs ``forward``'s layers on its
+    chunk of S/sp tokens with ``pos_offset = sp_rank * S/sp``.
+
+    mesh+rules: params are DTensors, gathered at use as in ``forward``;
+    each rank computes its rows (dp/fsdp) and its chunk (sp), and its
+    weight gradients are declared partial over all of those axes. Without
+    rules the params are whole tensors on every rank. Returns the global
+    logits as a DTensor (the sequence on sp); ``mesh=None`` runs one chunk,
+    the whole sequence, and returns a tensor."""
+    from ray_tpu_torch.parallel import spmd
+
+    cfg_ring = cfg if cfg.attn_impl == "ulysses" \
+        else cfg.replace(attn_impl="ring")
+    sp = spmd.Axis.of(mesh, "sp")
+    B, S = tokens.shape
+    plan = _sp_plan(cfg, mesh, rules) if rules is not None else None
+    if plan is not None:
+        tok = plan.rows(tokens)
+    else:
+        if S % sp.size:
+            raise ValueError(f"sequence length {S} does not split over "
+                             f"sp={sp.size}")
+        tok = tokens.narrow(1, sp.index * (S // sp.size), S // sp.size)
+    offset = sp.index * tok.shape[1]
+    logits = _forward_local(params, tok, cfg_ring, offset, plan, sp)
+    shape = (B, S, logits.shape[-1])
+    if plan is not None:
+        return plan.whole(logits, shape)
+    if mesh is None:
+        return logits
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ray_tpu_torch.parallel.sharding import contiguous_stride
+
+    pl = [Shard(1) if n == "sp" and sp.size > 1 else Replicate()
+          for n in mesh.mesh_dim_names]
+    return DTensor.from_local(logits, mesh, pl, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def forward_pp(params, tokens, cfg: LlamaConfig, mesh, num_microbatches=None,
+               rules=None):
+    """Pipeline-parallel forward: the layers split into pp stages under the
+    microbatch schedule of ``cfg.pp_schedule`` ("gpipe" or "1f1b",
+    parallel/pipeline.py), M = num_microbatches or 2*pp. Embedding and
+    head run on every stage, outside the trunk; each stage runs ``_layer``
+    over its L/pp layers (under remat when ``cfg.remat``).
+
+    mesh+rules: params are DTensors; each rank computes its rows (dp/fsdp),
+    tp splits the blocks, and the stacked layer leaves are made local whole
+    at the trunk (``_MeshPlan.stacked``: one gather for the schedule where
+    ``forward`` gathers each layer at its use); the layers rest replicated
+    over pp and each gets its full gradient on every stage (the trunk sums
+    the stages' slices over pp). Without rules the params are whole
+    tensors. Returns the logits (a DTensor of the rows' placement under
+    rules); ``mesh=None`` is one stage."""
+    from ray_tpu_torch.parallel.pipeline import pipeline_trunk, stack_stages
+    from ray_tpu_torch.parallel.spmd import Axis
+
+    pp = Axis.of(mesh, "pp").size
+    M = num_microbatches or max(2 * pp, 1)
+    dt = cfg.dtype
+    plan = _MeshPlan(cfg, mesh, rules) if rules is not None else None
+    B, S = tokens.shape
+    if plan is not None:
+        tokens = plan.rows(tokens)
+
+    def use(name, w):
+        return plan.use(name, w) if plan is not None else w
+
+    x = _embed({"embed": use("embed", params["embed"])}, tokens, dt)
+    cos, sin = _rope_tables(cfg.rope_theta, S, cfg.head_dim, x.device)
+    tp = plan.tp if plan is not None else None
+
+    def stage_fn(stage_layers, x):
+        def body(x, lp):
+            return _layer(x, lp, cfg, cos, sin, tp=tp)[0]
+
+        if cfg.remat:
+            body = _checkpoint(body, cfg)
+        for lp in _unstack_layers(stage_layers):
+            x = body(x, lp)
+        return x
+
+    layers = (plan.stacked(params["layers"]) if plan is not None
+              else params["layers"])
+    trunk = pipeline_trunk(stage_fn, mesh, M, schedule=cfg.pp_schedule)
+    x = trunk(stack_stages(layers, pp), x)
+    logits = _head(x, params, cfg, use)
     if plan is None:
         return logits
     return plan.whole(logits, (B, S, logits.shape[-1]))
-
-
-def forward_sp(params, tokens, cfg: LlamaConfig, mesh):
-    """Sequence-parallel forward (ring or Ulysses attention over sp)."""
-    raise NotImplementedError(
-        "forward_sp (sequence parallel) is not ported yet (ROADMAP.md "
-        "queue 1 item 8)")
-
-
-def forward_pp(params, tokens, cfg: LlamaConfig, mesh, num_microbatches=None):
-    """Pipeline-parallel forward (layers split into pp stages)."""
-    raise NotImplementedError(
-        "forward_pp (pipeline parallel) is not ported yet (ROADMAP.md "
-        "queue 1 item 8)")
 
 
 def loss_fn(params, batch, cfg: LlamaConfig, mesh=None, rules=None):
@@ -801,9 +962,9 @@ def loss_fn(params, batch, cfg: LlamaConfig, mesh=None, rules=None):
     log_softmax.
 
     Routing as in JAX: ring/ulysses attention with sp > 1 goes to
-    ``forward_sp`` and pp > 1 to ``forward_pp`` (both wait for queue 1
-    item 8). With mesh+rules, batch leaves are DTensors or whole tensors;
-    each rank sums its rows' nll and divides by the GLOBAL token (or mask)
+    ``forward_sp`` and pp > 1 to ``forward_pp``. With mesh+rules, batch
+    leaves are DTensors or whole tensors; each rank sums its rows' (and
+    under sp its chunk's) nll and divides by the GLOBAL token (or mask)
     count, and the parts are summed over the data ranks (forward only:
     each rank back-propagates its own part, and the weights' redistribute
     sums the gradients), so the loss is the global batch mean on every
@@ -821,17 +982,19 @@ def loss_fn(params, batch, cfg: LlamaConfig, mesh=None, rules=None):
         from ray_tpu_torch.parallel.sharding import axis_sizes
 
         sizes = axis_sizes(mesh)
-    if cfg.attn_impl in ("ring", "ulysses") and sizes.get("sp", 1) > 1:
-        logits = forward_sp(params, inputs, cfg, mesh)
+    on_sp = cfg.attn_impl in ("ring", "ulysses") and sizes.get("sp", 1) > 1
+    if on_sp:
+        logits = forward_sp(params, inputs, cfg, mesh, rules=rules)
     elif sizes.get("pp", 1) > 1:
-        logits = forward_pp(params, inputs, cfg, mesh)
+        logits = forward_pp(params, inputs, cfg, mesh, rules=rules)
     else:
         logits = forward(params, inputs, cfg, mesh=mesh, rules=rules)
     if not is_dtensor(logits):
         return _nll_mean(logits, targets, mask)
     from ray_tpu_torch.parallel.sharding import sum_in_forward
 
-    plan = _MeshPlan(cfg, mesh, rules)
+    plan = (_sp_plan(cfg, mesh, rules) if on_sp
+            else _MeshPlan(cfg, mesh, rules))
     n_tokens = targets.numel()
     logits, targets = logits.to_local(), plan.rows(targets)
     nll = _nll(logits, targets)

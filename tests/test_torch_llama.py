@@ -228,12 +228,21 @@ def test_init_paged_cache_layout():
 
 
 def test_ring_attention_raises_not_implemented(tiny):
+    """Ring attention is ported: outside a mesh it runs on a 1-rank axis
+    (the whole sequence), so prefill with it equals prefill with "xla";
+    what still raises is a sliding window with ring (JAX's ValueError)."""
     _, tcfg, params = tiny
-    with pytest.raises(NotImplementedError, match="ring"):
-        llama.prefill(llama.params_from_jax(params, "cpu"),
-                      torch.zeros((1, 8), dtype=torch.int32),
-                      torch.tensor([8], dtype=torch.int32),
-                      tcfg.replace(attn_impl="ring"))
+    p = llama.params_from_jax(params, "cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(3).integers(0, 256, (1, 8))).to(torch.int32)
+    lengths = torch.tensor([8], dtype=torch.int32)
+    want = llama.prefill(p, tokens, lengths, tcfg)
+    got = llama.prefill(p, tokens, lengths, tcfg.replace(attn_impl="ring"))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="ring/ulysses"):
+        llama.prefill(p, tokens, lengths,
+                      tcfg.replace(attn_impl="ring", sliding_window=4))
 
 
 # --- int8 weights -------------------------------------------------------------

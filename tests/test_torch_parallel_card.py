@@ -14,6 +14,11 @@ tests/test_torch_parallel_engine.py).
   unsharded one is a mean) and the params within chip_smoke.py's AdamW
   rule (4 lr; at most 1e-4 of them more than 1e-5 apart).
 - A DTensor handed to a kernel wrapper raises TypeError.
+- Sequence and pipeline parallelism on the 1-rank mesh: forward_sp (ring,
+  Ulysses) and forward_pp (gpipe, 1f1b) give forward's logits and
+  gradients (debug-125m cut to 2 layers, f32). On one rank the ring has a
+  single block and the pipeline a single stage: the multi-rank proof is
+  tests/test_torch_parallel_sp_pp.py on 4 gloo ranks.
 """
 
 import functools
@@ -107,3 +112,55 @@ def test_dtensor_to_kernel_wrapper_raises_on_card(card_mesh):
     with pytest.raises(TypeError, match="DTensor"):
         pa.paged_attention(qd, pool, pool, table, lens)
     assert (fa.launches, pa.launches_read) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["ring", "ulysses", "gpipe", "1f1b"])
+def test_sp_pp_routes_equal_forward_on_card(card_mesh, route):
+    """forward_sp (ring, Ulysses) and forward_pp (gpipe, 1f1b, M 2, flash)
+    on the 1-rank mesh under ShardingRules.full(), debug-125m cut to 2
+    layers in f32 (TF32 off; flash at S 256 runs the exact f32 K1/K3/K4):
+    the logits within 1e-4 of forward's (attention of the same inputs in
+    another order) and the loss's gradients within 1e-4 of forward's,
+    relative to each leaf's largest element."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.parallel.sharding import ShardingRules, shard_params
+
+    cfg = llama.PRESETS["debug-125m"].replace(
+        n_layers=2, dtype=torch.float32, attn_impl="flash", remat=True)
+    rules = ShardingRules.full()
+    base = llama.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(2, 257)), device="cuda")
+    x, y = toks[:, :-1], toks[:, 1:]
+    mm = torch.backends.cuda.matmul
+    tf32, mm.allow_tf32 = mm.allow_tf32, False
+    try:
+        out = {}
+        for name in ("forward", route):
+            p = ts._map(lambda t: t.requires_grad_(True), shard_params(
+                card_mesh, base, llama.param_specs(cfg), rules))
+            if name == "forward":
+                logits = llama.forward(p, x, cfg, mesh=card_mesh,
+                                       rules=rules)
+            elif name in ("ring", "ulysses"):
+                logits = llama.forward_sp(p, x, cfg.replace(attn_impl=name),
+                                          card_mesh, rules=rules)
+            else:
+                logits = llama.forward_pp(p, x, cfg.replace(pp_schedule=name),
+                                          card_mesh, num_microbatches=2,
+                                          rules=rules)
+            logits = logits.to_local()
+            llama._nll(logits, y).mean().backward()
+            out[name] = (logits.detach(), [t.grad.to_local() for t in
+                                           ts._leaves(p)])
+    finally:
+        mm.allow_tf32 = tf32
+    (lf, gf), (lr, gr) = out["forward"], out[route]
+    assert float((lr - lf).abs().max()) <= 1e-4
+    for a, b in zip(gr, gf):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

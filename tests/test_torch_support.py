@@ -31,6 +31,10 @@ REPO = Path(__file__).resolve().parents[1]
 _STUB_PACKAGES = ("ray_tpu", "ray_tpu.serve", "ray_tpu.util",
                   "ray_tpu.observability", "ray_tpu.data")
 _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.models.gpt2",
+                      "ray_tpu.models.moe", "ray_tpu.models.vit",
+                      "ray_tpu.models.registry",
+                      "ray_tpu.ops.ring_attention", "ray_tpu.ops.ulysses",
+                      "ray_tpu.parallel.pipeline",
                       "ray_tpu.ops.paged_attention",
                       "ray_tpu.ops.flash_attention", "ray_tpu.serve.llm",
                       "ray_tpu.serve.paged_kv", "ray_tpu.serve.kv_transfer",
@@ -100,9 +104,10 @@ def _install_stubs():
 
 
 class _Reference(types.SimpleNamespace):
-    """The JAX reference modules: llama, gpt2, paged_attention,
-    flash_attention, llm, paged_kv, kv_transfer, train_step, mesh,
-    sharding; of the runtime ids, config, serialization,
+    """The JAX reference modules: llama, gpt2, moe, vit, registry,
+    paged_attention, flash_attention, ring_attention, ulysses, llm,
+    paged_kv, kv_transfer, train_step, mesh, sharding, pipeline; of the
+    runtime ids, config, serialization,
     scheduling_policy and common; of the data layer dataset, aggregate,
     grouped, preprocessors, interfaces and resource_manager."""
 
@@ -129,6 +134,12 @@ def jax_reference():
         yield _Reference(
             llama=sys.modules["ray_tpu.models.llama"],
             gpt2=sys.modules["ray_tpu.models.gpt2"],
+            moe=sys.modules["ray_tpu.models.moe"],
+            vit=sys.modules["ray_tpu.models.vit"],
+            registry=sys.modules["ray_tpu.models.registry"],
+            ring_attention=sys.modules["ray_tpu.ops.ring_attention"],
+            ulysses=sys.modules["ray_tpu.ops.ulysses"],
+            pipeline=sys.modules["ray_tpu.parallel.pipeline"],
             paged_attention=sys.modules["ray_tpu.ops.paged_attention"],
             # ray_tpu/ops/__init__.py rebinds the attribute to the function
             flash_attention=sys.modules["ray_tpu.ops.flash_attention"],
@@ -154,6 +165,88 @@ def jax_reference():
         for k in [k for k in sys.modules if _is_ray_tpu(k)]:
             del sys.modules[k]
         sys.modules.update(saved)
+
+
+def flat(tree, prefix=""):
+    """A nested dict of arrays as {"prefix/a/b": array}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def unflat(arrays, prefix):
+    """``flat``'s inverse for the keys under `prefix`."""
+    tree = {}
+    for k, v in arrays.items():
+        if not k.startswith(prefix + "/"):
+            continue
+        node = tree
+        parts = k[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+RANK_NICE = 10
+
+
+class Ranks:
+    """`world` gloo ranks, each ``python <script> RANK DIR`` (the test file
+    run as a script, with the repo on its path), joined by a ``file://``
+    store in DIR. ``start()`` launches them; ``results()`` waits at most
+    `timeout` seconds in all, kills what is left and returns each rank's
+    (DIR/rank{r}.npz arrays, DIR/rank{r}.json dict), failing with the
+    rank's output when one did not finish. The ranks run at a lower CPU
+    priority (``RANK_NICE``): under xdist they share the cores with other
+    files' rank processes, whose budgets are tighter (tests/
+    test_torch_parallel_train.py gives its 2 ranks 120 s)."""
+
+    def __init__(self, script, d: Path, world: int, timeout: float):
+        self.script, self.d, self.world = script, Path(d), world
+        self.timeout = timeout
+        self.procs = []
+
+    def start(self):
+        import os
+        import subprocess
+
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        self.procs = [subprocess.Popen(
+            ["nice", "-n", str(RANK_NICE), sys.executable, str(self.script),
+             str(r), str(self.d)],
+            env=env, cwd=str(REPO), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(self.world)]
+        return self
+
+    def results(self):
+        import json
+        import subprocess
+        import time
+
+        deadline = time.monotonic() + self.timeout
+        logs = []
+        try:
+            for p in self.procs:
+                left = max(1.0, deadline - time.monotonic())
+                try:
+                    logs.append(p.communicate(timeout=left)[0])
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    logs.append(p.communicate()[0] + "\n(timed out)")
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(self.procs):
+            assert p.returncode == 0, f"rank {r} failed:\n{logs[r][-4000:]}"
+        return [(dict(np.load(self.d / f"rank{r}.npz")),
+                 json.loads((self.d / f"rank{r}.json").read_text()))
+                for r in range(self.world)]
 
 
 def require_cuda():

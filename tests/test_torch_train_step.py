@@ -253,12 +253,14 @@ def test_eval_step_and_global_norm(tiny):
     assert float(ts.optax_global_norm(tree)) == 5.0
 
 
-def test_mesh_raises_not_implemented(tiny):
-    """What the sharded path does not run raises: sequence parallelism
-    (ring attention with sp > 1) and pipeline parallelism (pp > 1) route
-    to forward_sp / forward_pp, which wait for ROADMAP.md queue 1 item 8;
-    a mesh whose axis sizes do not divide a dim names the dim. (Sizes are
-    read from a MeshSpec: no process group needed.)"""
+def test_mesh_raises_not_implemented(tiny, monkeypatch):
+    """Routing and what the sharded path does not run: loss_fn sends
+    ring/Ulysses attention with sp > 1 to forward_sp and pp > 1 to
+    forward_pp (stand-ins here record the call); ``forward`` itself
+    computes whole sequences, so rules that shard the sequence over sp
+    raise there, naming forward_sp; a mesh whose axis sizes do not divide
+    a dim names the dim. (Sizes are read from a MeshSpec: no process group
+    needed.)"""
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.parallel.sharding import ShardingRules, shard_params
 
@@ -266,12 +268,27 @@ def test_mesh_raises_not_implemented(tiny):
     tp = llama.params_from_jax(params, "cpu")
     batch = {"tokens": torch.from_numpy(_tokens(8))}
     rules = ShardingRules.fsdp_tp()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        llama.loss_fn(tp, batch, tcfg.replace(attn_impl="ring"),
-                      mesh=MeshSpec(sp=2), rules=rules)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    routed = []
+
+    class Routed(Exception):
+        pass
+
+    def stand_in(name):
+        def route(*args, **kwargs):
+            routed.append(name)
+            raise Routed(name)
+        return route
+
+    monkeypatch.setattr(llama, "forward_sp", stand_in("forward_sp"))
+    monkeypatch.setattr(llama, "forward_pp", stand_in("forward_pp"))
+    for impl in ("ring", "ulysses"):
+        with pytest.raises(Routed):
+            llama.loss_fn(tp, batch, tcfg.replace(attn_impl=impl),
+                          mesh=MeshSpec(sp=2), rules=rules)
+    with pytest.raises(Routed):
         llama.loss_fn(tp, batch, tcfg, mesh=MeshSpec(pp=2), rules=rules)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    assert routed == ["forward_sp", "forward_sp", "forward_pp"]
+    with pytest.raises(NotImplementedError, match="runs in forward_sp"):
         llama.forward(tp, batch["tokens"], tcfg, mesh=MeshSpec(sp=2),
                       rules=ShardingRules.full())
     with pytest.raises(ValueError, match="tp=3 does not divide n_heads=4"):
@@ -299,8 +316,10 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Importing every module of the port, parallel included, in a fresh
-    interpreter loads neither jax nor any non-port ray_tpu module."""
+    """Importing every module of the port, parallel included (spmd and
+    pipeline too, and the sequence-parallel ops and the MoE, ViT and
+    registry models), in a fresh interpreter loads neither jax nor any
+    non-port ray_tpu module."""
     code = (
         "import sys, pkgutil, importlib, ray_tpu_torch\n"
         "for m in pkgutil.walk_packages(ray_tpu_torch.__path__, "
@@ -309,7 +328,12 @@ def test_port_imports_no_jax_and_no_reference():
         "import ray_tpu_torch.parallel.train_step\n"
         "import ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
         "import ray_tpu_torch.parallel.presets\n"
+        "import ray_tpu_torch.parallel.spmd, ray_tpu_torch.parallel.pipeline\n"
+        "import ray_tpu_torch.ops.ring_attention, ray_tpu_torch.ops.ulysses\n"
+        "import ray_tpu_torch.models.moe, ray_tpu_torch.models.vit\n"
+        "import ray_tpu_torch.models.registry\n"
         "from ray_tpu_torch.parallel import MeshSpec, sharded_jit\n"
+        "from ray_tpu_torch.parallel import pipeline_trunk, spmd\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'ray_tpu' or "
         "k.startswith('ray_tpu.'))\n"
