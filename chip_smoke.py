@@ -115,12 +115,24 @@ printing one JSON line:
    ``shutdown()``; step time, tokens/s, MFU, the host's wait in next(),
    the copies' streams and overlap in a profiled window, the actor's
    start, the checkpoint load and rows/s as information;
-17. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
+17. rl: the RL layer (``ray_tpu_torch.rl``, BASELINE target 5): PPO on
+   PixelCatcher (84 x 84 RGB) through atari_connectors (grayscale, resize
+   84, scale, 4 frames) into the Nature CNN + dense 512 (1.68 M params),
+   4 CPU rollout actors of 1,250 steps (the card hidden from them), the
+   learner on the card in f32, rllib's atari-ppo settings (minibatch 500,
+   10 epochs, clip 0.1), 3 iterations: the learner on the card and the
+   actors without CUDA; iteration 1's batch through one minibatch update
+   (gradients) and one run_ppo_epochs card vs CPU (and f64 on the card)
+   within derived bounds; 5,000 timesteps an iteration, finite losses;
+   each iteration's sampling and learning time, env steps/s, ms per
+   update, a profiled learn window's idle share, peak memory. No kernel of
+   ours runs (the reference's RL reaches no Pallas kernel);
+18. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
    and rules=fsdp_tp over the engine phase's first wave: every greedy
    request's tokens equal to the engine phase's; decode tokens/s and peak
    memory. On one rank every placement is Replicate: these two prove the
    mesh plumbing and the kernels under it, not collectives;
-18. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
+19. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
    GPU detected without an override): an actor with ``num_gpus=1`` builds
    the engine phase's paged 7b engine in a worker process and serves the
    engine_sharded phase's wave 1 through one method call (K1 and K6
@@ -130,7 +142,7 @@ printing one JSON line:
    (the bf16 embedding put in the actor: same-process get is the tensor,
    the driver's get bit-exact); the no-op round trip and the staging
    rate; after ``shutdown()`` no process of the session alive;
-19. serve: the monolithic app through the serve layer: ``serve.run`` of an
+20. serve: the monolithic app through the serve layer: ``serve.run`` of an
    ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
    engine, decode_block 8) behind an ``LLMRouter`` with an HTTP route;
    four greedy prompts one at a time through the router's streaming
@@ -140,13 +152,13 @@ printing one JSON line:
    once; every stream's frames against its final frame, K1/K6 counted in
    the replica, its tokens counter read back from the GCS, the router's
    request count with no 429, no process left after shutdown;
-20. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
+21. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
    8 slots, page groups of 4 pages) behind ``DisaggRouter``; seven greedy
    prompts one at a time, equal to the handoff replayed in process (engine
    A prefills and exports each full group, a fresh engine B imports them
    and generates); each group crossing the store once at its byte size,
    every handoff acked, K1 in the prefill and K6 in the decode replica;
-21. kernels: one line with every kernel's numbers;
+22. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -2451,6 +2463,262 @@ def phase_data(device="cuda", gpt2_preset="125m", llama_preset="1b"):
     return res
 
 
+# --- the RL layer -------------------------------------------------------------
+
+# rl: BASELINE.json target 5, PPO on pixels at the published widths. The
+# settings of rllib's tuned_examples/ppo/atari-ppo.yaml: a 5,000-step train
+# batch (here 4 rollout actors x 1,250 steps, cut from the yaml's 10
+# workers x 5 envs), minibatch 500, 10 epochs, clip 0.1, lambda 0.95,
+# entropy 0.01; the JAX PPOConfig's defaults otherwise (lr 3e-4, gamma
+# 0.99, vf_coeff 0.5); 3 train() iterations
+RL_WORKERS, RL_FRAGMENT, RL_MINIBATCH, RL_EPOCHS, RL_ITERS = 4, 1250, 500, 10, 3
+# card vs CPU, f32 with TF32 off (set for every phase in _start), from the
+# same params and iteration 1's batch. The first minibatch's gradient:
+# f32 sums of up to 3136 products in another order, each leaf within
+# RL_GRAD_RTOL of its largest element, the loss terms within RL_LOSS_RTOL.
+# A whole run_ppo_epochs (100 Adam steps): the clipped ratio and Adam's
+# per-element normalisation carry rounding-level differences on, and f32
+# rounding alone moves this run's param update by ~7e-2 of its norm
+# against the same run in f64 (the phase measures it: the card's f64 run
+# is held against both f32 runs), so two faithful f32 learners may differ
+# by twice that; a learner computing anything else makes an update
+# uncorrelated with the right one (~1.4 of its norm apart). The three runs
+# (card f32, CPU f32, card f64) must lie pairwise within RL_UPDATE_RTOL of
+# the update's norm, and the last minibatch's loss terms within RL_AUX_ATOL
+# (they move ~2e-5 under the same rounding)
+RL_GRAD_RTOL = 1e-4
+RL_LOSS_RTOL = 1e-5
+RL_UPDATE_RTOL = 0.25
+RL_AUX_ATOL = 1e-3
+
+
+def _all_launches():
+    """Every kernel's launch counter (K1-K4 and K5/K6)."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    return {**_train_launches(),
+            "paged_decode_attention_inplace": pa.launches,
+            "paged_attention": pa.launches_read}
+
+
+def _reset_all_launches():
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    _reset_train_launches()
+    pa.launches = pa.launches_read = 0
+
+
+def _nature_cnn_flop(batch: int, hw: int, stack: int, hidden: int = 512,
+                     n_actions: int = 3) -> float:
+    """Operations of one PPO update of the Nature CNN for `batch`
+    observations of hw x hw x stack, 2 per multiply-add: the forward, the
+    weight gradient and the input gradient (3 x the forward) of every layer
+    but the first conv, whose input (the observations) needs no gradient
+    (2 x its forward)."""
+    from ray_tpu_torch.rl.vision import NATURE_FILTERS
+
+    macs, h, c = 0, hw, stack
+    for n, (cout, (k, _), s) in enumerate(NATURE_FILTERS):
+        h = (h - k) // s + 1
+        macs += (2 if n == 0 else 3) * h * h * cout * k * k * c
+        c = cout
+    macs += 3 * (h * h * c * hidden + hidden * (n_actions + 1))
+    return 2 * macs * batch
+
+
+def _update_distance(a, b, p0) -> float:
+    """|| (a - p0) - (b - p0) || / || b - p0 || over every leaf, in f64."""
+    import torch
+
+    from ray_tpu_torch.rl.core import tree_leaves
+
+    def flat(t):
+        return torch.cat([x.detach().to("cpu", torch.float64).flatten()
+                          for x in tree_leaves(t)])
+    da, db = flat(a) - flat(p0), flat(b) - flat(p0)
+    return float((da - db).norm() / db.norm())
+
+
+def phase_rl(device="cuda", out_size=84, fragment=RL_FRAGMENT,
+             iters=RL_ITERS):
+    """PPO on pixels through the RL layer (``ray_tpu_torch.rl``, BASELINE
+    target 5) in a session of ``ray_tpu_torch.init(num_cpus=8)``:
+    ``PPOTrainer`` on ``PixelCatcher`` (84 x 84 RGB) through
+    ``atari_connectors(stack=4, out_size)`` (grayscale, resize, [0, 1],
+    4 frames stacked) into the Nature CNN with a dense layer of 512
+    (1.68 M params at 84), RL_WORKERS rollout actors of `fragment` steps
+    each on the CPU (``CPU_WORKER_ENV``: the card hidden), the learner's
+    params and Adam state on `device`, f32 (TF32 off), `iters` train()
+    iterations of RL_EPOCHS epochs of RL_MINIBATCH-row minibatches, the
+    launch counters zeroed just before and read just after (the path
+    runs none of K1-K6). Gates: (a) every param on the learner's device,
+    every rollout actor without CUDA; (b) iteration 1's batch, saved,
+    through one minibatch update and one run_ppo_epochs from iteration
+    1's starting params on the card and on the CPU (and in f64 on the
+    card), within the RL_* bounds above; (c) each iteration RL_WORKERS x
+    `fragment` timesteps, finite losses and entropy; no process of the
+    session left after ``shutdown()``. Information: each iteration's
+    wall, sampling and learning time, env steps/s, ms per minibatch
+    update against its operations bound, a profiled learn window (one
+    run_ppo_epochs) with its idle share and top kernels, peak memory. `device`
+    "cpu" with out_size=42 rehearses it on the CPU (gate (b) compares the
+    CPU with itself there)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.core.node import session_pids
+    from ray_tpu_torch.rl import core as rcore
+    from ray_tpu_torch.rl import ppo as rppo
+    from ray_tpu_torch.rl.pixel_env import atari_connectors
+
+    _free_device()
+    _checkout_on_pythonpath()
+    on_card = device == "cuda"
+    cfg = rppo.PPOConfig(
+        env="ray_tpu_torch.rl.pixel_env:PixelCatcher",
+        obs_connectors=atari_connectors(stack=4, out_size=out_size),
+        num_rollout_workers=RL_WORKERS, rollout_fragment_length=fragment,
+        num_epochs=RL_EPOCHS, minibatch_size=RL_MINIBATCH, clip=0.1,
+        lam=0.95, entropy_coeff=0.01, seed=0, device=device)
+    n_rows = RL_WORKERS * fragment
+    n_updates = RL_EPOCHS * (n_rows // RL_MINIBATCH)
+
+    class Saving(rppo.PPOTrainer):
+        """PPOTrainer keeping iteration 1's batch (gate (b))."""
+
+        def _sample_batch(self):
+            batch = super()._sample_batch()
+            if self.iteration == 0:
+                self.first_batch = batch
+            return batch
+
+    res = {"cfg": f"PPO on PixelCatcher 84x84 RGB -> atari_connectors("
+                  f"stack=4, out_size={out_size}) -> Nature CNN + dense 512"
+                  f", {RL_WORKERS} CPU rollout actors x {fragment} steps, "
+                  f"minibatch {RL_MINIBATCH}, {RL_EPOCHS} epochs, clip 0.1, "
+                  f"lambda 0.95, entropy 0.01, lr 3e-4, f32 learner on "
+                  f"{device} (TF32 off), {iters} iterations",
+           "update_gflop": _nature_cnn_flop(RL_MINIBATCH, out_size, 4) / 1e9}
+    res["update_bound_ms"] = bound(0, res["update_gflop"] * 1e9,
+                                   "float32")[0]
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_cpus=8)
+    res["init_s"] = time.perf_counter() - t0
+    pids = {p.pid: "daemon" for p in info["procs"]}
+    gates = {}
+    try:
+        t0 = time.perf_counter()
+        tr = Saving(cfg)
+        res["trainer_start_s"] = time.perf_counter() - t0
+        res["n_params"] = sum(t.numel() for t in rcore.tree_leaves(tr.params))
+        p0 = rcore.to_host(tr.params)
+        where = ray_tpu_torch.get([w.placement.remote() for w in tr.workers])
+        res["rollout_actors"] = where
+        gates["a_learner_on_device"] = all(
+            t.device.type == torch.device(device).type
+            for t in rcore.tree_leaves(tr.params))
+        gates["a_actors_without_cuda"] = all(
+            not w["cuda_available"] for w in where)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_all_launches()
+        its = [tr.train() for _ in range(iters)]
+        res["launches"] = _all_launches()
+        res["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None)
+        res["iterations"] = [{
+            k: r[k] for k in ("timesteps_this_iter", "time_this_iter_s",
+                              "sample_time_s", "learn_time_s",
+                              "episode_return_mean", "episodes_total",
+                              "pg_loss", "vf_loss", "entropy", "total_loss")}
+            for r in its]
+        for r in res["iterations"]:
+            r["env_steps_per_s"] = r["timesteps_this_iter"] / r[
+                "sample_time_s"]
+            r["ms_per_update"] = r["learn_time_s"] * 1e3 / n_updates
+        gates["c_timesteps"] = all(r["timesteps_this_iter"] == n_rows
+                                   for r in its)
+        gates["c_finite"] = all(np.isfinite([r[k] for k in (
+            "pg_loss", "vf_loss", "entropy", "total_loss")]).all()
+            for r in its)
+        batch = tr.first_batch
+        pids.update(session_pids(pids))
+        tr.stop()
+    finally:
+        ray_tpu_torch.shutdown()
+    res["pids_alive_after_shutdown"] = _alive_after(pids)
+    gates["c_no_process_left"] = not res["pids_alive_after_shutdown"]
+
+    def learner(dev, dtype=torch.float32, epochs=RL_EPOCHS):
+        """One run_ppo_epochs of `batch` from p0 on `dev` in `dtype`."""
+        b = {k: (v.astype(np.float64) if dtype == torch.float64
+                 and v.dtype == np.float32 else v) for k, v in batch.items()}
+        params = rcore.tree_map(lambda t: t.to(dev, dtype, copy=True), p0)
+        update = rppo.make_ppo_update(cfg, rcore.Adam(cfg.lr))
+        params, _, aux = rppo.run_ppo_epochs(
+            update, params, None, **b, num_epochs=epochs,
+            minibatch_size=RL_MINIBATCH, seed=0)
+        return params, rppo.read_aux(aux)
+
+    # the profiled learn window: one run_ppo_epochs of iteration 1's batch
+    # (its copy to the card and n_updates minibatch updates)
+    if on_card:
+        prof = device_profile(lambda: learner(device), lambda: learner(device))
+        prof["ms_per_update"] = prof["wall_ms"] / n_updates
+        res["profile_learn"] = prof
+
+    # (b) the first minibatch's gradient, card vs CPU
+    adv = (batch["adv"] - batch["adv"].mean()) / (batch["adv"].std() + 1e-8)
+    idx = np.random.default_rng(0).permutation(n_rows)[:RL_MINIBATCH]
+    mb = {"obs": batch["obs"][idx], "actions": batch["actions"][idx],
+          "logp": batch["logp"][idx], "adv": adv[idx],
+          "returns": batch["returns"][idx]}
+    loss_fn = rppo.make_ppo_loss(cfg.clip, cfg.vf_coeff, cfg.entropy_coeff)
+    first = {}
+    for dev in (device, "cpu"):
+        (total, aux), grads = rcore.value_and_grad(
+            loss_fn, rcore.to_device(p0, dev), rppo.batch_to_device(mb, dev))
+        first[dev] = (rppo.read_aux({"total_loss": total, **aux}),
+                      [g.cpu() for g in grads])
+    (la, ga), (lc, gc) = first[device], first["cpu"]
+    grad_err = max(float((a - c).abs().max() / c.abs().max())
+                   for a, c in zip(ga, gc))
+    loss_err = max(abs(la[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc)
+    # (b) one run_ppo_epochs, card f32 / CPU f32 / card f64
+    t0 = time.perf_counter()
+    card32, aux_card = learner(device)
+    cpu32, aux_cpu = learner("cpu")
+    cpu_s = time.perf_counter() - t0
+    card64, aux_64 = learner(device, torch.float64)
+    dist = {"card_f32_vs_cpu_f32": _update_distance(card32, cpu32, p0),
+            "card_f32_vs_card_f64": _update_distance(card32, card64, p0),
+            "cpu_f32_vs_card_f64": _update_distance(cpu32, card64, p0)}
+    aux_err = max(abs(aux_card[k] - aux_cpu[k]) for k in aux_cpu)
+    res["card_vs_cpu"] = {
+        "first_update": {"loss_terms_card": la, "loss_terms_cpu": lc,
+                         "loss_max_rel_err": loss_err,
+                         "grad_max_rel_err": grad_err,
+                         "tol": {"loss": RL_LOSS_RTOL,
+                                 "grad": RL_GRAD_RTOL}},
+        "run_ppo_epochs": {"updates": n_updates,
+                           "update_rel_distance": dist,
+                           "aux_card": aux_card, "aux_cpu": aux_cpu,
+                           "aux_f64": aux_64, "aux_max_abs_err": aux_err,
+                           "card_and_cpu_s": cpu_s,
+                           "tol": {"update": RL_UPDATE_RTOL,
+                                   "aux": RL_AUX_ATOL}}}
+    gates["b_first_update"] = (grad_err <= RL_GRAD_RTOL
+                               and loss_err <= RL_LOSS_RTOL)
+    gates["b_run_ppo_epochs"] = (max(dist.values()) <= RL_UPDATE_RTOL
+                                 and aux_err <= RL_AUX_ATOL)
+    gates["no_kernel_launched"] = not any(res["launches"].values())
+    res["gates"] = gates
+    res["ok"] = all(gates.values())
+    return res
+
+
 # --- the port's engine --------------------------------------------------------
 
 
@@ -3722,8 +3990,8 @@ def ran_wgmma_fwd_only(profile) -> bool:
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
           "train_card_vs_cpu", "train", "train_sharded", "sp_pp", "moe",
-          "vit", "trainer", "data", "engine_sharded", "runtime", "serve",
-          "serve_disagg")
+          "vit", "trainer", "data", "rl", "engine_sharded", "runtime",
+          "serve", "serve_disagg")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -3738,7 +4006,7 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "train": phase_train, "train_sharded": phase_train_sharded,
                "sp_pp": phase_sp_pp, "moe": phase_moe, "vit": phase_vit,
                "trainer": phase_trainer, "data": phase_data,
-               "engine_sharded": phase_engine_sharded,
+               "rl": phase_rl, "engine_sharded": phase_engine_sharded,
                "runtime": phase_runtime, "serve": phase_serve,
                "serve_disagg": phase_serve_disagg}
 
@@ -3864,7 +4132,7 @@ def main() -> int:
     # sp_pp's pipeline routes, moe's forward and training, and trainer's
     # workers (counted in theirs: the GPT-2 runs, none, and the
     # Llama run); data: the batch predictor's actor (counted in its
-    # process))
+    # process); rl: PPO on pixels, which runs none of them)
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
@@ -3877,6 +4145,7 @@ def main() -> int:
              "moe": ph["moe"]["launches"],
              "trainer": ph["trainer"]["launches"],
              "data": ph["data"]["launches"],
+             "rl": ph["rl"]["launches"],
              "engine_sharded": ph["engine_sharded"]["launches"],
              "runtime": ph["runtime"]["launches"],
              "serve": ph["serve"]["launches"],

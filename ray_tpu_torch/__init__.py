@@ -27,7 +27,7 @@ import sys
 _SUBMODULES = frozenset((
     "api", "ops", "models", "serve", "parallel", "core", "native",
     "protobuf", "util", "observability", "dag", "collective", "dashboard",
-    "devtools", "runtime_env", "cluster_utils", "train", "data"))
+    "devtools", "runtime_env", "cluster_utils", "train", "data", "rl"))
 _API = ("init", "shutdown", "is_initialized", "remote", "put", "get",
         "wait", "kill", "cancel", "get_actor", "method",
         "get_runtime_context", "nodes", "cluster_resources",
@@ -35,7 +35,7 @@ _API = ("init", "shutdown", "is_initialized", "remote", "put", "get",
         "ObjectRef", "ObjectRefGenerator", "ActorHandle", "exceptions",
         "__version__")
 
-__all__ = ["ops", "models", "serve", "parallel", "train", "data",
+__all__ = ["ops", "models", "serve", "parallel", "train", "data", "rl",
            "resolve_device",
            "is_dtensor", *_API]
 

@@ -4,8 +4,16 @@
 ``TimeoutError`` base at ray_tpu/core/rpc.py:92), so the JAX reference is
 loaded through stub parent packages: ``types.ModuleType`` objects with
 ``__path__`` set for ``ray_tpu``, ``ray_tpu.serve``, ``ray_tpu.util``,
-``ray_tpu.observability`` and ``ray_tpu.data``, plus a no-op
-``ray_tpu.util.metrics``. The
+``ray_tpu.observability``, ``ray_tpu.data`` and ``ray_tpu.rl``, plus a
+no-op ``ray_tpu.util.metrics``. The stub ``ray_tpu`` runs in local mode:
+its ``remote`` wraps a class so that ``.options(**kw).remote(...)`` builds
+the instance in this process and each method's ``.remote(...)`` runs the
+call at once and returns a ref holding its value (``.id.binary()`` as an
+ObjectRef's), ``get`` unwraps refs (anything else passes through),
+``wait`` returns the first ``num_returns`` refs in the order given (every
+call has already finished: the order a FIFO runtime would give) and
+``kill`` does nothing, so the reference's RL trainers run wholly in the
+test process on CPU JAX. The
 stubs (and ``ray_tpu.core.runtime``, reduced to the two functions the
 serializer needs, see ``_runtime_stub``) live in ``sys.modules`` only
 inside ``jax_reference()``: on exit every
@@ -20,6 +28,7 @@ The tests in this file check that helper itself.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import sys
 import types
 from pathlib import Path
@@ -29,7 +38,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 _STUB_PACKAGES = ("ray_tpu", "ray_tpu.serve", "ray_tpu.util",
-                  "ray_tpu.observability", "ray_tpu.data")
+                  "ray_tpu.observability", "ray_tpu.data", "ray_tpu.rl")
 _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.models.gpt2",
                       "ray_tpu.models.moe", "ray_tpu.models.vit",
                       "ray_tpu.models.registry",
@@ -48,7 +57,15 @@ _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.models.gpt2",
                       "ray_tpu.data.dataset", "ray_tpu.data.aggregate",
                       "ray_tpu.data.grouped", "ray_tpu.data.preprocessors",
                       "ray_tpu.data.execution.interfaces",
-                      "ray_tpu.data.execution.resource_manager")
+                      "ray_tpu.data.execution.resource_manager",
+                      # the RL layer's core and on-policy family, over the
+                      # stub's local-mode remote/get/kill
+                      "ray_tpu.rl.core", "ray_tpu.rl.connectors",
+                      "ray_tpu.rl.pixel_env", "ray_tpu.rl.vision",
+                      "ray_tpu.rl.ppo", "ray_tpu.rl.learner",
+                      "ray_tpu.rl.impala", "ray_tpu.rl.multi_agent",
+                      "ray_tpu.rl.pg", "ray_tpu.rl.a2c", "ray_tpu.rl.a3c",
+                      "ray_tpu.rl.appo", "ray_tpu.rl.ddppo")
 _loaded: dict = {}
 
 
@@ -92,11 +109,78 @@ def _runtime_stub():
     return m
 
 
+class _LocalRef:
+    """The finished value of a local-mode call, in an ObjectRef's place:
+    hashable, ``.id.binary()`` unique."""
+
+    _count = itertools.count()
+
+    def __init__(self, value):
+        self.value = value
+        self.id = types.SimpleNamespace(
+            binary=lambda n=next(_LocalRef._count): n.to_bytes(8, "big"))
+
+
+class _LocalMethod:
+    """An actor method whose ``.remote(...)`` calls it in process."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def remote(self, *args, **kwargs):
+        return _LocalRef(self._fn(*args, **kwargs))
+
+
+class _LocalHandle:
+    """A local-mode actor handle over the instance (``_instance``)."""
+
+    def __init__(self, instance):
+        self._instance = instance
+
+    def __getattr__(self, name):
+        return _LocalMethod(getattr(self._instance, name))
+
+
+class _LocalActorClass:
+    """``@ray_tpu.remote`` on a class, in local mode: ``_cls`` is the
+    class, ``.options(**kw)`` ignores the options."""
+
+    def __init__(self, cls):
+        self._cls = cls
+
+    def options(self, **kwargs):
+        return self
+
+    def remote(self, *args, **kwargs):
+        return _LocalHandle(self._cls(*args, **kwargs))
+
+
+def _local_remote(*args, **options):
+    if len(args) == 1 and isinstance(args[0], type) and not options:
+        return _LocalActorClass(args[0])
+    return _LocalActorClass
+
+
+def _local_get(refs, **kwargs):
+    if isinstance(refs, (list, tuple)):
+        return [_local_get(r) for r in refs]
+    return refs.value if isinstance(refs, _LocalRef) else refs
+
+
+def _local_wait(refs, num_returns=1, **kwargs):
+    return list(refs[:num_returns]), list(refs[num_returns:])
+
+
 def _install_stubs():
     for name in _STUB_PACKAGES:
         m = types.ModuleType(name)
         m.__path__ = [str(REPO / name.replace(".", "/"))]
         sys.modules[name] = m
+    root = sys.modules["ray_tpu"]
+    root.remote = _local_remote
+    root.get = _local_get
+    root.wait = _local_wait
+    root.kill = lambda actor, **kwargs: None
     metrics = types.ModuleType("ray_tpu.util.metrics")
     metrics.Histogram = metrics.Counter = metrics.Gauge = _NoopInstrument
     sys.modules["ray_tpu.util.metrics"] = metrics
@@ -109,7 +193,10 @@ class _Reference(types.SimpleNamespace):
     paged_kv, kv_transfer, train_step, mesh, sharding, pipeline; of the
     runtime ids, config, serialization,
     scheduling_policy and common; of the data layer dataset, aggregate,
-    grouped, preprocessors, interfaces and resource_manager."""
+    grouped, preprocessors, interfaces and resource_manager; of the RL
+    layer rl_core, rl_connectors, rl_pixel_env, rl_vision, rl_ppo,
+    rl_learner, rl_impala, rl_multi_agent, rl_pg, rl_a2c, rl_a3c, rl_appo
+    and rl_ddppo."""
 
 
 @contextlib.contextmanager
@@ -160,7 +247,20 @@ def jax_reference():
             preprocessors=sys.modules["ray_tpu.data.preprocessors"],
             interfaces=sys.modules["ray_tpu.data.execution.interfaces"],
             resource_manager=sys.modules[
-                "ray_tpu.data.execution.resource_manager"])
+                "ray_tpu.data.execution.resource_manager"],
+            rl_core=sys.modules["ray_tpu.rl.core"],
+            rl_connectors=sys.modules["ray_tpu.rl.connectors"],
+            rl_pixel_env=sys.modules["ray_tpu.rl.pixel_env"],
+            rl_vision=sys.modules["ray_tpu.rl.vision"],
+            rl_ppo=sys.modules["ray_tpu.rl.ppo"],
+            rl_learner=sys.modules["ray_tpu.rl.learner"],
+            rl_impala=sys.modules["ray_tpu.rl.impala"],
+            rl_multi_agent=sys.modules["ray_tpu.rl.multi_agent"],
+            rl_pg=sys.modules["ray_tpu.rl.pg"],
+            rl_a2c=sys.modules["ray_tpu.rl.a2c"],
+            rl_a3c=sys.modules["ray_tpu.rl.a3c"],
+            rl_appo=sys.modules["ray_tpu.rl.appo"],
+            rl_ddppo=sys.modules["ray_tpu.rl.ddppo"])
     finally:
         for k in [k for k in sys.modules if _is_ray_tpu(k)]:
             del sys.modules[k]
