@@ -127,12 +127,23 @@ printing one JSON line:
    each iteration's sampling and learning time, env steps/s, ms per
    update, a profiled learn window's idle share, peak memory. No kernel of
    ours runs (the reference's RL reaches no Pallas kernel);
-18. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
+18. rl_offpolicy: the RL layer's off-policy and offline learners on the
+   card at their configs' defaults, CPU rollout and replay actors: SAC on
+   a numpy Pendulum-v1 and DQN on a numpy CartPole-v1 (``CartPole`` and
+   ``Pendulum`` below: gymnasium is not installed beside the card), 10
+   iterations each, CQL on SAC's 1,000 transitions, and one train() of
+   TD3, DDPG, Ape-X DQN/DDPG, R2D2, SimpleQ, BC, CRR, MARWIL and DT:
+   placement, one update and one iteration's updates card vs CPU (and
+   f64), timesteps, finite losses and Q values, DQN's target syncs, the
+   sweep's moved weights, no process left; ms an update against its
+   bound, env steps/s, a SAC learn window's idle share, peak memory. No
+   kernel of ours runs;
+19. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
    and rules=fsdp_tp over the engine phase's first wave: every greedy
    request's tokens equal to the engine phase's; decode tokens/s and peak
    memory. On one rank every placement is Replicate: these two prove the
    mesh plumbing and the kernels under it, not collectives;
-19. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
+20. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
    GPU detected without an override): an actor with ``num_gpus=1`` builds
    the engine phase's paged 7b engine in a worker process and serves the
    engine_sharded phase's wave 1 through one method call (K1 and K6
@@ -142,7 +153,7 @@ printing one JSON line:
    (the bf16 embedding put in the actor: same-process get is the tensor,
    the driver's get bit-exact); the no-op round trip and the staging
    rate; after ``shutdown()`` no process of the session alive;
-20. serve: the monolithic app through the serve layer: ``serve.run`` of an
+21. serve: the monolithic app through the serve layer: ``serve.run`` of an
    ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
    engine, decode_block 8) behind an ``LLMRouter`` with an HTTP route;
    four greedy prompts one at a time through the router's streaming
@@ -152,13 +163,13 @@ printing one JSON line:
    once; every stream's frames against its final frame, K1/K6 counted in
    the replica, its tokens counter read back from the GCS, the router's
    request count with no 429, no process left after shutdown;
-21. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
+22. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
    8 slots, page groups of 4 pages) behind ``DisaggRouter``; seven greedy
    prompts one at a time, equal to the handoff replayed in process (engine
    A prefills and exports each full group, a fresh engine B imports them
    and generates); each group crossing the store once at its byte size,
    every handoff acked, K1 in the prefill and K6 in the decode replica;
-22. kernels: one line with every kernel's numbers;
+23. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -2719,6 +2730,700 @@ def phase_rl(device="cuda", out_size=84, fragment=RL_FRAGMENT,
     return res
 
 
+# --- the RL layer's off-policy and offline learners -----------------------------
+
+
+class CartPole:
+    """gymnasium's CartPole-v1 in numpy (classic_control/cartpole.py under
+    ``gym.make``'s TimeLimit of 500 steps): the same Euler dynamics, the
+    reset state uniform in [-0.05, 0.05]^4 from the generator
+    ``reset(seed=)`` builds (``np.random.default_rng(seed)``, what
+    ``seeding.np_random`` makes), reward 1 a step, termination past 2.4 in
+    x or 12 degrees in theta, truncation at 500 steps; the spaces are
+    ``ray_tpu_torch.rl.pixel_env.Box``/``Discrete``. A fixture of the
+    ``rl_offpolicy`` phase (gymnasium is not installed beside the card),
+    held against gymnasium's env by tests/test_torch_rl_chip_envs.py.
+    ``action_seed`` seeds the action space at construction: tests use it
+    to make epsilon and warm-up draws repeatable."""
+
+    max_episode_steps = 500
+
+    def __init__(self, action_seed=None):
+        import math
+
+        import numpy as np
+
+        from ray_tpu_torch.rl.pixel_env import Box, Discrete
+
+        self.gravity, self.masscart, self.masspole = 9.8, 1.0, 0.1
+        self.total_mass = self.masspole + self.masscart
+        self.length = 0.5
+        self.polemass_length = self.masspole * self.length
+        self.force_mag, self.tau = 10.0, 0.02
+        self.theta_threshold_radians = 12 * 2 * math.pi / 360
+        self.x_threshold = 2.4
+        high = np.array([self.x_threshold * 2, np.inf,
+                         self.theta_threshold_radians * 2, np.inf],
+                        dtype=np.float32)
+        self.action_space = Discrete(2)
+        self.observation_space = Box(-high, high, (4,), np.float32)
+        if action_seed is not None:
+            self.action_space.seed(action_seed)
+        self._np_random = None
+        self.state = None
+        self.steps_beyond_terminated = None
+        self._elapsed = 0
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None or self._np_random is None:
+            self._np_random = np.random.default_rng(seed)
+        self.state = self._np_random.uniform(low=-0.05, high=0.05, size=(4,))
+        self.steps_beyond_terminated = None
+        self._elapsed = 0
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        import numpy as np
+
+        x, x_dot, theta, theta_dot = self.state
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot)
+                * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta)
+                           / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta \
+            / self.total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold_radians
+                          or theta > self.theta_threshold_radians)
+        if not terminated:
+            reward = 1.0
+        elif self.steps_beyond_terminated is None:
+            self.steps_beyond_terminated = 0
+            reward = 1.0
+        else:
+            self.steps_beyond_terminated += 1
+            reward = 0.0
+        self._elapsed += 1
+        truncated = self._elapsed >= self.max_episode_steps
+        return (np.array(self.state, dtype=np.float32), reward, terminated,
+                truncated, {})
+
+    def close(self):
+        pass
+
+
+class Pendulum:
+    """gymnasium's Pendulum-v1 in numpy (classic_control/pendulum.py under
+    ``gym.make``'s TimeLimit of 200 steps): the same dynamics (g 10,
+    torque clipped to 2, speed to 8, dt 0.05), the reset state uniform in
+    [-pi, pi] x [-1, 1] from ``np.random.default_rng(seed)``, the cost
+    theta^2 + 0.1 thetadot^2 + 0.001 u^2 negated, never terminated,
+    truncated at 200 steps; spaces and ``action_seed`` as ``CartPole``'s."""
+
+    max_episode_steps = 200
+
+    def __init__(self, action_seed=None):
+        import numpy as np
+
+        from ray_tpu_torch.rl.pixel_env import Box
+
+        self.max_speed, self.max_torque, self.dt = 8, 2.0, 0.05
+        self.g, self.m, self.l = 10.0, 1.0, 1.0
+        high = np.array([1.0, 1.0, self.max_speed], dtype=np.float32)
+        self.action_space = Box(-self.max_torque, self.max_torque, (1,),
+                                np.float32)
+        self.observation_space = Box(-high, high, (3,), np.float32)
+        if action_seed is not None:
+            self.action_space.seed(action_seed)
+        self._np_random = None
+        self.state = None
+        self._elapsed = 0
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None or self._np_random is None:
+            self._np_random = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self._np_random.uniform(low=-high, high=high)
+        self._elapsed = 0
+        return self._obs(), {}
+
+    def _obs(self):
+        import numpy as np
+
+        theta, thetadot = self.state
+        return np.array([np.cos(theta), np.sin(theta), thetadot],
+                        dtype=np.float32)
+
+    def step(self, u):
+        import numpy as np
+
+        th, thdot = self.state
+        g, m, l, dt = self.g, self.m, self.l, self.dt
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        costs = (((th + np.pi) % (2 * np.pi)) - np.pi) ** 2 \
+            + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * g / (2 * l) * np.sin(th)
+                            + 3.0 / (m * l ** 2) * u) * dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * dt
+        self.state = np.array([newth, newthdot])
+        self._elapsed += 1
+        truncated = self._elapsed >= self.max_episode_steps
+        return self._obs(), -costs, False, truncated, {}
+
+    def close(self):
+        pass
+
+
+# rl_offpolicy: the replay-based off-policy and offline learners on the
+# card, each trainer at its reference config's defaults (SACConfig,
+# DQNConfig, CQLConfig) on the numpy CartPole/Pendulum above. Cuts: the
+# iteration counts; CQL's act_high is Pendulum's 2 (the data's bound); the
+# sweep's trainers start learning after one fragment
+RLO_SAC_ITERS, RLO_DQN_ITERS, RLO_CQL_ITERS = 10, 10, 3
+RLO_SWEEP = ("TD3", "DDPG", "ApexDQN", "ApexDDPG", "R2D2", "SimpleQ", "BC",
+             "CRR", "MARWIL", "DT")
+# card vs CPU, f32 with TF32 off. One update from the same state,
+# minibatch and noise: each loss term within RLO_LOSS_RTOL of the CPU's
+# (relative), each gradient leaf within RLO_GRAD_RTOL of its largest
+# element (sums of up to 128 products in another order). One iteration's
+# updates (SAC and DQN 32, CQL's whole run of 96) on the card in f32, the
+# CPU in f32 and the card in f64 from the same state, minibatches and
+# noise: the three runs' updates pairwise within RLO_UPDATE_RTOL of the
+# update's norm, set from the f64 run's readings (each f32 run against
+# it; two faithful f32 runs may lie twice that apart) with a margin for
+# other data. f32 against f64 on an NVIDIA H100 80GB HBM3 at 700 W: SAC
+# 4.1e-6, DQN 2.8e-6, CQL 1.4e-5 on this phase's seeded data; 3.9e-6 /
+# 2.7e-6 / 1.85e-4 with unseeded warm-up actions; card f32 against CPU f32
+# 3.5e-7 to 9.4e-7. No clipping or argmax flip carries rounding far in
+# these updates; a learner computing anything else lands ~1 of the norm
+# away
+RLO_GRAD_RTOL = 1e-4
+RLO_LOSS_RTOL = 1e-5
+RLO_UPDATE_RTOL = {"sac": 1e-4, "dqn": 1e-4, "cql": 1e-3}
+# the fixtures' action spaces seeded, so that the warm-up and epsilon
+# draws, and with them every transition, are the same in every run
+RLO_ENV_CONFIG = {"action_seed": 0}
+
+
+def _mlp_flop(rows: int, sizes) -> float:
+    """Operations of one dense stack's forward over `rows` rows (2 per
+    multiply-add)."""
+    return 2.0 * rows * sum(i * o for i, o in zip(sizes[:-1], sizes[1:]))
+
+
+def _rlo_update_flop(kind: str, cfg, obs_dim: int, act: int) -> float:
+    """Operations of one update at `cfg`'s widths: a forward counts once, a
+    forward whose gradient is taken three times (the forward, the weight
+    and the input gradients), a forward that only passes a gradient
+    through to its input (the critics under the actor's loss) twice."""
+    h = cfg.hidden
+    if kind == "dqn":                # act: the number of actions
+        f = _mlp_flop(cfg.train_batch_size, [obs_dim, h, h]) + _mlp_flop(
+            cfg.train_batch_size, [h, act + 1])
+        return 3 * f + 2 * f         # online (with grad), target, online s'
+    B = cfg.train_batch_size
+    actor = _mlp_flop(B, [obs_dim, h, h, 2 * act])
+    q = _mlp_flop(B, [obs_dim + act, h, h, 1])
+    flop = 4 * actor + 12 * q        # SAC: critics 1a + 2q + 6q, actor 3a + 4q
+    if kind == "cql":                # + the policy's N actions, 2 x 2N sets
+        n = cfg.cql_n_actions
+        flop += n * actor + 2 * 3 * 2 * n * q
+    return flop
+
+
+def _tree_to(tree, dev, dtype=None):
+    """A copy of a tree of tensors (dicts, lists, tuples; other leaves as
+    they are) on `dev`, floating tensors in `dtype` where one is given."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, dev, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        if dtype is not None and t.is_floating_point():
+            return t.to(dev, dtype, copy=True)
+        return t.to(dev, copy=True)
+    return tree
+
+
+class _UpdateTape:
+    """Wraps a trainer's ``_update``: in the iteration `at` keeps the state
+    its first call starts from (the first `n_state` arguments) and every
+    call's other arguments (minibatch, noise), CPU copies, then calls
+    through."""
+
+    def __init__(self, trainer, n_state: int, at: int):
+        self.trainer, self.n_state, self.at = trainer, n_state, at
+        self.inner = trainer._update
+        self.state0, self.calls = None, []
+        trainer._update = self
+
+    def __call__(self, *args, **kwargs):
+        if self.trainer.iteration in self.at:
+            if self.state0 is None:
+                self.state0 = _tree_to(list(args[:self.n_state]), "cpu")
+            self.calls.append(_tree_to(list(args[self.n_state:]), "cpu"))
+        return self.inner(*args, **kwargs)
+
+
+class _GradTape:
+    """``core.Adam`` that keeps every gradient it is given (f64 CPU
+    copies) before its step."""
+
+    def __init__(self, lr):
+        from ray_tpu_torch.rl.core import Adam
+
+        self.adam, self.grads = Adam(lr), []
+
+    def init(self, params):
+        return self.adam.init(params)
+
+    def step(self, params, grads, state):
+        import torch
+
+        self.grads.append([g.detach().to("cpu", torch.float64)
+                           for g in grads])
+        self.adam.step(params, grads, state)
+
+
+def _rlo_stepper(name: str, tr, opt_cls):
+    """(step(state, call) -> (state, aux), the optimizers, the trainable
+    part of a state) for trainer `tr` of algorithm `name`, with fresh
+    optimizers of `opt_cls` at the config's rates."""
+    from ray_tpu_torch.rl import dqn, offline, sac
+
+    cfg = tr.config
+    if name == "sac":
+        opts = [opt_cls(cfg.actor_lr), opt_cls(cfg.critic_lr),
+                opt_cls(cfg.alpha_lr)]
+        upd = sac.make_sac_update(cfg, tr.act_high, tr.target_entropy, *opts)
+
+        def step(st, call):
+            out = upd(*st, *call)
+            return list(out[:6]), out[6]
+        return step, opts, lambda st: {"nets": st[0], "log_alpha": st[2]}
+    if name == "dqn":
+        opts = [opt_cls(cfg.lr)]
+        upd = dqn.make_q_update(dqn.make_dqn_loss(cfg.gamma, cfg.double_q),
+                                opts[0])
+
+        def step(st, call):
+            net, os_, loss, _ = upd(st[0], st[1], st[2], *call)
+            return [net, st[1], os_], {"loss": loss}
+        return step, opts, lambda st: st[0]
+    opts = [opt_cls(cfg.lr), opt_cls(cfg.lr)]
+    upd = offline.make_cql_update(cfg, *opts)
+
+    def step(st, call):
+        out = upd(*st, *call)
+        return list(out[:4]), out[4]
+    return step, opts, lambda st: st[0]
+
+
+def _rlo_replay(step, state0, calls, dev, dtype=None):
+    """The recorded updates from `state0` on `dev` (in `dtype`): the final
+    state and the last update's loss terms as floats."""
+    from ray_tpu_torch.rl.ppo import read_aux
+
+    st = _tree_to(state0, dev, dtype)
+    aux = {}
+    for call in calls:
+        st, aux = step(st, _tree_to(call, dev, dtype))
+    return st, read_aux(aux)
+
+
+def _rlo_card_vs_cpu(name, tr, tape, device, res, gates):
+    """Gate (b) for one learner: the first recorded update card vs CPU
+    (loss terms, every optimizer's gradients), then every recorded update
+    on the card in f32, the CPU in f32 and the card in f64."""
+    import torch
+
+    from ray_tpu_torch.rl.core import Adam
+
+    first = {}
+    for dev in (device, "cpu"):
+        step, opts, _ = _rlo_stepper(name, tr, _GradTape)
+        _, aux = _rlo_replay(step, tape.state0, tape.calls[:1], dev)
+        first[dev] = (aux, [g for o in opts for g in o.grads])
+    (la, ga), (lc, gc) = first[device], first["cpu"]
+    loss_err = max(abs(la[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc)
+    grad_err = max(float((a - c).abs().max() / max(float(c.abs().max()),
+                                                    1e-30))
+                   for gs_a, gs_c in zip(ga, gc)
+                   for a, c in zip(gs_a, gs_c))
+    runs = {}
+    for key, dev, dtype in (("card_f32", device, torch.float32),
+                            ("cpu_f32", "cpu", torch.float32),
+                            ("card_f64", device, torch.float64)):
+        step, _, trainable = _rlo_stepper(name, tr, Adam)
+        st, aux = _rlo_replay(step, tape.state0, tape.calls, dev, dtype)
+        runs[key] = (trainable(st), aux)
+    p0 = _rlo_stepper(name, tr, Adam)[2](tape.state0)
+    dist = {"card_f32_vs_cpu_f32": _update_distance(
+                runs["card_f32"][0], runs["cpu_f32"][0], p0),
+            "card_f32_vs_card_f64": _update_distance(
+                runs["card_f32"][0], runs["card_f64"][0], p0),
+            "cpu_f32_vs_card_f64": _update_distance(
+                runs["cpu_f32"][0], runs["card_f64"][0], p0)}
+    res["card_vs_cpu"] = {
+        "first_update": {"loss_terms_card": la, "loss_terms_cpu": lc,
+                         "loss_max_rel_err": loss_err,
+                         "grad_max_rel_err": grad_err,
+                         "grad_sets": len(ga),
+                         "tol": {"loss": RLO_LOSS_RTOL,
+                                 "grad": RLO_GRAD_RTOL}},
+        "iteration": {"updates": len(tape.calls),
+                      "update_rel_distance": dist,
+                      "aux": {k: v[1] for k, v in runs.items()},
+                      "tol": RLO_UPDATE_RTOL[name]}}
+    gates[f"b_{name}_first_update"] = (loss_err <= RLO_LOSS_RTOL
+                                       and grad_err <= RLO_GRAD_RTOL)
+    gates[f"b_{name}_iteration"] = max(dist.values()) <= RLO_UPDATE_RTOL[
+        name]
+
+
+def _leaves_on(tree, device) -> bool:
+    import torch
+
+    from ray_tpu_torch.rl.core import tree_leaves
+
+    return all(t.device.type == torch.device(device).type
+               for t in tree_leaves(tree))
+
+
+def _tree_changed(a, b) -> bool:
+    import torch
+
+    from ray_tpu_torch.rl.core import tree_leaves
+
+    return any(not torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _iteration_rows(results, updates, steps_per_iter):
+    """Each iteration's wall split into sampling and learning (an offline
+    trainer's whole iteration is learning), env steps/s and ms an update
+    (learning time over the iteration's `updates`)."""
+    rows = []
+    for r, ups in zip(results, updates):
+        row = {"wall_s": r["time_this_iter_s"],
+               "sample_s": r.get("sample_time_s"),
+               "learn_s": r.get("learn_time_s", r["time_this_iter_s"]),
+               "timesteps_total": r.get("timesteps_total"),
+               "updates": ups}
+        if row["sample_s"]:
+            row["env_steps_per_s"] = steps_per_iter / row["sample_s"]
+        if row["updates"]:
+            row["ms_per_update"] = row["learn_s"] * 1e3 / row["updates"]
+        rows.append(row)
+    return rows
+
+
+def _transitions(buffer, workers: int, fragment: int):
+    """A replay buffer's rows in time order per worker (the buffer holds
+    each iteration's fragments worker after worker): the offline
+    trainers' dataset."""
+    import numpy as np
+
+    n = len(buffer)
+    order = np.arange(n).reshape(-1, workers, fragment)
+    order = np.concatenate([order[:, w].ravel() for w in range(workers)])
+    return {k: v[:n][order].copy() for k, v in buffer._storage.items()}
+
+
+def _sweep_one(name, device, dqn_data):
+    """One train() on `device` of algorithm `name` at its config's defaults
+    but learning_starts (one fragment) and the env (the fixtures above);
+    Ape-X trains again (at most 5 times) until its replay lands and an
+    update runs, as the reference's own test does."""
+    import numpy as np
+
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl.core import to_host, tree_leaves
+
+    import ray_tpu_torch
+
+    cfg_cls, tr_cls = rl.get_algorithm(name)
+    kw = {"device": device, "seed": 0}
+    if name in ("TD3", "DDPG", "ApexDDPG"):
+        kw["env"] = "chip_smoke:Pendulum"
+    elif name in ("ApexDQN", "SimpleQ", "R2D2"):
+        kw["env"] = "chip_smoke:CartPole"
+    if "env" in kw:
+        kw["env_config"] = RLO_ENV_CONFIG
+    if name == "R2D2":
+        kw["learning_starts"] = cfg_cls.seqs_per_worker
+    elif "env" in kw:
+        kw["learning_starts"] = cfg_cls.rollout_fragment_length
+    elif name == "BC":
+        kw["dataset"] = {k: dqn_data[k] for k in ("obs", "actions")}
+    elif name == "MARWIL":
+        kw["dataset"] = {k: dqn_data[k] for k in ("obs", "actions",
+                                                  "rewards", "dones")}
+    else:
+        kw["dataset"] = dqn_data
+    t0 = time.perf_counter()
+    tr = tr_cls(cfg_cls(**kw))
+    out = {"start_s": time.perf_counter() - t0}
+    try:
+        actors = list(getattr(tr, "workers", [])) + list(
+            getattr(tr, "shards", []))
+        where = ray_tpu_torch.get([a.placement.remote() for a in actors])
+        w0 = to_host(tr.get_weights())
+        out["learner_on_device"] = _leaves_on(tr.get_weights(), device)
+        out["actors_without_cuda"] = all(not w["cuda_available"]
+                                         for w in where)
+        out["actors"] = len(actors)
+        t0 = time.perf_counter()
+        for out["train_calls"] in range(1, 6):
+            r = tr.train()
+            if not name.startswith("Apex") or r["updates_this_iter"]:
+                break
+        out["train_s"] = time.perf_counter() - t0
+        out["result"] = r
+        nums = [v for v in r.values() if isinstance(v, float)]
+        out["finite"] = bool(np.isfinite(nums).all())
+        out["weights_moved"] = _tree_changed(w0, tr.get_weights())
+        out["n_params"] = sum(t.numel() for t in tree_leaves(w0))
+    finally:
+        tr.stop()
+    out["ok"] = all(out[k] for k in ("learner_on_device",
+                                     "actors_without_cuda", "finite",
+                                     "weights_moved"))
+    return out
+
+
+def phase_rl_offpolicy(device="cuda"):
+    """The RL layer's off-policy and offline learners (``ray_tpu_torch.rl``
+    DQN, SAC, CQL and the sweep) in a session of
+    ``ray_tpu_torch.init(num_cpus=8)``, the learners on `device` in f32
+    (TF32 off), the rollout and replay actors on the CPU
+    (``CPU_WORKER_ENV``), the fixtures' action spaces seeded
+    (RLO_ENV_CONFIG), every trainer at its reference config's defaults:
+    1. SAC on ``chip_smoke:Pendulum``, 1 actor x 100 steps, learning
+       after 500, batch 128, 32 updates an iteration, hidden 128, lr 3e-4
+       x3, tau 0.005, RLO_SAC_ITERS iterations (5 of random actions, then
+       the actor's; updates from the 5th iteration on, once the buffer
+       holds 500);
+    2. DQN on ``chip_smoke:CartPole``, 2 actors x 50 steps, learning after
+       500, batch 64, 32 updates, hidden 64, double and dueling, the
+       target synced every 500 steps, RLO_DQN_ITERS iterations;
+    3. CQL on the SAC run's 1,000 transitions, RLO_CQL_ITERS iterations
+       (act_high 2, Pendulum's);
+    4. one train() (that updates) of each of RLO_SWEEP on the card: the
+       online ones on the fixtures learning after one fragment, BC, CRR,
+       MARWIL and DT on the DQN run's transitions.
+    The launch counters are zeroed just before 1 and read after 4. Gates:
+    (a) every learner leaf on `device`, every rollout and replay actor
+    without CUDA; (b) ``_rlo_card_vs_cpu`` for SAC, DQN and CQL (the first
+    updating iteration's updates, recorded); (c) each iteration's
+    timesteps, finite losses, alpha and Q values once updates run, DQN's
+    target changed at its syncs and only there, each sweep trainer's
+    finite metrics and moved weights, no process left after
+    ``shutdown()``; (d) no kernel launched. Information: each iteration's
+    wall, sampling and learning time, env steps/s, ms an update against
+    its operations bound, a profiled SAC learn window (one iteration's
+    recorded updates) with its idle share and top kernels, peak memory.
+    `device` "cpu" rehearses it on the CPU (gate (b) compares the CPU with
+    itself there)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.core.node import session_pids
+    from ray_tpu_torch.rl import dqn, offline, sac
+    from ray_tpu_torch.rl.core import Adam, to_host
+
+    _free_device()
+    _checkout_on_pythonpath()
+    on_card = device == "cuda"
+    res = {"cfg": f"SAC on chip_smoke:Pendulum ({RLO_SAC_ITERS} "
+                  f"iterations), DQN on chip_smoke:CartPole ("
+                  f"{RLO_DQN_ITERS}), CQL on SAC's transitions ("
+                  f"{RLO_CQL_ITERS}), one train() each of "
+                  f"{', '.join(RLO_SWEEP)}; the configs' defaults, f32 "
+                  f"learners on {device} (TF32 off)"}
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_cpus=8)
+    res["init_s"] = time.perf_counter() - t0
+    pids = {p.pid: "daemon" for p in info["procs"]}
+    gates = {}
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        sac_cfg = sac.SACConfig(env="chip_smoke:Pendulum",
+                                env_config=RLO_ENV_CONFIG, device=device)
+        dqn_cfg = dqn.DQNConfig(env="chip_smoke:CartPole",
+                                env_config=RLO_ENV_CONFIG, device=device)
+        t0 = time.perf_counter()
+        s_tr, d_tr = sac.SACTrainer(sac_cfg), dqn.DQNTrainer(dqn_cfg)
+        res["trainers_start_s"] = time.perf_counter() - t0
+        first_sac = sac_cfg.learning_starts // (
+            sac_cfg.num_rollout_workers * sac_cfg.rollout_fragment_length) - 1
+        first_dqn = dqn_cfg.learning_starts // (
+            dqn_cfg.num_rollout_workers * dqn_cfg.rollout_fragment_length) - 1
+        s_tape = _UpdateTape(s_tr, 6, {first_sac})
+        d_tape = _UpdateTape(d_tr, 3, {first_dqn})
+        where = ray_tpu_torch.get([w.placement.remote()
+                                   for w in s_tr.workers + d_tr.workers])
+        res["rollout_actors"] = where
+        gates["a_sac_dqn_learners_on_device"] = _leaves_on(
+            [s_tr.nets, s_tr.target_q, s_tr.log_alpha, d_tr.net,
+             d_tr.target], device)
+        gates["a_actors_without_cuda"] = all(not w["cuda_available"]
+                                             for w in where)
+        _reset_all_launches()
+        t_path = time.perf_counter()
+
+        # 1. SAC
+        s_res = [s_tr.train() for _ in range(RLO_SAC_ITERS)]
+        # 2. DQN, the target net watched at every iteration
+        d_res, changed, equal = [], [], []
+        for _ in range(RLO_DQN_ITERS):
+            before = to_host(d_tr.target)
+            d_res.append(d_tr.train())
+            changed.append(_tree_changed(before, d_tr.target))
+            equal.append(not _tree_changed(d_tr.target, d_tr.net))
+        # 3. CQL on SAC's transitions
+        sac_data = _transitions(s_tr.buffer, sac_cfg.num_rollout_workers,
+                                sac_cfg.rollout_fragment_length)
+        dqn_data = _transitions(d_tr.buffer, dqn_cfg.num_rollout_workers,
+                                dqn_cfg.rollout_fragment_length)
+        cql_cfg = offline.CQLConfig(dataset=sac_data, act_high=2.0,
+                                    device=device)
+        c_tr = offline.CQLTrainer(cql_cfg)
+        gates["a_cql_learner_on_device"] = _leaves_on(
+            [c_tr.nets, c_tr.target_q], device)
+        c_tape = _UpdateTape(c_tr, 4, set(range(RLO_CQL_ITERS)))
+        c_res = [c_tr.train() for _ in range(RLO_CQL_ITERS)]
+        # 4. the sweep
+        sweep = {}
+        for name in RLO_SWEEP:
+            sweep[name] = _sweep_one(name, device, dqn_data)
+        res["path_s"] = time.perf_counter() - t_path
+        res["launches"] = _all_launches()
+        t_down = time.perf_counter()
+        res["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None)
+        pids.update(session_pids(pids))
+        s_tr.stop()
+        d_tr.stop()
+    finally:
+        ray_tpu_torch.shutdown()
+    res["pids_alive_after_shutdown"] = _alive_after(pids)
+    gates["c_no_process_left"] = not res["pids_alive_after_shutdown"]
+    res["shutdown_s"] = time.perf_counter() - t_down
+
+    # (c) progress
+    steps = {"sac": sac_cfg.num_rollout_workers
+             * sac_cfg.rollout_fragment_length,
+             "dqn": dqn_cfg.num_rollout_workers
+             * dqn_cfg.rollout_fragment_length}
+    gates["c_timesteps"] = all(
+        r["timesteps_total"] == (i + 1) * steps[k]
+        for k, rs in (("sac", s_res), ("dqn", d_res))
+        for i, r in enumerate(rs))
+    upd_sac = [r for r in s_res if "critic_loss" in r]
+    upd_dqn = [r for r in d_res if r["num_updates"]]
+    gates["c_updates_ran"] = (
+        len(upd_sac) == RLO_SAC_ITERS - first_sac
+        and len(upd_dqn) == RLO_DQN_ITERS - first_dqn)
+    last_mb = s_tape.calls[-1][0]
+    with torch.no_grad():
+        q_sac = float(sac.q_value(s_tr.nets["q1"], *(
+            last_mb[k].to(device) for k in ("obs", "actions"))).mean())
+        q_dqn = float(dqn.q_forward(d_tr.net, d_tape.calls[-1][0][
+            "obs"].to(device)).mean())
+        q_cql = float(sac.q_value(c_tr.nets["q1"], *(
+            c_tape.calls[-1][0][k].to(device)
+            for k in ("obs", "actions"))).mean())
+    res["q_mean"] = {"sac": q_sac, "dqn": q_dqn, "cql": q_cql}
+    gates["c_finite"] = bool(np.isfinite(
+        [r[k] for r in upd_sac for k in ("critic_loss", "actor_loss",
+                                         "alpha")]
+        + [r["loss"] for r in upd_dqn]
+        + [r[k] for r in c_res for k in ("loss", "bellman_loss",
+                                         "cql_penalty", "actor_loss")]
+        + [q_sac, q_dqn, q_cql]).all()) and all(
+            r["alpha"] > 0 for r in upd_sac)
+    since, want = 0, []
+    for r in d_res:
+        since += steps["dqn"]
+        hit = r["num_updates"] > 0 and since >= \
+            dqn_cfg.target_network_update_freq
+        want.append(hit)
+        since = 0 if hit else since
+    res["dqn_target"] = {"changed": changed, "sync_expected": want}
+    gates["c_dqn_target_syncs"] = changed == want and any(want) and all(
+        e for e, w in zip(equal, want) if w)
+    res["sweep"] = sweep
+    gates["a_c_sweep"] = all(v["ok"] for v in sweep.values())
+    gates["d_no_kernel_launched"] = not any(res["launches"].values())
+
+    # information: each iteration and the updates' operations bound
+    res["iterations"] = {
+        "sac": _iteration_rows(s_res, [
+            sac_cfg.updates_per_iter * ("critic_loss" in r) for r in s_res],
+            steps["sac"]),
+        "dqn": _iteration_rows(d_res, [r["num_updates"] for r in d_res],
+                               steps["dqn"]),
+        "cql": _iteration_rows(c_res, [cql_cfg.updates_per_iter] * len(
+            c_res), 0)}
+    res["results_last"] = {"sac": s_res[-1], "dqn": d_res[-1],
+                           "cql": c_res[-1]}
+    flop = {"sac": _rlo_update_flop("sac", sac_cfg, 3, 1),
+            "dqn": _rlo_update_flop("dqn", dqn_cfg, 4, 2),
+            "cql": _rlo_update_flop("cql", cql_cfg, 3, 1)}
+    res["update_gflop"] = {k: v / 1e9 for k, v in flop.items()}
+    res["update_bound_ms"] = {k: bound(0, v, "float32")[0]
+                              for k, v in flop.items()}
+
+    # the profiled learn window: SAC's recorded iteration on the card
+    t0 = time.perf_counter()
+    if on_card:
+        step = _rlo_stepper("sac", s_tr, Adam)[0]
+        st0 = _tree_to(s_tape.state0, device)
+        calls = [_tree_to(c, device) for c in s_tape.calls]
+
+        def window():
+            st = _tree_to(st0, device)
+            for call in calls:
+                st, aux = step(st, call)
+            torch.cuda.synchronize()
+        prof = device_profile(window, window)
+        prof["ms_per_update"] = prof["wall_ms"] / len(calls)
+        res["profile_sac_learn"] = prof
+
+    res["profile_s"] = time.perf_counter() - t0
+
+    # (b) card vs CPU
+    t0 = time.perf_counter()
+    for name, tr, tape in (("sac", s_tr, s_tape), ("dqn", d_tr, d_tape),
+                           ("cql", c_tr, c_tape)):
+        res[name] = {}
+        _rlo_card_vs_cpu(name, tr, tape, device, res[name], gates)
+    res["card_vs_cpu_s"] = time.perf_counter() - t0
+    res["gates"] = gates
+    res["ok"] = all(gates.values())
+    return res
+
+
 # --- the port's engine --------------------------------------------------------
 
 
@@ -3990,8 +4695,8 @@ def ran_wgmma_fwd_only(profile) -> bool:
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
           "train_card_vs_cpu", "train", "train_sharded", "sp_pp", "moe",
-          "vit", "trainer", "data", "rl", "engine_sharded", "runtime",
-          "serve", "serve_disagg")
+          "vit", "trainer", "data", "rl", "rl_offpolicy", "engine_sharded",
+          "runtime", "serve", "serve_disagg")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -4006,7 +4711,8 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "train": phase_train, "train_sharded": phase_train_sharded,
                "sp_pp": phase_sp_pp, "moe": phase_moe, "vit": phase_vit,
                "trainer": phase_trainer, "data": phase_data,
-               "rl": phase_rl, "engine_sharded": phase_engine_sharded,
+               "rl": phase_rl, "rl_offpolicy": phase_rl_offpolicy,
+               "engine_sharded": phase_engine_sharded,
                "runtime": phase_runtime, "serve": phase_serve,
                "serve_disagg": phase_serve_disagg}
 
@@ -4132,7 +4838,8 @@ def main() -> int:
     # sp_pp's pipeline routes, moe's forward and training, and trainer's
     # workers (counted in theirs: the GPT-2 runs, none, and the
     # Llama run); data: the batch predictor's actor (counted in its
-    # process); rl: PPO on pixels, which runs none of them)
+    # process); rl: PPO on pixels, rl_offpolicy: the off-policy and
+    # offline learners, which run none of them)
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
@@ -4146,6 +4853,7 @@ def main() -> int:
              "trainer": ph["trainer"]["launches"],
              "data": ph["data"]["launches"],
              "rl": ph["rl"]["launches"],
+             "rl_offpolicy": ph["rl_offpolicy"]["launches"],
              "engine_sharded": ph["engine_sharded"]["launches"],
              "runtime": ph["runtime"]["launches"],
              "serve": ph["serve"]["launches"],

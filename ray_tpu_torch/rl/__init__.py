@@ -18,48 +18,85 @@ policy update runs on the learner's device, CUDA unless a config says
 
 Ported: the core, connectors, the pixel env, the Nature CNN, PPO, the
 Learner API and the on-policy family built on PPO's worker and policy
-(PG, A2C, A3C, IMPALA, APPO, DDPPO, multi-agent PPO, the policy server).
-The reference's other algorithms are still to port (ROADMAP.md queue 1,
-item 10): ``get_algorithm`` raises NotImplementedError for them.
+(PG, A2C, A3C, IMPALA, APPO, DDPPO, multi-agent PPO, the policy server);
+the replay-based off-policy family (DQN, SimpleQ, RandomAgent, R2D2, TD3,
+DDPG, Ape-X DQN/DDPG, SAC), the offline family (BC, CQL, CRR, MARWIL, DT)
+and the gradient-free algorithms (ES, ARS, the LinUCB/LinTS bandits; numpy
+on the host, as in the reference). Still to port (ROADMAP.md queue 1,
+item 10): QMIX, MADDPG, MAML, AlphaZero and SlateQ, for which
+``get_algorithm`` raises NotImplementedError.
 """
 
 from ray_tpu_torch.rl.a2c import A2CConfig, A2CTrainer
 from ray_tpu_torch.rl.a3c import A3CConfig, A3CTrainer
+from ray_tpu_torch.rl.apex import (ApexDDPGConfig, ApexDDPGTrainer,
+                                   ApexDQNConfig, ApexDQNTrainer,
+                                   PrioritizedReplayActor,
+                                   PrioritizedReplayBuffer)
 from ray_tpu_torch.rl.appo import APPOConfig, APPOTrainer
+from ray_tpu_torch.rl.bandit import (BanditConfig, LinearDiscreteBanditEnv,
+                                     LinTSTrainer, LinUCBTrainer)
 from ray_tpu_torch.rl.connectors import (ClipObs, Connector,
                                          ConnectorPipeline, FlattenObs,
                                          FrameStack, NormalizeObs)
 from ray_tpu_torch.rl.core import (Algorithm, ReplayActor, ReplayBuffer,
                                    params_from_jax)
+from ray_tpu_torch.rl.ddpg import DDPGConfig, DDPGTrainer
 from ray_tpu_torch.rl.ddppo import DDPPOConfig, DDPPOTrainer
+from ray_tpu_torch.rl.dqn import DQNConfig, DQNTrainer
+from ray_tpu_torch.rl.dt import DTConfig, DTTrainer
+from ray_tpu_torch.rl.es import ARSConfig, ARSTrainer, ESConfig, ESTrainer
 from ray_tpu_torch.rl.impala import ImpalaConfig, ImpalaTrainer
 from ray_tpu_torch.rl.learner import Learner, LearnerGroup, LearnerSpec
+from ray_tpu_torch.rl.marwil import MARWILConfig, MARWILTrainer
 from ray_tpu_torch.rl.multi_agent import (MultiAgentEnv, MultiAgentPPOConfig,
                                           MultiAgentPPOTrainer,
                                           register_multi_agent_env)
+from ray_tpu_torch.rl.offline import (BCConfig, BCTrainer, CQLConfig,
+                                      CQLTrainer, CRRConfig, CRRTrainer)
 from ray_tpu_torch.rl.pg import PGConfig, PGTrainer
 from ray_tpu_torch.rl.policy_server import (ExternalPPOConfig,
                                             ExternalPPOTrainer, PolicyClient,
                                             PolicyServer)
 from ray_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+from ray_tpu_torch.rl.r2d2 import R2D2Config, R2D2Trainer
+from ray_tpu_torch.rl.sac import SACConfig, SACTrainer
+from ray_tpu_torch.rl.simple_q import (RandomAgentConfig, RandomAgentTrainer,
+                                       SimpleQConfig, SimpleQTrainer)
+from ray_tpu_torch.rl.td3 import TD3Config, TD3Trainer
 
 _REGISTRY = {
     "PPO": (PPOConfig, PPOTrainer),
+    "DQN": (DQNConfig, DQNTrainer),
+    "SAC": (SACConfig, SACTrainer),
     "IMPALA": (ImpalaConfig, ImpalaTrainer),
+    "TD3": (TD3Config, TD3Trainer),
     "A2C": (A2CConfig, A2CTrainer),
+    "BC": (BCConfig, BCTrainer),
+    "CQL": (CQLConfig, CQLTrainer),
     "MultiAgentPPO": (MultiAgentPPOConfig, MultiAgentPPOTrainer),
     "APPO": (APPOConfig, APPOTrainer),
+    "ApexDQN": (ApexDQNConfig, ApexDQNTrainer),
+    "DDPG": (DDPGConfig, DDPGTrainer),
+    "ES": (ESConfig, ESTrainer),
+    "ARS": (ARSConfig, ARSTrainer),
+    "BanditLinUCB": (BanditConfig, LinUCBTrainer),
+    "BanditLinTS": (BanditConfig, LinTSTrainer),
     "PG": (PGConfig, PGTrainer),
     "A3C": (A3CConfig, A3CTrainer),
+    "MARWIL": (MARWILConfig, MARWILTrainer),
+    "SimpleQ": (SimpleQConfig, SimpleQTrainer),
+    "RandomAgent": (RandomAgentConfig, RandomAgentTrainer),
+    "R2D2": (R2D2Config, R2D2Trainer),
+    "CRR": (CRRConfig, CRRTrainer),
+    "ApexDDPG": (ApexDDPGConfig, ApexDDPGTrainer),
     "DDPPO": (DDPPOConfig, DDPPOTrainer),
+    "DT": (DTConfig, DTTrainer),
 }
 
-# the reference's registered algorithms that are not ported yet
-_NOT_PORTED = ("DQN", "SAC", "TD3", "BC", "CQL", "ApexDQN", "DDPG", "ES",
-               "ARS", "BanditLinUCB", "BanditLinTS", "MARWIL", "SimpleQ",
-               "RandomAgent", "R2D2", "CRR", "ApexDDPG", "QMIX", "MADDPG",
-               "DT", "AlphaZero", "MAML", "SlateQ")
-
+# the reference's registered algorithms that are not ported yet: the
+# multi-agent, meta-learning, planning and recommender ones
+_NOT_PORTED = ("QMIX", "MADDPG", "MAML", "AlphaZero", "SlateQ")
 
 def get_algorithm(name: str):
     """(ConfigCls, TrainerCls) by name (ref: rllib registry.py
@@ -67,7 +104,8 @@ def get_algorithm(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name} is not ported to ray_tpu_torch yet (ROADMAP.md queue "
-            "1, item 10: the RL modules still to port); ray_tpu.rl has it")
+            "1, item 10: QMIX, MADDPG, MAML, AlphaZero and SlateQ are still "
+            "to port); ray_tpu.rl has it")
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown algorithm {name!r}; have {sorted(_REGISTRY)}")
@@ -77,16 +115,27 @@ def get_algorithm(name: str):
 __all__ = [
     "Algorithm", "ReplayBuffer", "ReplayActor", "get_algorithm",
     "params_from_jax",
-    "PPOConfig", "PPOTrainer", "ImpalaConfig", "ImpalaTrainer",
-    "A2CConfig", "A2CTrainer",
+    "PPOConfig", "PPOTrainer", "DQNConfig", "DQNTrainer",
+    "SACConfig", "SACTrainer", "ImpalaConfig", "ImpalaTrainer",
+    "TD3Config", "TD3Trainer", "A2CConfig", "A2CTrainer",
+    "BCConfig", "BCTrainer", "CQLConfig", "CQLTrainer",
     "MultiAgentEnv", "MultiAgentPPOConfig", "MultiAgentPPOTrainer",
     "register_multi_agent_env",
     "PGConfig", "PGTrainer", "A3CConfig", "A3CTrainer",
-    "DDPPOConfig", "DDPPOTrainer",
+    "MARWILConfig", "MARWILTrainer",
+    "SimpleQConfig", "SimpleQTrainer", "RandomAgentConfig",
+    "RandomAgentTrainer", "R2D2Config", "R2D2Trainer",
+    "CRRConfig", "CRRTrainer", "ApexDDPGConfig", "ApexDDPGTrainer",
+    "DDPPOConfig", "DDPPOTrainer", "DTConfig", "DTTrainer",
     "Learner", "LearnerGroup", "LearnerSpec",
     "Connector", "ConnectorPipeline", "NormalizeObs", "FrameStack",
     "FlattenObs", "ClipObs",
     "PolicyServer", "PolicyClient", "ExternalPPOConfig",
     "ExternalPPOTrainer",
-    "APPOConfig", "APPOTrainer",
+    "APPOConfig", "APPOTrainer", "DDPGConfig", "DDPGTrainer",
+    "ApexDQNConfig", "ApexDQNTrainer", "PrioritizedReplayBuffer",
+    "PrioritizedReplayActor",
+    "ESConfig", "ESTrainer", "ARSConfig", "ARSTrainer",
+    "BanditConfig", "LinUCBTrainer", "LinTSTrainer",
+    "LinearDiscreteBanditEnv",
 ]

@@ -78,6 +78,52 @@ def to_host(tree):
     return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
 
 
+def clone_tree(tree):
+    """A copy of a param tree on its own device (the reference's
+    ``tree_map(lambda x: x, net)`` target networks: new leaves, never
+    aliases of the learner's, which Adam updates in place)."""
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+@torch.no_grad()
+def polyak_(target, source, tau: float) -> None:
+    """target <- (1 - tau) * target + tau * source, leaf for leaf, in place
+    (one foreach lerp for the whole tree)."""
+    torch._foreach_lerp_(tree_leaves(target), tree_leaves(source), tau)
+
+
+def standard_normal(seed: int, shape, device) -> torch.Tensor:
+    """A standard normal draw of `shape` from a CPU ``torch.Generator``
+    seeded with `seed` (the integer the reference gives ``PRNGKey``), on
+    `device`: the same numbers whatever the device. The update noise of
+    TD3, SAC and CQL is drawn so."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(device)
+
+
+def minibatch_to_device(batch: Dict[str, Any],
+                        device) -> Dict[str, torch.Tensor]:
+    """A replay or offline minibatch (numpy columns) as tensors on `device`:
+    floating columns in float32 (as ``jnp.asarray`` makes them with x64
+    off: an offline dataset may hold float64), integer ones as int64 (the
+    index type ``gather`` takes), booleans as they are. A read-only array
+    (a zero-copy view of the object store) is copied first."""
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        if not v.flags.writeable:
+            v = v.copy()
+        t = torch.as_tensor(v)
+        if t.is_floating_point():
+            t = t.to(device, torch.float32)
+        elif t.dtype != torch.bool:
+            t = t.to(device, torch.int64)
+        else:
+            t = t.to(device)
+        out[k] = t
+    return out
+
+
 def params_from_jax(tree, device):
     """A JAX RL param tree (dicts and lists of ``{"w", "b"}`` leaves, numpy
     or jax arrays) as float32 tensors on `device`. Conv weights (4-D) go
@@ -327,15 +373,7 @@ class EnvSampler:
         return episode_stats_from(self.completed)
 
     def placement(self) -> Dict[str, Any]:
-        """Where this actor runs: its pid, whether CUDA is usable in it
-        and what CUDA_VISIBLE_DEVICES says (CPU_WORKER_ENV hides the
-        card)."""
-        import os
-
-        return {"pid": os.getpid(),
-                "cuda_available": torch.cuda.is_available(),
-                "CUDA_VISIBLE_DEVICES":
-                    os.environ.get("CUDA_VISIBLE_DEVICES")}
+        return placement()
 
     def sample_transitions(self, select_action,
                            num_steps: int) -> Dict[str, np.ndarray]:
@@ -355,6 +393,16 @@ class EnvSampler:
                 "rewards": np.asarray(rew_b, np.float32),
                 "dones": np.asarray(done_b, np.float32),
                 "next_obs": np.stack(nobs_b)}
+
+
+def placement() -> Dict[str, Any]:
+    """Where the calling actor runs: its pid, whether CUDA is usable in it
+    and what CUDA_VISIBLE_DEVICES says (CPU_WORKER_ENV hides the card)."""
+    import os
+
+    return {"pid": os.getpid(),
+            "cuda_available": torch.cuda.is_available(),
+            "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES")}
 
 
 def episode_stats_from(completed: List[float]) -> Dict[str, float]:

@@ -17,7 +17,9 @@ drops.
 
 The reference takes its spaces from ``gymnasium.spaces``; gymnasium is not
 known to be installed beside the card, so ``Box`` and ``Discrete`` here
-carry what the probes and connectors read (shape, dtype, low/high, n).
+carry what the probes and connectors read (shape, dtype, low/high, n) and
+gymnasium's ``seed``/``sample`` (the same draws for a seed), which the
+off-policy workers' epsilon and warm-up actions call.
 
 Reference: rllib/env/wrappers/atari_wrappers.py documents the pipeline
 this env is designed to feed (WarpFrame/FrameStack); the env itself is
@@ -31,7 +33,27 @@ from typing import Optional, Tuple
 import numpy as np
 
 
-class Box:
+class _Space:
+    """gymnasium.spaces.Space's generator: ``seed(seed)`` makes
+    ``np.random.default_rng(seed)`` (what ``seeding.np_random`` builds);
+    an unseeded space seeds itself from fresh entropy at its first
+    ``sample``."""
+
+    _np_random: Optional[np.random.Generator] = None
+
+    def seed(self, seed: Optional[int] = None) -> int:
+        seq = np.random.SeedSequence(seed)
+        self._np_random = np.random.Generator(np.random.PCG64(seq))
+        return seq.entropy
+
+    @property
+    def np_random(self) -> np.random.Generator:
+        if self._np_random is None:
+            self.seed()
+        return self._np_random
+
+
+class Box(_Space):
     """gymnasium.spaces.Box's fields: a bounded array space."""
 
     def __init__(self, low, high, shape: Tuple[int, ...], dtype):
@@ -40,14 +62,49 @@ class Box:
         self.low = np.full(self.shape, low, self.dtype)
         self.high = np.full(self.shape, high, self.dtype)
 
+    def sample(self) -> np.ndarray:
+        """gymnasium's Box.sample: uniform on a bounded coordinate, a
+        shifted exponential on a half-bounded one, normal on an unbounded
+        one, floored and clipped for integer types."""
+        high = (self.high if self.dtype.kind == "f"
+                else self.high.astype("int64") + 1)
+        below, above = -np.inf < self.low, np.inf > self.high
+        sample = np.empty(self.shape)
+        unbounded, upp = ~below & ~above, ~below & above
+        low_b, bounded = below & ~above, below & above
+        rng = self.np_random
+        sample[unbounded] = rng.normal(size=unbounded[unbounded].shape)
+        sample[low_b] = (rng.exponential(size=low_b[low_b].shape)
+                         + self.low[low_b])
+        sample[upp] = -rng.exponential(size=upp[upp].shape) + high[upp]
+        sample[bounded] = rng.uniform(low=self.low[bounded],
+                                      high=high[bounded],
+                                      size=bounded[bounded].shape)
+        if self.dtype.kind in ("i", "u", "b"):
+            sample = np.floor(sample)
+        if np.issubdtype(self.dtype, np.signedinteger):
+            info = np.iinfo(self.dtype)
+            sample = sample.clip(info.min + 2, info.max - 2)
+        elif np.issubdtype(self.dtype, np.unsignedinteger):
+            info = np.iinfo(self.dtype)
+            sample = sample.clip(info.min, info.max)
+        sample = sample.astype(self.dtype)
+        if self.dtype == np.int64:
+            sample = sample.clip(self.low, self.high)
+        return sample
 
-class Discrete:
+
+class Discrete(_Space):
     """gymnasium.spaces.Discrete's fields: actions 0 .. n - 1."""
 
     def __init__(self, n: int):
         self.n = int(n)
         self.shape = ()
         self.dtype = np.dtype(np.int64)
+
+    def sample(self) -> np.int64:
+        """gymnasium's uniform Discrete.sample."""
+        return self.np_random.integers(self.n, dtype=self.dtype.type)
 
 
 class PixelCatcher:

@@ -54,8 +54,12 @@ def cluster():
 @contextlib.contextmanager
 def reference_store():
     """Identity put/get/wait on the stub ``ray_tpu`` module (call inside
-    ``jax_reference()``): an object ref is the object itself."""
+    ``jax_reference()``): an object ref is the object itself. On exit the
+    stub's own attributes come back (its local-mode ``get`` and ``wait``,
+    which the RL parity tests run on in the same process)."""
     stub = sys.modules["ray_tpu"]
+    names = ("put", "get", "wait")
+    saved = {n: getattr(stub, n) for n in names if hasattr(stub, n)}
     stub.put = lambda x: x
     stub.get = lambda r: [x for x in r] if isinstance(r, list) else r
     stub.wait = lambda refs, num_returns=1, timeout=None: (
@@ -63,8 +67,11 @@ def reference_store():
     try:
         yield
     finally:
-        for name in ("put", "get", "wait"):
-            delattr(stub, name)
+        for name in names:
+            if name in saved:
+                setattr(stub, name, saved[name])
+            else:
+                delattr(stub, name)
 
 
 def same(a, b, path="out"):

@@ -35,12 +35,34 @@ def test_registry():
         get_algorithm("NOPE")
 
 
-@pytest.mark.parametrize("name", ["DQN", "SAC", "MARWIL", "AlphaZero"])
+@pytest.mark.parametrize("name", ["QMIX", "MADDPG", "MAML", "AlphaZero",
+                                  "SlateQ"])
 def test_registry_unported_raises(name):
     from ray_tpu_torch.rl import get_algorithm
 
     with pytest.raises(NotImplementedError, match="item 10"):
         get_algorithm(name)
+
+
+def test_registry_covers_the_reference():
+    """The port's registered names and the ones still to port are, together,
+    the reference's registry (ray_tpu/rl/__init__.py's ``_REGISTRY`` keys,
+    read from its source), and the two never overlap."""
+    import ast
+    from pathlib import Path
+
+    from ray_tpu_torch.rl import _NOT_PORTED, _REGISTRY
+
+    src = Path(__file__).resolve().parents[1] / "ray_tpu" / "rl" / \
+        "__init__.py"
+    tree = ast.parse(src.read_text())
+    reg = next(n.value for n in tree.body if isinstance(n, ast.Assign)
+               and getattr(n.targets[0], "id", None) == "_REGISTRY")
+    ref_names = {k.value for k in reg.keys}
+    assert len(ref_names) == 31
+    assert not set(_REGISTRY) & set(_NOT_PORTED)
+    assert set(_REGISTRY) | set(_NOT_PORTED) == ref_names
+    assert len(_REGISTRY) == 26
 
 
 def test_replay_buffer_roundtrip():

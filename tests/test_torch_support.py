@@ -65,7 +65,15 @@ _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.models.gpt2",
                       "ray_tpu.rl.ppo", "ray_tpu.rl.learner",
                       "ray_tpu.rl.impala", "ray_tpu.rl.multi_agent",
                       "ray_tpu.rl.pg", "ray_tpu.rl.a2c", "ray_tpu.rl.a3c",
-                      "ray_tpu.rl.appo", "ray_tpu.rl.ddppo")
+                      "ray_tpu.rl.appo", "ray_tpu.rl.ddppo",
+                      # the off-policy, offline and gradient-free ones
+                      "ray_tpu.rl.dqn", "ray_tpu.rl.simple_q",
+                      "ray_tpu.rl.td3", "ray_tpu.rl.ddpg", "ray_tpu.rl.apex",
+                      "ray_tpu.rl.r2d2", "ray_tpu.rl.sac",
+                      "ray_tpu.rl.offline", "ray_tpu.rl.marwil",
+                      "ray_tpu.rl.dt", "ray_tpu.rl.es", "ray_tpu.rl.bandit")
+_RL_NEW = ("dqn", "simple_q", "td3", "ddpg", "apex", "r2d2", "sac",
+           "offline", "marwil", "dt", "es", "bandit")
 _loaded: dict = {}
 
 
@@ -195,8 +203,9 @@ class _Reference(types.SimpleNamespace):
     scheduling_policy and common; of the data layer dataset, aggregate,
     grouped, preprocessors, interfaces and resource_manager; of the RL
     layer rl_core, rl_connectors, rl_pixel_env, rl_vision, rl_ppo,
-    rl_learner, rl_impala, rl_multi_agent, rl_pg, rl_a2c, rl_a3c, rl_appo
-    and rl_ddppo."""
+    rl_learner, rl_impala, rl_multi_agent, rl_pg, rl_a2c, rl_a3c, rl_appo,
+    rl_ddppo, rl_dqn, rl_simple_q, rl_td3, rl_ddpg, rl_apex, rl_r2d2,
+    rl_sac, rl_offline, rl_marwil, rl_dt, rl_es and rl_bandit."""
 
 
 @contextlib.contextmanager
@@ -260,7 +269,8 @@ def jax_reference():
             rl_a2c=sys.modules["ray_tpu.rl.a2c"],
             rl_a3c=sys.modules["ray_tpu.rl.a3c"],
             rl_appo=sys.modules["ray_tpu.rl.appo"],
-            rl_ddppo=sys.modules["ray_tpu.rl.ddppo"])
+            rl_ddppo=sys.modules["ray_tpu.rl.ddppo"],
+            **{f"rl_{m}": sys.modules[f"ray_tpu.rl.{m}"] for m in _RL_NEW})
     finally:
         for k in [k for k in sys.modules if _is_ray_tpu(k)]:
             del sys.modules[k]
