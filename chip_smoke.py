@@ -169,7 +169,24 @@ printing one JSON line:
    A prefills and exports each full group, a fresh engine B imports them
    and generates); each group crossing the store once at its byte size,
    every handoff acked, K1 in the prefill and K6 in the decode replica;
-23. kernels: one line with every kernel's numbers;
+23. rl_final: the RL layer's last five algorithms at their configs'
+   defaults on their own numpy envs, learners on the card, CPU actors:
+   QMIX (two-step game), MADDPG (line spread), MAML (point goals),
+   AlphaZero (TicTacToe self-play with MCTS) and SlateQ (slate
+   recommendation), 2-5 iterations each: placement, one update and one
+   iteration's updates card vs CPU (and f64), finite losses, moved
+   weights, QMIX's and SlateQ's target syncs, MADDPG's exact polyak step,
+   no process left; a learn window's idle share and kernels per update
+   each, MAML's second-order meta-update against its first-order cost. No
+   kernel of ours runs;
+24. tune: ``ray_tpu_torch.tune`` sweeping GPT-2 125M's lr over four values
+   under ASHA (max_t 8, grace 2, halving), one trial at a time, each
+   holding the card: the params on the card, trial 0's first loss against
+   the same step run in the driver, ASHA's decisions replayed, the best
+   result, the CSV/JSON logs, no process left; each trial's start, init
+   and step time, the card's idle share between trials. No kernel of ours
+   runs (GPT-2's attention is plain);
+25. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -2962,16 +2979,16 @@ def _tree_to(tree, dev, dtype=None):
 
 
 class _UpdateTape:
-    """Wraps a trainer's ``_update``: in the iteration `at` keeps the state
-    its first call starts from (the first `n_state` arguments) and every
-    call's other arguments (minibatch, noise), CPU copies, then calls
-    through."""
+    """Wraps a trainer's update method (`attr`): in the iterations `at`
+    keeps the state its first call starts from (the first `n_state`
+    arguments) and every call's other arguments (minibatch, noise), CPU
+    copies, then calls through."""
 
-    def __init__(self, trainer, n_state: int, at: int):
+    def __init__(self, trainer, n_state: int, at, attr: str = "_update"):
         self.trainer, self.n_state, self.at = trainer, n_state, at
-        self.inner = trainer._update
+        self.inner = getattr(trainer, attr)
         self.state0, self.calls = None, []
-        trainer._update = self
+        setattr(trainer, attr, self)
 
     def __call__(self, *args, **kwargs):
         if self.trainer.iteration in self.at:
@@ -3047,17 +3064,23 @@ def _rlo_replay(step, state0, calls, dev, dtype=None):
     return st, read_aux(aux)
 
 
-def _rlo_card_vs_cpu(name, tr, tape, device, res, gates):
+def _rlo_card_vs_cpu(name, tr, tape, device, res, gates,
+                     stepper=_rlo_stepper, loss_rtol=RLO_LOSS_RTOL,
+                     grad_rtol=RLO_GRAD_RTOL, update_rtol=None):
     """Gate (b) for one learner: the first recorded update card vs CPU
     (loss terms, every optimizer's gradients), then every recorded update
-    on the card in f32, the CPU in f32 and the card in f64."""
+    on the card in f32, the CPU in f32 and the card in f64. `stepper`
+    builds the learner's update (``_rlo_stepper``'s contract); the bounds
+    default to RLO_*'s."""
     import torch
 
     from ray_tpu_torch.rl.core import Adam
 
+    if update_rtol is None:
+        update_rtol = RLO_UPDATE_RTOL[name]
     first = {}
     for dev in (device, "cpu"):
-        step, opts, _ = _rlo_stepper(name, tr, _GradTape)
+        step, opts, _ = stepper(name, tr, _GradTape)
         _, aux = _rlo_replay(step, tape.state0, tape.calls[:1], dev)
         first[dev] = (aux, [g for o in opts for g in o.grads])
     (la, ga), (lc, gc) = first[device], first["cpu"]
@@ -3070,10 +3093,10 @@ def _rlo_card_vs_cpu(name, tr, tape, device, res, gates):
     for key, dev, dtype in (("card_f32", device, torch.float32),
                             ("cpu_f32", "cpu", torch.float32),
                             ("card_f64", device, torch.float64)):
-        step, _, trainable = _rlo_stepper(name, tr, Adam)
+        step, _, trainable = stepper(name, tr, Adam)
         st, aux = _rlo_replay(step, tape.state0, tape.calls, dev, dtype)
         runs[key] = (trainable(st), aux)
-    p0 = _rlo_stepper(name, tr, Adam)[2](tape.state0)
+    p0 = stepper(name, tr, Adam)[2](tape.state0)
     dist = {"card_f32_vs_cpu_f32": _update_distance(
                 runs["card_f32"][0], runs["cpu_f32"][0], p0),
             "card_f32_vs_card_f64": _update_distance(
@@ -3085,16 +3108,14 @@ def _rlo_card_vs_cpu(name, tr, tape, device, res, gates):
                          "loss_max_rel_err": loss_err,
                          "grad_max_rel_err": grad_err,
                          "grad_sets": len(ga),
-                         "tol": {"loss": RLO_LOSS_RTOL,
-                                 "grad": RLO_GRAD_RTOL}},
+                         "tol": {"loss": loss_rtol, "grad": grad_rtol}},
         "iteration": {"updates": len(tape.calls),
                       "update_rel_distance": dist,
                       "aux": {k: v[1] for k, v in runs.items()},
-                      "tol": RLO_UPDATE_RTOL[name]}}
-    gates[f"b_{name}_first_update"] = (loss_err <= RLO_LOSS_RTOL
-                                       and grad_err <= RLO_GRAD_RTOL)
-    gates[f"b_{name}_iteration"] = max(dist.values()) <= RLO_UPDATE_RTOL[
-        name]
+                      "tol": update_rtol}}
+    gates[f"b_{name}_first_update"] = (loss_err <= loss_rtol
+                                       and grad_err <= grad_rtol)
+    gates[f"b_{name}_iteration"] = max(dist.values()) <= update_rtol
 
 
 def _leaves_on(tree, device) -> bool:
@@ -3419,6 +3440,632 @@ def phase_rl_offpolicy(device="cuda"):
         res[name] = {}
         _rlo_card_vs_cpu(name, tr, tape, device, res[name], gates)
     res["card_vs_cpu_s"] = time.perf_counter() - t0
+    res["gates"] = gates
+    res["ok"] = all(gates.values())
+    return res
+
+
+# --- the RL layer's last five algorithms -----------------------------------
+
+# iterations of each trainer in the rl_final phase: past learning_starts,
+# then two updating iterations (QMIX updates from its first iteration and
+# SlateQ from its third; both run on to their first target sync, QMIX's at
+# 256 sampled steps, SlateQ's at 400)
+RLF_ITERS = {"qmix": 4, "maddpg": 4, "maml": 2, "alphazero": 2,
+             "slateq": 5}
+# card vs CPU, f32 with TF32 off, on the first updating iteration's first
+# update from the same state and minibatch: each loss term within
+# RLF_LOSS_RTOL of the CPU's, each gradient leaf within RLF_GRAD_RTOL of
+# its largest element. Then the iteration's updates on the card in f32, the
+# CPU in f32 and the card in f64 pairwise within RLF_UPDATE_RTOL of the
+# update's norm (f32 rounding over at most 16 Adam steps of MLPs up to 64
+# wide; a learner computing anything else lands ~1 of the norm away)
+RLF_LOSS_RTOL = 1e-6
+RLF_GRAD_RTOL = 1e-6
+RLF_UPDATE_RTOL = 1e-4
+
+
+def _rlf_stepper(name: str, tr, opt_cls):
+    """``_rlo_stepper``'s contract for the rl_final learners: (step(state,
+    call) -> (state, aux), the optimizers, the trainable part of a
+    state), with fresh optimizers of `opt_cls` at the config's rates."""
+    from ray_tpu_torch.rl import alpha_zero, maddpg, maml, qmix, slateq
+    from ray_tpu_torch.rl.core import make_update
+    from ray_tpu_torch.rl.dqn import make_q_update
+
+    cfg = tr.config
+    if name in ("qmix", "slateq"):
+        opts = [opt_cls(cfg.lr)]
+        loss = (qmix.make_qmix_loss(cfg.gamma, cfg.double_q)
+                if name == "qmix" else slateq.make_slateq_loss(
+                    cfg.gamma, tr.slate_size, tr.null_bias))
+        upd = make_q_update(loss, opts[0])
+
+        def step(st, call):
+            net, os_, loss_, _ = upd(st[0], st[1], st[2], *call)
+            return [net, st[1], os_], {"loss": loss_}
+        return step, opts, lambda st: st[0]
+    if name == "maddpg":
+        opts = [opt_cls(cfg.actor_lr), opt_cls(cfg.critic_lr)]
+        upd = maddpg.make_maddpg_update(tr.obs_dims, tr.act_dims, cfg.gamma,
+                                        cfg.tau, *opts)
+
+        def step(st, call):
+            out = upd(*st, *call)
+            return list(out[:4]), {"critic_loss": out[4],
+                                   "actor_loss": out[5]}
+        return step, opts, lambda st: {"nets": st[0], "target": st[1]}
+    if name == "alphazero":
+        opts = [opt_cls(cfg.lr)]
+        upd = make_update(alpha_zero.az_loss, opts[0])
+
+        def step(st, call):
+            net, os_, aux = upd(st[0], st[1], *call)
+            return [net, os_], aux
+        return step, opts, lambda st: st[0]
+    opts = [opt_cls(cfg.meta_lr)]
+    upd = maml.make_meta_update(opts[0], cfg.inner_lr)
+
+    def step(st, call):
+        p, os_, loss_ = upd(st[0], st[1], *call)
+        return [p, os_], {"meta_loss": loss_}
+    return step, opts, lambda st: st[0]
+
+
+def _rlf_first_update(cfg) -> int:
+    """The first iteration (0-based) whose sampling fills the replay to
+    `cfg.learning_starts`; 0 for a trainer that updates from the start."""
+    if not hasattr(cfg, "learning_starts"):
+        return 0
+    per_iter = cfg.num_rollout_workers * cfg.rollout_fragment_length
+    return max(0, -(-cfg.learning_starts // per_iter) - 1)
+
+
+def _rlf_learner(name, tr):
+    """The learner's trees (params and targets) of trainer `tr`."""
+    return {"qmix": lambda: [tr.nets, tr.target],
+            "maddpg": lambda: [tr.nets, tr.target],
+            "slateq": lambda: [tr.net, tr.target],
+            "alphazero": lambda: [tr.net],
+            "maml": lambda: [tr.params]}[name]()
+
+
+def _maml_first_order_update(opt, inner_lr):
+    """``maml.make_meta_update``'s step with each task's inner gradient a
+    constant (first-order MAML): the yardstick for what the second-order
+    term costs. Built here from ``pg_loss``; the port has no such mode."""
+    import torch
+
+    from ray_tpu_torch.rl import maml
+    from ray_tpu_torch.rl.core import (tree_leaves, tree_unflatten_like,
+                                       value_and_grad)
+
+    def adapt(p, pre):
+        leaves = tree_leaves(p)
+        inner = torch.autograd.grad(maml.pg_loss(p, pre), leaves)
+        return tree_unflatten_like(
+            p, [x - inner_lr * g for x, g in zip(leaves, inner)])
+
+    def total(p, pres, posts):
+        losses = [maml.pg_loss(adapt(p, pre), post)
+                  for pre, post in zip(pres, posts)]
+        return sum(losses) / len(losses), {}
+
+    def update(params, opt_state, pres, posts):
+        if opt_state is None:
+            opt_state = opt.init(params)
+        (loss, _), grads = value_and_grad(total, params, pres, posts)
+        opt.step(params, grads, opt_state)
+        return params, opt_state, loss
+    return update
+
+
+def _rlf_window(name, tr, tape, device, first_order=False):
+    """A function that replays the tape's updates on `device` from its
+    state (fresh Adam), and the number of updates it runs. `first_order`
+    replays MAML's through ``_maml_first_order_update``."""
+    import torch
+
+    from ray_tpu_torch.rl.core import Adam
+
+    if name == "maml" and first_order:
+        upd = _maml_first_order_update(Adam(tr.config.meta_lr),
+                                       tr.config.inner_lr)
+
+        def step(st, call):
+            p, os_, loss_ = upd(st[0], st[1], *call)
+            return [p, os_], {"meta_loss": loss_}
+    else:
+        step = _rlf_stepper(name, tr, Adam)[0]
+    st0 = _tree_to(tape.state0, device)
+    calls = [_tree_to(c, device) for c in tape.calls]
+
+    def window():
+        st = _tree_to(st0, device)
+        for call in calls:
+            st, _ = step(st, call)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    return window, len(calls)
+
+
+def phase_rl_final(device="cuda"):
+    """The RL layer's last five algorithms (``ray_tpu_torch.rl`` QMIX,
+    MADDPG, MAML, AlphaZero, SlateQ) in a session of
+    ``ray_tpu_torch.init(num_cpus=8)``, each at its reference config's
+    defaults (QMIX hidden 32, embed 16, batch 32, 16 updates; MADDPG hidden
+    64, batch 128, 16 updates; MAML hidden 32, 2 tasks x 4 episodes;
+    AlphaZero hidden 64, 25 simulations, batch 128, 16 updates; SlateQ
+    hidden 64, batch 64, 16 updates) on its own numpy env, the learners on
+    `device` in f32 (TF32 off), the rollout and self-play actors on the CPU
+    (``CPU_WORKER_ENV``), for RLF_ITERS iterations each. The launch
+    counters are zeroed just before the first train() and read after the
+    last. Gates: (a) every learner leaf on `device`, every actor without
+    CUDA; (b) the first updating iteration's first update card vs CPU
+    (loss terms within RLF_LOSS_RTOL, gradients within RLF_GRAD_RTOL of
+    each leaf's largest); (c) that iteration's updates, recorded, on the
+    card in f32 against the CPU in f32 and the card in f64 within
+    RLF_UPDATE_RTOL of the update's norm; (d) finite losses, moved
+    weights, QMIX's and SlateQ's targets changed at their syncs and only
+    there, MADDPG's target moved by exactly its polyak step (one recorded
+    update replayed: the target after equals ``polyak_`` of the target
+    before toward the nets after, bit for bit, and is not the nets);
+    (e) no kernel launched, no process left after ``shutdown()``.
+    Information: each iteration's sampling and learning time, ms per
+    update, a profiled learn window per trainer (the recorded iteration
+    replayed: idle share, kernels per update), MAML's meta-update against
+    its first-order cost. `device` "cpu" rehearses it on the CPU (gates
+    (b) and (c) compare the CPU with itself there)."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.core.node import session_pids
+    from ray_tpu_torch.rl import alpha_zero, maddpg, maml, qmix, slateq
+    from ray_tpu_torch.rl.core import Adam, polyak_, to_host, tree_leaves
+
+    _free_device()
+    _checkout_on_pythonpath()
+    on_card = device == "cuda"
+    res = {"cfg": "QMIX on two_step_game, MADDPG on line_spread, MAML on "
+                  "PointGoalEnv, AlphaZero on TicTacToe, SlateQ on "
+                  "SlateRecEnv; the configs' defaults, f32 learners on "
+                  f"{device} (TF32 off); iterations {RLF_ITERS}"}
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_cpus=8)
+    res["init_s"] = time.perf_counter() - t0
+    pids = {p.pid: "daemon" for p in info["procs"]}
+    gates = {}
+    # name: (trainer, the update attribute, its state arguments)
+    kinds = {"qmix": (qmix.QMIXTrainer, qmix.QMIXConfig, "_update", 3),
+             "maddpg": (maddpg.MADDPGTrainer, maddpg.MADDPGConfig,
+                        "_update", 4),
+             "maml": (maml.MAMLTrainer, maml.MAMLConfig, "_meta_update", 2),
+             "alphazero": (alpha_zero.AlphaZeroTrainer,
+                           alpha_zero.AlphaZeroConfig, "_update", 2),
+             "slateq": (slateq.SlateQTrainer, slateq.SlateQConfig,
+                        "_update", 3)}
+    trs, tapes, results, w0, syncs, first = {}, {}, {}, {}, {}, {}
+    try:
+        t0 = time.perf_counter()
+        for name, (tr_cls, cfg_cls, attr, n_state) in kinds.items():
+            trs[name] = tr_cls(cfg_cls(device=device))
+            first[name] = _rlf_first_update(trs[name].config)
+            tapes[name] = _UpdateTape(trs[name], n_state, {first[name]},
+                                      attr)
+        res["trainers_start_s"] = time.perf_counter() - t0
+        where = ray_tpu_torch.get([w.placement.remote() for tr in
+                                   trs.values() for w in tr.workers])
+        res["rollout_actors"] = len(where)
+        gates["a_learners_on_device"] = all(
+            _leaves_on(_rlf_learner(n, tr), device)
+            for n, tr in trs.items())
+        gates["a_actors_without_cuda"] = all(not w["cuda_available"]
+                                             for w in where)
+        for name, tr in trs.items():
+            w0[name] = to_host(tr.get_weights())
+        _reset_all_launches()
+        t_path = time.perf_counter()
+        for name, tr in trs.items():
+            results[name], syncs[name] = [], []
+            for _ in range(RLF_ITERS[name]):
+                before = (to_host(tr.target) if name in ("qmix", "slateq")
+                          else None)
+                results[name].append(tr.train())
+                if before is not None:
+                    syncs[name].append(_tree_changed(before, tr.target))
+        res["path_s"] = time.perf_counter() - t_path
+        res["launches"] = _all_launches()
+        res["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if on_card else None)
+        gates["d_weights_moved"] = all(
+            _tree_changed(w0[n], tr.get_weights()) for n, tr in trs.items())
+        pids.update(session_pids(pids))
+        t_down = time.perf_counter()
+        for tr in trs.values():
+            tr.stop()
+    finally:
+        ray_tpu_torch.shutdown()
+    res["pids_alive_after_shutdown"] = _alive_after(pids)
+    gates["e_no_process_left"] = not res["pids_alive_after_shutdown"]
+    gates["e_no_kernel_launched"] = not any(res["launches"].values())
+    res["shutdown_s"] = time.perf_counter() - t_down
+
+    # (d) progress
+    loss_keys = {"qmix": ("loss",), "maddpg": ("critic_loss", "actor_loss"),
+                 "maml": ("meta_loss",),
+                 "alphazero": ("loss", "pi_loss", "v_loss"),
+                 "slateq": ("loss",)}
+    vals, updated, n_updates = [], {}, {}
+    for name, rs in results.items():
+        # AlphaZero and MAML update in every iteration and report no count
+        n_updates[name] = [r["num_updates"] if "num_updates" in r else (
+            trs[name].config.updates_per_iter if name == "alphazero" else 1)
+            for r in rs]
+        updated[name] = [i for i, u in enumerate(n_updates[name]) if u]
+        vals += [r[k] for r in rs[first[name]:] for k in loss_keys[name]]
+    res["first_updating_iteration"] = first
+    gates["d_updates_ran"] = all(
+        updated[n] == list(range(first[n], RLF_ITERS[n])) for n in results)
+    gates["d_finite"] = bool(np.isfinite(vals).all())
+    res["targets"] = {}
+    for name in ("qmix", "slateq"):
+        cfg = trs[name].config
+        per = cfg.num_rollout_workers * cfg.rollout_fragment_length
+        since, want = 0, []
+        for r in results[name]:
+            since += per
+            hit = r["num_updates"] > 0 and \
+                since >= cfg.target_network_update_freq
+            want.append(hit)
+            since = 0 if hit else since
+        res["targets"][name] = {"changed": syncs[name],
+                                "sync_expected": want,
+                                "steps_per_iter": per}
+        gates[f"d_{name}_target_syncs"] = syncs[name] == want and any(want)
+
+    # MADDPG's target after one recorded update: exactly its polyak step
+    tape = tapes["maddpg"]
+    step = _rlf_stepper("maddpg", trs["maddpg"], Adam)[0]
+    st = _tree_to(tape.state0, device)
+    want = _tree_to(st[1], device)
+    st, _ = step(st, _tree_to(tape.calls[0], device))
+    polyak_(want, st[0], trs["maddpg"].config.tau)
+    gates["d_maddpg_polyak_exact"] = (
+        all(torch.equal(a, b) for a, b in zip(tree_leaves(st[1]),
+                                              tree_leaves(want)))
+        and _tree_changed(st[1], st[0]))
+
+    # information: each iteration, the profiled learn windows
+    env_steps = {n: (tr.config.num_rollout_workers
+                     * tr.config.rollout_fragment_length
+                     if hasattr(tr.config, "rollout_fragment_length") else 0)
+                 for n, tr in trs.items()}
+    env_steps["maml"] = (2 * trs["maml"].config.num_rollout_workers
+                         * trs["maml"].config.episodes_per_task
+                         * maml.PointGoalEnv.H)
+    res["iterations"] = {n: _iteration_rows(rs, n_updates[n], env_steps[n])
+                         for n, rs in results.items()}
+    res["results_last"] = {n: rs[-1] for n, rs in results.items()}
+    t0 = time.perf_counter()
+    if on_card:
+        res["profile_learn"] = {}
+        for name, tr in trs.items():
+            window, n = _rlf_window(name, tr, tapes[name], device)
+            prof = device_profile(window, window)
+            prof["updates"] = n
+            prof["ms_per_update"] = prof["wall_ms"] / n
+            prof["kernels_per_update"] = prof["device_events"] / n
+            res["profile_learn"][name] = prof
+        fo, n = _rlf_window("maml", trs["maml"], tapes["maml"], device,
+                            first_order=True)
+        so, _ = _rlf_window("maml", trs["maml"], tapes["maml"], device)
+        res["maml_meta_update_ms"] = {"second_order": cuda_ms(so, 5) / n,
+                                      "first_order": cuda_ms(fo, 5) / n}
+    res["profile_s"] = time.perf_counter() - t0
+
+    # (b), (c) card vs CPU
+    t0 = time.perf_counter()
+    for name, tr in trs.items():
+        res[name] = {}
+        _rlo_card_vs_cpu(name, tr, tapes[name], device, res[name], gates,
+                         stepper=_rlf_stepper, loss_rtol=RLF_LOSS_RTOL,
+                         grad_rtol=RLF_GRAD_RTOL,
+                         update_rtol=RLF_UPDATE_RTOL)
+        gates[f"c_{name}_f32_vs_f64"] = gates.pop(f"b_{name}_iteration")
+    res["card_vs_cpu_s"] = time.perf_counter() - t0
+    res["gates"] = gates
+    res["ok"] = all(gates.values())
+    return res
+
+
+# --- tune: an ASHA sweep of GPT-2 125M on the card -------------------------
+
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+TUNE_MAX_T = 8
+TUNE_FIRST_LOSS_RTOL = 1e-5
+# a trial's reading of the card's use at its start (mem_get_info): over the
+# driver's by its own CUDA context (about 0.5 GB) at most TUNE_CONTEXT_GB;
+# every trial within TUNE_CARD_USED_MARGIN_GB of the first, less than one
+# context, so no earlier trial's process still held the card
+TUNE_CONTEXT_GB = 1.0
+TUNE_CARD_USED_MARGIN_GB = 0.25
+
+
+def _tune_gpt2_trial(config):
+    """A tune trial: GPT-2 `preset` (bf16 compute, f32 params) from seed 0
+    on `device` (CUDA unless "cpu"), ``make_train_step`` with
+    ``adamw(lr, weight_decay=0.01)``, one batch of seeded tokens (seed 7,
+    [B, S + 1]), ``tune.report({"loss", "step_ms", ...})`` after every
+    step, the first report also carrying where the trial ran: its pid, the
+    card memory it found in use, whether every param is on the device,
+    its timestamps (entry, the process's age then, imports done, CUDA
+    ready, params drawn). The card is freed however the trial ends."""
+    import os
+
+    t_enter = time.time()
+    with open("/proc/self/stat") as f, open("/proc/uptime") as g:
+        age = float(g.read().split()[0]) - int(
+            f.read().rsplit(")", 1)[1].split()[19]) / os.sysconf(
+                "SC_CLK_TCK")
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import train_step as ts
+
+    start = {"pid": os.getpid(), "t_enter": t_enter,
+             "process_age_at_entry_s": age, "t_imported": time.time()}
+    dev = torch.device(config["device"] or "cuda")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        free, total = torch.cuda.mem_get_info(dev)
+        start.update(card_used_at_start_gb=(total - free) / 1e9,
+                     current_device=torch.cuda.current_device())
+    start["t_device_ready"] = time.time()
+    cfg = gpt2.PRESETS[config["preset"]]
+    init, _ = ts.make_train_state_init(
+        lambda g: gpt2.init_params(g, cfg),
+        ts.adamw(config["lr"], weight_decay=0.01), device=dev)
+    state = init(0)
+    B, S = config["batch"]
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(B, S + 1)), device=dev)}
+    step = ts.make_train_step(lambda p, b: gpt2.loss_fn(p, b, cfg))
+    start["params_on_device"] = all(t.device.type == dev.type
+                                    for t in ts._leaves(state.params))
+    _reset_all_launches()
+    start["t_init_done"] = time.time()
+    try:
+        for i in range(config["steps"]):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            rep = {"loss": float(m["loss"]),      # waits for the step
+                   "step_ms": (time.perf_counter() - t0) * 1e3,
+                   "launches": _all_launches()}
+            tune.report({**rep, **start} if i == 0 else rep)
+    finally:
+        del state
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+class _RecordingScheduler:
+    """A scheduler that logs each (trial, result, decision) it makes, in
+    the order the tuner asks."""
+
+    def __init__(self, inner):
+        self.inner, self.log = inner, []
+        self.metric = inner.metric
+
+    def on_result(self, trial_id, result):
+        d = self.inner.on_result(trial_id, result)
+        self.log.append((trial_id, dict(result), d))
+        return d
+
+
+def _gpt2_first_loss(preset, batch, lr, device):
+    """The trial's first step run here: its loss."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = gpt2.PRESETS[preset]
+    init, _ = ts.make_train_state_init(
+        lambda g: gpt2.init_params(g, cfg),
+        ts.adamw(lr, weight_decay=0.01), device=device)
+    state = init(0)
+    B, S = batch
+    b = {"tokens": torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(B, S + 1)), device=device)}
+    _, m = ts.make_train_step(lambda p, x: gpt2.loss_fn(p, x, cfg))(state, b)
+    return float(m["loss"])
+
+
+def phase_tune(device="cuda", preset="125m", batch=(8, 1024)):
+    """``ray_tpu_torch.tune``: a ``Tuner`` over ``_tune_gpt2_trial`` (GPT-2
+    `preset` at full width, the trainer phase's batch and sequence), the
+    sweep ``lr`` in TUNE_LRS under ``ASHAScheduler(metric="loss",
+    mode="min", max_t=TUNE_MAX_T, grace_period=2, reduction_factor=2)``,
+    each trial asking for ``{"CPU": 1, "GPU": 1}`` (on the CPU, for a
+    rehearsal, ``{"CPU": 1}``), ``max_concurrent_trials=1`` (the controller
+    launches up to that many trial actors whatever their resources and
+    polls each with a 30 s timeout: a trial waiting that long for the one
+    card would be reported lost), the CSV and JSON logger callbacks, in a
+    session of ``ray_tpu_torch.init(num_cpus=8)``. The launch counts are
+    the trials' own (all six read in their processes, zeroed at their
+    start). Gates: (a) every trial's params on the device, and (on the
+    card) the card's device-wide use at each trial's start no more than
+    the driver's before ``fit()`` plus one CUDA context (TUNE_CONTEXT_GB)
+    and within TUNE_CARD_USED_MARGIN_GB of the first trial's; (b) trial 0's first-step loss
+    within TUNE_FIRST_LOSS_RTOL of the same step run here first; (c) the
+    recorded reports replayed in their order through a fresh
+    ``ASHAScheduler`` give the same decisions, each trial stopped at a rung
+    has fewer than max_t reports and every other trial max_t; (d)
+    ``get_best_result()`` is the trial with the lowest last loss; (e) the
+    CSV and JSON files hold every report; (f) no error, no kernel launched,
+    no process left after ``shutdown()``. Information: the sweep's wall
+    time, each trial's start (from the previous trial's last report to
+    its entry: the actor's start), init and first step, its steady ms per
+    step against the trainer phase's, and the share of the sweep's wall
+    time outside the trials' steps (host clock: 1 - the steps' summed
+    host-timed ms over the sweep's wall time; not a device idle share)."""
+    import csv
+    import statistics
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.core.node import session_pids
+    from ray_tpu_torch.train import RunConfig
+
+    _free_device()
+    _checkout_on_pythonpath()
+    on_card = device == "cuda"
+    res = {"cfg": f"gpt2 {preset} batch {list(batch)}, lr in {TUNE_LRS}, "
+                  f"ASHA max_t {TUNE_MAX_T} grace 2 rf 2, one trial at a "
+                  f"time, on {device}"}
+    gates = {}
+    t0 = time.perf_counter()
+    want_loss = _gpt2_first_loss(preset, batch, TUNE_LRS[0], device)
+    res["driver_first_loss"] = want_loss
+    res["driver_first_step_s"] = time.perf_counter() - t0
+    _free_device()
+    asha = dict(metric="loss", mode="min", max_t=TUNE_MAX_T,
+                grace_period=2, reduction_factor=2)
+    sched = _RecordingScheduler(tune.ASHAScheduler(**asha))
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_cpus=8)
+    res["init_s"] = time.perf_counter() - t0
+    pids = {p.pid: "daemon" for p in info["procs"]}
+    if on_card:
+        import torch
+
+        free, total = torch.cuda.mem_get_info()
+        res["driver_card_used_before_fit_gb"] = (total - free) / 1e9
+    try:
+        t_fit = time.time()
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            _tune_gpt2_trial,
+            param_space={"lr": tune.grid_search(list(TUNE_LRS)),
+                         "preset": preset, "batch": list(batch),
+                         "steps": TUNE_MAX_T,
+                         "device": None if on_card else "cpu"},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", scheduler=sched,
+                max_concurrent_trials=1,
+                resources_per_trial=({"CPU": 1, "GPU": 1} if on_card
+                                     else {"CPU": 1})),
+            run_config=RunConfig(
+                name="gpt2_asha", storage_path=root,
+                callbacks=[tune.CSVLoggerCallback(),
+                           tune.JsonLoggerCallback()])).fit()
+        res["sweep_s"] = time.perf_counter() - t0
+        trials = list(grid)
+        pids.update({h[0]["pid"]: "trial" for h in
+                     (t.metrics_history for t in trials) if h})
+        pids.update(session_pids(pids))
+        t_down = time.perf_counter()
+    finally:
+        ray_tpu_torch.shutdown()
+    res["pids_alive_after_shutdown"] = _alive_after(pids)
+    res["shutdown_s"] = time.perf_counter() - t_down
+    res["errors"] = [t.error for t in trials if t.error]
+    firsts = [t.metrics_history[0] for t in trials if t.metrics_history]
+    res["launches"] = {}
+    for t in trials:
+        for k, v in (t.metrics_history[-1].get("launches") or {}).items():
+            res["launches"][k] = res["launches"].get(k, 0) + v
+
+    # (a)
+    gates["a_params_on_device"] = len(firsts) == len(TUNE_LRS) and all(
+        f["params_on_device"] for f in firsts)
+    if on_card:
+        used = [f["card_used_at_start_gb"] for f in firsts]
+        gates["a_card_free_at_each_start"] = bool(used) and all(
+            f["current_device"] == 0 for f in firsts) and (
+            used[0] <= res["driver_card_used_before_fit_gb"]
+            + TUNE_CONTEXT_GB) and all(
+            abs(u - used[0]) <= TUNE_CARD_USED_MARGIN_GB for u in used)
+    # (b)
+    got = firsts[0]["loss"] if firsts else float("nan")
+    res["trial0_first_loss"] = got
+    gates["b_first_loss_equals_driver"] = abs(got - want_loss) <= \
+        TUNE_FIRST_LOSS_RTOL * abs(want_loss)
+    # (c) the decisions replayed; the stopped trials and their rungs
+    fresh = tune.ASHAScheduler(**asha)
+    replay = [fresh.on_result(tid, r) for tid, r, _ in sched.log]
+    gates["c_replay_same_decisions"] = replay == [d for _, _, d in
+                                                  sched.log]
+    stopped = {tid: r["training_iteration"] for tid, r, d in sched.log
+               if d == "STOP" and r["training_iteration"] < TUNE_MAX_T}
+    res["stopped_at_rung"] = stopped
+    res["reports_per_trial"] = {t.trial_id: len(t.metrics_history)
+                                for t in trials}
+    gates["c_report_counts"] = all(
+        (n < TUNE_MAX_T) if tid in stopped else (n == TUNE_MAX_T)
+        for tid, n in res["reports_per_trial"].items())
+    # (d)
+    last = {t.trial_id: t.metrics_history[-1]["loss"] for t in trials
+            if t.metrics_history}
+    best = grid.get_best_result()
+    res["best"] = {"trial_id": best.trial_id, "lr": best.config["lr"],
+                   "last_loss": last.get(best.trial_id)}
+    gates["d_best_is_lowest_last_loss"] = best.trial_id == min(
+        last, key=last.get)
+    # (e)
+    run_dir = Path(root) / "gpt2_asha"
+    files_ok = True
+    for t in trials:
+        d = run_dir / t.trial_id
+        with open(d / "progress.csv") as f:
+            rows = list(csv.DictReader(f))
+        lines = (d / "result.json").read_text().splitlines()
+        files_ok &= (len(rows) == len(lines) == len(t.metrics_history)
+                     and [float(r["loss"]) for r in rows]
+                     == [m["loss"] for m in t.metrics_history]
+                     and [json.loads(x)["loss"] for x in lines]
+                     == [m["loss"] for m in t.metrics_history])
+    gates["e_logger_files_hold_every_report"] = files_ok
+    # (f)
+    gates["f_no_error"] = not res["errors"]
+    gates["f_no_kernel_launched"] = not any(res["launches"].values())
+    gates["f_no_process_left"] = not res["pids_alive_after_shutdown"]
+
+    # information: each trial's start, init, first and steady steps
+    rows, prev_end, busy = [], t_fit, 0.0
+    for t in trials:
+        h = t.metrics_history
+        if not h:
+            continue
+        f = h[0]
+        steps = [m["step_ms"] for m in h]
+        busy += sum(steps) / 1e3
+        rows.append({
+            "trial_id": t.trial_id, "lr": t.config["lr"],
+            "reports": len(h), "last_loss": h[-1]["loss"],
+            "start_s": f["t_enter"] - prev_end,
+            "process_age_at_entry_s": f["process_age_at_entry_s"],
+            "imports_s": f["t_imported"] - f["t_enter"],
+            "device_ready_s": f["t_device_ready"] - f["t_imported"],
+            "params_init_s": f["t_init_done"] - f["t_device_ready"],
+            "init_s": f["t_init_done"] - f["t_enter"],
+            "first_step_ms": steps[0],
+            "steady_ms_per_step": (statistics.median(steps[1:])
+                                   if len(steps) > 1 else None),
+            "card_used_at_start_gb": f.get("card_used_at_start_gb")})
+        prev_end = h[-1]["_ts"]
+    res["trials"] = rows
+    res["host_share_outside_steps"] = 1 - busy / res["sweep_s"]
+    trainer = RESULTS["phases"].get("trainer", {})
+    if trainer.get("step_s_median"):
+        res["trainer_ms_per_step"] = trainer["step_s_median"] * 1e3
     res["gates"] = gates
     res["ok"] = all(gates.values())
     return res
@@ -4696,7 +5343,7 @@ PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
           "train_card_vs_cpu", "train", "train_sharded", "sp_pp", "moe",
           "vit", "trainer", "data", "rl", "rl_offpolicy", "engine_sharded",
-          "runtime", "serve", "serve_disagg")
+          "runtime", "serve", "serve_disagg", "rl_final", "tune")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -4714,7 +5361,8 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "rl": phase_rl, "rl_offpolicy": phase_rl_offpolicy,
                "engine_sharded": phase_engine_sharded,
                "runtime": phase_runtime, "serve": phase_serve,
-               "serve_disagg": phase_serve_disagg}
+               "serve_disagg": phase_serve_disagg,
+               "rl_final": phase_rl_final, "tune": phase_tune}
 
 
 def _start() -> bool:
@@ -4839,7 +5487,9 @@ def main() -> int:
     # workers (counted in theirs: the GPT-2 runs, none, and the
     # Llama run); data: the batch predictor's actor (counted in its
     # process); rl: PPO on pixels, rl_offpolicy: the off-policy and
-    # offline learners, which run none of them)
+    # offline learners, rl_final: QMIX, MADDPG, MAML, AlphaZero and SlateQ,
+    # which run none of them; tune: the GPT-2 trials (counted in their
+    # processes), whose plain attention runs none)
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
@@ -4857,7 +5507,9 @@ def main() -> int:
              "engine_sharded": ph["engine_sharded"]["launches"],
              "runtime": ph["runtime"]["launches"],
              "serve": ph["serve"]["launches"],
-             "serve_disagg": ph["serve_disagg"]["launches"]}
+             "serve_disagg": ph["serve_disagg"]["launches"],
+             "rl_final": ph["rl_final"]["launches"],
+             "tune": ph["tune"]["launches"]}
     k1, k2, k34 = case("k1", "7b"), case("k2", "1b-w256"), case("k3k4", "1b")
     rows = [
         ("flash_attention_fwd", "ray_tpu_torch/csrc/flash_attention.cu",

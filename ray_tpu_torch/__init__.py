@@ -27,7 +27,8 @@ import sys
 _SUBMODULES = frozenset((
     "api", "ops", "models", "serve", "parallel", "core", "native",
     "protobuf", "util", "observability", "dag", "collective", "dashboard",
-    "devtools", "runtime_env", "cluster_utils", "train", "data", "rl"))
+    "devtools", "runtime_env", "cluster_utils", "train", "data", "rl",
+    "tune"))
 _API = ("init", "shutdown", "is_initialized", "remote", "put", "get",
         "wait", "kill", "cancel", "get_actor", "method",
         "get_runtime_context", "nodes", "cluster_resources",
@@ -36,6 +37,7 @@ _API = ("init", "shutdown", "is_initialized", "remote", "put", "get",
         "__version__")
 
 __all__ = ["ops", "models", "serve", "parallel", "train", "data", "rl",
+           "tune",
            "resolve_device",
            "is_dtensor", *_API]
 

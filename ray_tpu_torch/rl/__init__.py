@@ -22,12 +22,16 @@ Learner API and the on-policy family built on PPO's worker and policy
 the replay-based off-policy family (DQN, SimpleQ, RandomAgent, R2D2, TD3,
 DDPG, Ape-X DQN/DDPG, SAC), the offline family (BC, CQL, CRR, MARWIL, DT)
 and the gradient-free algorithms (ES, ARS, the LinUCB/LinTS bandits; numpy
-on the host, as in the reference). Still to port (ROADMAP.md queue 1,
-item 10): QMIX, MADDPG, MAML, AlphaZero and SlateQ, for which
-``get_algorithm`` raises NotImplementedError.
+on the host, as in the reference); the cooperative multi-agent ones (QMIX
+on ``TwoStepGame``, MADDPG on ``LineSpreadEnv``), meta-learning (MAML on
+``PointGoalEnv``), planning (AlphaZero's MCTS self-play on ``TicTacToe``)
+and slate recommendation (SlateQ on ``SlateRecEnv``). Every one of the
+reference's 31 registry names resolves through ``get_algorithm``.
 """
 
 from ray_tpu_torch.rl.a2c import A2CConfig, A2CTrainer
+from ray_tpu_torch.rl.alpha_zero import (AlphaZeroConfig, AlphaZeroTrainer,
+                                         TicTacToe)
 from ray_tpu_torch.rl.a3c import A3CConfig, A3CTrainer
 from ray_tpu_torch.rl.apex import (ApexDDPGConfig, ApexDDPGTrainer,
                                    ApexDQNConfig, ApexDQNTrainer,
@@ -48,6 +52,8 @@ from ray_tpu_torch.rl.dt import DTConfig, DTTrainer
 from ray_tpu_torch.rl.es import ARSConfig, ARSTrainer, ESConfig, ESTrainer
 from ray_tpu_torch.rl.impala import ImpalaConfig, ImpalaTrainer
 from ray_tpu_torch.rl.learner import Learner, LearnerGroup, LearnerSpec
+from ray_tpu_torch.rl.maddpg import LineSpreadEnv, MADDPGConfig, MADDPGTrainer
+from ray_tpu_torch.rl.maml import MAMLConfig, MAMLTrainer, PointGoalEnv
 from ray_tpu_torch.rl.marwil import MARWILConfig, MARWILTrainer
 from ray_tpu_torch.rl.multi_agent import (MultiAgentEnv, MultiAgentPPOConfig,
                                           MultiAgentPPOTrainer,
@@ -59,10 +65,12 @@ from ray_tpu_torch.rl.policy_server import (ExternalPPOConfig,
                                             ExternalPPOTrainer, PolicyClient,
                                             PolicyServer)
 from ray_tpu_torch.rl.ppo import PPOConfig, PPOTrainer
+from ray_tpu_torch.rl.qmix import QMIXConfig, QMIXTrainer, TwoStepGame
 from ray_tpu_torch.rl.r2d2 import R2D2Config, R2D2Trainer
 from ray_tpu_torch.rl.sac import SACConfig, SACTrainer
 from ray_tpu_torch.rl.simple_q import (RandomAgentConfig, RandomAgentTrainer,
                                        SimpleQConfig, SimpleQTrainer)
+from ray_tpu_torch.rl.slateq import SlateQConfig, SlateQTrainer, SlateRecEnv
 from ray_tpu_torch.rl.td3 import TD3Config, TD3Trainer
 
 _REGISTRY = {
@@ -91,21 +99,21 @@ _REGISTRY = {
     "CRR": (CRRConfig, CRRTrainer),
     "ApexDDPG": (ApexDDPGConfig, ApexDDPGTrainer),
     "DDPPO": (DDPPOConfig, DDPPOTrainer),
+    "QMIX": (QMIXConfig, QMIXTrainer),
+    "MADDPG": (MADDPGConfig, MADDPGTrainer),
     "DT": (DTConfig, DTTrainer),
+    "AlphaZero": (AlphaZeroConfig, AlphaZeroTrainer),
+    "MAML": (MAMLConfig, MAMLTrainer),
+    "SlateQ": (SlateQConfig, SlateQTrainer),
 }
 
-# the reference's registered algorithms that are not ported yet: the
-# multi-agent, meta-learning, planning and recommender ones
-_NOT_PORTED = ("QMIX", "MADDPG", "MAML", "AlphaZero", "SlateQ")
+# the reference's registered algorithms that are not ported: none is left
+_NOT_PORTED = ()
+
 
 def get_algorithm(name: str):
     """(ConfigCls, TrainerCls) by name (ref: rllib registry.py
     get_algorithm_class)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported to ray_tpu_torch yet (ROADMAP.md queue "
-            "1, item 10: QMIX, MADDPG, MAML, AlphaZero and SlateQ are still "
-            "to port); ray_tpu.rl has it")
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown algorithm {name!r}; have {sorted(_REGISTRY)}")
@@ -138,4 +146,9 @@ __all__ = [
     "ESConfig", "ESTrainer", "ARSConfig", "ARSTrainer",
     "BanditConfig", "LinUCBTrainer", "LinTSTrainer",
     "LinearDiscreteBanditEnv",
+    "QMIXConfig", "QMIXTrainer", "TwoStepGame",
+    "MADDPGConfig", "MADDPGTrainer", "LineSpreadEnv",
+    "AlphaZeroConfig", "AlphaZeroTrainer", "TicTacToe",
+    "MAMLConfig", "MAMLTrainer", "PointGoalEnv",
+    "SlateQConfig", "SlateQTrainer", "SlateRecEnv",
 ]

@@ -133,6 +133,6 @@ class RunConfig:
     storage_path: Optional[str] = None    # default: ~/ray_tpu_torch_results
     failure_config: FailureConfig = field(default_factory=FailureConfig)
     checkpoint_config: CheckpointConfig = field(default_factory=CheckpointConfig)
-    # tune LoggerCallback instances (ref: air RunConfig.callbacks →
-    # tune/logger/*; tune/ waits for ROADMAP.md queue 1 item 11)
+    # ray_tpu_torch.tune LoggerCallback instances (ref: air
+    # RunConfig.callbacks → tune/logger/*), called by Tuner.fit
     callbacks: Optional[list] = None

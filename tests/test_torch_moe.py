@@ -25,7 +25,6 @@ against the CPU.
 """
 
 import json
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -33,7 +32,7 @@ import pytest
 import torch
 
 from test_torch_support import (Ranks, flat, jax_reference, jax_tree_to_np,
-                                require_cuda, to_np, unflat)
+                                rank_main, require_cuda, to_np, unflat)
 from test_torch_parallel_train import (PARAM_FAR_SHARE, PARAM_MAX,
                                        PARAM_TOL)
 
@@ -303,30 +302,27 @@ def ep_ranks(tiny, tmp_path_factory):
     d = tmp_path_factory.mktemp("moe_ep")
     batch = _tokens(B=8)
     np.savez(d / "inputs.npz", tokens=batch, **flat(params, "params"))
-    running = Ranks(Path(__file__), d, WORLD, RANK_TIMEOUT_S).start()
-    try:
-        with jax_reference() as ref:
-            mesh = ref.mesh.build_mesh(ref.mesh.MeshSpec(dp=2, fsdp=2),
-                                       devices=jax.devices()[:WORLD])
-            rules = ref.sharding.ShardingRules.ep()
-            opt = optax.adamw(3e-4, weight_decay=0.01)
-            jp = jax.tree.map(jax.numpy.asarray, params)
-            init_fn, state_sh = ref.train_step.make_train_state_init(
-                lambda k: jp, opt, mesh, rules, ref.moe.param_specs(jcfg))
-            state = init_fn(jax.random.PRNGKey(0))
-            jb = {"tokens": jax.numpy.asarray(batch)}
-            step = ref.train_step.make_train_step(
-                lambda p, b: ref.moe.loss_fn(p, b, jcfg), opt, mesh, rules,
-                state_sh, batch_shapes=jax.eval_shape(lambda: jb))
-            metrics = []
-            for _ in range(STEPS):
-                state, m = step(state, jb)
-                metrics.append((float(m["loss"]), float(m["grad_norm"])))
-            expected = {"metrics": np.asarray(metrics),
-                        **flat(jax_tree_to_np(state.params), "params")}
-    finally:
-        results = running.results()
-    return expected, results
+    with jax_reference() as ref:
+        mesh = ref.mesh.build_mesh(ref.mesh.MeshSpec(dp=2, fsdp=2),
+                                   devices=jax.devices()[:WORLD])
+        rules = ref.sharding.ShardingRules.ep()
+        opt = optax.adamw(3e-4, weight_decay=0.01)
+        jp = jax.tree.map(jax.numpy.asarray, params)
+        init_fn, state_sh = ref.train_step.make_train_state_init(
+            lambda k: jp, opt, mesh, rules, ref.moe.param_specs(jcfg))
+        state = init_fn(jax.random.PRNGKey(0))
+        jb = {"tokens": jax.numpy.asarray(batch)}
+        step = ref.train_step.make_train_step(
+            lambda p, b: ref.moe.loss_fn(p, b, jcfg), opt, mesh, rules,
+            state_sh, batch_shapes=jax.eval_shape(lambda: jb))
+        metrics = []
+        for _ in range(STEPS):
+            state, m = step(state, jb)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        expected = {"metrics": np.asarray(metrics),
+                    **flat(jax_tree_to_np(state.params), "params")}
+    # the reference first: the ranks' budget is their own time
+    return expected, Ranks(Path(__file__), d, WORLD, RANK_TIMEOUT_S).run()
 
 
 def test_expert_parallel_training_matches_jax(ep_ranks):
@@ -442,4 +438,4 @@ def test_card_matches_cpu():
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), Path(sys.argv[2]))
+    rank_main(_rank_main)

@@ -3,9 +3,10 @@
 
 As in tests/test_torch_parallel_train.py, the ranks run this file as a
 script (``python tests/test_torch_parallel_engine.py RANK DIR``), once per
-test session, joined by a ``file://`` store; they import no JAX. The
-parent writes the JAX engine's float weights, JAX's int8 tree and the JAX
-engines' tokens to ``DIR/inputs.npz`` / ``DIR/inputs.json``.
+test session, joined by a ``file://`` store, through
+``test_torch_support.Ranks``; they import no JAX. The parent first writes
+the JAX engine's float weights, JAX's int8 tree and the JAX engines'
+tokens to ``DIR/inputs.npz`` / ``DIR/inputs.json``.
 
 On each mesh of 2 ranks under ``ShardingRules.fsdp_tp()``, MeshSpec(tp=2)
 and MeshSpec(fsdp=2):
@@ -24,15 +25,13 @@ and MeshSpec(fsdp=2):
 """
 
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-from test_torch_support import REPO, jax_reference, jax_tree_to_np
+from test_torch_support import (Ranks, jax_reference, jax_tree_to_np,
+                                rank_main)
 
 MESHES = {"tp2": dict(tp=2), "fsdp2": dict(fsdp=2)}
 LAYOUTS = ("paged", "contiguous")
@@ -100,24 +99,8 @@ def ranks(tmp_path_factory):
     np.savez(d / "inputs.npz", **_flat(params, "params"),
              **{f"int8{k}": v for k, v in jq.items()})
     (d / "inputs.json").write_text(json.dumps(meta))
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(d)], env=env, cwd=str(REPO),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} failed:\n{logs[r][-4000:]}"
-    return meta, [json.loads((d / f"rank{r}.json").read_text())
-                  for r in range(2)]
+    results = Ranks(Path(__file__), d, 2, RANK_TIMEOUT_S).run()
+    return meta, [info for _, info in results]
 
 
 @pytest.mark.parametrize("quantize", QUANTIZE)
@@ -256,4 +239,4 @@ def _rank_main(rank: int, d: Path) -> None:
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), Path(sys.argv[2]))
+    rank_main(_rank_main)

@@ -3,10 +3,10 @@
 
 The ranks run this file as a script (``python tests/test_torch_parallel_
 sp_pp.py RANK DIR``, ``test_torch_support.Ranks``), once per test session
-(a module-scoped fixture), joined by a ``file://`` store and a per-run
-timeout. They import no JAX: the parent writes the inputs (numpy, from
-seeds) to ``DIR/inputs.npz``, starts the ranks, computes the JAX
-reference while they run, then reads ``DIR/rank{r}.{npz,json}``.
+(a module-scoped fixture), joined by a ``file://`` store, with a budget
+of the gang's own time. They import no JAX: the parent writes the inputs
+(numpy, from seeds) to ``DIR/inputs.npz``, computes the JAX reference,
+then starts the ranks and reads ``DIR/rank{r}.{npz,json}``.
 
 Cases (mirroring tests/test_ops_attention.py :48-83 and :142-200,
 tests/test_models_llama.py:87-150 and the six cases of
@@ -35,14 +35,13 @@ tests/test_parallel_pipeline.py):
 """
 
 import json
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 from test_torch_support import Ranks, flat, jax_tree_to_np, jax_reference, \
-    unflat
+    rank_main, unflat
 from test_torch_parallel_train import (PARAM_FAR_SHARE, PARAM_MAX,
                                        PARAM_TOL, TOL)
 
@@ -274,12 +273,10 @@ def ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("parallel_sp_pp")
     inp = _inputs()
     np.savez(d / "inputs.npz", **inp)
-    running = Ranks(Path(__file__), d, WORLD, RANK_TIMEOUT_S).start()
-    try:
-        expected = _jax_expected(inp)
-    finally:
-        results = running.results()
-    return inp, expected, results
+    # the reference first: the ranks' budget is their own time
+    expected = _jax_expected(inp)
+    return inp, expected, Ranks(Path(__file__), d, WORLD,
+                                RANK_TIMEOUT_S).run()
 
 
 def _close(got, want, tol):
@@ -612,4 +609,4 @@ def _rank_main(rank: int, d: Path) -> None:
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), Path(sys.argv[2]))
+    rank_main(_rank_main)

@@ -7,8 +7,10 @@ mode).
 The ranks run this file as a script (``python tests/test_torch_parallel_
 train.py RANK DIR``), one pair of processes per test session (a
 module-scoped fixture), joined by a ``file://`` store under pytest's
-tmp_path and a per-run timeout. They import no JAX: the parent computes
-the JAX reference (``jax_reference()``) and passes weights, batches and
+tmp_path, through ``test_torch_support.Ranks`` (one gang of ranks at a
+time across the xdist workers; the budget is the gang's own time). They
+import no JAX: the parent computes the JAX reference
+(``jax_reference()``) first and passes weights, batches and
 expected values through ``DIR/inputs.npz``; each rank writes
 ``DIR/rank{r}.npz`` and ``DIR/rank{r}.json``.
 
@@ -35,15 +37,13 @@ Cases, each a parametrised test reading the ranks' results:
 """
 
 import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 
-from test_torch_support import REPO, jax_reference, jax_tree_to_np
+from test_torch_support import (Ranks, jax_reference, jax_tree_to_np,
+                                rank_main)
 
 TOL = 1e-4
 PARAM_TOL = 1e-5
@@ -151,26 +151,7 @@ def ranks(tmp_path_factory):
             jax.random.PRNGKey(0), jcfg))
     expected = _jax_trajectories(params)
     np.savez(d / "inputs.npz", **_flat(params, "params"))
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(d)], env=env, cwd=str(REPO),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} failed:\n{logs[r][-4000:]}"
-    results = [(dict(np.load(d / f"rank{r}.npz")),
-                json.loads((d / f"rank{r}.json").read_text()))
-               for r in range(2)]
-    return expected, results
+    return expected, Ranks(Path(__file__), d, 2, RANK_TIMEOUT_S).run()
 
 
 @pytest.mark.parametrize("name,masked", CASES)
@@ -448,4 +429,4 @@ def _rank_main(rank: int, d: Path) -> None:
 
 
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), Path(sys.argv[2]))
+    rank_main(_rank_main)

@@ -74,7 +74,22 @@ _REFERENCE_MODULES = ("ray_tpu.models.llama", "ray_tpu.models.gpt2",
                       "ray_tpu.rl.dt", "ray_tpu.rl.es", "ray_tpu.rl.bandit")
 _RL_NEW = ("dqn", "simple_q", "td3", "ddpg", "apex", "r2d2", "sac",
            "offline", "marwil", "dt", "es", "bandit")
+# Reference modules that only some test files use, by group: each loads
+# on the first ``jax_reference(group)``, so that no other file's first
+# ``jax_reference()`` grows. A group's stub packages keep the package's
+# own __init__ from running (ray_tpu/tune/__init__.py imports the tuner).
+_GROUPS = {
+    # the multi-agent, meta-learning, planning and recommender RL modules
+    "rl_final": ("ray_tpu.rl.slateq", "ray_tpu.rl.qmix",
+                 "ray_tpu.rl.maddpg", "ray_tpu.rl.alpha_zero",
+                 "ray_tpu.rl.maml"),
+    # tune's search, schedulers and loggers (no runtime at module level)
+    "tune": ("ray_tpu.tune.search", "ray_tpu.tune.schedulers",
+             "ray_tpu.tune.loggers"),
+}
+_GROUP_STUBS = {"tune": ("ray_tpu.tune",)}
 _loaded: dict = {}
+_loaded_groups: set = set()
 
 
 def _is_ray_tpu(name: str) -> bool:
@@ -205,14 +220,19 @@ class _Reference(types.SimpleNamespace):
     layer rl_core, rl_connectors, rl_pixel_env, rl_vision, rl_ppo,
     rl_learner, rl_impala, rl_multi_agent, rl_pg, rl_a2c, rl_a3c, rl_appo,
     rl_ddppo, rl_dqn, rl_simple_q, rl_td3, rl_ddpg, rl_apex, rl_r2d2,
-    rl_sac, rl_offline, rl_marwil, rl_dt, rl_es and rl_bandit."""
+    rl_sac, rl_offline, rl_marwil, rl_dt, rl_es and rl_bandit; and those
+    of each group asked for (``_GROUPS``), named by their last two parts
+    (``rl_qmix``, ``tune_search``)."""
 
 
 @contextlib.contextmanager
-def jax_reference():
-    """Yield the JAX reference modules with their packages importable;
-    restore every ``ray_tpu*`` entry of sys.modules on exit. Make every
-    reference call inside the block (their lazy imports need it)."""
+def jax_reference(*groups):
+    """Yield the JAX reference modules, and those of `groups` (keys of
+    ``_GROUPS``), with their packages importable; restore every
+    ``ray_tpu*`` entry of sys.modules on exit. Make every reference call
+    inside the block (their lazy imports need it)."""
+    import importlib
+
     saved = {k: v for k, v in sys.modules.items() if _is_ray_tpu(k)}
     for k in saved:
         del sys.modules[k]
@@ -220,13 +240,25 @@ def jax_reference():
         if _loaded:
             sys.modules.update(_loaded)
         else:
-            import importlib
-
             _install_stubs()
             for name in _REFERENCE_MODULES:
                 importlib.import_module(name)
             _loaded.update({k: v for k, v in sys.modules.items()
                             if _is_ray_tpu(k)})
+        for group in groups:
+            if group in _loaded_groups:
+                continue
+            for name in _GROUP_STUBS.get(group, ()):
+                m = types.ModuleType(name)
+                m.__path__ = [str(REPO / name.replace(".", "/"))]
+                sys.modules[name] = m
+            for name in _GROUPS[group]:
+                importlib.import_module(name)
+            _loaded.update({k: v for k, v in sys.modules.items()
+                            if _is_ray_tpu(k)})
+            _loaded_groups.add(group)
+        extra = {"_".join(name.split(".")[-2:]): sys.modules[name]
+                 for group in groups for name in _GROUPS[group]}
         yield _Reference(
             llama=sys.modules["ray_tpu.models.llama"],
             gpt2=sys.modules["ray_tpu.models.gpt2"],
@@ -270,7 +302,8 @@ def jax_reference():
             rl_a3c=sys.modules["ray_tpu.rl.a3c"],
             rl_appo=sys.modules["ray_tpu.rl.appo"],
             rl_ddppo=sys.modules["ray_tpu.rl.ddppo"],
-            **{f"rl_{m}": sys.modules[f"ray_tpu.rl.{m}"] for m in _RL_NEW})
+            **{f"rl_{m}": sys.modules[f"ray_tpu.rl.{m}"] for m in _RL_NEW},
+            **extra)
     finally:
         for k in [k for k in sys.modules if _is_ray_tpu(k)]:
             del sys.modules[k]
@@ -301,30 +334,85 @@ def unflat(arrays, prefix):
     return tree
 
 
-RANK_NICE = 10
+GANG_LOCK = "torch_rank_gangs.lock"
+GANG_LOG = "torch_rank_gangs.jsonl"
+# The longest a gang waits for the lock before it fails, naming the gang
+# that holds it: every gang's budget together, with room.
+GANG_WAIT_S = 900.0
+# The one gang that holds the lock runs its ranks at this niceness, above
+# the other xdist workers' tests (whose JAX and torch thread pools keep
+# the host's load above its core count), so that its budget measures its
+# own work. Where raising the priority is not permitted, ``nice`` says so
+# on the rank's output and runs it at the parent's (each rank's times
+# record the niceness it ran at).
+RANK_NICE = -10
+
+
+def shared_dir(d: Path) -> Path:
+    """The temp dir that every worker of this pytest session shares, for
+    `d`, a directory that ``tmp_path_factory.mktemp`` made: its parent is
+    the process's base temp dir, which under xdist is one worker's
+    (``<session base>/popen-gwN``), so the session's is one up."""
+    import os
+
+    base = Path(d).parent
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
 
 
 class Ranks:
     """`world` gloo ranks, each ``python <script> RANK DIR`` (the test file
-    run as a script, with the repo on its path), joined by a ``file://``
-    store in DIR. ``start()`` launches them; ``results()`` waits at most
-    `timeout` seconds in all, kills what is left and returns each rank's
-    (DIR/rank{r}.npz arrays, DIR/rank{r}.json dict), failing with the
-    rank's output when one did not finish. The ranks run at a lower CPU
-    priority (``RANK_NICE``): under xdist they share the cores with other
-    files' rank processes, whose budgets are tighter (tests/
-    test_torch_parallel_train.py gives its 2 ranks 120 s)."""
+    run as a script, with the repo on its path, entering through
+    ``rank_main``), joined by a ``file://`` store in DIR, a directory that
+    ``tmp_path_factory.mktemp`` made.
+
+    One gang runs at a time across every xdist worker of the session:
+    ``start()`` takes an exclusive ``flock`` on GANG_LOCK in the session's
+    shared temp dir (``shared_dir``) before it launches any rank, waiting
+    at most GANG_WAIT_S, and ``results()`` releases it. A gang's
+    budget, `timeout` seconds, runs from the moment it holds the lock to
+    its last rank's exit: the gang's own time, not its wait for another
+    gang nor the parent's reference computation (compute that before
+    ``start()``); its ranks run at RANK_NICE where permitted.
+    ``results()`` kills what is left at the deadline, appends the gang's
+    times (the wait, its own time and each rank's import, rendezvous and
+    run seconds, from DIR/rank{r}.times.json) as one JSON line to
+    GANG_LOG beside the lock, and returns each rank's (DIR/rank{r}.npz
+    arrays or {}, DIR/rank{r}.json dict), failing with the rank's output
+    when one did not finish or loaded JAX."""
 
     def __init__(self, script, d: Path, world: int, timeout: float):
         self.script, self.d, self.world = script, Path(d), world
         self.timeout = timeout
+        self.shared = shared_dir(self.d)
         self.procs = []
 
     def start(self):
+        import fcntl
         import os
         import subprocess
+        import time
 
-        env = dict(os.environ, PYTHONPATH=str(REPO))
+        t0 = time.monotonic()
+        self._lock = open(self.shared / GANG_LOCK, "a+")
+        while True:
+            try:
+                fcntl.flock(self._lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except BlockingIOError:
+                if time.monotonic() - t0 > GANG_WAIT_S:
+                    self._lock.seek(0)
+                    holder = self._lock.read()
+                    self._lock.close()
+                    raise TimeoutError(f"no rank-gang lock after "
+                                       f"{GANG_WAIT_S} s; held by {holder}")
+                time.sleep(0.2)
+        self.t_lock = time.monotonic()
+        self._lock.truncate(0)
+        self._lock.write(f"{Path(self.script).name} (pid {os.getpid()})")
+        self._lock.flush()
+        self.waited_s = self.t_lock - t0
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   TEST_RANK_SPAWNED_AT=repr(time.time()))
         self.procs = [subprocess.Popen(
             ["nice", "-n", str(RANK_NICE), sys.executable, str(self.script),
              str(r), str(self.d)],
@@ -333,11 +421,12 @@ class Ranks:
         return self
 
     def results(self):
+        import fcntl
         import json
         import subprocess
         import time
 
-        deadline = time.monotonic() + self.timeout
+        deadline = self.t_lock + self.timeout
         logs = []
         try:
             for p in self.procs:
@@ -352,11 +441,72 @@ class Ranks:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+            own_s = time.monotonic() - self.t_lock
+            fcntl.flock(self._lock, fcntl.LOCK_UN)
+            self._lock.close()
+        times = []
+        for r in range(self.world):
+            f = self.d / f"rank{r}.times.json"
+            times.append(json.loads(f.read_text()) if f.exists() else None)
+        line = {"script": Path(self.script).name, "world": self.world,
+                "waited_s": round(self.waited_s, 2),
+                "own_s": round(own_s, 2), "budget_s": self.timeout,
+                "ranks": times}
+        with open(self.shared / GANG_LOG, "a") as f:
+            f.write(json.dumps(line) + "\n")
+        print(json.dumps(line), file=sys.stderr)
         for r, p in enumerate(self.procs):
             assert p.returncode == 0, f"rank {r} failed:\n{logs[r][-4000:]}"
-        return [(dict(np.load(self.d / f"rank{r}.npz")),
+            assert not times[r]["jax_loaded"], f"rank {r} loaded JAX"
+        return [(dict(np.load(self.d / f"rank{r}.npz"))
+                 if (self.d / f"rank{r}.npz").exists() else {},
                  json.loads((self.d / f"rank{r}.json").read_text()))
                 for r in range(self.world)]
+
+    def run(self):
+        """``start()`` then ``results()``."""
+        return self.start().results()
+
+
+def rank_main(main):
+    """A rank script's entry: ``main(RANK, DIR)`` from argv, timed into
+    DIR/rank{r}.times.json: ``import_s`` from the parent's launch to this
+    call (the interpreter's start and the script's imports),
+    ``rendezvous_s`` inside ``torch.distributed.init_process_group``,
+    ``run_s`` the rest of `main`, ``nice`` (the niceness it ran at) and
+    ``jax_loaded`` (a rank must not load JAX). Then the process ends at
+    once (``os._exit``): every file is written and closed, and the
+    interpreter's teardown of torch, gloo and DTensor state would add
+    seconds to the gang's own time."""
+    import json
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    t_call = time.time()
+    rank, d = int(sys.argv[1]), Path(sys.argv[2])
+    real, spent = dist.init_process_group, []
+
+    def timed(*args, **kwargs):
+        t = time.time()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            spent.append(time.time() - t)
+
+    dist.init_process_group = timed
+    main(rank, d)
+    total = time.time() - t_call
+    spawned = float(os.environ.get("TEST_RANK_SPAWNED_AT", t_call))
+    (d / f"rank{rank}.times.json").write_text(json.dumps({
+        "import_s": round(t_call - spawned, 2),
+        "rendezvous_s": round(sum(spent), 2),
+        "run_s": round(total - sum(spent), 2),
+        "nice": os.nice(0), "jax_loaded": "jax" in sys.modules}))
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def require_cuda():
