@@ -35,7 +35,9 @@ printing one JSON line:
    CPU (the serving run on which K2 launches); ``forward_with_cache`` at
    offset 0 (K1 over the whole cache row) card vs CPU;
 7. engine_contiguous: the JAX engine's default configuration, the 7b preset
-   at all 32 layers, bf16, contiguous KV, int8 weights, flash prefill, 16
+   at full width cut to ENGINE_CONTIGUOUS_LAYERS (8) of its 32 layers (the
+   int8 init's host draws took 174-262 s at 32), bf16, contiguous KV, int8
+   weights, flash prefill, 16
    slots, max_seq 2048, the engine phase's 12 requests: int8 bytes at rest,
    the setup's peak memory against them (and the int8 init's alone),
    peak memory, decode tokens/s, TTFT and a decode block's profile;
@@ -186,7 +188,21 @@ printing one JSON line:
    result, the CSV/JSON logs, no process left; each trial's start, init
    and step time, the card's idle share between trials. No kernel of ours
    runs (GPT-2's attention is plain);
-25. kernels: one line with every kernel's numbers;
+25. ops: the operator surface (``phase_ops``): a cluster brought up by
+   ``launcher.up`` from a JSON config (no GPU unit on the head, an
+   autoscaled ``gpu_node`` type holding the card), the port's dashboard
+   head on it; (a) a ``num_gpus=1`` actor makes the monitor launch one
+   ``gpu_node`` and serves 4 greedy prompts on the 1b preset's paged
+   engine (16 layers, flash): tokens and K1/K6 launches in its process
+   equal to the same engine here, the node scaled down after the actor's
+   kill with no process or card memory left; (b) the 4-layer 1b training
+   recipe as jobs through the head's REST routes: losses and K1/K3/K4
+   launches against the same run here, a looping job stopped and gone
+   from the card, ``/metrics`` as Prometheus text; (c) a durable
+   workflow, train (a DCP checkpoint) then serve, failing once in serve
+   and resumed: train run once, the tokens equal to an engine here loaded
+   from the checkpoint; ``launcher.down`` leaves no process;
+26. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -1722,6 +1738,13 @@ def _trainer_llama_run(device, preset, layers, batch, steps):
     adamw(3e-4, weight_decay=0.01), seed 0, tokens from seed 7) cut to
     `layers` and `steps`: its losses, and the flash kernels' launches in
     this process over those steps."""
+    losses, launches, _ = _llama_train(device, preset, layers, batch, steps)
+    return losses, launches
+
+
+def _llama_train(device, preset, layers, batch, steps):
+    """``_trainer_llama_run``'s recipe: its losses, launches and the
+    trained state."""
     import numpy as np
     import torch
 
@@ -1743,7 +1766,7 @@ def _trainer_llama_run(device, preset, layers, batch, steps):
     for _ in range(steps):
         state, m = step(state, {"tokens": tokens})
         losses.append(float(m["loss"]))
-    return losses, _train_launches()
+    return losses, _train_launches(), state
 
 
 def _trainer_llama_loop(config):
@@ -4074,6 +4097,546 @@ def phase_tune(device="cuda", preset="125m", batch=(8, 1024)):
 # --- the port's engine --------------------------------------------------------
 
 
+# --- the operator surface: launcher, autoscaler, jobs, workflows -------------
+
+# the ops phase's cluster (JSON, which parses without PyYAML): no GPU unit on
+# the head, one autoscaled node type holding the card
+OPS_IDLE_TIMEOUT_MIN = 0.1
+OPS_MONITOR_INTERVAL_S = 2.0      # the monitor's interval under launcher.up
+OPS_CLUSTER = {
+    "cluster_name": "ops", "max_workers": 1,
+    "idle_timeout_minutes": OPS_IDLE_TIMEOUT_MIN,
+    "provider": {"type": "local"},
+    "head_resources": {"CPU": 4, "GPU": 0},
+    "available_node_types": {"gpu_node": {"resources": {"CPU": 2,
+                                                        "GPU": 1}}},
+}
+OPS_PROMPT_LENS = (64, 192, 320, 512)
+OPS_NEW_TOKENS = 32
+OPS_TRAIN_LAYERS = 4
+OPS_TRAIN_STEPS = 3
+OPS_TIMEOUT_S = 600.0
+# a Prometheus text exposition line: a sample, a comment or blank
+_PROM_SAMPLE = (r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="
+                r"\"[^\"]*\",?)*\})? [-+0-9.eEinfINFaN]+( [0-9]+)?$")
+
+
+def _ops_prompts(V):
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, V, size=n).tolist() for n in OPS_PROMPT_LENS]
+
+
+def _ops_engine(device, preset, layers=None, params=None):
+    """The paged engine of the ops phase: `preset` (its depth, or `layers`),
+    flash prefill, page 64, 4 slots, max_seq 1024, seed 0; from `params`
+    (a checkpoint's tree) where given."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = llama.PRESETS[preset].replace(attn_impl="flash")
+    if device == "cpu":
+        cfg = cfg.replace(dtype=torch.float32)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    return LLMEngine(cfg=cfg, params=params, max_slots=4, max_seq_len=1024,
+                     kv_layout="paged", page_size=64, seed=0, device=device)
+
+
+def _ops_generate(eng, prompts):
+    """The prompts greedily, OPS_NEW_TOKENS each, submitted at once and
+    stepped (step_n(8)) to the end, every launch counter of this process
+    set to 0 just before: (tokens, launches)."""
+    import torch
+
+    _reset_all_launches()
+    reqs = [eng.submit(p, max_new_tokens=OPS_NEW_TOKENS) for p in prompts]
+    while eng.has_work():
+        eng.step_n(8)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [r.generated for r in reqs], _all_launches()
+
+
+class _OpsEngineActor:
+    """The ops phase's serving actor (``num_gpus=1``): the 1b preset's
+    paged engine built in a worker on the autoscaled node."""
+
+    def __init__(self, device, preset):
+        self.eng = _ops_engine(device, preset)
+
+    def ping(self):
+        import os
+
+        return os.getpid()
+
+    def serve(self, prompts):
+        import os
+
+        import ray_tpu_torch
+
+        tokens, launches = _ops_generate(self.eng, prompts)
+        return {"tokens": tokens, "launches": launches, "pid": os.getpid(),
+                "node": ray_tpu_torch.get_runtime_context().get_node_id()}
+
+
+def _ops_job_main(device="cuda", preset="1b", batch=(8, 1024), loop=False):
+    """A job's entrypoint (``python3 -c 'import chip_smoke;
+    chip_smoke._ops_job_main()'``): the trainer phase's Llama recipe cut to
+    OPS_TRAIN_LAYERS for OPS_TRAIN_STEPS steps, printing one ``OPS_JOB``
+    JSON line (losses, launches, pid); with `loop`, its pid first and then
+    step after step until it is stopped, a loss line each."""
+    import os
+
+    layers = min(OPS_TRAIN_LAYERS, _preset_layers(preset))
+    if not loop:
+        losses, launches = _trainer_llama_run(device, preset, layers,
+                                              tuple(batch), OPS_TRAIN_STEPS)
+        print("OPS_JOB " + json.dumps({"losses": losses,
+                                       "launches": launches,
+                                       "pid": os.getpid()}), flush=True)
+        return
+    print(f"OPS_JOB_PID {os.getpid()}", flush=True)
+    for i in range(10_000):
+        losses, _ = _trainer_llama_run(device, preset, layers, tuple(batch),
+                                       1)
+        print(f"OPS_JOB_LOSS {i} {losses[0]}", flush=True)
+
+
+def _preset_layers(preset):
+    from ray_tpu_torch.models import llama
+
+    return llama.PRESETS[preset].n_layers
+
+
+def _ops_wf_train(storage, device, preset, batch):
+    """The workflow's step ``train``: the 4-layer recipe for 3 steps, its
+    params saved as a DCP checkpoint under the workflow's storage; returns
+    the checkpoint's path, its digest and this run's launches (no tensor:
+    a pickled CUDA tensor would load onto the card of whatever process
+    reads it). Each run appends to ``train_runs`` beside it."""
+    import os
+
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    with open(os.path.join(storage, "train_runs"), "a") as f:
+        f.write(f"{os.getpid()}\n")
+    layers = min(OPS_TRAIN_LAYERS, _preset_layers(preset))
+    losses, launches, state = _llama_train(device, preset, layers,
+                                           tuple(batch), OPS_TRAIN_STEPS)
+    path = os.path.join(storage, "ckpt")
+    Checkpoint.from_state({"params": state.params}, path)
+    return {"path": path, "digest": _params_digest(state.params),
+            "launches": launches, "losses": losses, "layers": layers}
+
+
+def _ops_load_params(path):
+    from ray_tpu_torch.train.checkpoint import Checkpoint
+
+    return Checkpoint(path).load_state()["params"]
+
+
+def _ops_wf_serve(trained, prompts, marker, device, preset):
+    """The workflow's step ``serve``: fails while `marker` exists (its
+    first run, on purpose); else loads ``train``'s checkpoint into the ops
+    phase's paged engine at its depth and returns the greedy tokens and
+    this process's launches (all six counters, zeroed just before)."""
+    import os
+
+    if os.path.exists(marker):
+        raise RuntimeError(f"serve fails while {marker} exists")
+    params = _ops_load_params(trained["path"])
+    eng = _ops_engine(device, preset, layers=trained["layers"],
+                      params=params)
+    tokens, launches = _ops_generate(eng, prompts)
+    return {"tokens": tokens, "launches": launches, "pid": os.getpid(),
+            "digest": _params_digest(params)}
+
+
+def _gpu_pids():
+    """The pids ``nvidia-smi`` lists as the card's compute apps (empty
+    where there is no nvidia-smi)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return set()
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def _gone(pids, wait_s=30.0):
+    """(alive, on the card): the pids still alive `wait_s` after, and those
+    ``nvidia-smi`` still lists then."""
+    alive = _alive_after(pids, wait_s)
+    deadline = time.time() + wait_s
+    on_card = _gpu_pids() & set(pids)
+    while on_card and time.time() < deadline:
+        time.sleep(0.5)
+        on_card = _gpu_pids() & set(pids)
+    return alive, sorted(on_card)
+
+
+def _wait_for(pred, timeout_s, step_s=0.05):
+    """Poll `pred` until it returns a true value or `timeout_s` passes;
+    its last value."""
+    deadline = time.time() + timeout_s
+    while True:
+        v = pred()
+        if v or time.time() > deadline:
+            return v
+        time.sleep(step_s)
+
+
+def _http_json(url, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        raw = r.read().decode()
+        return (json.loads(raw) if r.headers.get_content_type()
+                == "application/json" else raw)
+
+
+def phase_ops(device="cuda", preset="1b", batch=(8, 1024)):
+    """The operator surface over one session of the port's runtime, as an
+    operator runs it: ``launcher.up`` of OPS_CLUSTER (a JSON config; the
+    head advertises no GPU unit, the one node type ``gpu_node`` holds the
+    card; max_workers 1, idle_timeout 0.1 min), the port's ``DashboardHead``
+    on it and this process connected as a driver.
+
+    (a) autoscaler: a ``num_gpus=1`` actor builds the 1b preset's paged
+    engine (full width, 16 layers, bf16, flash prefill) and serves 4
+    greedy prompts of 64-512 tokens, 32 new tokens each. Gates: the ask in
+    ``get_load``'s unmet demand, exactly one ``gpu_node`` launched by the
+    monitor, the actor's node labelled ``autoscaled``, the dashboard's
+    ``/api/v0/nodes`` listing it with its GPU unit, the tokens equal to the
+    same engine's in this process, K1 and K6 counted in the actor's
+    process equal to this process's; after the actor's kill, the node
+    terminated within idle_timeout + 3 monitor intervals, none of its
+    processes alive and none on the card (nvidia-smi).
+    (b) jobs through the dashboard head's REST routes
+    (``JobSubmissionClient("http://...")``): the trainer phase's 4-layer 1b
+    recipe for 3 steps (B 8 S 1024) as an entrypoint: SUCCEEDED, its
+    losses read back through ``/api/jobs/{id}/logs`` within
+    TRAIN_SHARDED_LOSS_RTOL of the same run here, its K1/K3/K4 launches
+    equal; beside it, a second job looping the same steps, stopped after
+    its first loss: STOPPED, its process gone and off the card;
+    ``/metrics`` parses as Prometheus text.
+    (c) a durable workflow, ``train`` (the same recipe, a DCP checkpoint
+    under the workflow's storage) then ``serve`` (the checkpoint in the
+    paged engine at 4 layers, the 4 prompts), whose first run fails in
+    ``serve`` (a marker file, max_retries=0): FAILED, then ``resume``
+    SUCCESSFUL with ``train`` run once (its run file, no K3/K4 launch in
+    the resumed run), the tokens and K1/K6 launches equal to an engine
+    here loaded from the same checkpoint.
+    Then ``launcher.down``: no process of the cluster left. `device`,
+    `preset` and `batch` rehearse it on the CPU (``device="cpu",
+    preset="tiny", batch=(2, 128)``: the nvidia-smi and launch gates
+    compare zeros there)."""
+    import ast
+    import os
+    import pickle
+    import re
+    import shlex
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.autoscaler import launcher
+    from ray_tpu_torch.core import runtime as _rt
+    from ray_tpu_torch.core.node import session_pids
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.job import JobStatus, JobSubmissionClient
+    from ray_tpu_torch.models import llama
+
+    _free_device()
+    _checkout_on_pythonpath()
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="ops_"))
+    launcher.STATE_DIR = str(work / "clusters")
+    cfg_path = work / "cluster.json"
+    cfg_path.write_text(json.dumps(OPS_CLUSTER))
+    idle_s = 60.0 * OPS_IDLE_TIMEOUT_MIN
+    V = llama.PRESETS[preset].vocab_size
+    prompts = _ops_prompts(V)
+    res = {"cfg": f"{preset} paged engine (flash, page 64, 4 slots) in a "
+                  "num_gpus=1 actor on an autoscaled node; its "
+                  f"{OPS_TRAIN_LAYERS}-layer train recipe, B {batch[0]} S "
+                  f"{batch[1]}, {OPS_TRAIN_STEPS} AdamW steps, as jobs and "
+                  "a workflow",
+           "cluster": OPS_CLUSTER, "prompt_lens": list(OPS_PROMPT_LENS),
+           "nvidia_smi": RESULTS["phases"].get("device", {}).get(
+               "nvidia_smi")}
+    gates = {}
+    gpu = device == "cuda"
+
+    # the in-process references first, each freed before the cluster runs
+    t0 = time.perf_counter()
+    eng = _ops_engine(device, preset)
+    ref_tokens, ref_launches = _ops_generate(eng, prompts)
+    del eng
+    _free_device()
+    layers = min(OPS_TRAIN_LAYERS, _preset_layers(preset))
+    ref_losses, ref_train_launches = _trainer_llama_run(
+        device, preset, layers, tuple(batch), OPS_TRAIN_STEPS)
+    _free_device()
+    res["reference_s"] = time.perf_counter() - t0
+    res["reference_launches"] = {"engine": ref_launches,
+                                 "train": ref_train_launches}
+
+    state = launcher.up(str(cfg_path))
+    session_dir = state["session_dir"]
+    nodes_file = Path(session_dir) / "autoscaler_nodes.json"
+    gcs_host, gcs_port = state["address"].rsplit(":", 1)
+    head = start_dashboard((gcs_host, int(gcs_port)),
+                           session_dir=session_dir, port=0)
+    base = f"http://{head.host}:{head.port}"
+    daemon_pids = {state["gcs_pid"], state["nodelet_pid"],
+                   state["monitor_pid"]}
+    all_pids = set(daemon_pids)
+    try:
+        ray_tpu_torch.init(address=state["address"])
+        gcs = _rt.get_runtime().gcs_call
+        res["head_resources"] = ray_tpu_torch.cluster_resources()
+        gates["head_has_no_gpu_unit"] = \
+            res["head_resources"].get("GPU", 0.0) == 0.0
+
+        # (a) an actor asking for the card makes the monitor launch gpu_node
+        t_ask = time.perf_counter()
+        actor = ray_tpu_torch.remote(num_gpus=1)(_OpsEngineActor).remote(
+            device, preset)
+        demand = _wait_for(lambda: [
+            d for d in gcs("get_load")["unmet_demand"]
+            if d["resources"].get("GPU", 0) >= 1], 30.0)
+        gates["ask_in_unmet_demand"] = bool(demand)
+
+        def autoscaled():
+            return [n for n in gcs("get_nodes")
+                    if n.alive and (n.labels or {}).get("autoscaled")]
+
+        up = _wait_for(autoscaled, OPS_TIMEOUT_S, 0.2)
+        t_registered = time.perf_counter()
+        ray_tpu_torch.get(actor.ping.remote(), timeout=OPS_TIMEOUT_S)
+        t_ready = time.perf_counter()
+        view = [n for n in _http_json(base + "/api/v0/nodes")
+                if (n.get("labels") or {}).get("autoscaled")]
+        served = ray_tpu_torch.get(actor.serve.remote(prompts),
+                                   timeout=OPS_TIMEOUT_S)
+        node = {n.node_id.hex(): n for n in gcs("get_nodes")}[served["node"]]
+        node_recs = json.loads(nodes_file.read_text())
+        node_pids = {r["pid"] for r in node_recs.values()}
+        tree = session_pids(node_pids) | {served["pid"]: "actor"}
+        all_pids |= set(tree)
+        ray_tpu_torch.kill(actor)
+        t_kill = time.perf_counter()
+        _wait_for(lambda: not json.loads(nodes_file.read_text()),
+                  idle_s + 10 * OPS_MONITOR_INTERVAL_S, 0.1)
+        t_term = time.perf_counter()
+        alive, on_card = _gone(tree)
+        launched = [ln for ln in (Path(session_dir) / "monitor.log")
+                    .read_text().splitlines() if "autoscaler actions" in ln]
+        n_launched = sum(len(ast.literal_eval(ln.split(
+            "autoscaler actions: ", 1)[1])["launched"]) for ln in launched)
+        res["autoscaler"] = {
+            "demand_rows": demand[:2],
+            "ask_to_node_registered_s": t_registered - t_ask,
+            "node_registered_to_actor_ready_s": t_ready - t_registered,
+            "ask_to_actor_ready_s": t_ready - t_ask,
+            "kill_to_terminated_s": t_term - t_kill,
+            "terminate_limit_s": idle_s + 3 * OPS_MONITOR_INTERVAL_S,
+            "monitor_actions": launched, "node_labels": node.labels,
+            "node_resources": node.resources_total.quantities,
+            "dashboard_nodes": view, "launches": served["launches"],
+            "node_pids": sorted(tree), "alive_after": alive,
+            "on_card_after": on_card}
+        print(f"ops (a): ask -> node registered "
+              f"{t_registered - t_ask:.1f} s -> actor ready "
+              f"{t_ready - t_registered:.1f} s; kill -> terminated "
+              f"{t_term - t_kill:.1f} s", flush=True)
+        gates.update({
+            "one_gpu_node_launched": n_launched == 1 and len(up) == 1
+            and len(node_recs) == 1,
+            "actor_on_autoscaled_node":
+                node.labels.get("autoscaled") is True
+                and node.labels.get("node_type") == "gpu_node"
+                and node.resources_total.quantities.get("GPU") == 1.0,
+            "dashboard_lists_gpu_node": len(view) == 1
+            and view[0]["resources"].get("GPU") == 1.0,
+            "actor_tokens_equal": served["tokens"] == ref_tokens,
+            "actor_launches_exact": served["launches"] == ref_launches
+            and (not gpu or (ref_launches["flash_attention_fwd"] > 0
+                 and ref_launches["paged_decode_attention_inplace"] > 0)),
+            "node_terminated_in_time":
+                not json.loads(nodes_file.read_text())
+                and t_term - t_kill <= idle_s + 3 * OPS_MONITOR_INTERVAL_S,
+            "node_processes_gone": not alive and not on_card})
+
+        # (b) jobs through the dashboard head, the two side by side on the
+        # card, and beside them (c)'s first run, which fails in serve
+        client = JobSubmissionClient(base)
+        env = {"env_vars": {"PYTHONPATH": os.environ["PYTHONPATH"]}}
+
+        def entry(loop):
+            return f"{shlex.quote(sys.executable)} -c " + shlex.quote(
+                f"import chip_smoke; chip_smoke._ops_job_main({device!r}, "
+                f"{preset!r}, {tuple(batch)!r}, loop={loop})")
+
+        storage = str(work / "workflows")
+        os.makedirs(storage)
+        marker = str(work / "serve_fails")
+        open(marker, "w").close()
+        train = workflow.step(_ops_wf_train).bind(storage, device, preset,
+                                                  tuple(batch))
+        dag = workflow.step(max_retries=0)(_ops_wf_serve).bind(
+            train, prompts, marker, device, preset)
+        wf_id = "train_then_serve"
+        t0 = time.perf_counter()
+        job = client.submit_job(entrypoint=entry(False),
+                                runtime_env=env, working_dir=str(REPO))
+        loop_job = client.submit_job(entrypoint=entry(True),
+                                     runtime_env=env, working_dir=str(REPO))
+        first_run = workflow.run_async(dag, workflow_id=wf_id,
+                                       storage=storage)
+
+        def first_loss():
+            text = client.get_job_logs(loop_job)
+            return ("OPS_JOB_LOSS" in text) and text
+
+        text = _wait_for(first_loss, OPS_TIMEOUT_S, 0.2) or ""
+        loop_pid = next((int(ln.split()[1]) for ln in text.splitlines()
+                         if ln.startswith("OPS_JOB_PID ")), None)
+        t_stop = time.perf_counter()
+        stopped = client.stop_job(loop_job)
+        stop_s = time.perf_counter() - t_stop
+        loop_status = client.get_job_status(loop_job)
+        loop_alive, loop_on_card = _gone([loop_pid] if loop_pid else [])
+        status = client.wait_until_finished(job, timeout=OPS_TIMEOUT_S)
+        job_s = time.perf_counter() - t0
+        logs = _http_json(f"{base}/api/jobs/{job}/logs")["logs"]
+        line = next((ln for ln in logs.splitlines()
+                     if ln.startswith("OPS_JOB ")), None)
+        out = json.loads(line[len("OPS_JOB "):]) if line else {}
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(out.get("losses", []), ref_losses)]
+        metrics = _http_json(base + "/metrics")
+        bad = [ln for ln in metrics.splitlines() if ln
+               and not ln.startswith("#")
+               and not re.match(_PROM_SAMPLE, ln)]
+        res["jobs"] = {"status": status, "job_s": job_s, "losses":
+                       out.get("losses"), "reference_losses": ref_losses,
+                       "loss_rel_diff": rel,
+                       "launches": out.get("launches"),
+                       "loop_status": loop_status, "loop_pid": loop_pid,
+                       "loop_first_loss_s": t_stop - t0, "stop_s": stop_s,
+                       "loop_alive_after": loop_alive,
+                       "loop_on_card_after": loop_on_card,
+                       "metrics_lines": len(metrics.splitlines()),
+                       "metrics_bad_lines": bad[:5]}
+        print(f"ops (b): job {status} in {job_s:.1f} s, losses "
+              f"{out.get('losses')}; loop job stopped after "
+              f"{stop_s:.2f} s: {loop_status}", flush=True)
+        gates.update({
+            "job_succeeded": status == JobStatus.SUCCEEDED,
+            "job_losses_close": len(rel) == OPS_TRAIN_STEPS
+            and max(rel) <= TRAIN_SHARDED_LOSS_RTOL,
+            "job_launches_exact": out.get("launches") == ref_train_launches
+            and (not gpu or ref_train_launches["flash_attention_bwd_dq"] > 0),
+            "loop_job_stopped": stopped and loop_status == JobStatus.STOPPED
+            and loop_pid is not None,
+            "loop_job_gone": not loop_alive and not loop_on_card,
+            "metrics_parse": not bad and "raytpu_nodes_alive" in metrics})
+
+        # (c) the workflow: its first run failed in serve (the marker);
+        # resume it, and meanwhile load the checkpoint here
+        try:
+            first_run.result(timeout=OPS_TIMEOUT_S)
+            first_error = None
+        except Exception as e:   # the failure the marker asks for
+            first_error = f"{type(e).__name__}: {e}"
+        status_failed = workflow.get_status(wf_id, storage=storage)
+        os.unlink(marker)
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            resuming = pool.submit(workflow.resume, dag, workflow_id=wf_id,
+                                   storage=storage)
+            with open(Path(storage, wf_id, "steps", train.key() + ".pkl"),
+                      "rb") as f:
+                trained = pickle.load(f)
+            params = _ops_load_params(trained["path"])
+            eng = _ops_engine(device, preset, layers=trained["layers"],
+                              params=params)
+            wf_ref_tokens, wf_ref_launches = _ops_generate(eng, prompts)
+            digest = _params_digest(params)
+            del eng, params
+            resumed = resuming.result(timeout=OPS_TIMEOUT_S)
+        _free_device()
+        wf_s = time.perf_counter() - t0
+        status_resumed = workflow.get_status(wf_id, storage=storage)
+        train_runs = Path(storage, "train_runs").read_text().split()
+        res["workflow"] = {
+            "first_error": first_error, "status_after_failure":
+                status_failed, "status_after_resume": status_resumed,
+            "train_runs": len(train_runs),
+            "seconds_from_jobs_submit": wf_s,
+            "train_launches": trained["launches"],
+            "train_losses": trained["losses"],
+            "serve_launches": resumed["launches"],
+            "reference_launches": wf_ref_launches,
+            "checkpoint_digest": trained["digest"],
+            "files": sorted(str(p.relative_to(storage))
+                            for p in Path(storage).rglob("*")
+                            if p.is_file())[:40]}
+        print(f"ops (c): {status_failed} then {status_resumed}, "
+              f"{wf_s:.1f} s after the jobs' submission; train ran "
+              f"{len(train_runs)} time(s)", flush=True)
+        gates.update({
+            "workflow_failed_first": status_failed == "FAILED"
+            and first_error is not None and "serve fails" in first_error,
+            "workflow_resumed": status_resumed == "SUCCESSFUL",
+            "train_ran_once": len(train_runs) == 1
+            and resumed["launches"]["flash_attention_bwd_dq"] == 0
+            and resumed["launches"]["flash_attention_bwd_dkdv"] == 0,
+            "checkpoint_read_back": resumed["digest"] == trained["digest"]
+            == digest,
+            "workflow_tokens_equal": resumed["tokens"] == wf_ref_tokens,
+            "workflow_launches_exact":
+                resumed["launches"] == wf_ref_launches
+                and (not gpu or wf_ref_launches["flash_attention_fwd"] > 0)})
+        all_pids |= set(session_pids(all_pids))
+    finally:
+        ray_tpu_torch.shutdown()
+        head.stop()
+        launcher.down(str(cfg_path))
+    left, left_on_card = _gone(all_pids)
+    shutil.rmtree(work, ignore_errors=True)
+    res["pids_alive_after_down"] = left
+    res["pids_on_card_after_down"] = left_on_card
+    gates["no_process_left"] = not left and not left_on_card
+    res["gates"] = gates
+    # the path's launches, each counted in the process that launched: the
+    # actor's, the job's and the workflow's two steps'
+    res["launches"] = {}
+    for part in (served["launches"], out.get("launches") or {},
+                 trained["launches"], resumed["launches"]):
+        for k, n in part.items():
+            res["launches"][k] = res["launches"].get(k, 0) + n
+    res["workflow_launches"] = {"train": trained["launches"],
+                                "serve": resumed["launches"]}
+    res["ops_s"] = time.perf_counter() - t_phase
+    res["ok"] = all(gates.values())
+    if not res["ok"]:
+        print(f"ops: failed gates {[k for k, v in gates.items() if not v]}",
+              file=sys.stderr, flush=True)
+    return res
+
+
 def _cpu_copy(params):
     if isinstance(params, dict):
         return {k: _cpu_copy(v) for k, v in params.items()}
@@ -5183,9 +5746,15 @@ def _leaves(tree):
         yield tree
 
 
+# engine_contiguous runs the 7b width at this depth: its int8 init draws
+# on the host leaf by leaf (ROADMAP item 18), 174-262 s at all 32 layers
+ENGINE_CONTIGUOUS_LAYERS = 8
+
+
 def phase_engine_contiguous():
-    """The JAX engine's default configuration on the card: the 7b preset,
-    all 32 layers, bf16, contiguous KV (16 slots x 2048 tokens), int8
+    """The JAX engine's default configuration on the card: the 7b preset at
+    full width cut to ENGINE_CONTIGUOUS_LAYERS layers, bf16, contiguous KV
+    (16 slots x 2048 tokens), int8
     weights, flash prefill; the engine phase's 12 requests (seed 5), 64
     tokens each, with the K1 counter set to 0 just before them and read
     after; then the prefill and decode-block profiles. Memory gates: the
@@ -5199,7 +5768,8 @@ def phase_engine_contiguous():
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.serve.llm import LLMEngine
 
-    cfg = llama.PRESETS["7b"].replace(attn_impl="flash")
+    cfg = llama.PRESETS["7b"].replace(attn_impl="flash",
+                                      n_layers=ENGINE_CONTIGUOUS_LAYERS)
     # the int8 init on its own, 4 layers of the 7b width: its peak stays
     # within its int8 tree and one 2-D weight's f32 copy (the float tree
     # whole would add 2.1 GB of bf16), which the engine's setup peak below
@@ -5238,8 +5808,9 @@ def phase_engine_contiguous():
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = {"flash_attention_fwd": fa.launches}
-    res = {"cfg": "7b, 32 layers, bf16, int8 weights, flash, contiguous KV, "
-                  "16 slots, max_seq 2048",
+    res = {"cfg": f"7b width, {ENGINE_CONTIGUOUS_LAYERS} of its 32 layers, "
+                  "bf16, int8 weights, flash, contiguous KV, 16 slots, "
+                  "max_seq 2048",
            "prompt_lens": [len(p) for p in wave1 + wave2],
            "setup_s": setup_s, "setup_peak_mem_gb": setup_peak,
            "weight_bytes_at_rest": weight_bytes, "int8_bytes": q8_bytes,
@@ -5343,7 +5914,7 @@ PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
           "train_card_vs_cpu", "train", "train_sharded", "sp_pp", "moe",
           "vit", "trainer", "data", "rl", "rl_offpolicy", "engine_sharded",
-          "runtime", "serve", "serve_disagg", "rl_final", "tune")
+          "runtime", "serve", "serve_disagg", "rl_final", "tune", "ops")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -5362,7 +5933,8 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "engine_sharded": phase_engine_sharded,
                "runtime": phase_runtime, "serve": phase_serve,
                "serve_disagg": phase_serve_disagg,
-               "rl_final": phase_rl_final, "tune": phase_tune}
+               "rl_final": phase_rl_final, "tune": phase_tune,
+               "ops": phase_ops}
 
 
 def _start() -> bool:
@@ -5489,7 +6061,9 @@ def main() -> int:
     # process); rl: PPO on pixels, rl_offpolicy: the off-policy and
     # offline learners, rl_final: QMIX, MADDPG, MAML, AlphaZero and SlateQ,
     # which run none of them; tune: the GPT-2 trials (counted in their
-    # processes), whose plain attention runs none)
+    # processes), whose plain attention runs none; ops: the autoscaled
+    # node's serving actor, the job's trainer and the workflow's train and
+    # serve steps, each counted in its own process)
     paths = {"engine": ph["engine"]["launches"],
              "engine_k5": ph["engine"]["k5_path"]["launches"],
              "card_vs_cpu_contiguous":
@@ -5509,7 +6083,8 @@ def main() -> int:
              "serve": ph["serve"]["launches"],
              "serve_disagg": ph["serve_disagg"]["launches"],
              "rl_final": ph["rl_final"]["launches"],
-             "tune": ph["tune"]["launches"]}
+             "tune": ph["tune"]["launches"],
+             "ops": ph["ops"]["launches"]}
     k1, k2, k34 = case("k1", "7b"), case("k2", "1b-w256"), case("k3k4", "1b")
     rows = [
         ("flash_attention_fwd", "ray_tpu_torch/csrc/flash_attention.cu",

@@ -28,7 +28,7 @@ _SUBMODULES = frozenset((
     "api", "ops", "models", "serve", "parallel", "core", "native",
     "protobuf", "util", "observability", "dag", "collective", "dashboard",
     "devtools", "runtime_env", "cluster_utils", "train", "data", "rl",
-    "tune"))
+    "tune", "autoscaler", "job", "workflow", "client"))
 _API = ("init", "shutdown", "is_initialized", "remote", "put", "get",
         "wait", "kill", "cancel", "get_actor", "method",
         "get_runtime_context", "nodes", "cluster_resources",
@@ -37,7 +37,7 @@ _API = ("init", "shutdown", "is_initialized", "remote", "put", "get",
         "__version__")
 
 __all__ = ["ops", "models", "serve", "parallel", "train", "data", "rl",
-           "tune",
+           "tune", "autoscaler", "job", "workflow", "client",
            "resolve_device",
            "is_dtensor", *_API]
 

@@ -1,19 +1,21 @@
 """Command-line interface: `python -m ray_tpu_torch.cli <cmd>`.
 
-Reference: python/ray/scripts/scripts.py and the state CLI
-(util/state/state_cli.py).
-
-Port of two commands of ray_tpu/cli.py: ``doctor`` (cluster health
-triage) and ``blackbox`` (flight-recorder post-mortems). The rest of that
-CLI (start, stop, status, list, summary, memory, metrics, stack, top,
-timeline, debug, chaos, and the commands over layers not ported yet) is
-ROADMAP.md queue 1 item 11.
+Port of ray_tpu/cli.py over the port's runtime, every command and option
+of it. Reference: python/ray/scripts/scripts.py — start/stop (:540,:1004),
+status, timeline (:1835), memory (:1900), and the state CLI
+(`ray list ...`, util/state/state_cli.py); the cluster launcher's
+up/down/exec/submit/attach/cluster-status (autoscaler/launcher.py). ``lint``
+exits with a message: raylint (``ray_tpu/devtools/lint/``) is ROADMAP.md
+queue 1 item 11.4.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
+import time
 
 
 def _connect(address: str):
@@ -21,6 +23,161 @@ def _connect(address: str):
 
     ray_tpu_torch.init(address=address)
     return ray_tpu_torch
+
+
+def cmd_start(args):
+    """Start a head (gcs + nodelet) that outlives this command."""
+    from ray_tpu_torch.core.config import Config
+    from ray_tpu_torch.core.node import new_session_dir, start_gcs, start_nodelet
+
+    cfg = Config.load(json.loads(args.system_config))
+    session_dir = new_session_dir()
+    gcs_proc, gcs_addr = start_gcs(session_dir, cfg, host=args.host,
+                                   port=args.port)
+    resources = json.loads(args.resources)
+    nodelet_proc, nodelet_addr, node_id, store = start_nodelet(
+        session_dir, cfg, gcs_addr, resources=resources, host=args.host)
+    info = {"address": f"{gcs_addr[0]}:{gcs_addr[1]}",
+            "session_dir": session_dir,
+            "gcs_pid": gcs_proc.pid, "nodelet_pid": nodelet_proc.pid}
+    with open(os.path.join(session_dir, "head.json"), "w") as f:
+        json.dump(info, f)
+    print(json.dumps(info, indent=2))
+    print(f"\nConnect with: ray_tpu_torch.init(address='{info['address']}')")
+
+
+def cmd_stop(args):
+    """Stop the daemons of the head `start` made last (ref: ray stop); the
+    nodelet goes down with the workers it started. The newest session
+    holding a head.json, not ``session_latest``, which every driver that
+    connects moves to its own session."""
+    import glob
+
+    from ray_tpu_torch.autoscaler.node_provider import terminate_tree
+    from ray_tpu_torch.core.node import pid_alive, session_root
+
+    heads = glob.glob(os.path.join(session_root(), "session_*", "head.json"))
+    if not heads:
+        print("no running head found")
+        return
+    with open(max(heads, key=os.path.getmtime)) as f:
+        info = json.load(f)
+    for key in ("nodelet_pid", "gcs_pid"):
+        if pid_alive(info[key]):
+            terminate_tree(info[key])
+            print(f"stopped {key} {info[key]}")
+
+
+def cmd_status(args):
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch.util import state
+
+    print(json.dumps(state.cluster_summary(), indent=2, default=str))
+
+
+def cmd_list(args):
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch.util import state
+
+    fn = {"nodes": state.list_nodes, "actors": state.list_actors,
+          "tasks": state.list_tasks, "jobs": state.list_jobs,
+          "edges": state.edge_stats, "objects": state.list_objects,
+          "pgs": state.list_placement_groups}[args.what]
+    print(json.dumps(fn(), indent=2, default=str))
+
+
+def cmd_summary(args):
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch.util import state
+
+    print(json.dumps(state.summarize_tasks(), indent=2, default=str))
+
+
+def cmd_stack(args):
+    """Stack dumps of every worker on every node (ref: ray stack)."""
+    ray_tpu_torch = _connect(args.address)
+    for node_id, dump in ray_tpu_torch.stack().items():
+        print(f"===== node {node_id[:12]} =====")
+        if "error" in dump:
+            print(f"ERROR: {dump['error']}")
+            continue
+        for wid, w in dump.get("workers", {}).items():
+            print(f"--- worker {wid} pid={w.get('pid')} "
+                  f"state={w.get('state')} ---")
+            print(w.get("stacks", w.get("error", "")))
+
+
+def cmd_istats(args):
+    """Per-daemon handler stats + event-loop lag (ref: event_stats)."""
+    ray_tpu_torch = _connect(args.address)
+    print(json.dumps(ray_tpu_torch.internal_stats(), indent=2, default=str))
+
+
+def cmd_debug(args):
+    """List active remote-pdb breakpoints and attach (ref: ray debug)."""
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch.util import rpdb
+
+    sessions = rpdb.list_breakpoints()
+    if not sessions:
+        print("no active breakpoints")
+        return
+    for i, s in enumerate(sessions):
+        print(f"[{i}] pid={s.get('pid')} {s.get('host')}:{s.get('port')}")
+    if args.list:
+        return
+    if not 0 <= args.index < len(sessions):
+        print(f"no breakpoint session [{args.index}] "
+              f"({len(sessions)} active)")
+        return
+    s = sessions[args.index]
+    print(f"attaching to {s['host']}:{s['port']} — 'c' to continue, "
+          "'q' to quit")
+    rpdb.attach(s["host"], s["port"], token=s.get("token", ""))
+
+
+def cmd_microbenchmark(args):
+    from ray_tpu_torch._perf import main as perf_main
+
+    argv = []
+    if args.address:
+        argv += ["--address", args.address]
+    for f in args.filter or []:
+        argv += ["--filter", f]
+    argv += ["--min-seconds", str(args.min_seconds)]
+    perf_main(argv)
+
+
+def cmd_gateway(args):
+    """Serve remote drivers (ref: ray client server / proxier)."""
+    import asyncio
+
+    from ray_tpu_torch.client_gateway import serve
+
+    asyncio.run(serve(args.address, args.host, args.port))
+
+
+def cmd_timeline(args):
+    """Chrome-trace export of the unified timeline — task states, user
+    spans, collective rounds, data-op spans — with per-worker lanes
+    (ref: ray timeline; observability/timeline.py)."""
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch.observability import chrome_trace
+
+    events = ray_tpu_torch.timeline(limit=args.limit)
+    trace = chrome_trace(events)
+    out = args.output or "timeline.json"
+    with open(out, "w") as f:
+        json.dump(trace, f)
+    n = sum(1 for e in trace if e.get("ph") != "M")
+    print(f"wrote {n} slices to {out}")
+
+
+def cmd_memory(args):
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch.util import state
+
+    print(json.dumps(state.memory_summary(), indent=2, default=str))
 
 
 def _mib(n) -> str:
@@ -38,6 +195,57 @@ def _pin_str(rec: dict) -> str:
         parts.append(f"{reason}x{p.get('count', 1)}"
                      + (f"({extra})" if extra else ""))
     return " ".join(parts)
+
+
+def cmd_top(args):
+    """`top mem`: cluster memory attribution (observability/memory.py)
+    — per-subsystem bytes, the biggest holders with owner / pin reasons /
+    temperature, spill candidates, leak suspects."""
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch.util import state
+
+    rep = state.memory_report(top_n=args.limit)
+    if args.json:
+        print(json.dumps(rep, indent=2, default=str))
+        return
+    print(f"attributed records: {rep.get('records', 0)}"
+          f" (+{rep.get('records_overflow', 0)} summarized)")
+    sub = rep.get("subsystem_bytes", {})
+    store = rep.get("subsystem_store_bytes", {})
+    hwm = rep.get("subsystem_hwm_bytes", {})
+    print("subsystem        resident      in-store         high-water")
+    for name in sorted(set(sub) | set(hwm)):
+        print(f"  {name:<12} {_mib(sub.get(name)):>12} "
+              f"{_mib(store.get(name)):>12} {_mib(hwm.get(name)):>12}")
+    for node, st in (rep.get("nodes") or {}).items():
+        print(f"node {node[:12]}: store {_mib(st.get('store_bytes'))} of "
+              f"{_mib(st.get('store_capacity'))}, attribution coverage "
+              f"{100.0 * (st.get('coverage') or 0):.1f}%")
+    print(f"top holders (of {rep.get('records', 0)}):")
+    for r in rep.get("top_holders", []):
+        print(f"  {r.get('key', '?')[:20]:<20} {r.get('subsystem'):<10} "
+              f"{_mib(r.get('nbytes')):>12}  idle={r.get('idle_s')}s "
+              f"acc={r.get('access_count')} pins={_pin_str(r)}")
+    print(f"spill candidates (unpinned, idle>={rep.get('cold_after_s')}s): "
+          f"{len(rep.get('spill_candidates', []))} object(s), "
+          f"{_mib(rep.get('spill_candidate_bytes'))}")
+    leaks = rep.get("leak_suspects", [])
+    if leaks:
+        print(f"LEAK SUSPECTS (pinned, owner dead "
+              f">={rep.get('leak_suspect_s')}s):")
+        for r in leaks:
+            print(f"  {r.get('key', '?')[:20]:<20} "
+                  f"{_mib(r.get('nbytes')):>12} orphan={r.get('orphan_s')}s "
+                  f"pins={_pin_str(r)}")
+    else:
+        print("leak suspects: none")
+
+
+def cmd_metrics(args):
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch.util.metrics import prometheus_text
+
+    print(prometheus_text())
 
 
 def cmd_doctor(args):
@@ -172,9 +380,122 @@ def cmd_blackbox(args):
     print(flight.render_summary(doc, tail=args.tail))
 
 
-def main():
+def cmd_serve(args):
+    """serve deploy/status/shutdown (ref: serve/scripts.py CLI)."""
+    ray_tpu_torch = _connect(args.address)
+    from ray_tpu_torch import serve
+
+    if args.serve_cmd == "deploy":
+        from ray_tpu_torch.serve.schema import ServeDeploySchema, apply_config
+
+        if not args.config:
+            raise SystemExit("serve deploy requires --config <file>")
+        schema = ServeDeploySchema.from_file(args.config)
+        info = apply_config(schema)
+        print(json.dumps(info, indent=2))
+    elif args.serve_cmd == "status":
+        print(json.dumps(serve.status(), indent=2, default=str))
+    elif args.serve_cmd == "shutdown":
+        serve.shutdown()
+        print("serve shut down")
+
+
+def cmd_lint(args):
+    """raylint (ray_tpu/devtools/lint/) is not ported yet."""
+    raise SystemExit(
+        "lint: raylint (ray_tpu/devtools/lint/) is not ported to "
+        "ray_tpu_torch yet: ROADMAP.md queue 1 item 11.4")
+
+
+def cmd_chaos(args):
+    """Seeded fault-injection scenario: spin up an ephemeral cluster,
+    run the canonical task+actor workload under a FaultPlan, and check
+    the invariants (typed-within-deadline, exactly-once side effects,
+    clean pin/resource accounting). Same seed ⟹ same injected faults."""
+    from ray_tpu_torch.devtools import chaos
+
+    if args.plan:
+        with open(args.plan) as f:
+            plan = chaos.FaultPlan.from_json(f.read())
+        if args.seed is not None:
+            plan.seed = args.seed
+    else:
+        plan = chaos.canonical_plan(args.seed or 0)
+    report = chaos.run_scenario(plan, num_nodes=args.nodes,
+                                tasks=args.tasks, actors=args.actors,
+                                calls=args.calls)
+    if args.json:
+        print(json.dumps(report, indent=2, default=str))
+    else:
+        print(f"seed={report['seed']} rules={report['rules']} "
+              f"injected={report['injected_driver_side']} "
+              f"elapsed={report['elapsed_s']}s")
+        for v in report["violations"]:
+            print(f"  VIOLATION: {v}")
+        print("OK" if report["ok"] else "FAILED")
+    sys.exit(0 if report["ok"] else 1)
+
+
+def cmd_dashboard(args):
+    """Serve the HTTP dashboard against a running cluster
+    (ref: dashboard/head.py)."""
+    from ray_tpu_torch.dashboard import DashboardHead
+
+    h, p = args.address.rsplit(":", 1)
+    head = DashboardHead((h, int(p)), session_dir=args.session_dir,
+                         host=args.http_host, port=args.http_port)
+    addr = head.start()
+    print(json.dumps({"dashboard_url": f"http://{addr[0]}:{addr[1]}"}),
+          flush=True)
+    while True:
+        time.sleep(3600)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The reference's commands and options, word for word."""
     p = argparse.ArgumentParser(prog="ray_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("start", help="start head daemons")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=0)
+    s.add_argument("--resources", default="{}")
+    s.add_argument("--system-config", default="{}")
+    s.set_defaults(fn=cmd_start)
+
+    s = sub.add_parser("stop", help="stop head daemons")
+    s.set_defaults(fn=cmd_stop)
+
+    s = sub.add_parser("microbenchmark",
+                       help="core task/actor/object throughput suite "
+                            "(ref: ray microbenchmark)")
+    s.add_argument("--address", default=None)
+    s.add_argument("--filter", action="append", default=None)
+    s.add_argument("--min-seconds", type=float, default=2.0)
+    s.set_defaults(fn=cmd_microbenchmark)
+
+    for name, fn in [("status", cmd_status), ("summary", cmd_summary),
+                     ("memory", cmd_memory), ("metrics", cmd_metrics),
+                     ("stack", cmd_stack), ("internal-stats", cmd_istats)]:
+        s = sub.add_parser(name)
+        s.add_argument("--address", required=True)
+        s.set_defaults(fn=fn)
+
+    s = sub.add_parser("list")
+    s.add_argument("what", choices=["nodes", "actors", "tasks", "jobs",
+                                    "edges", "objects", "pgs"])
+    s.add_argument("--address", required=True)
+    s.set_defaults(fn=cmd_list)
+
+    s = sub.add_parser("top", help="cluster resource hogs; `top mem` = "
+                       "attributed memory by subsystem/holder "
+                       "(observability/memory.py)")
+    s.add_argument("what", choices=["mem"])
+    s.add_argument("--address", required=True)
+    s.add_argument("--limit", type=int, default=20)
+    s.add_argument("--json", action="store_true",
+                   help="raw memory_report() JSON")
+    s.set_defaults(fn=cmd_top)
 
     s = sub.add_parser("doctor", help="cluster health triage: nodes, "
                        "beacons, drop counters (non-zero exit on failure)")
@@ -195,8 +516,109 @@ def main():
     s.add_argument("--tail", type=int, default=20)
     s.set_defaults(fn=cmd_blackbox)
 
-    args = p.parse_args()
+    s = sub.add_parser("timeline")
+    s.add_argument("--address", required=True)
+    s.add_argument("--limit", type=int, default=10000)
+    s.add_argument("--output", default=None)
+    s.set_defaults(fn=cmd_timeline)
+
+    s = sub.add_parser("debug", help="attach to a remote-pdb breakpoint")
+    s.add_argument("--address", required=True)
+    s.add_argument("--index", type=int, default=0)
+    s.add_argument("--list", action="store_true")
+    s.set_defaults(fn=cmd_debug)
+
+    s = sub.add_parser("gateway", help="run a client gateway "
+                       "(remote drivers: python thin client + C++ API)")
+    s.add_argument("--address", required=True, help="GCS host:port")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=10001)
+    s.set_defaults(fn=cmd_gateway)
+
+    s = sub.add_parser("dashboard", help="run the HTTP dashboard")
+    s.add_argument("--address", required=True, help="GCS host:port")
+    s.add_argument("--session-dir", default="")
+    s.add_argument("--http-host", default="127.0.0.1")
+    s.add_argument("--http-port", type=int, default=8265)
+    s.set_defaults(fn=cmd_dashboard)
+
+    s = sub.add_parser("serve", help="serve deploy/status/shutdown")
+    s.add_argument("serve_cmd", choices=["deploy", "status", "shutdown"])
+    s.add_argument("--address", required=True)
+    s.add_argument("--config", default=None, help="config file for deploy")
+    s.set_defaults(fn=cmd_serve)
+
+    s = sub.add_parser("lint", help="raylint static analysis (not ported "
+                       "yet: ROADMAP.md queue 1 item 11.4)")
+    s.add_argument("lint_args", nargs=argparse.REMAINDER)
+    s.set_defaults(fn=cmd_lint)
+
+    s = sub.add_parser("chaos", help="run the seeded fault-injection "
+                       "scenario (devtools.chaos) on an ephemeral cluster")
+    s.add_argument("--seed", type=int, default=None,
+                   help="FaultPlan seed (same seed ⟹ same fault sequence)")
+    s.add_argument("--plan", default=None,
+                   help="FaultPlan JSON file (default: the canonical "
+                        "drop/reorder/duplicate/black-hole mix)")
+    s.add_argument("--nodes", type=int, default=1)
+    s.add_argument("--tasks", type=int, default=8)
+    s.add_argument("--actors", type=int, default=2)
+    s.add_argument("--calls", type=int, default=4)
+    s.add_argument("--json", action="store_true",
+                   help="print the full report (incl. the injected-fault "
+                        "sequence) as JSON")
+    s.set_defaults(fn=cmd_chaos)
+
+    # cluster launcher (ref: scripts.py:1238,1314,1398,1696 up/down/
+    # attach/exec over the NodeProvider API)
+    s = sub.add_parser("up", help="bring a cluster up from a YAML config")
+    s.add_argument("cluster_yaml")
+    s.add_argument("--restart", action="store_true")
+    s.set_defaults(fn=lambda a: _launcher().up(a.cluster_yaml,
+                                               restart=a.restart))
+
+    s = sub.add_parser("down", help="tear a cluster down")
+    s.add_argument("cluster_yaml")
+    s.set_defaults(fn=lambda a: _launcher().down(a.cluster_yaml))
+
+    s = sub.add_parser("exec", help="run a shell command on the cluster")
+    s.add_argument("cluster_yaml")
+    s.add_argument("command")
+    s.set_defaults(fn=lambda a: sys.exit(
+        _launcher().exec_cmd(a.cluster_yaml, a.command)))
+
+    s = sub.add_parser("submit", help="run a python script on the cluster")
+    s.add_argument("cluster_yaml")
+    s.add_argument("script")
+    s.add_argument("script_args", nargs="*")
+    s.set_defaults(fn=lambda a: sys.exit(
+        _launcher().submit(a.cluster_yaml, a.script, *a.script_args)))
+
+    s = sub.add_parser("attach",
+                       help="shell with the cluster address exported")
+    s.add_argument("cluster_yaml")
+    s.set_defaults(fn=lambda a: sys.exit(_launcher().attach(a.cluster_yaml)))
+
+    s = sub.add_parser("cluster-status", help="launcher-level status")
+    s.add_argument("cluster_yaml")
+    s.set_defaults(fn=lambda a: _launcher().status(a.cluster_yaml))
+
+    return p
+
+
+def main():
+    # `lint` routes before argparse, as in the reference (REMAINDER
+    # refuses leading optionals, bpo-17050)
+    if sys.argv[1:2] == ["lint"]:
+        cmd_lint(None)
+    args = build_parser().parse_args()
     args.fn(args)
+
+
+def _launcher():
+    from ray_tpu_torch.autoscaler import launcher
+
+    return launcher
 
 
 if __name__ == "__main__":

@@ -50,6 +50,11 @@ RESTARTING = "RESTARTING"
 DEAD = "DEAD"
 
 
+def _shape(resources: Dict[str, float]) -> frozenset:
+    """A resource ask's identity for unmet-demand bookkeeping."""
+    return frozenset(resources.items())
+
+
 class ActorRecord:
     def __init__(self, spec: TaskSpec):
         self.spec = spec
@@ -100,6 +105,8 @@ class GcsServer:
         self.subscribers: Dict[str, set] = defaultdict(set)  # channel -> {addr}
         self.pending_leases: Dict[NodeID, int] = {}
         self.unmet_demand: List[dict] = []  # infeasible resource asks
+        # resource shape -> when an ask of it was last placed
+        self._demand_met: Dict[frozenset, float] = {}
         # reporter-keyed gang shortfalls (elastic training refill/grow;
         # same reporter-keyed + staleness-aged shape as serve
         # report_load) — folded into get_load()'s unmet_demand
@@ -328,7 +335,14 @@ class GcsServer:
         """Cluster load for the autoscaler (ref: LoadMetrics
         load_metrics.py:63 fed from GCS resource state)."""
         now = time.time()
-        demand = [d for d in self.unmet_demand if now - d["ts"] < 30.0]
+        # a miss counts for 30 s, or until an ask of its shape was placed
+        # after it (unlike the reference, whose met asks stay demand for
+        # their 30 s and relaunch a node the autoscaler just scaled down);
+        # placement-group rows are cleared by the pg itself
+        met = self._demand_met
+        demand = [d for d in self.unmet_demand if now - d["ts"] < 30.0
+                  and ("pg" in d or d["ts"] > met.get(
+                      _shape(d["resources"]), float("-inf")))]
         # gang shortfalls (elastic training): one row per missing worker,
         # tagged with the gang so the autoscaler can attribute the launch
         for reporter, g in list(self.gang_demand.items()):
@@ -412,6 +426,10 @@ class GcsServer:
                                       "ts": time.time()})
             del self.unmet_demand[:-100]
             return None
+        # an ask of this shape now fits: get_load drops its misses
+        # recorded until now (a still-waiting ask of the same shape
+        # records itself again at its next retry)
+        self._demand_met[_shape(resources.quantities)] = time.time()
         return {"node_id": nid, "addr": self.nodes[nid].nodelet_addr}
 
     # ------------------------------------------------------------------ actors

@@ -54,6 +54,10 @@ from ray_tpu_torch.runtime_env import process_env as _process_env
 
 logger = logging.getLogger("ray_tpu_torch.runtime")
 
+# how long a call waits for an actor the GCS calls RESTARTING before it
+# fails with ActorUnavailableError (a first start has no such bound)
+ACTOR_RESTART_WAIT_S = 10.0
+
 #: _fetch_from_locations result: every reachable copy answered "busy"
 #: (source serve cap) — retry with refreshed locations; NOT lost.
 _BUSY = object()
@@ -2252,12 +2256,16 @@ class Runtime:
 
     async def _resolve_actor(self, actor_id: ActorID,
                              timeout: Optional[float] = None) -> Address:
-        """Wait for the actor to be ALIVE. No arbitrary deadline: like the
-        reference's actor submit queue, calls buffer while the actor is
-        still starting/restarting (a 200-actor fleet on a slow node takes
-        minutes to spawn) and fail only when the GCS declares it DEAD —
-        or the optional caller deadline passes. Runs as a coroutine on the
-        runtime loop so a fleet of pending actors parks zero threads."""
+        """Wait for the actor to be ALIVE. No arbitrary deadline while it
+        is first starting: like the reference's actor submit queue, calls
+        buffer (a 200-actor fleet on a slow node takes minutes to spawn)
+        and fail only when the GCS declares it DEAD — or the optional
+        caller deadline passes. Once the GCS calls it RESTARTING, the wait
+        is bounded by ``ACTOR_RESTART_WAIT_S`` and then raises
+        ActorUnavailableError (unlike the reference, which waits on), so
+        that a router re-picks another replica within its client's
+        deadline. Runs as a coroutine on the runtime loop so a fleet of
+        pending actors parks zero threads."""
         addr = self._actor_addr.get(actor_id)
         if addr is not None:
             return addr
@@ -2266,12 +2274,18 @@ class Runtime:
             raise ActorDiedError(f"actor {actor_id.hex()[:12]} is dead: "
                                  f"{st.get('death_cause')}",
                                  actor_id=actor_id.hex())
-        deadline = None if timeout is None else time.time() + timeout
+        t_start = time.time()
+        deadline = None if timeout is None else t_start + timeout
+        restart_deadline = None
         view = None
         while not self._shutdown:
-            step = 30.0
+            # each wait returns at the latest after ACTOR_RESTART_WAIT_S,
+            # so that a RESTARTING state is seen within that bound
+            step = ACTOR_RESTART_WAIT_S
             if deadline is not None:
                 step = min(step, max(0.1, deadline - time.time()))
+            if restart_deadline is not None:
+                step = min(step, max(0.1, restart_deadline - time.time()))
             r = await self.pool.get(self.gcs_addr).call(
                 "wait_actor_alive", actor_id=actor_id, wait_timeout=step,
                 timeout=step + 10.0)
@@ -2287,6 +2301,14 @@ class Runtime:
                 break
             if deadline is not None and time.time() >= deadline:
                 break
+            if view.get("state") == "RESTARTING":
+                if restart_deadline is None:
+                    restart_deadline = t_start + ACTOR_RESTART_WAIT_S
+                if time.time() >= restart_deadline:
+                    raise ActorUnavailableError(
+                        f"actor {actor_id.hex()[:12]} still restarting "
+                        f"after {ACTOR_RESTART_WAIT_S} s",
+                        actor_id=actor_id.hex())
         cause = (view or {}).get("death_cause", "not alive in time")
         raise ActorDiedError(f"actor {actor_id.hex()[:12]}: {cause}",
                              actor_id=actor_id.hex())

@@ -53,15 +53,19 @@ class ActorUnavailableError(RayTpuError):
     """Actor is restarting; call may be retried (ref: ActorUnavailableError).
 
     ``dispatched`` mirrors ActorDiedError: False ⇒ the call never reached
-    the worker, so a retry is side-effect-safe for any method."""
+    the worker, so a retry is side-effect-safe for any method.
+    ``actor_id`` (hex), where known, names the restarting actor, so that
+    a router can evict that replica as it does a dead one."""
 
-    def __init__(self, msg: str = "", dispatched: bool = True):
+    def __init__(self, msg: str = "", dispatched: bool = True,
+                 actor_id: str = None):
         super().__init__(msg)
         self.dispatched = dispatched
+        self.actor_id = actor_id
 
     def __reduce__(self):
         return (type(self), (self.args[0] if self.args else "",
-                             self.dispatched))
+                             self.dispatched, self.actor_id))
 
 
 class TaskCancelledError(RayTpuError):

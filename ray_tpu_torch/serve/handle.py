@@ -19,6 +19,9 @@ from typing import Any, Dict, List, Optional
 
 import ray_tpu_torch
 
+# the longest a router waits for the controller's replica set
+REFRESH_TIMEOUT_S = 10.0
+
 
 class Router:
     """In-flight counts are keyed by replica ACTOR ID, not list index:
@@ -86,8 +89,12 @@ class Router:
         if not force and self._replicas:
             return
         controller = ray_tpu_torch.get_actor(self.controller_name, namespace="serve")
+        # bounded (the reference waits without one): a controller that
+        # does not answer fails this request instead of hanging it past
+        # its client's deadline
         replicas = ray_tpu_torch.get(
-            controller.get_replicas.remote(self.deployment_name))
+            controller.get_replicas.remote(self.deployment_name),
+            timeout=REFRESH_TIMEOUT_S)
         with self._lock:
             self._set_replicas(replicas)
             self._last_refresh = now

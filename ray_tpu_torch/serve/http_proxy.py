@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import logging
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -19,6 +20,8 @@ from typing import Any, Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
 import ray_tpu_torch
+
+logger = logging.getLogger("ray_tpu_torch.serve.http_proxy")
 
 PROXY_NAME = "_serve_http_proxy"
 _NAMESPACE = "serve"
@@ -291,7 +294,8 @@ class HTTPProxy:
         # where "died mid-write" cannot be ruled out.
         last_err = None
         idempotent = h.command in ("GET", "HEAD")
-        for _ in range(3):
+        for attempt in range(3):
+            t0 = time.time()
             ref = handle.remote(req)
             try:
                 result = ray_tpu_torch.get(ref, timeout=60)
@@ -299,6 +303,10 @@ class HTTPProxy:
             except (ray_tpu_torch.exceptions.ActorDiedError,
                     ray_tpu_torch.exceptions.ActorUnavailableError) as e:
                 last_err = e
+                # each retry's wait, so a slow re-route shows where it sat
+                logger.warning("%s %s: attempt %d failed after %.3f s "
+                               "(%s: %s)", h.command, h.path, attempt + 1,
+                               time.time() - t0, type(e).__name__, e)
                 router = handle._get_router()
                 # evict the EXACT dead replica locally — the controller's
                 # next health probe (and pushed update) may be up to a

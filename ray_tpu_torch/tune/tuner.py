@@ -9,6 +9,13 @@ loop (step:267, actor scheduling :596): trials run as actors; the controller
 polls reported results, feeds the scheduler, stops losers, and starts queued
 trials as resources free up. Experiment state is snapshotted to the run dir
 (ref: tune/execution/experiment_state.py).
+
+Unlike the reference, a trial is launched only when the cluster can hold
+its ``resources_per_trial`` (the reference starts every queued trial's
+actor at once, and reports one that waits more than its poll timeout for
+resources as lost, leaving that actor to start later unpolled). A trial
+whose actor has not started yet is pending, never lost; the actor of a
+trial finished as lost is killed.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import ray_tpu_torch
+from ray_tpu_torch.core.status import GetTimeoutError
 from ray_tpu_torch.tune.schedulers import STOP, FIFOScheduler
 from ray_tpu_torch.tune.search import generate_variants
 
@@ -193,6 +201,39 @@ class ResultGrid:
     @property
     def errors(self) -> List[TrialResult]:
         return [r for r in self._results if r.error]
+
+
+# how long the controller waits on a started trial's poll before it
+# finishes the trial as lost
+POLL_TIMEOUT_S = 30.0
+# how long it waits, each tick, on the first poll of a trial whose actor
+# has not started (still waiting for its resources, or in __init__)
+PENDING_POLL_S = 0.05
+
+
+def _can_hold(need: Dict[str, float], waiting: int) -> bool:
+    """Whether the cluster can place one more trial asking `need` while
+    `waiting` launched trials (asking the same) are not placed yet: the
+    cluster's free resources less theirs hold `need`, and some node's
+    free resources hold it. A trial that no node could ever hold is
+    launched alone (a node may be added for it) and waits as pending."""
+    from ray_tpu_torch.core import runtime as _rt
+
+    per_node = list(_rt.get_runtime().gcs_call(
+        "get_available_resources").values())
+    free: Dict[str, float] = {}
+    for q in per_node:
+        for k, v in q.items():
+            free[k] = free.get(k, 0.0) + v
+
+    def holds(avail, k_waiting):
+        return all(avail.get(k, 0.0) - k_waiting * v >= v - 1e-9
+                   for k, v in need.items())
+
+    if holds(free, waiting) and any(holds(q, 0) for q in per_node):
+        return True
+    total = ray_tpu_torch.cluster_resources()
+    return waiting == 0 and not holds(total, 0)
 
 
 @dataclass
@@ -499,6 +540,7 @@ class Tuner:
             run_ref = actor.run.remote(self.trainable)
             prev = running.get(trial_id)
             running[trial_id] = {"actor": actor, "run_ref": run_ref,
+                                 "started": False, "poll_ref": None,
                                  "seen": 0, "ckpt_seen": 0,
                                  "checkpoint": prev["checkpoint"] if prev else None,
                                  "result": prev["result"] if prev
@@ -521,7 +563,12 @@ class Tuner:
         # ---- controller loop (ref: tune_controller.step:267) ----
         while pending or running or launched < total:
             # fill free slots: from the explicit queue or the searcher
+            need = {k: float(v) for k, v in tc.resources_per_trial.items()}
             while len(running) < max_conc:
+                if (pending or (searcher is not None and launched < total)) \
+                        and not _can_hold(need, sum(
+                            not st["started"] for st in running.values())):
+                    break   # no room: the next trial waits in the queue
                 if pending:
                     tid, cfg = pending.pop(0)
                     launch(tid, cfg)
@@ -540,16 +587,33 @@ class Tuner:
             time.sleep(0.05)
             for tid in list(running):
                 st = running[tid]
+                if st["poll_ref"] is None:
+                    st["poll_ref"] = st["actor"].poll.remote(
+                        st["seen"], st["ckpt_seen"])
                 try:
                     poll = ray_tpu_torch.get(
-                        st["actor"].poll.remote(st["seen"], st["ckpt_seen"]),
-                        timeout=30)
+                        st["poll_ref"], timeout=POLL_TIMEOUT_S
+                        if st["started"] else PENDING_POLL_S)
+                except GetTimeoutError as e:
+                    if not st["started"]:
+                        continue   # pending: its actor is not up yet
+                    lost = e
                 except Exception as e:
+                    lost = e
+                else:
+                    lost = None
+                if lost is not None:
                     res = st["result"]
-                    res.error = f"trial actor lost: {e}"
+                    res.error = f"trial actor lost: {lost}"
+                    try:
+                        ray_tpu_torch.kill(st["actor"])
+                    except Exception:
+                        pass
                     del running[tid]
                     finish(tid, res, error=True)
                     continue
+                st["started"] = True
+                st["poll_ref"] = None
                 if "checkpoint" in poll:
                     st["checkpoint"] = poll["checkpoint"]
                     st["ckpt_seen"] = poll["ckpt_version"]

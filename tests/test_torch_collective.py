@@ -9,7 +9,7 @@ across backends.
 
 Port of tests/test_collective.py, aimed at ray_tpu_torch (its WorkerGroup
 case since the train layer was ported; its bench sweep waits with
-bench.py, ROADMAP.md queue 1 item 11).
+bench.py, ROADMAP.md queue 1 item 11.5).
 """
 
 import time

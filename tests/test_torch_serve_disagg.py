@@ -17,7 +17,7 @@ counters + zero re-puts prove the bytes moved once).
 
 Port of tests/test_serve_disagg.py, aimed at ray_tpu_torch.
 The slow ``test_serve_disagg_bench_smoke`` drives the JAX package's
-``bench.py`` and waits with it (ROADMAP.md queue 1 item 11).
+``bench.py`` and waits with it (ROADMAP.md queue 1 item 11.5).
 """
 
 import asyncio

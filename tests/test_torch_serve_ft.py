@@ -243,3 +243,77 @@ def test_autoscale_windows_unit():
     time.sleep(0.25)
     want = cls._autoscale_decision(c3, "d", d3, 0)
     assert want == 1
+
+
+def test_router_refresh_has_a_deadline(ray_start_regular, monkeypatch):
+    """Q5 (ROADMAP.md queue 3): a router's replica-set refresh against a
+    controller that never answers raises within REFRESH_TIMEOUT_S (the
+    reference's get has no timeout, so a request could hang past its
+    client's deadline)."""
+    from ray_tpu_torch.core.status import GetTimeoutError
+    from ray_tpu_torch.serve import handle
+
+    monkeypatch.setattr(handle, "REFRESH_TIMEOUT_S", 1.0)
+
+    @ray_tpu_torch.remote(max_concurrency=4)
+    class Silent:
+        def ping(self):
+            return True
+
+        def get_replicas(self, name):
+            time.sleep(60)
+
+    ctl = Silent.options(name="_silent_ctl", namespace="serve").remote()
+    ray_tpu_torch.get(ctl.ping.remote(), timeout=60)
+    router = handle.Router("d", controller_name="_silent_ctl")
+    t0 = time.time()
+    with pytest.raises(GetTimeoutError):
+        router._refresh(force=True)
+    assert time.time() - t0 < 5.0
+    ray_tpu_torch.kill(ctl)
+
+
+def test_call_to_actor_stuck_restarting_has_a_deadline(ray_start_regular,
+                                                       monkeypatch,
+                                                       tmp_path):
+    """Q5: a call to an actor the GCS holds in RESTARTING (its restarted
+    __init__ hangs) fails with ActorUnavailableError, naming the actor,
+    after ACTOR_RESTART_WAIT_S, so that the HTTP proxy's retry loop
+    re-picks a replica; the reference waits until the restart ends."""
+    import os
+    import signal
+
+    from ray_tpu_torch.core import runtime as _rt
+    from ray_tpu_torch.core.status import ActorUnavailableError
+
+    monkeypatch.setattr(_rt, "ACTOR_RESTART_WAIT_S", 2.0)
+    marker = tmp_path / "started"
+
+    @ray_tpu_torch.remote(max_restarts=1)
+    class Flaky:
+        def __init__(self, marker):
+            import os
+            import time
+
+            if os.path.exists(marker):
+                time.sleep(40)          # the restart hangs
+            open(marker, "w").close()
+
+        def pid(self):
+            import os
+
+            return os.getpid()
+
+    a = Flaky.remote(str(marker))
+    pid = ray_tpu_torch.get(a.pid.remote(), timeout=60)
+    os.kill(pid, signal.SIGKILL)
+    deadline = time.time() + 30
+    while time.time() < deadline and _rt.get_runtime().gcs_call(
+            "get_actor", actor_id=a._actor_id)["state"] != "RESTARTING":
+        time.sleep(0.1)
+    t0 = time.time()
+    with pytest.raises(ActorUnavailableError) as ei:
+        ray_tpu_torch.get(a.pid.remote(), timeout=30)
+    assert time.time() - t0 < 10.0
+    assert ei.value.actor_id == a._actor_id.hex()
+    ray_tpu_torch.kill(a)

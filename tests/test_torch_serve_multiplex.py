@@ -20,7 +20,7 @@ llm_router.py model-aware routing, controller per-model autoscaling).
 Port of tests/test_serve_multiplex.py, aimed at ray_tpu_torch.
 ``test_serve_multiplex_bench_smoke`` and the slow
 ``test_serve_multiplex_bench_full`` drive the JAX package's ``bench.py``
-and wait with it (ROADMAP.md queue 1 item 11).
+and wait with it (ROADMAP.md queue 1 item 11.5).
 """
 
 import asyncio

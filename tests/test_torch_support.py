@@ -13,7 +13,8 @@ ObjectRef's), ``get`` unwraps refs (anything else passes through),
 ``wait`` returns the first ``num_returns`` refs in the order given (every
 call has already finished: the order a FIFO runtime would give) and
 ``kill`` does nothing, so the reference's RL trainers run wholly in the
-test process on CPU JAX. The
+test process on CPU JAX; on a function, ``remote`` gives one whose
+``.remote(...)`` calls it at once (the workflow's steps). The
 stubs (and ``ray_tpu.core.runtime``, reduced to the two functions the
 serializer needs, see ``_runtime_stub``) live in ``sys.modules`` only
 inside ``jax_reference()``: on exit every
@@ -86,8 +87,16 @@ _GROUPS = {
     # tune's search, schedulers and loggers (no runtime at module level)
     "tune": ("ray_tpu.tune.search", "ray_tpu.tune.schedulers",
              "ray_tpu.tune.loggers"),
+    # the operator surface's host code (no runtime at module level; the
+    # workflow's steps run through the stub's local-mode remote/get)
+    "ops": ("ray_tpu.autoscaler.node_provider",
+            "ray_tpu.autoscaler.autoscaler", "ray_tpu.autoscaler.launcher",
+            "ray_tpu.workflow.api", "ray_tpu.dashboard.grafana",
+            "ray_tpu.client_gateway", "ray_tpu.cli"),
 }
-_GROUP_STUBS = {"tune": ("ray_tpu.tune",)}
+_GROUP_STUBS = {"tune": ("ray_tpu.tune",),
+                "ops": ("ray_tpu.autoscaler", "ray_tpu.workflow",
+                        "ray_tpu.dashboard")}
 _loaded: dict = {}
 _loaded_groups: set = set()
 
@@ -178,9 +187,27 @@ class _LocalActorClass:
         return _LocalHandle(self._cls(*args, **kwargs))
 
 
+class _LocalFunction:
+    """``ray_tpu.remote(fn)`` on a function, in local mode:
+    ``.options(**kw)`` ignores the options, ``.remote(...)`` calls ``fn``
+    at once (its exception raises there) and returns a ref holding its
+    value."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def options(self, **kwargs):
+        return self
+
+    def remote(self, *args, **kwargs):
+        return _LocalRef(self._fn(*args, **kwargs))
+
+
 def _local_remote(*args, **options):
     if len(args) == 1 and isinstance(args[0], type) and not options:
         return _LocalActorClass(args[0])
+    if len(args) == 1 and callable(args[0]) and not options:
+        return _LocalFunction(args[0])
     return _LocalActorClass
 
 

@@ -507,15 +507,32 @@ def test_nodelet_infeasible_feeds_demand(ray_start_regular):
 
 
 def test_elastic_gang_demand_reaches_get_load(ray_start_regular, tmp_path):
-    """What an autoscaler reads of a degraded gang (the reference drives
-    StandardAutoscaler.update() with it; the autoscaler waits for
-    ROADMAP.md queue 1 item 11): while a 2-worker elastic gang runs at 1
-    because a blocker holds the cluster, ``get_load`` carries one
-    gang-tagged row of the worker's resources; the row clears when the
-    run ends."""
+    """What an autoscaler reads of a degraded gang: while a 2-worker
+    elastic gang runs at 1 because a blocker holds the cluster,
+    ``get_load`` carries one gang-tagged row of the worker's resources,
+    and ``StandardAutoscaler.update()`` attributes it to the gang and
+    launches a node for it (the reference's
+    test_autoscaler_surfaces_gang_demand, over a provider that launches
+    nothing real); the row clears when the run ends."""
     import threading
 
+    from ray_tpu_torch.autoscaler.autoscaler import StandardAutoscaler
+    from ray_tpu_torch.autoscaler.node_provider import NodeProvider
     from ray_tpu_torch.core import runtime as rt
+
+    class NullProvider(NodeProvider):
+        def __init__(self):
+            self.created = []
+
+        def non_terminated_nodes(self):
+            return []
+
+        def create_node(self, node_type, resources):
+            self.created.append((node_type, dict(resources)))
+            return f"fake-{len(self.created)}"
+
+        def terminate_node(self, name):
+            pass
 
     @ray_tpu_torch.remote(num_cpus=3.0)
     class Blocker:
@@ -550,6 +567,14 @@ def test_elastic_gang_demand_reaches_get_load(ray_start_regular, tmp_path):
             time.sleep(0.2)
         assert len(rows) == 1, "gang demand never surfaced in get_load"
         assert rows[0]["resources"] == {"CPU": 1.0}
+        provider = NullProvider()
+        actions = StandardAutoscaler(
+            call, provider, node_types={"cpu": {"CPU": 4.0}},
+            max_nodes=4).update()
+        assert [g for g in actions["gang_demand"]
+                if g.startswith("train:gdemand")] == [rows[0]["gang"]]
+        assert actions["launched"] == ["fake-1"]
+        assert provider.created == [("cpu", {"CPU": 4.0})]
     finally:
         t.join(timeout=120)
     assert not t.is_alive()

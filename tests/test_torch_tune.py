@@ -286,3 +286,53 @@ def test_bayesopt_loguniform_and_randint(ray_start_regular):
     best = results.get_best_result()
     assert best.metrics["loss"] < 0.8
     assert isinstance(best.config["layers"], int)
+
+
+def test_trials_wait_for_resources_not_lost(tmp_path, monkeypatch):
+    """Q4 (ROADMAP.md queue 3), repaired in the port: two 3 s trials
+    asking for the cluster's one unit of "X", the controller's poll
+    timeout patched to 1 s. The second trial waits in the queue until the
+    first's actor is gone (the reference starts both actors at once and
+    reports the second lost after its poll timeout); both finish, neither
+    is lost, and no two trial actors are alive at once."""
+    import json
+
+    import ray_tpu_torch
+    from ray_tpu_torch.tune import tuner
+
+    monkeypatch.setattr(tuner, "POLL_TIMEOUT_S", 1.0)
+
+    def objective(config):
+        import json
+        import os
+        import time
+
+        t0 = time.time()
+        time.sleep(3.0)
+        with open(os.path.join(config["dir"], f"{config['i']}.json"),
+                  "w") as f:
+            json.dump({"start": t0, "end": time.time(),
+                       "pid": os.getpid()}, f)
+        return {"done": 1}
+
+    ray_tpu_torch.init(num_cpus=4, resources={"X": 1.0},
+                       _system_config={"health_check_period_s": 0.2})
+    try:
+        results = tune.Tuner(
+            objective,
+            param_space={"i": tune.grid_search([0, 1]),
+                         "dir": str(tmp_path)},
+            tune_config=tune.TuneConfig(
+                metric="done", mode="max",
+                resources_per_trial={"CPU": 1.0, "X": 1.0}),
+        ).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert len(results) == 2
+    assert not results.errors, [r.error for r in results.errors]
+    spans = sorted(
+        (json.load(open(tmp_path / f"{i}.json")) for i in range(2)),
+        key=lambda s: s["start"])
+    # the second trial's actor started after the first's had exited
+    assert spans[1]["start"] >= spans[0]["end"], spans
+    assert spans[0]["pid"] != spans[1]["pid"]
