@@ -202,7 +202,12 @@ printing one JSON line:
    workflow, train (a DCP checkpoint) then serve, failing once in serve
    and resumed: train run once, the tokens equal to an engine here loaded
    from the checkpoint; ``launcher.down`` leaves no process;
-26. kernels: one line with every kernel's numbers;
+26. lint: raylint over the port's tree as a user runs it (``python -m
+   ray_tpu_torch.cli lint --no-cache --json ray_tpu_torch``, pure ``ast``,
+   in a subprocess): exit 0, no unsuppressed finding, no parse error,
+   more than 100 files, under LINT_MAX_S; its files, findings and
+   seconds. No kernel;
+27. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -4637,6 +4642,42 @@ def phase_ops(device="cuda", preset="1b", batch=(8, 1024)):
     return res
 
 
+LINT_MAX_S = 30.0
+
+
+def phase_lint():
+    """raylint (ray_tpu_torch/devtools/lint/) over the port's tree through
+    the CLI a user calls, in a subprocess, with no result cache: exit 0,
+    no unsuppressed finding, no parse error, more than 100 files, within
+    LINT_MAX_S. Its report's summary, the suppressed count and the
+    seconds; the failing findings' lines where there are any."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.cli", "lint", "--no-cache",
+         "--json", "ray_tpu_torch"], cwd=str(REPO), capture_output=True,
+        text=True, timeout=10 * LINT_MAX_S)
+    seconds = time.perf_counter() - t0
+    try:
+        doc = json.loads(proc.stdout)
+    except ValueError:
+        doc = {}
+    summary = doc.get("summary", {})
+    failing = [f"{f['path']}:{f['line']}: {f['rule']}: {f['message']}"
+               for f in doc.get("findings", []) if not f["suppressed"]]
+    gates = {"exit_0": proc.returncode == 0,
+             "report_parsed": bool(summary),
+             "no_findings": summary.get("findings") == 0,
+             "no_parse_errors": summary.get("parse_errors") == 0,
+             "files_over_100": summary.get("files_scanned", 0) > 100,
+             "under_max_s": seconds < LINT_MAX_S}
+    return {"ok": all(gates.values()), "gates": gates,
+            "files": summary.get("files_scanned"),
+            "findings": summary.get("findings"),
+            "suppressed": summary.get("suppressed"),
+            "parse_errors": summary.get("parse_errors"), "seconds": seconds,
+            "failing": failing[:20], "stderr": proc.stderr[-2000:]}
+
+
 def _cpu_copy(params):
     if isinstance(params, dict):
         return {k: _cpu_copy(v) for k, v in params.items()}
@@ -5914,7 +5955,8 @@ PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
           "train_card_vs_cpu", "train", "train_sharded", "sp_pp", "moe",
           "vit", "trainer", "data", "rl", "rl_offpolicy", "engine_sharded",
-          "runtime", "serve", "serve_disagg", "rl_final", "tune", "ops")
+          "runtime", "serve", "serve_disagg", "rl_final", "tune", "ops",
+          "lint")
 
 # the TPU kernels of ray_tpu that the port has not reached yet (ROADMAP.md)
 TO_PORT: dict = {}
@@ -5934,7 +5976,7 @@ PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "runtime": phase_runtime, "serve": phase_serve,
                "serve_disagg": phase_serve_disagg,
                "rl_final": phase_rl_final, "tune": phase_tune,
-               "ops": phase_ops}
+               "ops": phase_ops, "lint": phase_lint}
 
 
 def _start() -> bool:

@@ -5,8 +5,7 @@ of it. Reference: python/ray/scripts/scripts.py — start/stop (:540,:1004),
 status, timeline (:1835), memory (:1900), and the state CLI
 (`ray list ...`, util/state/state_cli.py); the cluster launcher's
 up/down/exec/submit/attach/cluster-status (autoscaler/launcher.py). ``lint``
-exits with a message: raylint (``ray_tpu/devtools/lint/``) is ROADMAP.md
-queue 1 item 11.4.
+runs raylint (``ray_tpu_torch/devtools/lint/``) over the port's tree.
 """
 
 from __future__ import annotations
@@ -401,10 +400,15 @@ def cmd_serve(args):
 
 
 def cmd_lint(args):
-    """raylint (ray_tpu/devtools/lint/) is not ported yet."""
-    raise SystemExit(
-        "lint: raylint (ray_tpu/devtools/lint/) is not ported to "
-        "ray_tpu_torch yet: ROADMAP.md queue 1 item 11.4")
+    """raylint over the tree (no cluster needed). All flags pass through
+    to the lint CLI: `ray_tpu_torch lint --changed-only --fail-on error
+    ...`"""
+    from ray_tpu_torch.devtools.lint.cli import main as lint_main
+
+    rest = args.lint_args
+    if rest[:1] == ["--"]:   # `ray_tpu_torch lint -- --flags` form
+        rest = rest[1:]
+    sys.exit(lint_main(rest))
 
 
 def cmd_chaos(args):
@@ -548,9 +552,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--config", default=None, help="config file for deploy")
     s.set_defaults(fn=cmd_serve)
 
-    s = sub.add_parser("lint", help="raylint static analysis (not ported "
-                       "yet: ROADMAP.md queue 1 item 11.4)")
-    s.add_argument("lint_args", nargs=argparse.REMAINDER)
+    s = sub.add_parser("lint", help="raylint static analysis "
+                       "(`ray_tpu_torch lint -- --help` for its flags)")
+    s.add_argument("lint_args", nargs=argparse.REMAINDER,
+                   help="passed through to python -m "
+                        "ray_tpu_torch.devtools.lint (paths, "
+                        "--changed-only, --fail-on, --json, ...)")
     s.set_defaults(fn=cmd_lint)
 
     s = sub.add_parser("chaos", help="run the seeded fault-injection "
@@ -610,7 +617,7 @@ def main():
     # `lint` routes before argparse, as in the reference (REMAINDER
     # refuses leading optionals, bpo-17050)
     if sys.argv[1:2] == ["lint"]:
-        cmd_lint(None)
+        cmd_lint(argparse.Namespace(lint_args=sys.argv[2:]))
     args = build_parser().parse_args()
     args.fn(args)
 

@@ -11,6 +11,8 @@ whole connected shapes (SURVEY.md §7; the JAX package's resource is
 
 from __future__ import annotations
 
+import gc
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -18,6 +20,21 @@ from typing import Any, Dict, List, Optional, Tuple
 from ray_tpu_torch.core.ids import ActorID, JobID, NodeID, ObjectID, PlacementGroupID, TaskID, WorkerID
 
 Address = Tuple[str, int]  # (host, port)
+
+# The thread running a cyclic garbage collection, None between them. A
+# collection runs the finalizers of the cycles it breaks at whatever
+# allocation triggered it: also inside the runtime's own critical sections
+# on that thread (Runtime._entry under _dir_lock, the reference counter's
+# lock), which a finalizer that takes those locks would deadlock on.
+_collecting_thread: Optional[int] = None
+
+
+def _note_collection(phase: str, info: dict) -> None:
+    global _collecting_thread
+    _collecting_thread = threading.get_ident() if phase == "start" else None
+
+
+gc.callbacks.append(_note_collection)
 
 
 @dataclass(frozen=True)
@@ -79,7 +96,13 @@ class ObjectRef:
         r = self._runtime
         if r is not None:
             try:
-                r.refs.on_ref_deleted(self.id, self.owner)
+                if _collecting_thread == threading.get_ident():
+                    # a collection's finalizer, maybe inside a critical
+                    # section of this thread that the release's locks
+                    # would deadlock on: release on the loop thread
+                    r.drop_ref_soon(self.id, self.owner)
+                else:
+                    r.refs.on_ref_deleted(self.id, self.owner)
             except Exception:
                 pass
 

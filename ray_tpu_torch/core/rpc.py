@@ -86,7 +86,14 @@ class RemoteError(RpcError):
 
 
 class ConnectionLost(RpcError):
-    pass
+    """The connection broke. ``dispatched`` tells a call whose frame
+    provably never left this process (False: the connection was already
+    known closed before anything was written) from one whose frame may
+    have reached the peer (True, the default)."""
+
+    def __init__(self, *args, dispatched: bool = True):
+        super().__init__(*args)
+        self.dispatched = dispatched
 
 
 # From Python 3.11 on, asyncio.TimeoutError IS the builtin TimeoutError,
@@ -581,6 +588,16 @@ class RpcClient:
         callers that need ordered delivery (actor submit queues) serialize by
         awaiting start_call before issuing the next one."""
         await self._ensure()
+        if self._reader.at_eof() or self._writer.is_closing():
+            # the peer's EOF is already buffered (or the transport is
+            # closing) but _read_loop has not run to close the connection
+            # yet: write nothing, so the call provably never left us. Yield
+            # once first, as a written call would: _read_loop then closes
+            # the connection before a caller's retry reaches _ensure.
+            await asyncio.sleep(0)
+            raise ConnectionLost(
+                f"connection to {self.host}:{self.port} already closed",
+                dispatched=False)
         msg_id = next(self._ids)
         fut = asyncio.get_running_loop().create_future()
         self._pending[msg_id] = fut

@@ -1583,7 +1583,8 @@ class Runtime:
             blob = self.kv_get("fn", fid)
             if blob is None:
                 raise RuntimeError(f"function {fid.hex()[:12]} not found in GCS")
-            fn = cloudpickle.loads(blob)
+            with serialization.IMPORT_LOCK:
+                fn = cloudpickle.loads(blob)
             self._fn_cache[fid] = fn
         return fn
 
@@ -2015,7 +2016,7 @@ class Runtime:
             # worker death surfaces as ConnectionLost via the keepalive,
             # so this await is bounded by liveness, not a deadline.
             result: TaskResult = await self.pool.get(lw.worker_addr).call(
-                "push_task", spec=spec, timeout=None)  # raylint: disable=unbounded-rpc-call
+                "push_task", spec=spec, timeout=None)  # raylint: disable=unbounded-rpc-call -- liveness-bounded
         except (ConnectionLost, RemoteError, OSError) as e:
             pt = self._inflight.get(spec.task_id)
             if spec.task_id in self._cancel_requested:
@@ -2388,8 +2389,12 @@ class Runtime:
                 except (ConnectionLost, OSError) as e:
                     # the frame was (at least partially) written before the
                     # failure — it MAY have reached the worker, so this is
-                    # not provably unsent (drain() raises after write())
-                    await self._on_actor_push_failure(spec, retries, addr, e)
+                    # not provably unsent (drain() raises after write()) —
+                    # unless the client found the connection already closed
+                    # and wrote nothing (ConnectionLost.dispatched False)
+                    await self._on_actor_push_failure(
+                        spec, retries, addr, e,
+                        dispatched=getattr(e, "dispatched", True))
                     continue
                 self.loop.create_task(
                     self._handle_actor_reply(spec, retries, addr, fut))
@@ -2416,8 +2421,9 @@ class Runtime:
         """Worker connection broke: the actor may be restarting
         (ref: direct_actor_task_submitter.h DisconnectActor/retry path).
 
-        ``dispatched=False`` ⇒ the push frame provably never hit the wire;
-        the surfaced error carries that so routing layers (serve proxy)
+        ``dispatched=False`` ⇒ the push provably never ran: its frame never
+        hit the wire, or the worker refused it as a stale address (below).
+        The surfaced error carries that so routing layers (serve proxy)
         can safely re-dispatch non-idempotent requests."""
         actor_id = spec.actor_id
         if self._actor_addr.get(actor_id) == tuple(addr):
@@ -2431,6 +2437,10 @@ class Runtime:
         # resends undelivered tasks on reconnect without counting them).
         stale_addr = (isinstance(err, RemoteError)
                       and "no actor hosted here" in str(err))
+        if stale_addr:
+            # a lane-host worker outlives its killed actor and refuses the
+            # push before running it: surfaced, it is not dispatched either
+            dispatched = False
         if isinstance(err, RemoteError) and not stale_addr:
             # Handler raised (not a transport failure): surface to caller.
             self._fail_task_returns(spec, err)
@@ -2630,6 +2640,17 @@ class Runtime:
                     lambda f=f: f.done() or f.set_result(None))
             except RuntimeError:
                 pass
+
+    def drop_ref_soon(self, oid: ObjectID, owner: RuntimeAddress):
+        """GC-safe ObjectRef release (``ObjectRef.__del__`` during a cyclic
+        collection): the decrement, and the free it may lead to, run on the
+        loop thread, outside every critical section of the collecting
+        thread."""
+        try:
+            self.loop.call_soon_threadsafe(self.refs.on_ref_deleted, oid,
+                                           owner)
+        except RuntimeError:
+            pass   # loop already closed
 
     def drop_stream_soon(self, task_id: TaskID):
         """GC-safe drop: ObjectRefGenerator.__del__ can fire during ANY

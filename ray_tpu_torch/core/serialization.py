@@ -35,12 +35,24 @@ from __future__ import annotations
 
 import pickle
 import struct
+import threading
 from typing import Any, List, Tuple
 
 import cloudpickle
 import numpy as np
 
 _ALIGN = 64
+
+# Unpickling imports the module that each class and function it names lives
+# in. Two threads of one process that import one package at once (one runs
+# its ``__init__``, the other enters a submodule directly) can each hold a
+# module lock the other needs, and CPython breaks that cycle by handing one
+# of them a partially initialised module: ImportError. A worker starts
+# several actors' lanes at once, so the unpickles that start a task or an
+# actor (its function or class, its inline arguments) hold this lock, and
+# their imports run one at a time. Reentrant: an embedded function is
+# unpickled inside the unpickle of its value.
+IMPORT_LOCK = threading.RLock()
 _HDR = struct.Struct("<IQ")
 _LEN = struct.Struct("<Q")
 

@@ -153,19 +153,20 @@ class Worker:
         args: List[Any] = []
         kwargs: dict = {}
         ref_args: List[Tuple[int, ObjectRef]] = []
-        for kind, payload in spec.args:
-            if kind == "v":
-                args.append(serialization.unpack(payload))
-            elif kind == "ref":
-                oid, owner = payload
-                args.append(ObjectRef(oid, owner))
-            elif kind == "kw":
-                for k, (kk, pv) in payload.items():
-                    if kk == "v":
-                        kwargs[k] = serialization.unpack(pv)
-                    else:
-                        oid, owner = pv
-                        kwargs[k] = ObjectRef(oid, owner)
+        with serialization.IMPORT_LOCK:   # their imports, one at a time
+            for kind, payload in spec.args:
+                if kind == "v":
+                    args.append(serialization.unpack(payload))
+                elif kind == "ref":
+                    oid, owner = payload
+                    args.append(ObjectRef(oid, owner))
+                elif kind == "kw":
+                    for k, (kk, pv) in payload.items():
+                        if kk == "v":
+                            kwargs[k] = serialization.unpack(pv)
+                        else:
+                            oid, owner = pv
+                            kwargs[k] = ObjectRef(oid, owner)
         # Dependency resolution: refs are fetched before user code runs,
         # in ONE batched get so borrowed args share round-trips (ref:
         # _raylet.pyx deserializes args via plasma before execution).

@@ -10,7 +10,7 @@ import time
 
 import pytest
 from torch_runtime_support import (  # noqa: F401
-    ray_start_cluster, ray_start_regular, reap_orphans)
+    RUN_ENV, RUN_TAG, ray_start_cluster, ray_start_regular, reap_orphans)
 
 import ray_tpu_torch
 
@@ -420,7 +420,11 @@ def test_cli_start_summary_stop(tmp_path):
     from ray_tpu_torch.core.node import pid_alive, session_pids
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, RAY_TPU_TMPDIR=str(tmp_path), PYTHONPATH=repo)
+    # the head `start` makes is detached (its daemons' parent is init), so
+    # under this run's tag another xdist worker's orphan reaper would take
+    # it for leakage and kill it mid-test: give it a tag of its own
+    env = dict(os.environ, RAY_TPU_TMPDIR=str(tmp_path), PYTHONPATH=repo,
+               **{RUN_ENV: f"{RUN_TAG}-cli-head"})
 
     def cli(*args):
         return subprocess.run([sys.executable, "-m", "ray_tpu_torch.cli",
