@@ -35,7 +35,7 @@ printing one JSON line:
    CPU (the serving run on which K2 launches); ``forward_with_cache`` at
    offset 0 (K1 over the whole cache row) card vs CPU;
 7. engine_contiguous: the JAX engine's default configuration, the 7b preset
-   at full width cut to ENGINE_CONTIGUOUS_LAYERS (8) of its 32 layers (the
+   at full width cut to ENGINE_CONTIGUOUS_LAYERS (2) of its 32 layers (the
    int8 init's host draws took 174-262 s at 32), bf16, contiguous KV, int8
    weights, flash prefill, 16
    slots, max_seq 2048, the engine phase's 12 requests: int8 bytes at rest,
@@ -47,46 +47,60 @@ printing one JSON line:
    ``grad_tolerance``; CUPTI device times and CUDA events beside the
    bound, the plain version and SDPA (with a band mask; its backward), and
    the kernels' names (bf16 K3 and K4 at head dim 64 or 128 must run the
-   TMA/wgmma dQ and dK/dV kernels and nothing else);
-9. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
+   TMA/wgmma dQ and dK/dV kernels and nothing else); every kernel phase
+   also at the head dims and groups outside the presets (16 in the
+   backward, 48 zero-padded to 64, 80, 96, 256; G 3, 7, 16; HD 100 in
+   paged decode), bf16 timed at Phi-3-mini's and Gemma-2B's heads;
+9. shapes: public model shapes outside the presets (SHAPE_MODELS):
+   Phi-3-mini (head dim 96), Llama-3.2-3B (G 3) and Gemma-2B's attention
+   (head dim 256, G 8), each cut to 2 layers in f32 card vs CPU (prefill
+   logits, the paged engine's greedy tokens, loss_fn and its gradients,
+   the attention's gradients within grad_tolerance); each served at full
+   width in bf16 (paged, flash prefill; Phi-3-mini at all 32 layers, with
+   the K5 path over its pools, the others at 4): 4 greedy prompts of
+   64-512 tokens, 32 new tokens each, TTFT, decode tokens/s, peak memory;
+   the tiny presets (Llama and MoE, head dim 16) trained with flash, 3
+   AdamW steps card vs CPU; its launches counted from 0;
+10. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
    card and on the CPU from one init, without and with a sliding window
    (the run on which K2 launches): losses, grad norms and params within
    stated bounds;
-10. train: the training main path, the 1b preset at full width and 16
+11. train: the training main path, the 1b preset at full width and 16
    layers, bf16 compute, remat, flash, B 8 S 1024, 10 steps after a
    warm-up: falling finite losses, exact K1/K3/K4 launch counts, step time,
    tokens/s, MFU, peak memory and one step's device profile (whose forward
    attention kernels must all be the TMA/wgmma one, as in the engines'
    prefill profiles, and its dQ and dK/dV kernels the TMA/wgmma ones);
-11. train_sharded: the train phase's recipe through the sharded entry
+12. train_sharded: the train phase's recipe through the sharded entry
    points (make_train_state_init / make_train_step / loss_fn with mesh=
    a 1-rank NCCL mesh and rules=ShardingRules.fsdp_tp()): losses within
    TRAIN_SHARDED_LOSS_RTOL of the train phase's, its exact launch counts,
    only the three TMA/wgmma flash kernels in a step's profile, params and
    AdamW moments as DTensors; step time, tokens/s and peak memory;
-12. sp_pp: sequence and pipeline parallelism through ``forward_sp`` (ring,
+13. sp_pp: sequence and pipeline parallelism through ``forward_sp`` (ring,
    then Ulysses) and ``forward_pp`` (gpipe, then 1f1b, M 2, flash) under
    ``make_train_step`` on a 1-rank NCCL mesh (``ShardingRules.full()``):
-   the 1b preset at full width and 16 layers, bf16 compute over f32
-   masters, B 4 S 1024, two AdamW steps a route from one seeded init:
+   the 1b preset at full width cut to SP_PP_LAYERS (4) of its 16 layers,
+   bf16 compute over f32 masters, B 4 S 1024, two AdamW steps a route from
+   one seeded init:
    each first loss within SP_PP_LOSS_RTOL of forward's on the same batch
    and weights, the pipeline's exact K1/K3/K4 launches, ms a step and
    peak memory; then the four routes at the 1b width cut to 2 layers in
    f32 without a mesh, card vs CPU (losses and grad norms within 1e-4,
    each route's logits within LOGITS_TOL of forward's). One rank: no
    collective runs;
-13. moe: the MoE model's 8x1b preset (~4.8 B params, 8 experts, top-2),
+14. moe: the MoE model's 8x1b preset (~4.8 B params, 8 experts, top-2),
    flash, bf16 compute: card vs CPU at 2 layers in f32 (the routing of
    every layer equal, then the loss and every gradient); ``loss_fn`` at
    all 16 layers, B 4 S 1024, timed with its peak memory; training at
    full width cut to 4 layers, 5 AdamW steps after a warm-up, falling
    finite losses, exact K1/K3/K4 launches, ms a step, tokens/s, peak
    memory and a step's device profile;
-14. vit: ViT-B/16 (224 x 224, ~86 M params), bf16 over f32, B 64 seeded
+15. vit: ViT-B/16 (224 x 224, ~86 M params), bf16 over f32, B 64 seeded
    images, 5 AdamW steps after a warm-up: falling finite losses, images/s,
    peak memory and a step's profile; card vs CPU at 2 layers in f32. No
    kernel of ours;
-15. trainer: the train layer through ``DataParallelTrainer`` (BASELINE
+16. trainer: the train layer through ``DataParallelTrainer`` (BASELINE
    target 1): GPT-2 card vs CPU (the 125m width cut to 2 layers, f32, 2
    AdamW steps, within the train_card_vs_cpu bounds); GPT-2 125M at full
    width and all 12 layers (bf16 compute, f32 params, remat, B 8 S 1024)
@@ -101,7 +115,7 @@ printing one JSON line:
    TRAIN_SHARDED_LOSS_RTOL of the same run in process; no process left
    after ``shutdown()``; step time, tokens/s, MFU, peak memory, DCP
    seconds and bytes and a GPT-2 step's device profile;
-16. data: the data layer (``ray_tpu_torch.data``) in a session of the
+17. data: the data layer (``ray_tpu_torch.data``) in a session of the
    port's runtime: GPT-2 125M at full width trained from a Dataset
    (``from_numpy`` of 96 rows of 1025 seeded tokens in 8 blocks,
    ``map_batches``, ``random_shuffle``) through ``DataParallelTrainer``
@@ -117,7 +131,7 @@ printing one JSON line:
    ``shutdown()``; step time, tokens/s, MFU, the host's wait in next(),
    the copies' streams and overlap in a profiled window, the actor's
    start, the checkpoint load and rows/s as information;
-17. rl: the RL layer (``ray_tpu_torch.rl``, BASELINE target 5): PPO on
+18. rl: the RL layer (``ray_tpu_torch.rl``, BASELINE target 5): PPO on
    PixelCatcher (84 x 84 RGB) through atari_connectors (grayscale, resize
    84, scale, 4 frames) into the Nature CNN + dense 512 (1.68 M params),
    4 CPU rollout actors of 1,250 steps (the card hidden from them), the
@@ -129,7 +143,7 @@ printing one JSON line:
    each iteration's sampling and learning time, env steps/s, ms per
    update, a profiled learn window's idle share, peak memory. No kernel of
    ours runs (the reference's RL reaches no Pallas kernel);
-18. rl_offpolicy: the RL layer's off-policy and offline learners on the
+19. rl_offpolicy: the RL layer's off-policy and offline learners on the
    card at their configs' defaults, CPU rollout and replay actors: SAC on
    a numpy Pendulum-v1 and DQN on a numpy CartPole-v1 (``CartPole`` and
    ``Pendulum`` below: gymnasium is not installed beside the card), 10
@@ -140,12 +154,12 @@ printing one JSON line:
    sweep's moved weights, no process left; ms an update against its
    bound, env steps/s, a SAC learn window's idle share, peak memory. No
    kernel of ours runs;
-19. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
+20. engine_sharded: the engine phase's paged 7b engine with mesh= (1 rank)
    and rules=fsdp_tp over the engine phase's first wave: every greedy
    request's tokens equal to the engine phase's; decode tokens/s and peak
    memory. On one rank every placement is Replicate: these two prove the
    mesh plumbing and the kernels under it, not collectives;
-20. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
+21. runtime: the port's runtime on this node (``ray_tpu_torch.init``, the
    GPU detected without an override): an actor with ``num_gpus=1`` builds
    the engine phase's paged 7b engine in a worker process and serves the
    engine_sharded phase's wave 1 through one method call (K1 and K6
@@ -155,7 +169,7 @@ printing one JSON line:
    (the bf16 embedding put in the actor: same-process get is the tensor,
    the driver's get bit-exact); the no-op round trip and the staging
    rate; after ``shutdown()`` no process of the session alive;
-21. serve: the monolithic app through the serve layer: ``serve.run`` of an
+22. serve: the monolithic app through the serve layer: ``serve.run`` of an
    ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
    engine, decode_block 8) behind an ``LLMRouter`` with an HTTP route;
    four greedy prompts one at a time through the router's streaming
@@ -165,13 +179,13 @@ printing one JSON line:
    once; every stream's frames against its final frame, K1/K6 counted in
    the replica, its tokens counter read back from the GCS, the router's
    request count with no 429, no process left after shutdown;
-22. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
+23. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
    8 slots, page groups of 4 pages) behind ``DisaggRouter``; seven greedy
    prompts one at a time, equal to the handoff replayed in process (engine
    A prefills and exports each full group, a fresh engine B imports them
    and generates); each group crossing the store once at its byte size,
    every handoff acked, K1 in the prefill and K6 in the decode replica;
-23. rl_final: the RL layer's last five algorithms at their configs'
+24. rl_final: the RL layer's last five algorithms at their configs'
    defaults on their own numpy envs, learners on the card, CPU actors:
    QMIX (two-step game), MADDPG (line spread), MAML (point goals),
    AlphaZero (TicTacToe self-play with MCTS) and SlateQ (slate
@@ -181,14 +195,14 @@ printing one JSON line:
    no process left; a learn window's idle share and kernels per update
    each, MAML's second-order meta-update against its first-order cost. No
    kernel of ours runs;
-24. tune: ``ray_tpu_torch.tune`` sweeping GPT-2 125M's lr over four values
+25. tune: ``ray_tpu_torch.tune`` sweeping GPT-2 125M's lr over four values
    under ASHA (max_t 8, grace 2, halving), one trial at a time, each
    holding the card: the params on the card, trial 0's first loss against
    the same step run in the driver, ASHA's decisions replayed, the best
    result, the CSV/JSON logs, no process left; each trial's start, init
    and step time, the card's idle share between trials. No kernel of ours
    runs (GPT-2's attention is plain);
-25. ops: the operator surface (``phase_ops``): a cluster brought up by
+26. ops: the operator surface (``phase_ops``): a cluster brought up by
    ``launcher.up`` from a JSON config (no GPU unit on the head, an
    autoscaled ``gpu_node`` type holding the card), the port's dashboard
    head on it; (a) a ``num_gpus=1`` actor makes the monitor launch one
@@ -202,12 +216,12 @@ printing one JSON line:
    workflow, train (a DCP checkpoint) then serve, failing once in serve
    and resumed: train run once, the tokens equal to an engine here loaded
    from the checkpoint; ``launcher.down`` leaves no process;
-26. lint: raylint over the port's tree as a user runs it (``python -m
+27. lint: raylint over the port's tree as a user runs it (``python -m
    ray_tpu_torch.cli lint --no-cache --json ray_tpu_torch``, pure ``ast``,
    in a subprocess): exit 0, no unsuppressed finding, no parse error,
    more than 100 files, under LINT_MAX_S; its files, findings and
    seconds. No kernel;
-27. kernels: one line with every kernel's numbers;
+28. kernels: one line with every kernel's numbers;
 then the card's nvidia-smi line, and last ``{"ok": true, "device": ...}``.
 
 Any failed phase stops the run with a non-zero exit and no ``ok`` line.
@@ -263,7 +277,10 @@ SETUP_PEAK_MARGIN_GB = 1.0
 # 1e-5 relative (f32 rounding of the ~10-to-2 losses, with headroom)
 TRAIN_SHARDED_LOSS_RTOL = 1e-5
 
-# sp_pp: a route's first-step loss (bf16 compute, 16 layers, ~10.4 at the
+# sp_pp runs the 1b width at this depth, of its 16 layers (the script's
+# time limit)
+SP_PP_LAYERS = 4
+# sp_pp: a route's first-step loss (bf16 compute, 4 layers, ~10.4 at the
 # seeded init) against forward's (flash) on the same batch and weights.
 # Ring and Ulysses round their attention once more to bf16 and sum in
 # another order (2^-8 relative an element), the pipeline runs 2
@@ -430,8 +447,9 @@ def paged_inputs(*, S, H, KV, HD, ps, maxP, dtype, seed):
             t(table, torch.int32), t(lengths, torch.int32)), lengths
 
 
-def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
-    """One K6 comparison on paged_inputs."""
+def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
+    """One K6 comparison on paged_inputs; timed: its device time, the
+    plain version's and the bound."""
     import torch
 
     from ray_tpu_torch.ops import paged_attention as pa
@@ -464,6 +482,11 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
            "rows_expected": expect_changed, "dead_slots_zero": dead_zero}
     ok = (over <= 1.0 and pools_equal and changed == expect_changed
           and dead_zero)
+    res["ok"] = ok
+    if not timed:
+        pa.launches = before
+        return res
+
     def run():
         pa.paged_decode_attention_inplace(q, kn, vn, kp, vp, pt, ln)
 
@@ -484,25 +507,51 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
     flops = 4 * live_tok * H * HD                   # q.k and p.v
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
     res["library_ms"] = None   # no single PyTorch call computes K6
-    res["ok"] = ok
     return res
 
 
-def phase_k6():
+# (H, KV, HD) of the paged decode shapes outside the presets: the public
+# models of the shapes phase (SHAPE_MODELS), whose G or HD the fixed-G
+# kernel is not compiled for, and two more (16 query heads a kv head, two
+# chunks of 8; HD 100, not a multiple of a 16-byte vector)
+PAGED_SHAPES = (("phi3-mini", (32, 32, 96), True),
+                ("gemma-2b", (8, 1, 256), True),
+                ("llama3.2-3b", (24, 8, 128), False),
+                ("qwen2-7b", (28, 4, 128), False),
+                ("g16", (16, 1, 64), False),
+                ("hd100", (4, 2, 100), False))
+
+
+def _paged_phase(case_fn):
     cases = []
     for name, (H, KV) in (("7b", (32, 32)), ("1b-gqa", (16, 8))):
         for dtype in ("bfloat16", "float32"):
-            r = k6_case(S=16, H=H, KV=KV, HD=128, ps=64, maxP=32,
+            r = case_fn(S=16, H=H, KV=KV, HD=128, ps=64, maxP=32,
                         dtype=dtype, seed=1)
+            r["config"] = name
+            cases.append(r)
+    for name, (H, KV, HD), timed in PAGED_SHAPES:
+        for dtype in ("bfloat16", "float32"):
+            r = case_fn(S=16, H=H, KV=KV, HD=HD, ps=64, maxP=32,
+                        dtype=dtype, seed=1,
+                        timed=timed and dtype == "bfloat16")
             r["config"] = name
             cases.append(r)
     return cases
 
 
+def phase_k6():
+    """K6 timed at the 7b serving shape and the 1b GQA shape (HD 128, G 1
+    and 2), bf16 and f32, and in bf16 at Phi-3-mini's HD 96 and Gemma-2B's
+    HD 256 (G 8); untimed there in f32 and at Llama-3.2-3B's G 3,
+    Qwen2-7B's G 7, G 16 and HD 100 in both."""
+    return _paged_phase(k6_case)
+
+
 # --- K5: read-only paged decode attention -------------------------------------
 
 
-def k5_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
+def k5_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
     """One K5 comparison on paged_inputs: live rows within
     kernel_tolerance, the pools unchanged byte for byte, dead rows zero;
     then the K6 -> K5 cross-check: K5 over the pools K6 just wrote (same
@@ -541,6 +590,11 @@ def k5_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
            "k6_to_k5_identical": bool(torch.equal(o5[live], o6[live]))}
     ok = (finite and over <= 1.0 and pools_unchanged and dead_zero
           and cross_over <= 1.0)
+    res["ok"] = ok
+    if not timed:
+        pa.launches_read, pa.launches = before, before6
+        return res
+
     def run():
         pa.paged_attention(q, kp, vp, pt, ln)
 
@@ -559,19 +613,12 @@ def k5_case(*, S, H, KV, HD, ps, maxP, dtype, seed):
     flops = 4 * live_tok * H * HD                   # q.k and p.v
     res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
     res["library_ms"] = None   # no single PyTorch call computes K5
-    res["ok"] = ok
     return res
 
 
 def phase_k5():
-    cases = []
-    for name, (H, KV) in (("7b", (32, 32)), ("1b-gqa", (16, 8))):
-        for dtype in ("bfloat16", "float32"):
-            r = k5_case(S=16, H=H, KV=KV, HD=128, ps=64, maxP=32,
-                        dtype=dtype, seed=1)
-            r["config"] = name
-            cases.append(r)
-    return cases
+    """K5 at K6's shapes (``_paged_phase``)."""
+    return _paged_phase(k5_case)
 
 
 # --- K1 / K2: the flash forward ---------------------------------------------
@@ -643,8 +690,13 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
     finite = bool(torch.isfinite(out.float()).all())
     names: set = set()
     dev = device_ms(run, iters=10, names=names, per_call=1)
-    wgmma = dtype == "bfloat16" and D in (64, 128)
-    ran_new = ran_only(names, WGMMA_FWD_SYMBOL)
+    # the kernel its head dim (zero-padded to the next compiled one where
+    # the kernels are not compiled for it) and dtype must run
+    dk = fa.kernel_head_dim(D)
+    wgmma = dtype == "bfloat16" and dk in (64, 128)
+    symbol = (WGMMA_FWD_SYMBOL if wgmma else "flash_fwd_bf16_kernel"
+              if dtype == "bfloat16" else "flash_fwd_f32_kernel")
+    ran_new = ran_only([n for n in names if "flash_" in n], symbol)
     shape = f"B={B} S={S} T={T} H={H} KV={KV} D={D}"
     res = {"shape": shape + (f" window={window}" if window else ""),
            "dtype": dtype, "causal": causal, "max_abs_err": err,
@@ -652,10 +704,9 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
            "tol": "1e-4" if dtype == "float32"
            else "2^-7 (attention of |v| + |plain|) + 1e-5",
            "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
-           "kernel_names": sorted(names),
-           "expects_wgmma_kernel": wgmma, "ran_wgmma_kernel_only": ran_new}
-    ok = (finite and over <= 1.0 and lse_err <= LSE_TOL
-          and (ran_new or not wgmma))
+           "kernel_names": sorted(names), "kernel_head_dim": dk,
+           "expects_kernel": symbol, "ran_expected_kernel_only": ran_new}
+    ok = finite and over <= 1.0 and lse_err <= LSE_TOL and ran_new
     if timed:
         res["kernel_ms"] = dev
         res["event_ms"] = cuda_ms(run, iters=10)
@@ -712,6 +763,43 @@ def phase_k1():
                          dtype=dtype, seed=3, timed=False)
             r["config"] = name
             cases.append(r)
+    return cases + _head_dim_fwd_cases(window=None)
+
+
+# the flash shapes outside the presets: Phi-3-mini's head dim 96 and
+# Gemma-2B's 256 (G 8) timed at the 7b prefill size; untimed at ragged S,
+# full and windowed: head dim 16 (G 3), 48 (zero-padded to 64), 80 (full),
+# 96 (G 7) and 256 (T 512 > S)
+FLASH_TIMED = (("phi3-mini", dict(H=32, KV=32, D=96)),
+               ("gemma-2b", dict(H=8, KV=1, D=256)))
+FLASH_UNTIMED = (("d16-g3", dict(S=200, H=6, KV=2, D=16), True),
+                 ("d48", dict(S=200, H=8, KV=2, D=48), True),
+                 ("d80-full", dict(S=200, H=4, KV=4, D=80), False),
+                 ("d96-g7", dict(S=200, H=7, KV=1, D=96), True),
+                 ("d256-t512", dict(S=256, T=512, H=8, KV=1, D=256), True))
+
+
+def _head_dim_fwd_cases(window):
+    """FLASH_TIMED (bf16 timed at B 8, f32 untimed at B 2; S 1024) and
+    FLASH_UNTIMED (B 2, bf16) under `window` (the untimed full case skipped
+    under one)."""
+    cases = []
+    tag = f"-w{window}" if window else ""
+    for name, shape in FLASH_TIMED:
+        for dtype, B in (("bfloat16", 8), ("float32", 2)):
+            r = fwd_case(B=B, S=1024, **shape, window=window, dtype=dtype,
+                         seed=4, timed=dtype == "bfloat16")
+            r["config"] = name + tag
+            cases.append(r)
+    for name, shape, causal in FLASH_UNTIMED:
+        if window and not causal:
+            continue
+        # bf16 only here: the f32 kernels at these head dims are held by
+        # the cuda tests of tests/test_torch_flash_attention.py
+        r = fwd_case(B=2, **shape, causal=causal, window=window,
+                     dtype="bfloat16", seed=5, timed=False)
+        r["config"] = name + tag
+        cases.append(r)
     return cases
 
 
@@ -736,7 +824,7 @@ def phase_k2():
                          dtype=dtype, seed=21, timed=False)
             r["config"] = name
             cases.append(r)
-    return cases
+    return cases + _head_dim_fwd_cases(window=96)
 
 
 # --- K3 / K4: the flash backward ----------------------------------------------
@@ -808,13 +896,23 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
                                                per_call=1)
             res[pre + "event_ms"] = cuda_ms(fn, iters=10)
             res[pre + "kernels"] = sorted(names)
-        if dtype == "bfloat16" and D in (64, 128):
+        if dtype == "bfloat16" and fa.kernel_head_dim(D) in (64, 128):
             res["ran_wgmma_dq_only"] = ran_only(res["k3_kernels"],
                                                 WGMMA_DQ_SYMBOL)
             res["ran_wgmma_dkdv_only"] = ran_only(res["k4_kernels"],
                                                   WGMMA_DKDV_SYMBOL)
             ok = (ok and res["ran_wgmma_dq_only"]
                   and res["ran_wgmma_dkdv_only"])
+        else:
+            # the mma.sync (bf16) or FMA (f32) kernels, beside any pad's
+            kind = "bf16" if dtype == "bfloat16" else "f32"
+            res["ran_expected_kernels_only"] = (
+                ran_only([n for n in res["k3_kernels"] if "flash_" in n],
+                         f"flash_bwd_dq_{kind}_kernel")
+                and ran_only([n for n in res["k4_kernels"]
+                              if "flash_" in n],
+                             f"flash_bwd_dkdv_{kind}_kernel"))
+            ok = ok and res["ran_expected_kernels_only"]
         res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, g, causal=causal, window=window), iters=3)
         res["library_ms"] = None
@@ -855,7 +953,11 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
 def phase_k3k4():
     """At the 1b train shape (B 8, S = T = 1024, H 16, KV 8, D 128,
     causal), debug-125m's heads (H = KV = 12, D 64), ragged S = T = 200,
-    non-causal (S = 512) and window 256, each in bf16 and f32."""
+    non-causal (S = 512) and window 256, each in bf16 and f32; then bf16
+    timed at Phi-3-mini's (H = KV = 32, D 96) and Gemma-2B's heads (H 8,
+    KV 1, D 256) at B 8 S 1024 (f32 untimed at B 2), and untimed at the tiny presets' head dim 16 (G
+    3), 48 (zero-padded to 64), 80 (non-causal), 96 (G 7, window 96) and
+    256, ragged S 200 (256 under the window)."""
     cases = []
     shapes = (("1b", dict(B=8, S=1024, H=16, KV=8, D=128, causal=True,
                           window=None), True),
@@ -866,13 +968,326 @@ def phase_k3k4():
               ("non-causal", dict(B=2, S=512, H=16, KV=8, D=128,
                                   causal=False, window=None), False),
               ("1b-w256", dict(B=8, S=1024, H=16, KV=8, D=128, causal=True,
-                               window=256), True))
+                               window=256), True),
+              ("phi3-mini", dict(B=8, S=1024, H=32, KV=32, D=96,
+                                 causal=True, window=None), "bf16"),
+              ("gemma-2b", dict(B=8, S=1024, H=8, KV=1, D=256, causal=True,
+                                window=None), "bf16"),
+              ("d16-g3", dict(B=2, S=200, H=6, KV=2, D=16, causal=True,
+                              window=None), False),
+              ("d48", dict(B=2, S=200, H=8, KV=2, D=48, causal=True,
+                           window=None), False),
+              ("d80-full", dict(B=2, S=200, H=4, KV=4, D=80, causal=False,
+                                window=None), False),
+              ("d96-g7-w96", dict(B=2, S=256, H=7, KV=1, D=96, causal=True,
+                                  window=96), False),
+              ("d256-g8", dict(B=2, S=200, H=8, KV=1, D=256, causal=True,
+                               window=None), False))
     for name, shape, timed in shapes:
         for dtype in ("bfloat16", "float32"):
-            r = k3k4_case(**shape, dtype=dtype, seed=22, timed=timed)
+            if timed == "bf16":
+                # f32 checked untimed at B 2
+                kw = dict(shape, B=2) if dtype == "float32" else shape
+                r = k3k4_case(**kw, dtype=dtype, seed=22,
+                              timed=dtype == "bfloat16")
+            else:
+                r = k3k4_case(**shape, dtype=dtype, seed=22, timed=timed)
             r["config"] = name
             cases.append(r)
     return cases
+
+
+# --- public model shapes outside the presets -------------------------------------
+
+
+# Public models whose attention shapes LlamaConfig expresses and the presets
+# do not have, with the fields of each model's config.json that LlamaConfig
+# has (hidden_size, num_hidden_layers, num_attention_heads,
+# num_key_value_heads, intermediate_size, vocab_size, rope_theta):
+SHAPE_MODELS = {
+    # microsoft/Phi-3-mini-4k-instruct: head dim 96, G 1
+    "phi3-mini": dict(vocab_size=32064, d_model=3072, n_layers=32,
+                      n_heads=32, n_kv_heads=32, d_ff=8192,
+                      rope_theta=10000.0, max_seq_len=4096),
+    # meta-llama/Llama-3.2-3B: head dim 128, G 3 (its rope scaling is not
+    # LlamaConfig's)
+    "llama3.2-3b": dict(vocab_size=128256, d_model=3072, n_layers=28,
+                        n_heads=24, n_kv_heads=8, d_ff=8192,
+                        rope_theta=500000.0, max_seq_len=4096),
+    # google/gemma-2b's attention: head dim 256, G 8 (its GeGLU MLP, tied
+    # embedding and embedding scale are not LlamaConfig's)
+    "gemma-2b": dict(vocab_size=256000, d_model=2048, n_layers=18,
+                     n_heads=8, n_kv_heads=1, d_ff=16384,
+                     rope_theta=10000.0, max_seq_len=4096),
+}
+# served at full width, bf16: Phi-3-mini at all its layers, the others cut
+# to 4 (the phase's time; their attention is the same at every layer)
+SHAPE_SERVE_LAYERS = {"phi3-mini": None, "llama3.2-3b": 4, "gemma-2b": 4}
+SHAPE_PROMPT_LENS = (64, 192, 320, 512)
+SHAPE_NEW_TOKENS = 32
+
+
+def _all_kernel_launches():
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    return {**_train_launches(),
+            "paged_decode_attention_inplace": pa.launches,
+            "paged_attention": pa.launches_read}
+
+
+def _set_all_kernel_launches(counts):
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    _set_train_launches(counts)
+    pa.launches = counts["paged_decode_attention_inplace"]
+    pa.launches_read = counts["paged_attention"]
+
+
+def _attention_grads_held(cfg, device, seed):
+    """flash attention's forward and backward at `cfg`'s heads (B 1, S 128,
+    causal, f32) against the plain versions, within kernel_tolerance and
+    grad_tolerance. Comparison launches: the counters are put back."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    counts = _all_kernel_launches()
+    rng = np.random.default_rng(seed)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, g = (torch.as_tensor(rng.standard_normal((1, 128, H, D)),
+                            dtype=torch.float32, device=device)
+            for _ in range(2))
+    k, v = (torch.as_tensor(rng.standard_normal((1, 128, KV, D)),
+                            dtype=torch.float32, device=device)
+            for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, g)
+    ref, _ = fa.flash_attention_reference(q, k, v)
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g)
+    _, over = held(out, ref, fa.kernel_tolerance(q, k, v, ref))
+    worst = over
+    for a, b, t in zip(grads, plain,
+                       fa.grad_tolerance(q, k, v, out, lse, g, plain)):
+        worst = max(worst, held(a, b, t)[1])
+    _set_all_kernel_launches(counts)
+    return worst
+
+
+def _shapes_card_vs_cpu(cfg, device):
+    """`cfg` cut to 2 layers, f32 (no TF32), flash, from one seeded init on
+    `device` and on the CPU: prefill logits of 2 prompts (bucket 256)
+    within LOGITS_TOL, the paged engine's greedy tokens (8 each) equal,
+    loss_fn at B 1 S 128 within TRAIN_LOSS_RTOL and every gradient within
+    MOE_GRAD_RTOL of its leaf's largest; and the attention at these heads
+    against the plain versions (``_attention_grads_held``)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = cfg.replace(n_layers=2, dtype=torch.float32, attn_impl="flash",
+                      max_seq_len=512)
+    params = {device: llama.init_params(
+        torch.Generator(device=device).manual_seed(0), cfg)}
+    params["cpu"] = _cpu_copy(params[device])
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (130, 200)]
+    toks = np.zeros((2, 256), np.int32)
+    for i, pr in enumerate(prompts):
+        toks[i, :len(pr)] = pr
+    lens = np.array([len(pr) for pr in prompts], np.int32)
+    batch = np.random.default_rng(12).integers(0, cfg.vocab_size,
+                                               size=(1, 129))
+    out = {}
+    for dev in (device, "cpu"):
+        lg, _, _ = llama.prefill(params[dev], torch.as_tensor(toks,
+                                                             device=dev),
+                                 torch.as_tensor(lens, device=dev), cfg)
+        eng = LLMEngine(cfg=cfg, params=params[dev], max_slots=4,
+                        kv_layout="paged", page_size=64, device=dev)
+        reqs = [eng.submit(pr, max_new_tokens=8) for pr in prompts]
+        while eng.has_work():
+            eng.step_n(8)
+        del eng
+        p = ts._map(lambda t: t.detach().clone().requires_grad_(True),
+                    params[dev])
+        loss = llama.loss_fn(p, {"tokens": torch.as_tensor(batch,
+                                                           device=dev)},
+                             cfg)
+        loss.backward()
+        out[dev] = (lg.float().cpu(), [r.generated for r in reqs],
+                    float(loss.detach()),
+                    [t.grad.float().cpu() for t in ts._leaves(p)])
+        del p
+    (lc, tc, loss_c, gc), (lh, th, loss_h, gh) = out[device], out["cpu"]
+    r = {"logits_max_abs_err": float((lc - lh).abs().max()),
+         "logits_tol": LOGITS_TOL, "tokens_card": tc, "tokens_cpu": th,
+         "tokens_identical": tc == th, "loss_card": loss_c,
+         "loss_cpu": loss_h, "loss_rel_err": abs(loss_c - loss_h) /
+         abs(loss_h), "loss_rel_tol": TRAIN_LOSS_RTOL,
+         "grad_max_rel_err": max(float((a - b).abs().max() / b.abs().max())
+                                 for a, b in zip(gc, gh)),
+         "grad_rel_tol": MOE_GRAD_RTOL,
+         "attention_max_err_over_tol": _attention_grads_held(cfg, device,
+                                                             13)}
+    r["ok"] = (r["tokens_identical"] and r["logits_max_abs_err"] <= LOGITS_TOL
+               and r["loss_rel_err"] <= TRAIN_LOSS_RTOL
+               and r["grad_max_rel_err"] <= MOE_GRAD_RTOL
+               and r["attention_max_err_over_tol"] <= 1.0
+               and all(len(t) == 8 for t in tc))
+    return r
+
+
+def _shapes_serve(cfg, layers, device, k5=False):
+    """The paged engine at `cfg`'s full width (and `layers`, or all), bf16
+    on the card, flash prefill, page 64, 4 slots: after a warm-up, the
+    SHAPE_PROMPT_LENS prompts greedily, SHAPE_NEW_TOKENS each, submitted at
+    once; TTFT, decode tokens/s, peak memory. k5: then, with those slots
+    live again, the K5 path over the engine's pools (``k5_path``)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    on_card = device == "cuda"
+    cfg = cfg.replace(attn_impl="flash")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    if not on_card:
+        cfg = cfg.replace(dtype=torch.float32)
+    else:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = LLMEngine(cfg=cfg, max_slots=4, max_seq_len=1024,
+                    kv_layout="paged", page_size=64, seed=0, device=device)
+    rng = np.random.default_rng(14)
+    V = cfg.vocab_size
+    eng.generate(rng.integers(0, V, size=64).tolist(), max_new_tokens=2)
+    setup_s = time.perf_counter() - t0
+    prompts = [rng.integers(0, V, size=n).tolist() for n in SHAPE_PROMPT_LENS]
+    m0 = dict(eng.metrics)
+    t1 = time.perf_counter()
+    reqs = [eng.submit(pr, max_new_tokens=SHAPE_NEW_TOKENS)
+            for pr in prompts]
+    while eng.has_work():
+        eng.step_n(8)
+    if on_card:
+        torch.cuda.synchronize()
+    m = engine_metrics(eng, reqs, m0, time.perf_counter() - t1)
+    del m["all_finished_64"]
+    res = {"cfg": f"{cfg.d_model} wide, {cfg.n_layers} layers, H "
+                  f"{cfg.n_heads}, KV {cfg.n_kv_heads}, head dim "
+                  f"{cfg.head_dim}, {str(cfg.dtype)[6:]}, paged page 64, "
+                  f"4 slots, flash prefill",
+           "setup_s": setup_s, **m,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if on_card else None),
+           "tokens": [r.generated for r in reqs]}
+    res["ok"] = all(len(r.generated) == SHAPE_NEW_TOKENS and r.error is None
+                    and all(0 <= t < V for t in r.generated) for r in reqs)
+    if k5 and on_card:
+        for pr in prompts:
+            eng.submit(pr, max_new_tokens=64)
+        eng.step_n(8)
+        res["k5_path"] = k5_path(eng)
+        res["ok"] = res["ok"] and res["k5_path"]["ok"]
+    return res
+
+
+def _shapes_train(device):
+    """The tiny preset and MoE's tiny (head dim 16), flash, f32, B 2 S 128
+    (the flash route): 3 AdamW steps on `device` (K1, K3, K4) and on the
+    CPU from one seeded init, within the train_card_vs_cpu bounds."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama, moe
+    from ray_tpu_torch.parallel import train_step as ts
+
+    res = {}
+    for name, mod in (("tiny", llama), ("moe-tiny", moe)):
+        cfg = mod.PRESETS["tiny"].replace(dtype=torch.float32,
+                                          attn_impl="flash")
+        params0 = mod.init_params(torch.Generator().manual_seed(0), cfg)
+        tokens = np.random.default_rng(15).integers(
+            0, cfg.vocab_size, size=(2, 129)).astype(np.int64)
+        out = {}
+        for dev in (device, "cpu"):
+            init, _ = ts.make_train_state_init(
+                lambda g: ts._map(lambda t: t.clone(), params0),
+                ts.adamw(3e-4, weight_decay=0.01), device=dev)
+            state = init(0)
+            step = ts.make_train_step(
+                lambda p, b, c=cfg, m=mod: m.loss_fn(p, b, c))
+            batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+            ms = []
+            for _ in range(3):
+                state, mt = step(state, batch)
+                ms.append((float(mt["loss"]), float(mt["grad_norm"])))
+            out[dev] = (ms, ts._leaves(state.params))
+        out = {"cuda": out[device], "cpu": out["cpu"]}
+        res[name] = _card_vs_cpu_steps(out)
+    return res
+
+
+def phase_shapes(device="cuda", models=None, serve_layers=None):
+    """The attention kernels at public model shapes outside the presets
+    (SHAPE_MODELS): Phi-3-mini (head dim 96), Llama-3.2-3B (G 3) and
+    Gemma-2B's attention (head dim 256, G 8). (a) each at full width cut
+    to 2 layers, f32, card vs CPU (``_shapes_card_vs_cpu``); (b) each
+    served at full width in bf16 (``_shapes_serve``): Phi-3-mini at all 32
+    layers (with the K5 path over its pools), the others at 4; (c) the
+    tiny presets' training with flash (head dim 16; ``_shapes_train``).
+    The launch counters are set to 0 just before and read just after;
+    the attention comparisons of (a) are not counted."""
+    import torch
+
+    on_card = device == "cuda"
+    models = models or SHAPE_MODELS
+    serve_layers = serve_layers or SHAPE_SERVE_LAYERS
+    from ray_tpu_torch.models import llama
+
+    _set_all_kernel_launches({k: 0 for k in _all_kernel_launches()})
+    res = {"card_vs_cpu": {}, "serve": {}, "seconds": {}}
+    ok = True
+    for name, kw in models.items():
+        t0 = time.perf_counter()
+        r = _shapes_card_vs_cpu(llama.LlamaConfig(**kw), device)
+        res["card_vs_cpu"][name] = r
+        res["seconds"][f"card_vs_cpu/{name}"] = time.perf_counter() - t0
+        ok = ok and r["ok"]
+        if on_card:
+            torch.cuda.empty_cache()
+    k5 = 0
+    for name, kw in models.items():
+        t0 = time.perf_counter()
+        r = _shapes_serve(llama.LlamaConfig(**kw), serve_layers[name],
+                          device, k5=name == "phi3-mini")
+        k5 += r.get("k5_path", {}).get("launches", {}).get(
+            "paged_attention", 0)
+        res["serve"][name] = r
+        res["seconds"][f"serve/{name}"] = time.perf_counter() - t0
+        ok = ok and r["ok"]
+        if on_card:
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["train"] = _shapes_train(device)
+    res["seconds"]["train"] = time.perf_counter() - t0
+    ok = ok and all(r["ok"] for r in res["train"].values())
+    launches = _all_kernel_launches()
+    launches["paged_attention"] = k5
+    res["launches"] = launches
+    if on_card:
+        # K2 has no windowed model here; every other kernel ran
+        ok = ok and all(n > 0 for k, n in launches.items()
+                        if k != "flash_attention_fwd_window")
+    res["ok"] = ok
+    return res
 
 
 # --- the port's training step ---------------------------------------------------
@@ -1252,10 +1667,11 @@ def _sp_pp_card_vs_cpu(cfg, B: int, S: int, device: str):
 
 
 def phase_sp_pp(device="cuda", preset="1b", batch=(4, 1024),
-                check=("1b", 2, 2, 128)):
+                check=("1b", 2, 2, 128), layers=SP_PP_LAYERS):
     """Sequence and pipeline parallelism through their entry points on a
     1-rank mesh (``local_mesh``; NCCL on the card): the `preset` at full
-    width and depth, bf16 compute over f32 masters, remat, B 4 S 1024,
+    width and `layers` of its depth (None: all), bf16 compute over f32
+    masters, remat, B 4 S 1024,
     ``ShardingRules.full()``; per route a fresh seeded init (the same
     weights), the loss of forward (flash) on the batch, then two AdamW
     steps (adamw(3e-4, weight_decay=0.01)) through ``make_train_step``
@@ -1286,6 +1702,8 @@ def phase_sp_pp(device="cuda", preset="1b", batch=(4, 1024),
     M = 2
     cfg = llama.PRESETS[preset].replace(attn_impl="flash", remat=True,
                                         f32_logits=False)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     mesh = local_mesh(MeshSpec(fsdp=-1), device=device)
     rules = ShardingRules.full()
     tokens = torch.as_tensor(np.random.default_rng(9).integers(
@@ -5788,8 +6206,9 @@ def _leaves(tree):
 
 
 # engine_contiguous runs the 7b width at this depth: its int8 init draws
-# on the host leaf by leaf (ROADMAP item 18), 174-262 s at all 32 layers
-ENGINE_CONTIGUOUS_LAYERS = 8
+# on the host leaf by leaf (ROADMAP item 18), 174-262 s at all 32 layers,
+# ~58 s at 8
+ENGINE_CONTIGUOUS_LAYERS = 2
 
 
 def phase_engine_contiguous():
@@ -5953,7 +6372,7 @@ def ran_wgmma_fwd_only(profile) -> bool:
 
 PHASES = ("build", "k6", "k5", "k1", "card_vs_cpu", "engine",
           "card_vs_cpu_contiguous", "engine_contiguous", "k2", "k3k4",
-          "train_card_vs_cpu", "train", "train_sharded", "sp_pp", "moe",
+          "shapes", "train_card_vs_cpu", "train", "train_sharded", "sp_pp", "moe",
           "vit", "trainer", "data", "rl", "rl_offpolicy", "engine_sharded",
           "runtime", "serve", "serve_disagg", "rl_final", "tune", "ops",
           "lint")
@@ -5967,6 +6386,7 @@ KERNEL_PHASES = {"k6": phase_k6, "k5": phase_k5, "k1": phase_k1,
 PATH_PHASES = {"card_vs_cpu": phase_card_vs_cpu, "engine": phase_engine,
                "card_vs_cpu_contiguous": phase_card_vs_cpu_contiguous,
                "engine_contiguous": phase_engine_contiguous,
+               "shapes": phase_shapes,
                "train_card_vs_cpu": phase_train_card_vs_cpu,
                "train": phase_train, "train_sharded": phase_train_sharded,
                "sp_pp": phase_sp_pp, "moe": phase_moe, "vit": phase_vit,
@@ -6111,6 +6531,7 @@ def main() -> int:
              "card_vs_cpu_contiguous":
                  ph["card_vs_cpu_contiguous"]["launches"],
              "engine_contiguous": ph["engine_contiguous"]["launches"],
+             "shapes": ph["shapes"]["launches"],
              "train": ph["train"]["launches"],
              "train_card_vs_cpu": ph["train_card_vs_cpu"]["launches"],
              "train_sharded": ph["train_sharded"]["launches"],

@@ -19,7 +19,8 @@
 // operations. Either way the S x T scores must never reach device memory,
 // and only wgmma reaches the tensor cores' full rate.
 //
-// Three kernels, chosen explicitly by dtype and head dim in launch_d:
+// Three kernels, chosen explicitly by dtype and head dim in launch_d (head
+// dims 16, 32, 64, 80, 96, 128 and 256 are compiled):
 //
 // bf16, head dims 64 and 128 (every card preset), flash_fwd_wgmma_kernel:
 // persistent, one block of 3 warpgroups an SM (192 KB of shared memory),
@@ -47,14 +48,21 @@
 // tile starts; rows < S also get their LSE. The consumers' CUDA-core work
 // (the softmax), not the tensor cores, sets its pace at the 7b shape.
 //
-// bf16, head dims 16 and 32 (no card preset; the tiny preset runs on the
-// CPU), flash_fwd_bf16_kernel: FlashAttention-2 style on mma.sync.m16n8k16,
-// 4 warps a 64-row query tile, K/V tiles through cp.async double buffers
-// and ldmatrix, rows padded by 16 bytes against bank conflicts.
+// bf16, head dims 16, 32, 80, 96 and 256 (the tiny preset; Phi-2's 80,
+// Phi-3-mini's 96, Gemma-2B's 256), flash_fwd_bf16_kernel:
+// FlashAttention-2 style on mma.sync.m16n8k16, 4 warps a 64-row query
+// tile, K/V tiles through cp.async double buffers and ldmatrix, rows padded
+// by 16 bytes against bank conflicts. At head dim 256 (169 KB of tiles) the
+// block has 8 warps: two a 16-row tile, each keeping half of O's columns
+// in registers (64 f32 a thread instead of 128) and both computing the
+// scores, with Q's fragments read from shared memory at each k-step
+// instead of held. Other head dims <= 256 are zero-padded to the next of
+// these by the wrapper (ops/flash_attention.py).
 //
 // f32 (parity runs), flash_fwd_f32_kernel: exact f32 FMAs on the CUDA cores
 // through shared-memory tiles, so the f32 path agrees with the plain
-// version to rounding.
+// version to rounding; 32-row query tiles at head dim 256, whose 64-row
+// tiles would not fit shared memory.
 //
 // The ragged edge (S or T not a multiple of the tile) is masked: rows past
 // T read as zeros and are scored -1e30, rows past S are not stored. A row
@@ -75,10 +83,10 @@ constexpr int BQ = 64;   // query rows a block (mma.sync and f32 kernels)
 constexpr int BK = 64;   // key rows a tile
 constexpr int NT = 128;  // 4 warps x 16 query rows
 
-// ----------------------------------------- bf16, mma.sync (head dims <= 32) ---
+// ------------------------------- bf16, mma.sync (head dims other than 64/128) ---
 
 template <int D, bool CAUSAL, bool WINDOW>
-__global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
+__global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int S, int T_len, int H, int KV, int window,
@@ -86,7 +94,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
   constexpr int LD = D + 8;  // padded row (elements): conflict-free ldmatrix
   constexpr int KS = D / 16;  // k-steps of Q.K^T
   constexpr int NS = BK / 8;  // 8-key n-tiles of the scores
-  constexpr int ND = D / 8;   // 8-wide d-tiles of the output
+  constexpr int DSPLIT = dsplit(D);
+  constexpr int NTH = NT * DSPLIT;
+  constexpr int ND = D / 8 / DSPLIT;  // 8-wide d-tiles of this warp's output
+  constexpr bool Q_REGS = DSPLIT == 1;  // Q's fragments held in registers
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ, LD]
   __nv_bfloat16* Ks = Qs + BQ * LD;   // [2][BK, LD]
@@ -97,7 +108,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5;
+  // the warp's 16-row tile, and which D / DSPLIT output columns it keeps
+  const int warp = DSPLIT == 1 ? threadIdx.x >> 5 : (threadIdx.x >> 5) % 4;
+  const int part = DSPLIT == 1 ? 0 : (threadIdx.x >> 5) / 4;
+  const int c0 = part * (D / DSPLIT);
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;   // row within the 8-row half of an mma tile
   const int t4 = lane & 3;   // column pair within an 8-column n-tile
@@ -115,24 +129,27 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
     if (WINDOW) kt_lo = max(0, q0 - window + 1) / BK;  // band's start
   }
 
-  async_rows<D, LD, NT>(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0, BQ);
+  async_rows<D, LD, NTH>(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0, BQ);
   {
     const int k0 = kt_lo * BK;
-    async_rows<D, LD, NT>(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
+    async_rows<D, LD, NTH>(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
                       BK);
-    async_rows<D, LD, NT>(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
+    async_rows<D, LD, NTH>(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
                       BK);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, one per 16-wide k-step
-  uint32_t qf[KS][4];
+  // this warp's 16 query rows as A fragments, one per 16-wide k-step (at
+  // head dim 256 read from shared memory where they are used)
+  const __nv_bfloat16* q_frag = Qs + (warp * 16 + (lane & 15)) * LD +
+                                (lane >> 4) * 8;
+  uint32_t qf[Q_REGS ? KS : 1][4];
+  if constexpr (Q_REGS) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                            (lane >> 4) * 8);
+    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], q_frag + ks * 16);
+  }
 
   float acc[ND][4];
 #pragma unroll
@@ -148,9 +165,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
     if (kt + 1 < n_k) {
       // the other stage was released by the barrier ending iteration kt-1
       const int k1 = k0 + BK;
-      async_rows<D, LD, NT>(Ks + (stage ^ 1) * BK * LD, kb + (size_t)k1 * kv_stride,
+      async_rows<D, LD, NTH>(Ks + (stage ^ 1) * BK * LD, kb + (size_t)k1 * kv_stride,
                         kv_stride, T_len - k1, BK);
-      async_rows<D, LD, NT>(Vs + (stage ^ 1) * BK * LD, vb + (size_t)k1 * kv_stride,
+      async_rows<D, LD, NTH>(Vs + (stage ^ 1) * BK * LD, vb + (size_t)k1 * kv_stride,
                         kv_stride, T_len - k1, BK);
       cp_async_commit();
       cp_async_wait<1>();  // tile kt has landed, tile kt+1 may be in flight
@@ -167,7 +184,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      if constexpr (KS % 2 == 0) {
+      if constexpr (!Q_REGS) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ks += 2) {
+          uint32_t qa[4], qb2[4], kf[4];
+          ldmatrix_x4(qa, q_frag + ks * 16);
+          ldmatrix_x4(qb2, q_frag + (ks + 1) * 16);
+          ldmatrix_x4(kf, Kt + (n * 8 + (lane & 7)) * LD + ks * 16 +
+                              (lane >> 3) * 8);
+          mma_bf16(s[n], qa, kf[0], kf[1]);
+          mma_bf16(s[n], qb2, kf[2], kf[3]);
+        }
+      } else if constexpr (KS % 2 == 0) {
 #pragma unroll
         for (int ks = 0; ks < KS; ks += 2) {
           uint32_t kf[4];  // b0, b1 of k-step ks, then of ks + 1
@@ -259,7 +287,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
       for (int n = 0; n < ND; n += 2) {
         uint32_t vf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
         ldmatrix_x4_trans(vf, Vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                       LD + n * 8 + (lane >> 4) * 8);
+                                       LD + c0 + n * 8 + (lane >> 4) * 8);
         mma_bf16(acc[n], pf, vf[0], vf[1]);
         mma_bf16(acc[n + 1], pf, vf[2], vf[3]);
       }
@@ -284,9 +312,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
     for (int n = 0; n < ND; ++n) {
       const __nv_bfloat162 pair = __floats2bfloat162_rn(
           acc[n][half * 2] * inv, acc[n][half * 2 + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + t4 * 2) = pair;
+      *reinterpret_cast<__nv_bfloat162*>(orow + c0 + n * 8 + t4 * 2) = pair;
     }
-    if (t4 == 0) {
+    if (t4 == 0 && part == 0) {
       const float l = half ? l_b : l_a;
       const float m = half ? m_b : m_a;
       lse[((size_t)b * H + h) * S + row] = m + logf(fmaxf(l, 1e-30f));
@@ -662,14 +690,22 @@ int launch_wgmma(int causal, int window, const void* q, const void* k,
 
 // ------------------------------------------------------------------- f32 ---
 
+// query rows a warp of the f32 kernels takes: 8 at head dim 256, where
+// 64-row tiles would need 280 KB of shared memory
+__host__ __device__ constexpr int f32_rows(int D) {
+  return D > 128 ? 8 : 16;
+}
+
 template <int D>
 struct F32Tile {
+  static constexpr int RW = f32_rows(D);
+  static constexpr int BQF = 4 * RW;  // query rows a block
   static constexpr int LD = D + 1;   // staggers banks for column-wise reads
   static constexpr int PLD = BK + 1;
   static constexpr int OLD = D;
   static constexpr size_t kBytes =
-      sizeof(float) * ((size_t)(BQ + 2 * BK) * LD + (size_t)BQ * PLD +
-                       (size_t)BQ * OLD + 3 * BQ);
+      sizeof(float) * ((size_t)(BQF + 2 * BK) * LD + (size_t)BQF * PLD +
+                       (size_t)BQF * OLD + 3 * BQF);
 };
 
 template <int D, bool CAUSAL, bool WINDOW>
@@ -679,25 +715,27 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
     float* __restrict__ lse, int S, int T_len, int H, int KV, int window,
     float scale) {
   using L = F32Tile<D>;
+  constexpr int RW = L::RW;    // the warp's query rows
+  constexpr int BQF = L::BQF;  // the block's
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [BQ, LD]
-  float* Ks = Qs + BQ * L::LD;                 // [BK, LD]
+  float* Qs = reinterpret_cast<float*>(smem);  // [BQF, LD]
+  float* Ks = Qs + BQF * L::LD;                // [BK, LD]
   float* Vs = Ks + BK * L::LD;                 // [BK, LD]
-  float* Ps = Vs + BK * L::LD;                 // [BQ, PLD] scores, then p
-  float* Os = Ps + BQ * L::PLD;                // [BQ, OLD]
-  float* m_sh = Os + BQ * L::OLD;              // [BQ]
-  float* l_sh = m_sh + BQ;                     // [BQ]
-  float* a_sh = l_sh + BQ;                     // [BQ]
+  float* Ps = Vs + BK * L::LD;                 // [BQF, PLD] scores, then p
+  float* Os = Ps + BQF * L::PLD;               // [BQF, OLD]
+  float* m_sh = Os + BQF * L::OLD;             // [BQF]
+  float* l_sh = m_sh + BQF;                    // [BQF]
+  float* a_sh = l_sh + BQF;                    // [BQF]
 
   // causal tiles near the end do the most work: schedule them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQF;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int r0 = warp * 16;
+  const int r0 = warp * RW;
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)KV * D;
@@ -705,16 +743,17 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
   const float* kb = k + ((size_t)b * T_len * KV + kvh) * D;
   const float* vb = v + ((size_t)b * T_len * KV + kvh) * D;
 
-  auto load = [&](float* dst, const float* src, size_t stride, int valid) {
-    for (int i = tid; i < BK * D; i += NT) {
+  auto load = [&](float* dst, const float* src, size_t stride, int valid,
+                  int rows) {
+    for (int i = tid; i < rows * D; i += NT) {
       const int r = i / D;
       const int c = i - r * D;
       dst[r * L::LD + c] = r < valid ? src[(size_t)r * stride + c] : 0.f;
     }
   };
-  load(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0);
-  for (int i = tid; i < BQ * L::OLD; i += NT) Os[i] = 0.f;
-  for (int i = tid; i < BQ; i += NT) {
+  load(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0, BQF);
+  for (int i = tid; i < BQF * L::OLD; i += NT) Os[i] = 0.f;
+  for (int i = tid; i < BQF; i += NT) {
     m_sh[i] = -1e30f;
     l_sh[i] = 0.f;
   }
@@ -722,36 +761,36 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
   int n_k = (T_len + BK - 1) / BK;
   int kt_lo = 0;
   if (CAUSAL) {
-    n_k = min(n_k, (q0 + BQ - 1) / BK + 1);
+    n_k = min(n_k, (q0 + BQF - 1) / BK + 1);
     if (WINDOW) kt_lo = max(0, q0 - window + 1) / BK;
   }
 
   for (int kt = kt_lo; kt < n_k; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's K/V are no longer read
-    load(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0);
-    load(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0);
+    load(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0, BK);
+    load(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0, BK);
     __syncthreads();
 
     const float* Qw = Qs + r0 * L::LD;
     float* Pw = Ps + r0 * L::PLD;
     float* Ow = Os + r0 * L::OLD;
-    // lane owns key columns lane and lane + 32 of the warp's 16 rows
-    float s0[16], s1[16];
+    // lane owns key columns lane and lane + 32 of the warp's RW rows
+    float s0[RW], s1[RW];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) s0[i] = s1[i] = 0.f;
+    for (int i = 0; i < RW; ++i) s0[i] = s1[i] = 0.f;
     for (int d = 0; d < D; ++d) {
       const float k0v = Ks[lane * L::LD + d];
       const float k1v = Ks[(lane + 32) * L::LD + d];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < RW; ++i) {
         const float qv = Qw[i * L::LD + d];
         s0[i] = fmaf(qv, k0v, s0[i]);
         s1[i] = fmaf(qv, k1v, s1[i]);
       }
     }
     // mask, then the online-softmax step, one row at a time
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < RW; ++i) {
       const int qpos = q0 + r0 + i;
       const int c0 = k0 + lane;
       const int c1 = c0 + 32;
@@ -781,7 +820,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
       }
     }
     __syncwarp();
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < RW; ++i) {
       const float alpha = a_sh[r0 + i];
       for (int d = lane; d < D; d += 32) {
         float a = Ow[i * L::OLD + d] * alpha;
@@ -793,7 +832,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
   }
   __syncwarp();
 
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < RW; ++i) {
     const int qpos = q0 + r0 + i;
     if (qpos >= S) break;
     const float l = fmaxf(l_sh[r0 + i], 1e-30f);
@@ -812,7 +851,7 @@ int launch_d(int dtype, int causal, int window, const void* q,
   if (dtype == RT_BF16) {
     // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
     // kernel is not even instantiated for them
-    if constexpr (D >= 64) {
+    if constexpr (D == 64 || D == 128) {
       return launch_wgmma<D>(causal, window, q, k, v, o, lse, B, S, T_len, H,
                              KV, scale, st);
     } else {
@@ -824,7 +863,7 @@ int launch_d(int dtype, int causal, int window, const void* q,
       cudaError_t err = rt_set_smem(kernel, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       dim3 grid((S + BQ - 1) / BQ, H, B);
-      kernel<<<grid, NT, smem, st>>>(
+      kernel<<<grid, NT * dsplit(D), smem, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(o),
           static_cast<float*>(lse), S, T_len, H, KV, window, scale);
@@ -838,7 +877,7 @@ int launch_d(int dtype, int causal, int window, const void* q,
                              : flash_fwd_f32_kernel<D, false, false>;
     cudaError_t err = rt_set_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((S + BQ - 1) / BQ, H, B);
+    dim3 grid((S + F32Tile<D>::BQF - 1) / F32Tile<D>::BQF, H, B);
     kernel<<<grid, NT, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
@@ -865,7 +904,10 @@ extern "C" int flash_attention_fwd(int dtype, int causal, int window,
     case 16: return launch_d<16>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
     case 32: return launch_d<32>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
     case 64: return launch_d<64>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
+    case 80: return launch_d<80>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
+    case 96: return launch_d<96>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
     case 128: return launch_d<128>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
+    case 256: return launch_d<256>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -80,17 +80,25 @@
 // read from device memory on the consumers' chain, their latency doubled
 // the kernel's time (PERF.md).
 //
-// bf16 at head dim 32 (K3 and K4): mma.sync.m16n8k16 with f32
-// accumulation in the fragment layouts of K1 (mma.cuh). The recomputed
-// scores and dP stay in f32
+// bf16 at head dims 16, 32, 80, 96 and 256 (K3 and K4): mma.sync.m16n8k16
+// with f32 accumulation in the fragment layouts of K1 (mma.cuh). The
+// recomputed scores and dP stay in f32
 // registers; P (for dV) and dS (for dK, dQ) are rounded to bf16 as the
 // A operand of the gradient products. K/V tiles (K3) and q/dO tiles (K4)
 // arrive through cp.async, double-buffered. A operands come from shared
-// memory by ldmatrix per 32-wide k-step, which keeps registers for the
-// f32 accumulators (K4 holds dK and dV, 2 x 16 x D per warp).
+// memory by ldmatrix per 32-wide k-step (16-wide for the odd last step of
+// head dims 16 and 80), which keeps registers for the f32 accumulators (K4
+// holds dK and dV, 2 x 16 x D per warp). At head dim 256 that would be 256
+// registers a thread: the block has 8 warps there, two a 16-row tile, each
+// recomputing the tile's P and dS and keeping half of the output columns
+// (K3: 64 f32 a thread, K4: 128), over 203 KB of tiles. Other head dims
+// <= 256 are zero-padded to the next of these by the wrapper.
 //
 // f32 (parity runs): exact f32 FMAs on the CUDA cores through shared-memory
-// tiles; P and dS stay f32.
+// tiles; P and dS stay f32. A lane owns output columns lane + 32 c (the
+// ones past D at head dims 16 and 80 are neither read nor stored); at head
+// dim 256 a warp takes 8 rows (queries in K3, keys in K4) instead of 16, so
+// the tiles fit shared memory and the accumulators registers.
 //
 // The ragged edge (S or T not a multiple of 64) is masked: rows past the
 // edge are zero-filled and get P = 0, and are not stored. Masked entries get
@@ -120,27 +128,28 @@ __device__ __forceinline__ bool visible(int row, int col, int S, int T_len,
   return keep;
 }
 
-// K/V tiles [kt_lo, kt_hi) a query tile at q0 visits
-template <bool CAUSAL>
+// K/V tiles [kt_lo, kt_hi) a query tile of QROWS rows at q0 visits
+template <bool CAUSAL, int QROWS = BQ>
 __device__ __forceinline__ void key_tiles(int q0, int T_len, int window,
                                           int& kt_lo, int& kt_hi) {
   kt_lo = 0;
   kt_hi = (T_len + BK - 1) / BK;
   if (CAUSAL) {
-    kt_hi = min(kt_hi, (q0 + BQ - 1) / BK + 1);
+    kt_hi = min(kt_hi, (q0 + QROWS - 1) / BK + 1);
     if (window > 0) kt_lo = max(0, q0 - window + 1) / BK;
   }
 }
 
-// query tiles [qt_lo, qt_hi) that see some key of the tile at k0
-template <bool CAUSAL>
+// query tiles [qt_lo, qt_hi) that see some key of the KROWS keys at k0
+template <bool CAUSAL, int KROWS = BK>
 __device__ __forceinline__ void query_tiles(int k0, int S, int window,
                                             int& qt_lo, int& qt_hi) {
   qt_lo = 0;
   qt_hi = (S + BQ - 1) / BQ;
   if (CAUSAL) {
     qt_lo = k0 / BQ;
-    if (window > 0) qt_hi = min(qt_hi, (k0 + BK - 1 + window - 1) / BQ + 1);
+    if (window > 0)
+      qt_hi = min(qt_hi, (k0 + KROWS - 1 + window - 1) / BQ + 1);
   }
 }
 
@@ -153,8 +162,9 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NS][4],
                                         const bf16* Aw, const bf16* Bt,
                                         int lane) {
   constexpr int LD = D + 8;
+  constexpr int KS = D / 16;
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ks += 2) {
+  for (int ks = 0; ks + 1 < KS; ks += 2) {
     uint32_t a0[4], a1[4];
     ldmatrix_x4(a0, Aw + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
     ldmatrix_x4(a1, Aw + (lane & 15) * LD + (ks + 1) * 16 + (lane >> 4) * 8);
@@ -167,12 +177,25 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NS][4],
       mma_bf16(acc[n], a1, bf[2], bf[3]);
     }
   }
+  if constexpr (KS % 2 == 1) {  // the last 16-wide step alone
+    constexpr int ks = KS - 1;
+    uint32_t a0[4];
+    ldmatrix_x4(a0, Aw + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      uint32_t bf[2];
+      ldmatrix_x2(bf, Bt + (n * 8 + (lane & 7)) * LD + ks * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[n], a0, bf[0], bf[1]);
+    }
+  }
 }
 
-// acc[ND][4] (16 x D) += X (16 x 64, the C fragments x[8][4], rounded to
-// bf16) . M (64 rows x D of `Mt` in shared memory)
-template <int D>
-__device__ __forceinline__ void mma_xm(float (&acc)[D / 8][4],
+// acc[DN / 8][4] (16 x DN) += X (16 x 64, the C fragments x[8][4], rounded
+// to bf16) . M (64 rows x DN columns from `Mt` of a [64, D] tile in shared
+// memory)
+template <int D, int DN = D>
+__device__ __forceinline__ void mma_xm(float (&acc)[DN / 8][4],
                                        const float (&x)[8][4],
                                        const bf16* Mt, int lane) {
   constexpr int LD = D + 8;
@@ -184,7 +207,7 @@ __device__ __forceinline__ void mma_xm(float (&acc)[D / 8][4],
     xf[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
     xf[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
 #pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
+    for (int n = 0; n < DN / 8; n += 2) {
       uint32_t mf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
       ldmatrix_x4_trans(mf, Mt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                      LD + n * 8 + (lane >> 4) * 8);
@@ -195,14 +218,17 @@ __device__ __forceinline__ void mma_xm(float (&acc)[D / 8][4],
 }
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
+__global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dq_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ o,
     const bf16* __restrict__ g, const float* __restrict__ lse,
     bf16* __restrict__ dq, float* __restrict__ delta, int S, int T_len, int H,
     int KV, int window, float scale) {
   constexpr int LD = D + 8;
-  constexpr int ND = D / 8;
+  constexpr int DSPLIT = dsplit(D);
+  constexpr int NTH = NT * DSPLIT;
+  constexpr int DN = D / DSPLIT;  // dq columns a warp keeps
+  constexpr int ND = DN / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ, LD]
   bf16* Gs = Qs + BQ * LD;                   // [BQ, LD] dO
@@ -215,7 +241,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5;
+  // the warp's 16-row tile, and which DN columns of dq it keeps
+  const int warp = DSPLIT == 1 ? threadIdx.x >> 5 : (threadIdx.x >> 5) % 4;
+  const int c0 = DSPLIT == 1 ? 0 : (threadIdx.x >> 5) / 4 * DN;
   const int lane = threadIdx.x & 31;
   const int g8 = lane >> 2;
   const int t4 = lane & 3;
@@ -229,21 +257,24 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
   int kt_lo, kt_hi;
   key_tiles<CAUSAL>(q0, T_len, window, kt_lo, kt_hi);
 
-  async_rows<D, LD, NT>(Qs, q + head + (size_t)q0 * q_stride, q_stride,
-                        S - q0, BQ);
-  async_rows<D, LD, NT>(Gs, g + head + (size_t)q0 * q_stride, q_stride,
-                        S - q0, BQ);
+  async_rows<D, LD, NTH>(Qs, q + head + (size_t)q0 * q_stride, q_stride,
+                         S - q0, BQ);
+  async_rows<D, LD, NTH>(Gs, g + head + (size_t)q0 * q_stride, q_stride,
+                         S - q0, BQ);
   if (kt_lo < kt_hi) {
     const int k0 = kt_lo * BK;
-    async_rows<D, LD, NT>(Ks, kb + (size_t)k0 * kv_stride, kv_stride,
-                          T_len - k0, BK);
-    async_rows<D, LD, NT>(Vs, vb + (size_t)k0 * kv_stride, kv_stride,
-                          T_len - k0, BK);
+    async_rows<D, LD, NTH>(Ks, kb + (size_t)k0 * kv_stride, kv_stride,
+                           T_len - k0, BK);
+    async_rows<D, LD, NTH>(Vs, vb + (size_t)k0 * kv_stride, kv_stride,
+                           T_len - k0, BK);
   }
   cp_async_commit();
 
   // delta = rowsum(O * dO) in f32 from device memory, while the tiles land
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+  // (16 / DSPLIT rows a warp)
+  constexpr int DR = 16 / DSPLIT;
+  const int dr0 = (threadIdx.x >> 5) * DR;
+  for (int r = dr0; r < dr0 + DR; ++r) {
     const int row = q0 + r;
     float a = 0.f;
     if (row < S) {
@@ -280,12 +311,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
     if (kt + 1 < kt_hi) {
       // the other stage was released by the barrier ending iteration kt-1
       const int k1 = k0 + BK;
-      async_rows<D, LD, NT>(Ks + (stage ^ 1) * BK * LD,
-                            kb + (size_t)k1 * kv_stride, kv_stride, T_len - k1,
-                            BK);
-      async_rows<D, LD, NT>(Vs + (stage ^ 1) * BK * LD,
-                            vb + (size_t)k1 * kv_stride, kv_stride, T_len - k1,
-                            BK);
+      async_rows<D, LD, NTH>(Ks + (stage ^ 1) * BK * LD,
+                             kb + (size_t)k1 * kv_stride, kv_stride,
+                             T_len - k1, BK);
+      async_rows<D, LD, NTH>(Vs + (stage ^ 1) * BK * LD,
+                             vb + (size_t)k1 * kv_stride, kv_stride,
+                             T_len - k1, BK);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -317,7 +348,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
                 : 0.f;
         s[n][e] = p * (dp[n][e] - (top ? dl_a : dl_b)) * scale;
       }
-    mma_xm<D>(acc, s, Kt, lane);  // dq += dS k
+    mma_xm<D, DN>(acc, s, Kt + c0, lane);  // dq += dS k
     __syncthreads();  // every warp is done with this stage
   }
 
@@ -325,7 +356,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
   for (int half = 0; half < 2; ++half) {
     const int row = half ? row_b : row_a;
     if (row >= S) continue;
-    bf16* out = dq + head + (size_t)row * q_stride;
+    bf16* out = dq + head + (size_t)row * q_stride + c0;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + t4 * 2) =
@@ -334,14 +365,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
 }
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
+__global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T_len, int H,
     int KV, int window, float scale) {
   constexpr int LD = D + 8;
-  constexpr int ND = D / 8;
+  constexpr int DSPLIT = dsplit(D);
+  constexpr int NTH = NT * DSPLIT;
+  constexpr int DN = D / DSPLIT;  // dk/dv columns a warp keeps
+  constexpr int ND = DN / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK, LD]
   bf16* Vs = Ks + BK * LD;                   // [BK, LD]
@@ -355,7 +389,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int groups = H / KV;
-  const int warp = threadIdx.x >> 5;
+  // the warp's 16 keys, and which DN columns of dk/dv it keeps
+  const int warp = DSPLIT == 1 ? threadIdx.x >> 5 : (threadIdx.x >> 5) % 4;
+  const int c0 = DSPLIT == 1 ? 0 : (threadIdx.x >> 5) / 4 * DN;
   const int lane = threadIdx.x & 31;
   const int g8 = lane >> 2;
   const int t4 = lane & 3;
@@ -373,10 +409,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
     const int hh = kvh * groups + it / nq;
     const int q0 = (qt_lo + it % nq) * BQ;
     const size_t off = ((size_t)b * S * H + hh) * D + (size_t)q0 * q_stride;
-    async_rows<D, LD, NT>(Qs + stage * BQ * LD, q + off, q_stride, S - q0,
-                          BQ);
-    async_rows<D, LD, NT>(Gs + stage * BQ * LD, g + off, q_stride, S - q0,
-                          BQ);
+    async_rows<D, LD, NTH>(Qs + stage * BQ * LD, q + off, q_stride, S - q0,
+                           BQ);
+    async_rows<D, LD, NTH>(Gs + stage * BQ * LD, g + off, q_stride, S - q0,
+                           BQ);
     if (threadIdx.x < BQ) {
       const int row = q0 + threadIdx.x;
       const size_t i = ((size_t)b * H + hh) * S + row;
@@ -385,10 +421,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
     }
   };
 
-  async_rows<D, LD, NT>(Ks, k + kv_off + (size_t)k0 * kv_stride, kv_stride,
-                        T_len - k0, BK);
-  async_rows<D, LD, NT>(Vs, v + kv_off + (size_t)k0 * kv_stride, kv_stride,
-                        T_len - k0, BK);
+  async_rows<D, LD, NTH>(Ks, k + kv_off + (size_t)k0 * kv_stride, kv_stride,
+                         T_len - k0, BK);
+  async_rows<D, LD, NTH>(Vs, v + kv_off + (size_t)k0 * kv_stride, kv_stride,
+                         T_len - k0, BK);
   if (n_it > 0) load_q(0, 0);
   cp_async_commit();
 
@@ -437,7 +473,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
                       ? expf(p[n][e] * scale - lt[c])
                       : 0.f;
       }
-    mma_xm<D>(dv_acc, p, Gt, lane);  // dv += P^T dO
+    mma_xm<D, DN>(dv_acc, p, Gt + c0, lane);  // dv += P^T dO
 
     // dS^T = P^T (v dO^T - delta) scale
     float ds[8][4];
@@ -453,7 +489,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
         const int c = n * 8 + t4 * 2 + (e & 1);
         ds[n][e] = p[n][e] * (ds[n][e] - dt[c]) * scale;
       }
-    mma_xm<D>(dk_acc, ds, Qt, lane);  // dk += dS^T q
+    mma_xm<D, DN>(dk_acc, ds, Qt + c0, lane);  // dk += dS^T q
     __syncthreads();  // every warp is done with this stage
   }
 
@@ -461,7 +497,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
   for (int half = 0; half < 2; ++half) {
     const int key = half ? key_b : key_a;
     if (key >= T_len) continue;
-    const size_t off = kv_off + (size_t)key * kv_stride;
+    const size_t off = kv_off + (size_t)key * kv_stride + c0;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + t4 * 2) =
@@ -1179,38 +1215,53 @@ int launch_dkdv_wgmma(int causal, int window, const void* q, const void* k,
 
 template <int D>
 struct F32Bwd {
+  // rows a warp owns (queries in K3, keys in K4): 8 at head dim 256, where
+  // 16 would need 263 KB of shared memory and 256 accumulators in K4
+  static constexpr int RW = D > 128 ? 8 : 16;
+  static constexpr int R = 4 * RW;    // the block's rows
+  static constexpr int DC = (D + 31) / 32;  // output columns a lane owns
   static constexpr int LD = D + 1;    // staggers banks for column-wise reads
   static constexpr int PLD = 64 + 1;
   static constexpr size_t kBytes =
-      sizeof(float) * ((size_t)4 * 64 * LD + (size_t)2 * 64 * PLD + 2 * 64);
+      sizeof(float) * ((size_t)(2 * R + 2 * 64) * LD + (size_t)2 * R * PLD +
+                       2 * 64);
 };
 
-// acc[i][c] += sum_j X[i][j] M[j][lane + 32 c] for the warp's 16 rows of X
+// column lane + 32 c exists (always, where D is a multiple of 32)
+template <int D>
+__device__ __forceinline__ bool has_col(int lane, int c) {
+  return D % 32 == 0 || lane + 32 * c < D;
+}
+
+// acc[i][c] += sum_j X[i][j] M[j][lane + 32 c] for the warp's RW rows of X
 // (row stride PLD) and a [64, D] tile M (row stride LD): j outermost, so
 // each M element is read once per warp and the unrolled body stays small
-template <int D, int LD, int PLD>
-__device__ __forceinline__ void accumulate_xm(float (&acc)[16][D / 32],
-                                              const float* Xw,
-                                              const float* M, int lane) {
+template <int D, int LD, int PLD, int RW>
+__device__ __forceinline__ void accumulate_xm(
+    float (&acc)[RW][(D + 31) / 32], const float* Xw, const float* M,
+    int lane) {
+  constexpr int DC = (D + 31) / 32;
   for (int j = 0; j < 64; ++j) {
-    float m[D / 32];
+    float m[DC];
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) m[c] = M[j * LD + lane + 32 * c];
+    for (int c = 0; c < DC; ++c)
+      m[c] = has_col<D>(lane, c) ? M[j * LD + lane + 32 * c] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < RW; ++i) {
       const float x = Xw[i * PLD + j];
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) acc[i][c] = fmaf(x, m[c], acc[i][c]);
+      for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(x, m[c], acc[i][c]);
     }
   }
 }
 
-// rows [0, 64) of a [64, D] f32 tile (row stride LD) from global rows
+// rows [0, rows) of a [rows, D] f32 tile (row stride LD) from global rows
 // `stride` apart; rows past `valid` are zero-filled
 template <int D, int LD>
 __device__ __forceinline__ void load_f32(float* dst, const float* src,
-                                         size_t stride, int valid) {
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
+                                         size_t stride, int valid,
+                                         int rows = 64) {
+  for (int i = threadIdx.x; i < rows * D; i += NT) {
     const int r = i / D;
     const int c = i - r * D;
     dst[r * LD + c] = r < valid ? src[(size_t)r * stride + c] : 0.f;
@@ -1225,23 +1276,25 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
     float* __restrict__ dq, float* __restrict__ delta, int S, int T_len,
     int H, int KV, int window, float scale) {
   using L = F32Bwd<D>;
-  constexpr int DC = D / 32;  // output columns a lane owns
+  constexpr int DC = L::DC;  // output columns a lane owns
+  constexpr int RW = L::RW;  // query rows a warp owns
+  constexpr int R = L::R;    // the block's
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // [BQ, LD]
-  float* Gs = Qs + BQ * L::LD;                 // [BQ, LD] dO
-  float* Ks = Gs + BQ * L::LD;                 // [BK, LD]
+  float* Qs = reinterpret_cast<float*>(smem);  // [R, LD]
+  float* Gs = Qs + R * L::LD;                  // [R, LD] dO
+  float* Ks = Gs + R * L::LD;                  // [BK, LD]
   float* Vs = Ks + BK * L::LD;                 // [BK, LD]
-  float* Ps = Vs + BK * L::LD;                 // [BQ, PLD] dS
-  float* lse_sh = Ps + BQ * L::PLD;            // [BQ]
-  float* dl_sh = lse_sh + BQ;                  // [BQ]
+  float* Ps = Vs + BK * L::LD;                 // [R, PLD] dS
+  float* lse_sh = Ps + R * L::PLD;             // [R]
+  float* dl_sh = lse_sh + R;                   // [R]
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
+  const int r0 = warp * RW;
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)KV * D;
@@ -1249,10 +1302,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
   const float* kb = k + ((size_t)b * T_len * KV + kvh) * D;
   const float* vb = v + ((size_t)b * T_len * KV + kvh) * D;
 
-  load_f32<D, L::LD>(Qs, q + head + (size_t)q0 * q_stride, q_stride, S - q0);
-  load_f32<D, L::LD>(Gs, g + head + (size_t)q0 * q_stride, q_stride, S - q0);
+  load_f32<D, L::LD>(Qs, q + head + (size_t)q0 * q_stride, q_stride, S - q0,
+                     R);
+  load_f32<D, L::LD>(Gs, g + head + (size_t)q0 * q_stride, q_stride, S - q0,
+                     R);
   __syncthreads();
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < RW; ++i) {
     const int row = q0 + r0 + i;
     float a = 0.f;
     if (row < S) {
@@ -1270,10 +1325,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
   __syncwarp();  // a warp reads only its own rows of dl_sh / lse_sh
 
   int kt_lo, kt_hi;
-  key_tiles<CAUSAL>(q0, T_len, window, kt_lo, kt_hi);
-  float acc[16][DC];
+  key_tiles<CAUSAL, R>(q0, T_len, window, kt_lo, kt_hi);
+  float acc[RW][DC];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < RW; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
@@ -1284,17 +1339,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
     load_f32<D, L::LD>(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0);
     __syncthreads();
 
-    // lane owns key columns lane and lane + 32 of the warp's 16 rows
-    float s0[16], s1[16], d0[16], d1[16];
+    // lane owns key columns lane and lane + 32 of the warp's RW rows
+    float s0[RW], s1[RW], d0[RW], d1[RW];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) s0[i] = s1[i] = d0[i] = d1[i] = 0.f;
+    for (int i = 0; i < RW; ++i) s0[i] = s1[i] = d0[i] = d1[i] = 0.f;
     for (int d = 0; d < D; ++d) {
       const float ka = Ks[lane * L::LD + d];
       const float kc = Ks[(lane + 32) * L::LD + d];
       const float va = Vs[lane * L::LD + d];
       const float vc = Vs[(lane + 32) * L::LD + d];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < RW; ++i) {
         const float qv = Qs[(r0 + i) * L::LD + d];
         const float gv = Gs[(r0 + i) * L::LD + d];
         s0[i] = fmaf(qv, ka, s0[i]);
@@ -1305,7 +1360,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
     }
     float* Pw = Ps + r0 * L::PLD;
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < RW; ++i) {
       const int row = q0 + r0 + i;
       const float m = lse_sh[r0 + i];
       const float dl = dl_sh[r0 + i];
@@ -1318,15 +1373,16 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(
       Pw[i * L::PLD + lane + 32] = p1 * (d1[i] - dl) * scale;
     }
     __syncwarp();
-    accumulate_xm<D, L::LD, L::PLD>(acc, Pw, Ks, lane);  // dq += dS k
+    accumulate_xm<D, L::LD, L::PLD, RW>(acc, Pw, Ks, lane);  // dq += dS k
   }
 
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < RW; ++i) {
     const int row = q0 + r0 + i;
     if (row >= S) break;
     float* out = dq + head + (size_t)row * q_stride;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) out[lane + 32 * c] = acc[i][c];
+    for (int c = 0; c < DC; ++c)
+      if (has_col<D>(lane, c)) out[lane + 32 * c] = acc[i][c];
   }
 }
 
@@ -1338,39 +1394,41 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_f32_kernel(
     float* __restrict__ dk, float* __restrict__ dv, int S, int T_len, int H,
     int KV, int window, float scale) {
   using L = F32Bwd<D>;
-  constexpr int DC = D / 32;
+  constexpr int DC = L::DC;
+  constexpr int RW = L::RW;  // keys a warp owns
+  constexpr int R = L::R;    // the block's
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);  // [BK, LD]
-  float* Vs = Ks + BK * L::LD;                 // [BK, LD]
-  float* Qs = Vs + BK * L::LD;                 // [BQ, LD]
+  float* Ks = reinterpret_cast<float*>(smem);  // [R, LD]
+  float* Vs = Ks + R * L::LD;                  // [R, LD]
+  float* Qs = Vs + R * L::LD;                  // [BQ, LD]
   float* Gs = Qs + BQ * L::LD;                 // [BQ, LD] dO
-  float* Ps = Gs + BQ * L::LD;                 // [BK, PLD] P^T
-  float* Ds = Ps + BK * L::PLD;                // [BK, PLD] dS^T
-  float* lse_sh = Ds + BK * L::PLD;            // [BQ]
+  float* Ps = Gs + BQ * L::LD;                 // [R, PLD] P^T
+  float* Ds = Ps + R * L::PLD;                 // [R, PLD] dS^T
+  float* lse_sh = Ds + R * L::PLD;             // [BQ]
   float* dl_sh = lse_sh + BQ;                  // [BQ]
 
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * R;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int groups = H / KV;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int r0 = warp * 16;  // the warp's 16 keys
+  const int r0 = warp * RW;  // the warp's RW keys
 
   const size_t q_stride = (size_t)H * D;
   const size_t kv_stride = (size_t)KV * D;
   const size_t kv_off = ((size_t)b * T_len * KV + kvh) * D;
   load_f32<D, L::LD>(Ks, k + kv_off + (size_t)k0 * kv_stride, kv_stride,
-                     T_len - k0);
+                     T_len - k0, R);
   load_f32<D, L::LD>(Vs, v + kv_off + (size_t)k0 * kv_stride, kv_stride,
-                     T_len - k0);
+                     T_len - k0, R);
 
   int qt_lo, qt_hi;
-  query_tiles<CAUSAL>(k0, S, window, qt_lo, qt_hi);
-  float dka[16][DC], dva[16][DC];
+  query_tiles<CAUSAL, R>(k0, S, window, qt_lo, qt_hi);
+  float dka[RW][DC], dva[RW][DC];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < RW; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
 
@@ -1390,17 +1448,17 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_f32_kernel(
       }
       __syncthreads();
 
-      // lane owns query columns lane and lane + 32 of the warp's 16 keys
-      float s0[16], s1[16], d0[16], d1[16];
+      // lane owns query columns lane and lane + 32 of the warp's RW keys
+      float s0[RW], s1[RW], d0[RW], d1[RW];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) s0[i] = s1[i] = d0[i] = d1[i] = 0.f;
+      for (int i = 0; i < RW; ++i) s0[i] = s1[i] = d0[i] = d1[i] = 0.f;
       for (int d = 0; d < D; ++d) {
         const float qa = Qs[lane * L::LD + d];
         const float qc = Qs[(lane + 32) * L::LD + d];
         const float ga = Gs[lane * L::LD + d];
         const float gc = Gs[(lane + 32) * L::LD + d];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
+        for (int i = 0; i < RW; ++i) {
           const float kv = Ks[(r0 + i) * L::LD + d];
           const float vv = Vs[(r0 + i) * L::LD + d];
           s0[i] = fmaf(kv, qa, s0[i]);
@@ -1412,7 +1470,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_f32_kernel(
       float* Pw = Ps + r0 * L::PLD;
       float* Dw = Ds + r0 * L::PLD;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < RW; ++i) {
         const int key = k0 + r0 + i;
         const float p0 = visible<CAUSAL>(q0 + lane, key, S, T_len, window)
                              ? expf(s0[i] * scale - lse_sh[lane]) : 0.f;
@@ -1425,17 +1483,18 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_f32_kernel(
         Dw[i * L::PLD + lane + 32] = p1 * (d1[i] - dl_sh[lane + 32]) * scale;
       }
       __syncwarp();
-      accumulate_xm<D, L::LD, L::PLD>(dva, Pw, Gs, lane);  // dv += P^T dO
-      accumulate_xm<D, L::LD, L::PLD>(dka, Dw, Qs, lane);  // dk += dS^T q
+      accumulate_xm<D, L::LD, L::PLD, RW>(dva, Pw, Gs, lane);  // dv += P^T dO
+      accumulate_xm<D, L::LD, L::PLD, RW>(dka, Dw, Qs, lane);  // dk += dS^T q
     }
   }
 
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < RW; ++i) {
     const int key = k0 + r0 + i;
     if (key >= T_len) break;
     const size_t off = kv_off + (size_t)key * kv_stride;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
+      if (!has_col<D>(lane, c)) continue;
       dk[off + lane + 32 * c] = dka[i][c];
       dv[off + lane + 32 * c] = dva[i][c];
     }
@@ -1453,7 +1512,7 @@ int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
   if (dtype == RT_BF16) {
     // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
     // kernel is not even instantiated for them
-    if constexpr (D >= 64) {
+    if constexpr (D == 64 || D == 128) {
       return launch_dq_wgmma<D>(causal, window, q, k, v, o, g, lse, dq,
                                 delta, B, S, T_len, H, KV, scale, st);
     } else {
@@ -1464,7 +1523,7 @@ int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
                            : flash_bwd_dq_bf16_kernel<D, false>;
       cudaError_t err = rt_set_smem(kernel, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<grid, NT, smem, st>>>(
+      kernel<<<grid, NT * dsplit(D), smem, st>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(o),
           static_cast<const bf16*>(g), static_cast<const float*>(lse),
@@ -1479,7 +1538,8 @@ int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
                          : flash_bwd_dq_f32_kernel<D, false>;
     cudaError_t err = rt_set_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, NT, smem, st>>>(
+    constexpr int R = F32Bwd<D>::R;
+    kernel<<<dim3((S + R - 1) / R, H, B), NT, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(o),
         static_cast<const float*>(g), static_cast<const float*>(lse),
@@ -1499,7 +1559,7 @@ int launch_dkdv(int dtype, int causal, int window, const void* q,
   if (dtype == RT_BF16) {
     // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
     // kernel is not even instantiated for them
-    if constexpr (D >= 64) {
+    if constexpr (D == 64 || D == 128) {
       return launch_dkdv_wgmma<D>(causal, window, q, k, v, g, lse, delta,
                                   dk, dv, B, S, T_len, H, KV, scale, st);
     } else {
@@ -1510,7 +1570,7 @@ int launch_dkdv(int dtype, int causal, int window, const void* q,
                            : flash_bwd_dkdv_bf16_kernel<D, false>;
       cudaError_t err = rt_set_smem(kernel, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<grid, NT, smem, st>>>(
+      kernel<<<grid, NT * dsplit(D), smem, st>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(g),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1525,7 +1585,8 @@ int launch_dkdv(int dtype, int causal, int window, const void* q,
                          : flash_bwd_dkdv_f32_kernel<D, false>;
     cudaError_t err = rt_set_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, NT, smem, st>>>(
+    constexpr int R = F32Bwd<D>::R;
+    kernel<<<dim3((T_len + R - 1) / R, KV, B), NT, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(g),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1555,9 +1616,13 @@ extern "C" int flash_attention_bwd_dq(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_dq<16>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
     case 32: return launch_dq<32>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
     case 64: return launch_dq<64>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
+    case 80: return launch_dq<80>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
+    case 96: return launch_dq<96>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
     case 128: return launch_dq<128>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
+    case 256: return launch_dq<256>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1573,9 +1638,13 @@ extern "C" int flash_attention_bwd_dkdv(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_dkdv<16>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
     case 32: return launch_dkdv<32>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
     case 64: return launch_dkdv<64>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
+    case 80: return launch_dkdv<80>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
+    case 96: return launch_dkdv<96>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
     case 128: return launch_dkdv<128>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
+    case 256: return launch_dkdv<256>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

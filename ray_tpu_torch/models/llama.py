@@ -762,8 +762,8 @@ def _act_placements(mesh, rules, seq: bool = False):
         raise NotImplementedError(
             "a sequence sharded over sp runs in forward_sp (attn_impl "
             "'ring' or 'ulysses'); forward computes whole sequences, where "
-            "JAX's GSPMD may also split them (ROADMAP.md, differences by "
-            "design)")
+            "JAX's GSPMD may also split them (ROADMAP.md, queue 1 item "
+            "22)")
     return act
 
 

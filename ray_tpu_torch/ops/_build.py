@@ -27,8 +27,12 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# --split-compile=0: the compiler optimizes a source's parts on every core
+# at once (the backward's source builds in ~19 s against ~35 on the card's
+# host)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=0")
 KERNEL_SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd")
 
 _lock = threading.Lock()

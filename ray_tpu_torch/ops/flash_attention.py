@@ -9,7 +9,8 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   argument, which streams only the K/V tiles inside the causal band, so a
   window costs O(S * W). bf16 with head dim 64 or 128 runs the Hopper
   kernel (TMA, mbarriers, warp-specialised ``wgmma``, 128-row tiles); bf16
-  with head dim 16 or 32 an ``mma.sync`` kernel; f32 exact CUDA-core FMAs;
+  with head dim 16, 32, 80, 96 or 256 an ``mma.sync`` kernel; f32 exact
+  CUDA-core FMAs;
 - backward, ``flash_attention_bwd``: the FlashAttention-2 split of the TPU
   kernels K3 (``_bwd_dq_kernel``) and K4 (``_bwd_dkdv_kernel``) in
   ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV
@@ -18,8 +19,8 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   bit-identical). bf16 with head dim 64 or 128 runs the Hopper kernels in
   both passes (TMA, mbarriers, warp-specialised ``wgmma``): dQ over
   128-row query tiles, dK/dV over 128-key blocks that stream every query
-  head of their kv head; bf16 with head dim 32 runs ``mma.sync`` kernels;
-  f32 exact CUDA-core FMAs;
+  head of their kv head; bf16 with head dim 16, 32, 80, 96 or 256 runs
+  ``mma.sync`` kernels; f32 exact CUDA-core FMAs;
 - ``_Flash``, a ``torch.autograd.Function``, takes the place of ``_flash``'s
   ``custom_vjp``.
 
@@ -33,7 +34,12 @@ and ``_reference_chunked_bwd``.
 Shapes: q [B, S, H, D], k/v [B, T, KV, D] -> out [B, S, H, D] in q.dtype,
 lse [B, H, S] f32 (the TPU kernel's 128-lane broadcast of the LSE existed
 only for Mosaic and is dropped). Unlike the TPU wrapper, S and T need not
-divide a block: the kernels mask the ragged edge.
+divide a block: the kernels mask the ragged edge. Head dims: any D up to
+MAX_HEAD_DIM (256), like the TPU kernels, whose blocks span the whole D.
+The kernels are compiled for KERNEL_HEAD_DIMS; any other D runs at the next
+of them with q, k, v (and out, dO) zero-padded along D and the scale of the
+true D (``on_kernel_head_dim``), which is exact: zero columns add nothing to
+q.k and give zero columns of out, dq, dk and dv, which are sliced off.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch.ops import _build
 
@@ -56,8 +63,11 @@ launches_dq = 0
 launches_dkdv = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
-_BWD_HEAD_DIMS = (32, 64, 128)
+#: the head dims the kernels (forward and backward, both dtypes) are
+#: compiled for; bf16 at 64 and 128 runs the wgmma kernels, the others
+#: mma.sync
+KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 
 
 def _window(window) -> int:
@@ -82,17 +92,50 @@ def band_mask(S: int, T: int, *, causal: bool, window=None, device=None):
     return mask
 
 
+def kernel_head_dim(D: int) -> int:
+    """The head dim the kernels run a head dim D at: D where they are
+    compiled for it, else the next of KERNEL_HEAD_DIMS (D zero-padded).
+    Raises NotImplementedError above MAX_HEAD_DIM."""
+    for dk in KERNEL_HEAD_DIMS:
+        if D <= dk:
+            return dk
+    raise NotImplementedError(
+        f"flash attention kernels take head dims up to {MAX_HEAD_DIM}; "
+        f"got {D}")
+
+
+def on_kernel_head_dim(fn, heads, n_out: int):
+    """``fn(*heads, scale=D ** -0.5)`` at the kernels' head dim: `heads`
+    are the [..., D] inputs (q, k, v, and out / dO in the backward),
+    zero-padded along D to ``kernel_head_dim(D)`` where that is larger;
+    the first `n_out` outputs of fn, [..., Dk], are sliced back to D. The
+    scale stays that of the true D. Exact: zero columns add nothing to any
+    q.k or dO.v and give zero output columns (the tests run it on the
+    plain versions)."""
+    D = heads[0].shape[-1]
+    dk = kernel_head_dim(D)
+    if dk != D:
+        heads = [F.pad(t, (0, dk - D)) for t in heads]
+    outs = fn(*heads, scale=D ** -0.5)
+    if dk == D:
+        return outs
+    return tuple(o[..., :D].contiguous() if i < n_out else o
+                 for i, o in enumerate(outs))
+
+
 def flash_attention_reference(q, k, v, *, causal: bool = True,
-                              window: Optional[int] = None):
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None):
     """Plain version: einsum attention with f32 scores (the math of
-    ``llama._attention_xla``, band mask included). Returns (out in
-    q.dtype, lse [B, H, S])."""
+    ``llama._attention_xla``, band mask included), scaled by 1/sqrt(D)
+    unless `scale` is given. Returns (out in q.dtype, lse [B, H, S])."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     groups = H // KV
     qg = q.reshape(B, S, KV, groups, D)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
-    scores = scores / (D ** 0.5)
+    scores = (scores / (D ** 0.5) if scale is None
+              else scores * scale)
     if causal:
         mask = band_mask(S, T, causal=True, window=window, device=q.device)
         scores = torch.where(mask, scores, NEG_INF)
@@ -102,13 +145,13 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     return out.reshape(B, S, H, D), lse
 
 
-def _bwd_terms(q, k, v, out, lse, g, causal, window):
+def _bwd_terms(q, k, v, out, lse, g, causal, window, scale=None):
     """The f32 intermediates of the backward, with keys last:
     (q5, g5, kf, vf, p, ds) with p, ds [B, S, KV, G, T]."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     groups = H // KV
-    scale = D ** -0.5
+    scale = D ** -0.5 if scale is None else scale
     q5 = q.float().reshape(B, S, KV, groups, D)
     g5 = g.float().reshape(B, S, KV, groups, D)
     kf, vf = k.float(), v.float()
@@ -126,13 +169,15 @@ def _bwd_terms(q, k, v, out, lse, g, causal, window):
 
 def flash_attention_bwd_reference(q, k, v, out, lse, g, *,
                                   causal: bool = True,
-                                  window: Optional[int] = None):
+                                  window: Optional[int] = None,
+                                  scale: Optional[float] = None):
     """Plain backward, the math of ``_reference_chunked_bwd`` in one chunk:
     delta = rowsum(O * dO) in f32, P recomputed from the saved LSE,
-    dS = P * (dP - delta) * scale, GQA groups summed. Returns (dq in
-    q.dtype, dk in k.dtype, dv in v.dtype)."""
+    dS = P * (dP - delta) * scale (1/sqrt(D) unless given), GQA groups
+    summed. Returns (dq in q.dtype, dk in k.dtype, dv in v.dtype)."""
     B, S, H, D = q.shape
-    q5, g5, kf, _, p, ds = _bwd_terms(q, k, v, out, lse, g, causal, window)
+    q5, g5, kf, _, p, ds = _bwd_terms(q, k, v, out, lse, g, causal, window,
+                                      scale)
     dv = torch.einsum("bskgt,bskgd->btkd", p, g5)
     dq = torch.einsum("bskgt,btkd->bskgd", ds, kf)
     dk = torch.einsum("bskgt,bskgd->btkd", ds, q5)
@@ -229,7 +274,7 @@ def _lib(name: str):
     return lib
 
 
-def _check(what, q, k, v, head_dims, *rest):
+def _check(what, q, k, v, *rest):
     """Device, dtype, shape and head-dim checks of a kernel launch."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -240,12 +285,10 @@ def _check(what, q, k, v, head_dims, *rest):
                         f"{list(_DTYPES)}; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if (k.shape != (B, T, KV, D) or v.shape != k.shape or KV == 0
-            or H % KV or T == 0):
+            or H % KV or T == 0 or D == 0):
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if D not in head_dims:
-        raise NotImplementedError(
-            f"{what} kernel is built for head dims {head_dims}, got {D}")
+    kernel_head_dim(D)   # raises above MAX_HEAD_DIM
 
 
 def _aligned(*ts):
@@ -254,19 +297,9 @@ def _aligned(*ts):
     return [t.clone() if t.data_ptr() % 16 else t for t in ts]
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None):
-    """q [B,S,H,D], k/v [B,T,KV,D] -> (out [B,S,H,D] in q.dtype,
-    lse [B,H,S] f32). CUDA tensors launch the kernel (K1, or K2 under a
-    window); CPU tensors take the plain version."""
+def _fwd_launch(q, k, v, causal, w, *, scale):
+    """K1 (K2 under a window) at a compiled head dim."""
     global launches, launches_window
-    _build.reject_dtensor("flash_attention_fwd", q, k, v)
-    w = _window(window)
-    if w and not causal:
-        raise ValueError("window= requires causal=True")
-    if not q.is_cuda:
-        return flash_attention_reference(q, k, v, causal=causal, window=w)
-    _check("flash_attention", q, k, v, _HEAD_DIMS)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     q, k, v = _aligned(q, k, v)
@@ -278,7 +311,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         rc = lib.flash_attention_fwd(
             _DTYPES[q.dtype], int(causal), w, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, S, T, H, KV, D,
-            D ** -0.5, stream)
+            scale, stream)
     _build.check(lib, rc, "flash_attention_fwd")
     if w:
         launches_window += 1
@@ -287,8 +320,26 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     return out, lse
 
 
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """q [B,S,H,D], k/v [B,T,KV,D] -> (out [B,S,H,D] in q.dtype,
+    lse [B,H,S] f32). CUDA tensors launch the kernel (K1, or K2 under a
+    window) at ``kernel_head_dim(D)``; CPU tensors take the plain
+    version."""
+    _build.reject_dtensor("flash_attention_fwd", q, k, v)
+    w = _window(window)
+    if w and not causal:
+        raise ValueError("window= requires causal=True")
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, causal=causal, window=w)
+    _check("flash_attention", q, k, v)
+    return on_kernel_head_dim(
+        lambda q, k, v, scale: _fwd_launch(q, k, v, causal, w, scale=scale),
+        (q, k, v), n_out=1)
+
+
 def _bwd_inputs(what, q, k, v, out, lse, g):
-    _check(what, q, k, v, _BWD_HEAD_DIMS, out, lse, g)
+    _check(what, q, k, v, out, lse, g)
     B, S, H, _ = q.shape
     if out.shape != q.shape or g.shape != q.shape or \
             lse.shape != (B, H, S):
@@ -298,15 +349,9 @@ def _bwd_inputs(what, q, k, v, out, lse, g):
     return q, k, v, out, lse.float().contiguous(), g
 
 
-def flash_attention_bwd_dq(q, k, v, out, lse, g, *, causal: bool = True,
-                           window: Optional[int] = None):
-    """K3 on CUDA tensors: (dq in q.dtype, delta = rowsum(out * g) f32
-    [B, H, S], which K4 reads)."""
+def _dq_launch(q, k, v, out, g, lse, causal, w, *, scale):
+    """K3 at a compiled head dim: (dq, delta)."""
     global launches_dq
-    _build.reject_dtensor("flash_attention_bwd_dq", q, k, v, out, lse, g)
-    w = _window(window)
-    q, k, v, out, lse, g = _bwd_inputs("flash_attention_bwd_dq", q, k, v,
-                                       out, lse, g)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
@@ -317,28 +362,18 @@ def flash_attention_bwd_dq(q, k, v, out, lse, g, *, causal: bool = True,
         rc = lib.flash_attention_bwd_dq(
             _DTYPES[q.dtype], int(causal), w, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            dq.data_ptr(), delta.data_ptr(), B, S, T, H, KV, D, D ** -0.5,
+            dq.data_ptr(), delta.data_ptr(), B, S, T, H, KV, D, scale,
             stream)
     _build.check(lib, rc, "flash_attention_bwd_dq")
     launches_dq += 1
     return dq, delta
 
 
-def flash_attention_bwd_dkdv(q, k, v, lse, g, delta, *, causal: bool = True,
-                             window: Optional[int] = None):
-    """K4 on CUDA tensors, from K3's delta: (dk, dv) in k.dtype."""
+def _dkdv_launch(q, k, v, g, lse, delta, causal, w, *, scale):
+    """K4 at a compiled head dim, from K3's delta: (dk, dv)."""
     global launches_dkdv
-    _build.reject_dtensor("flash_attention_bwd_dkdv", q, k, v, lse, g, delta)
-    w = _window(window)
-    q, k, v, _, lse, g = _bwd_inputs("flash_attention_bwd_dkdv", q, k, v,
-                                     q, lse, g)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if delta.shape != (B, H, S) or delta.dtype != torch.float32 or \
-            delta.device != q.device:
-        raise ValueError("flash_attention_bwd_dkdv: delta must be f32 "
-                         "[B, H, S] on the inputs' device")
-    delta = delta.contiguous()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _lib("flash_attention_bwd")
@@ -347,11 +382,43 @@ def flash_attention_bwd_dkdv(q, k, v, lse, g, delta, *, causal: bool = True,
         rc = lib.flash_attention_bwd_dkdv(
             _DTYPES[q.dtype], int(causal), w, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, D, D ** -0.5,
-            stream)
+            dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, D, scale, stream)
     _build.check(lib, rc, "flash_attention_bwd_dkdv")
     launches_dkdv += 1
     return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, out, lse, g, *, causal: bool = True,
+                           window: Optional[int] = None):
+    """K3 on CUDA tensors: (dq in q.dtype, delta = rowsum(out * g) f32
+    [B, H, S], which K4 reads)."""
+    _build.reject_dtensor("flash_attention_bwd_dq", q, k, v, out, lse, g)
+    w = _window(window)
+    q, k, v, out, lse, g = _bwd_inputs("flash_attention_bwd_dq", q, k, v,
+                                       out, lse, g)
+    return on_kernel_head_dim(
+        lambda q, k, v, out, g, scale: _dq_launch(
+            q, k, v, out, g, lse, causal, w, scale=scale),
+        (q, k, v, out, g), n_out=1)
+
+
+def flash_attention_bwd_dkdv(q, k, v, lse, g, delta, *, causal: bool = True,
+                             window: Optional[int] = None):
+    """K4 on CUDA tensors, from K3's delta: (dk, dv) in k.dtype."""
+    _build.reject_dtensor("flash_attention_bwd_dkdv", q, k, v, lse, g, delta)
+    w = _window(window)
+    q, k, v, _, lse, g = _bwd_inputs("flash_attention_bwd_dkdv", q, k, v,
+                                     q, lse, g)
+    B, S, H, D = q.shape
+    if delta.shape != (B, H, S) or delta.dtype != torch.float32 or \
+            delta.device != q.device:
+        raise ValueError("flash_attention_bwd_dkdv: delta must be f32 "
+                         "[B, H, S] on the inputs' device")
+    delta = delta.contiguous()
+    return on_kernel_head_dim(
+        lambda q, k, v, g, scale: _dkdv_launch(
+            q, k, v, g, lse, delta, causal, w, scale=scale),
+        (q, k, v, g), n_out=2)
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
@@ -359,7 +426,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
     """Gradients (dq in q.dtype, dk/dv in k.dtype) of flash attention for
     the output cotangent g [B,S,H,D], from the forward's out and lse. CUDA
     tensors launch K3 (dQ, and delta = rowsum(out * g) for K4) then K4
-    (dK/dV); CPU tensors take the plain version."""
+    (dK/dV) at ``kernel_head_dim(D)``; CPU tensors take the plain
+    version."""
     _build.reject_dtensor("flash_attention_bwd", q, k, v, out, lse, g)
     w = _window(window)
     if w and not causal:

@@ -23,7 +23,12 @@ raises.
 
 Shapes: q [S, H, HD] (one new token per slot), k_new/v_new [S, KV, HD],
 pools [KV, NP, ps, HD], page_table [S, maxP] int32, lengths [S] int32
-(tokens INCLUDING the current one; 0 marks an inactive slot).
+(tokens INCLUDING the current one; 0 marks an inactive slot). Any
+G = H / KV >= 1 and any HD <= MAX_HEAD_DIM: G in {1, 2, 4, 8} with rows of
+a power of two of 16-byte chunks (every preset) runs the kernel compiled
+for that G; every other shape (Phi-3-mini's HD 96, Llama-3.2-3B's G 3)
+the same kernel with G and HD at run time, in chunks of at most 8 query
+heads.
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ launches = 0
 launches_read = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_GROUPS = (1, 2, 4, 8)          # query heads per kv head the kernel is built for
+_GROUPS = (1, 2, 4, 8)          # query heads per kv head of the fixed kernel
+_GROUP_CHUNK = 8                # query heads a block of the any-G kernel
+MAX_HEAD_DIM = 256
 _SPLIT_TOKENS = 256             # tokens of one slot a block attends over
 _THREADS = 128
 _MAX_SMEM = 232448
@@ -97,6 +104,23 @@ def kernel_tolerance(plain_out):
     return 2.0 ** -7 * plain_out.float().abs() + 1e-5
 
 
+def block_geometry(G: int, HD: int, elt: int):
+    """(fixed, heads, lanes, vw): how ``csrc/paged_attention.cu`` lays one
+    split block out for G query heads a kv head, head dim HD and elements
+    of `elt` bytes. fixed: the kernel compiled for G runs (G in _GROUPS,
+    HD a power of two of 16-byte chunks <= 32); else the any-shape one.
+    heads: query heads a block takes (G, or a chunk of at most 8); lanes:
+    threads sharing one K/V row in p . V (the reduction buffer holds
+    128 / lanes partial rows); vw: elements a lane loads at once."""
+    vec = 16 // elt
+    lpt = HD // vec
+    if G in _GROUPS and HD % vec == 0 and 0 < lpt <= 32 and 32 % lpt == 0:
+        return True, G, lpt, vec
+    vw = vec if HD % vec == 0 else 1
+    n_chunks = -(-G // _GROUP_CHUNK)
+    return False, -(-G // n_chunks), min(HD // vw, _THREADS), vw
+
+
 def _lib():
     lib = _build.load("paged_attention")
     P = ctypes.c_void_p
@@ -129,8 +153,6 @@ def _launch(what, q, k_pool, v_pool, page_table, lengths, k_new=None,
                         f"{[t.dtype for t in tensors]}")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
-    vec = 16 // q.element_size()          # elements in a 16-byte load
-    lpt = HD // vec                       # lanes sharing one K/V row
     if (any(t.shape != (S, KV, HD) for t in new)
             or v_pool.shape != k_pool.shape or k_pool.shape[3] != HD
             or page_table.shape[0] != S or lengths.shape != (S,)
@@ -141,24 +163,25 @@ def _launch(what, q, k_pool, v_pool, page_table, lengths, k_new=None,
             f"{tuple(lengths.shape)} new "
             f"{[tuple(t.shape) for t in new]}")
     G = H // KV
-    if G not in _GROUPS or HD % vec or lpt > 32 or 32 % lpt:
+    if not 0 < HD <= MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"paged decode kernel is built for H/KV in {_GROUPS} and head "
-            f"dims whose 16-byte chunks split a warp; got G={G}, HD={HD}")
+            f"{what}: the paged decode kernels take head dims up to "
+            f"{MAX_HEAD_DIM}; got {HD}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("the pools are read (and K6 updates them) in place "
                          "and must be contiguous")
     pps = max(1, _SPLIT_TOKENS // ps)     # pages a block attends over
     n_split = -(-maxP // pps)
-    smem = 4 * (G * HD + 2 * HD + G * pps * ps
-                + (_THREADS // lpt) * G * HD + 2 * G)
+    _, gb, lanes, vw = block_geometry(G, HD, q.element_size())
+    smem = 4 * (gb * HD + 2 * HD + gb * pps * ps
+                + (_THREADS // lanes) * gb * HD + 2 * gb)
     if smem > _MAX_SMEM:
         raise ValueError(f"paged decode block needs {smem} bytes of shared "
                          f"memory (G={G}, HD={HD}, page_size={ps})")
     q = q.contiguous()
     new = [t.contiguous() for t in new]
     page_table, lengths = page_table.contiguous(), lengths.contiguous()
-    if any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
+    if vw > 1 and any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
         raise ValueError("the pools must be 16-byte aligned")
     out = torch.empty_like(q)
     # per-split softmax state, merged by the kernel's second pass

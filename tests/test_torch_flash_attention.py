@@ -579,3 +579,69 @@ def test_wgmma_dkdv_kernel_gives_zero_grads_without_queries():
     assert fa.launches_dkdv == before + 1
     assert dk.shape == k.shape and dv.shape == v.shape
     assert not dk.any() and not dv.any()
+
+
+def _refuse_plain(monkeypatch):
+    """Make the plain versions raise while a kernel wrapper runs: a CUDA
+    tensor must launch the kernel, never fall back."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA launch ran the plain version")
+
+    for name in ("flash_attention_reference", "flash_attention_bwd_reference"):
+        monkeypatch.setattr(fa, name, refuse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 48, 80, 96, 256])
+@pytest.mark.parametrize("S,H,KV,causal,window", [
+    (200, 6, 2, True, None), (200, 7, 1, False, None),
+    (256, 16, 1, True, 96)])
+def test_head_dim_kernels_match_plain_on_card(dtype, D, S, H, KV, causal,
+                                              window, monkeypatch):
+    """K1/K2 and K3/K4 at the head dims outside the presets (16 in the
+    backward; 80, 96 and 256 compiled; 48 zero-padded to 64) and groups 3,
+    7 and 16, ragged S, causal, full and windowed: the launch counters
+    move, the plain versions are not called, and out, the LSE and
+    (dq, dk, dv) are held against the plain versions elementwise within
+    kernel_tolerance / grad_tolerance."""
+    require_cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+               for a in make_qkv(2, S, H, KV, D, seed=13))
+    g = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        q.shape).astype(np.float32)).cuda().to(dtype)
+    counters = ("launches", "launches_window", "launches_dq",
+                "launches_dkdv")
+    before = [getattr(fa, c) for c in counters]
+    with monkeypatch.context() as m:
+        _refuse_plain(m)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    after = [getattr(fa, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [
+        0 if window else 1, 1 if window else 0, 1, 1]
+    ref, lse_ref = _plain_on_card(q, k, v, causal, window)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert ((out.float() - ref.float()).abs() <= fa.kernel_tolerance(
+        q, k, v, ref, causal=causal, window=window)).all()
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+    tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                             window=window)
+    for a, b, t in zip(got, plain, tols):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+        assert ((a.float() - b.float()).abs() <= t).all()
+
+
+@pytest.mark.cuda
+def test_head_dim_above_256_raises_on_card():
+    require_cuda()
+    q, k, v = (torch.from_numpy(a).cuda()
+               for a in make_qkv(1, 128, 2, 2, 264, seed=15))
+    with pytest.raises(NotImplementedError, match="256"):
+        fa.flash_attention_fwd(q, k, v)

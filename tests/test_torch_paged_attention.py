@@ -297,3 +297,65 @@ def test_paged_attention_kernel_reads_what_k6_wrote_on_card(dtype):
     live = dev["lengths"] > 0
     err = (o5.float() - o6.float()).abs()[live]
     assert (err <= pa.kernel_tolerance(o6)[live]).all()
+
+
+def _refuse_plain(monkeypatch):
+    """Make the plain versions raise while a kernel wrapper runs: a CUDA
+    tensor must launch the kernel, never fall back."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA launch ran the plain version")
+
+    for name in ("paged_attention_reference",
+                 "paged_decode_attention_inplace_reference"):
+        monkeypatch.setattr(pa, name, refuse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,HD", [
+    (6, 2, 128), (7, 1, 64), (16, 1, 128), (4, 2, 48), (2, 2, 80),
+    (4, 4, 96), (8, 1, 256), (2, 1, 256), (3, 1, 100)])
+def test_any_shape_kernels_match_plain_on_card(dtype, H, KV, HD,
+                                               monkeypatch):
+    """K6 and K5 at group counts 3, 7 and 16 and head dims 48, 80, 96, 100
+    and 256 (the fixed-G kernel for the shapes it is compiled for, the
+    any-shape kernel for the others): the launch counters move, the plain
+    versions are not called, live rows within kernel_tolerance, dead rows
+    zero, K6's pools equal to the plain version's, K5's unchanged."""
+    require_cuda()
+    case = make_case(6, H, KV, HD, 8, 4, [0, 9, 16, 5, 25, 32],
+                     share=(4, 5, 2), seed=3)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in case.items()}
+    for k in ("q", "k_new", "v_new", "k_pool", "v_pool"):
+        dev[k] = dev[k].to(dtype)
+    args = [dev[k] for k in ("q", "k_new", "v_new")]
+    tail = [dev["page_table"], dev["lengths"]]
+    kp, vp = dev["k_pool"].clone(), dev["v_pool"].clone()
+    before = (pa.launches, pa.launches_read)
+    with monkeypatch.context() as m:
+        _refuse_plain(m)
+        o6, _, _ = pa.paged_decode_attention_inplace(*args, kp, vp, *tail)
+        k5p, v5p = kp.clone(), vp.clone()
+        o5 = pa.paged_attention(dev["q"], k5p, v5p, *tail)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.launches_read) == (before[0] + 1, before[1] + 1)
+    kr, vr = dev["k_pool"].clone(), dev["v_pool"].clone()
+    o_ref, _, _ = pa.paged_decode_attention_inplace_reference(*args, kr, vr,
+                                                              *tail)
+    live = dev["lengths"] > 0
+    tol = pa.kernel_tolerance(o_ref)[live]
+    for o in (o6, o5):
+        assert o.shape == (6, H, HD) and o.dtype == dtype
+        assert ((o.float() - o_ref.float()).abs()[live] <= tol).all()
+        assert (o[~live] == 0).all()
+    assert torch.equal(kp, kr) and torch.equal(vp, vr)
+    assert torch.equal(k5p, kp) and torch.equal(v5p, vp)
+
+
+@pytest.mark.cuda
+def test_head_dim_above_256_raises_on_card():
+    require_cuda()
+    case = make_case(2, 2, 2, 264, 8, 2, [3, 9])
+    dev = {k: torch.from_numpy(v).cuda() for k, v in case.items()}
+    with pytest.raises(NotImplementedError, match="256"):
+        pa.paged_attention(*(dev[k] for k in READ_ARGS))
