@@ -46,16 +46,20 @@ printing one JSON line:
    1b train shape and others, in bf16 and f32, within ``kernel_tolerance`` /
    ``grad_tolerance``; CUPTI device times and CUDA events beside the
    bound, the plain version and SDPA (with a band mask; its backward), and
-   the kernels' names (bf16 K3 and K4 at head dim 64 or 128 must run the
-   TMA/wgmma dQ and dK/dV kernels and nothing else); every kernel phase
-   also at the head dims and groups outside the presets (16 in the
-   backward, 48 zero-padded to 64, 80, 96, 256; G 3, 7, 16; HD 100 in
-   paged decode), bf16 timed at Phi-3-mini's and Gemma-2B's heads;
+   the kernels' names (bf16 K3 and K4 at head dim 64, 96, 128 or 256 must
+   run the TMA/wgmma dQ and dK/dV kernels and nothing else), with their
+   ptxas registers and spills; every kernel phase also at the head dims
+   and groups outside the presets (16 in the backward, 48 zero-padded to
+   64, 80, 96, 256; G 3, 7, 16; HD 100 in paged decode), bf16 timed at
+   Phi-3-mini's and Gemma-2B's heads (and K3/K4 at the tiny presets');
 9. shapes: public model shapes outside the presets (SHAPE_MODELS):
    Phi-3-mini (head dim 96), Llama-3.2-3B (G 3) and Gemma-2B's attention
    (head dim 256, G 8), each cut to 2 layers in f32 card vs CPU (prefill
    logits, the paged engine's greedy tokens, loss_fn and its gradients,
-   the attention's gradients within grad_tolerance); each served at full
+   the attention's gradients within grad_tolerance), and loss_fn's
+   gradients in bf16 compute on the card against the f32 card run's
+   (SHAPES_BF16_GRAD_RTOL; the TMA/wgmma K3/K4 at head dims 96 and 256
+   on that path); each served at full
    width in bf16 (paged, flash prefill; Phi-3-mini at all 32 layers, with
    the K5 path over its pools, the others at 4): 4 greedy prompts of
    64-512 tokens, 32 new tokens each, TTFT, decode tokens/s, peak memory;
@@ -171,7 +175,8 @@ printing one JSON line:
    rate; after ``shutdown()`` no process of the session alive;
 22. serve: the monolithic app through the serve layer: ``serve.run`` of an
    ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
-   engine, decode_block 8) behind an ``LLMRouter`` with an HTTP route;
+   engine at SERVE_LAYERS (8) of its 32 layers, decode_block 8) behind an
+   ``LLMRouter`` with an HTTP route;
    four greedy prompts one at a time through the router's streaming
    handle, then again as HTTP POSTs (two plain, two ``?stream=1``), equal
    token for token to an in-process engine run first on the same prompts
@@ -180,7 +185,8 @@ printing one JSON line:
    the replica, its tokens counter read back from the GCS, the router's
    request count with no 429, no process left after shutdown;
 23. serve_disagg: one prefill and one decode replica (0.5 GPU unit each,
-   8 slots, page groups of 4 pages) behind ``DisaggRouter``; seven greedy
+   8 slots, page groups of 4 pages, SERVE_LAYERS deep) behind
+   ``DisaggRouter``; seven greedy
    prompts one at a time, equal to the handoff replayed in process (engine
    A prefills and exports each full group, a fresh engine B imports them
    and generates); each group crossing the store once at its byte size,
@@ -624,9 +630,10 @@ def phase_k5():
 # --- K1 / K2: the flash forward ---------------------------------------------
 
 
-# the symbols of the TMA/wgmma forward kernel (K1/K2), dQ kernel (K3) and
-# dK/dV kernel (K4), which every bf16 launch with head dim 64 or 128 must
-# run (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
+# the symbols of the TMA/wgmma forward kernel (K1/K2), which every bf16
+# launch with head dim 64 or 128 must run, and of the dQ kernel (K3) and
+# dK/dV kernel (K4), which every bf16 launch with head dim 64, 96, 128 or
+# 256 must run (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
 WGMMA_FWD_SYMBOL = "flash_fwd_wgmma_kernel"
 WGMMA_DQ_SYMBOL = "flash_bwd_dq_wgmma_kernel"
 WGMMA_DKDV_SYMBOL = "flash_bwd_dkdv_wgmma_kernel"
@@ -835,9 +842,10 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
     dO), dq/dk/dv elementwise within grad_tolerance, bit-identical on a
     second run. Timed: each kernel by CUPTI device time (device_ms) and by
     CUDA events, with the names of the kernels it ran (bf16 K3 and K4 at
-    head dim 64 or 128 must run WGMMA_DQ_SYMBOL and WGMMA_DKDV_SYMBOL and
-    nothing else), the plain backward and SDPA's backward (bf16 only),
-    beside the bounds."""
+    head dim 64, 96, 128 or 256 must run WGMMA_DQ_SYMBOL and
+    WGMMA_DKDV_SYMBOL and nothing else) and their ptxas registers and
+    spills from the build phase, the plain backward and SDPA's backward
+    (bf16 only), beside the bounds."""
     import numpy as np
     import torch
 
@@ -896,23 +904,28 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
                                                per_call=1)
             res[pre + "event_ms"] = cuda_ms(fn, iters=10)
             res[pre + "kernels"] = sorted(names)
-        if dtype == "bfloat16" and fa.kernel_head_dim(D) in (64, 128):
+        dk = fa.kernel_head_dim(D)
+        if dtype == "bfloat16" and dk in (64, 96, 128, 256):
             res["ran_wgmma_dq_only"] = ran_only(res["k3_kernels"],
                                                 WGMMA_DQ_SYMBOL)
             res["ran_wgmma_dkdv_only"] = ran_only(res["k4_kernels"],
                                                   WGMMA_DKDV_SYMBOL)
             ok = (ok and res["ran_wgmma_dq_only"]
                   and res["ran_wgmma_dkdv_only"])
+            symbols = (WGMMA_DQ_SYMBOL, WGMMA_DKDV_SYMBOL)
         else:
             # the mma.sync (bf16) or FMA (f32) kernels, beside any pad's
             kind = "bf16" if dtype == "bfloat16" else "f32"
+            symbols = (f"flash_bwd_dq_{kind}_kernel",
+                       f"flash_bwd_dkdv_{kind}_kernel")
             res["ran_expected_kernels_only"] = (
                 ran_only([n for n in res["k3_kernels"] if "flash_" in n],
-                         f"flash_bwd_dq_{kind}_kernel")
+                         symbols[0])
                 and ran_only([n for n in res["k4_kernels"]
-                              if "flash_" in n],
-                             f"flash_bwd_dkdv_{kind}_kernel"))
+                              if "flash_" in n], symbols[1]))
             ok = ok and res["ran_expected_kernels_only"]
+        res["ptxas"] = {sym: _ptxas_of("flash_attention_bwd", sym, dk)
+                        for sym in symbols}
         res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, g, causal=causal, window=window), iters=3)
         res["library_ms"] = None
@@ -954,10 +967,11 @@ def phase_k3k4():
     """At the 1b train shape (B 8, S = T = 1024, H 16, KV 8, D 128,
     causal), debug-125m's heads (H = KV = 12, D 64), ragged S = T = 200,
     non-causal (S = 512) and window 256, each in bf16 and f32; then bf16
-    timed at Phi-3-mini's (H = KV = 32, D 96) and Gemma-2B's heads (H 8,
-    KV 1, D 256) at B 8 S 1024 (f32 untimed at B 2), and untimed at the tiny presets' head dim 16 (G
-    3), 48 (zero-padded to 64), 80 (non-causal), 96 (G 7, window 96) and
-    256, ragged S 200 (256 under the window)."""
+    timed at Phi-3-mini's (H = KV = 32, D 96), Gemma-2B's (H 8, KV 1, D
+    256) and the tiny presets' heads (H 4, KV 2, D 16) at B 8 S 1024 (f32
+    untimed at B 2), and untimed at head dim 16 (G 3), 48 (zero-padded to
+    64), 80 (non-causal), 96 (G 7, window 96) and 256, ragged S 200 (256
+    under the window)."""
     cases = []
     shapes = (("1b", dict(B=8, S=1024, H=16, KV=8, D=128, causal=True,
                           window=None), True),
@@ -973,6 +987,8 @@ def phase_k3k4():
                                  causal=True, window=None), "bf16"),
               ("gemma-2b", dict(B=8, S=1024, H=8, KV=1, D=256, causal=True,
                                 window=None), "bf16"),
+              ("tiny", dict(B=8, S=1024, H=4, KV=2, D=16, causal=True,
+                            window=None), "bf16"),
               ("d16-g3", dict(B=2, S=200, H=6, KV=2, D=16, causal=True,
                               window=None), False),
               ("d48", dict(B=2, S=200, H=8, KV=2, D=48, causal=True,
@@ -1075,13 +1091,90 @@ def _attention_grads_held(cfg, device, seed):
     return worst
 
 
+# loss_fn's gradients in bf16 compute (cfg.dtype bf16 over the same f32
+# params) against the f32 run's on the card, each leaf's largest
+# difference over its largest f32 element. bf16 keeps 8 significant bits
+# (2^-9 relative rounding), and every activation, weight and attention
+# operand on the ~20 operations between the loss and a weight is rounded
+# to it, so a gradient element carries a few dozen such roundings: ~1e-2
+# of its leaf's largest (1.8e-2 to 2.1e-2 at these three models' heads on
+# an H100, where the TMA/wgmma K3/K4 run). A dropped tile, head or column
+# of the attention's gradients moves a leaf by the order of the gradient
+# itself
+SHAPES_BF16_GRAD_RTOL = 6e-2
+
+
+def _shapes_bf16_grads(cfg, params, batch, device, grads_f32):
+    """loss_fn on `batch` in bf16 compute from the f32 `params` on
+    `device`, its gradients against ``grads_f32`` (the same params' f32
+    run, in leaf order) within SHAPES_BF16_GRAD_RTOL of each leaf's
+    largest; on the card, the flash backward's kernels by name (the
+    TMA/wgmma dQ and dK/dV kernels only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+
+    on_card = device == "cuda"
+    cfg16 = cfg.replace(dtype=torch.bfloat16)
+    tokens = torch.as_tensor(batch, device=device)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+
+    def step():
+        """(loss, the gradient leaves, the flash backward's kernel names),
+        the step run under the profiler"""
+        p = ts._map(lambda t: t.detach().clone().requires_grad_(True),
+                    params)
+        with profile(activities=acts) as prof:
+            loss = llama.loss_fn(p, {"tokens": tokens}, cfg16)
+            loss.backward()
+            if on_card:
+                torch.cuda.synchronize()
+        names = sorted({n for n, _ in kernel_events(prof)
+                        if "flash_bwd_" in n})
+        return loss.detach(), [t.grad for t in ts._leaves(p)], names
+
+    loss, got, names = step()
+    # compared where the gradients are (the f32 run's moved there a leaf
+    # at a time)
+    res = {"loss": float(loss),
+           "grad_max_rel_err": max(
+               float((a.float() - b.to(a.device)).abs().max()
+                     / b.abs().max())
+               for a, b in zip(got, grads_f32)),
+           "grad_rel_tol": SHAPES_BF16_GRAD_RTOL}
+    del got
+    res["ok"] = (res["grad_max_rel_err"] <= SHAPES_BF16_GRAD_RTOL
+                 and bool(torch.isfinite(loss)))
+    if on_card:
+        # a trace CUPTI dropped the kernels from is taken again, up to 2
+        # more times (those launches are the path's too)
+        for _ in range(2):
+            if (any("flash_bwd_dq_" in n for n in names)
+                    and any("flash_bwd_dkdv_" in n for n in names)):
+                break
+            names = step()[2]
+        res["bwd_kernels"] = names
+        res["ran_wgmma_bwd_only"] = (
+            ran_only([n for n in names if "flash_bwd_dq_" in n],
+                     WGMMA_DQ_SYMBOL)
+            and ran_only([n for n in names if "flash_bwd_dkdv_" in n],
+                         WGMMA_DKDV_SYMBOL))
+        res["ok"] = res["ok"] and res["ran_wgmma_bwd_only"]
+    return res
+
+
 def _shapes_card_vs_cpu(cfg, device):
     """`cfg` cut to 2 layers, f32 (no TF32), flash, from one seeded init on
     `device` and on the CPU: prefill logits of 2 prompts (bucket 256)
     within LOGITS_TOL, the paged engine's greedy tokens (8 each) equal,
     loss_fn at B 1 S 128 within TRAIN_LOSS_RTOL and every gradient within
     MOE_GRAD_RTOL of its leaf's largest; and the attention at these heads
-    against the plain versions (``_attention_grads_held``)."""
+    against the plain versions (``_attention_grads_held``); then loss_fn
+    in bf16 compute on `device` from the same params
+    (``_shapes_bf16_grads``)."""
     import numpy as np
     import torch
 
@@ -1134,12 +1227,13 @@ def _shapes_card_vs_cpu(cfg, device):
                                  for a, b in zip(gc, gh)),
          "grad_rel_tol": MOE_GRAD_RTOL,
          "attention_max_err_over_tol": _attention_grads_held(cfg, device,
-                                                             13)}
+                                                             13),
+         "bf16": _shapes_bf16_grads(cfg, params[device], batch, device, gc)}
     r["ok"] = (r["tokens_identical"] and r["logits_max_abs_err"] <= LOGITS_TOL
                and r["loss_rel_err"] <= TRAIN_LOSS_RTOL
                and r["grad_max_rel_err"] <= MOE_GRAD_RTOL
                and r["attention_max_err_over_tol"] <= 1.0
-               and all(len(t) == 8 for t in tc))
+               and r["bf16"]["ok"] and all(len(t) == 8 for t in tc))
     return r
 
 
@@ -5559,6 +5653,10 @@ def phase_runtime():
 # replica fails the phase instead of hanging it
 SERVE_TIMEOUT_S = 300.0
 SERVE_NEW_TOKENS = 64
+# serve and serve_disagg run the 7b width at this depth of its 32 layers
+# (the script's time: at 32 their in-process references and replica
+# set-ups took 44-58 s of the phases' 83-89 s on an H100's host)
+SERVE_LAYERS = 8
 # full KV pages per handoff group of the disaggregated app
 SERVE_GROUP_PAGES = 4
 
@@ -5754,8 +5852,9 @@ def _end_session(pids):
 
 def phase_serve(preset="7b", device="cuda"):
     """The monolithic app behind the router: ``serve.run`` of an
-    ``LLMServer`` replica (the engine phase's paged engine: 32 layers,
-    bf16, flash, page 64, 16 slots, max_seq 2048, seed 0; decode_block 8)
+    ``LLMServer`` replica (the engine phase's paged engine cut to
+    SERVE_LAYERS (8) of its 32 layers: bf16, flash, page 64, 16 slots,
+    max_seq 2048, seed 0; decode_block 8)
     behind an ``LLMRouter`` with an HTTP route. Four greedy prompts (two
     unique, two sharing the 512-token prefix; 64 new tokens each) go one
     at a time through the router's streaming handle, then again as HTTP
@@ -5775,7 +5874,9 @@ def phase_serve(preset="7b", device="cuda"):
     from ray_tpu_torch.serve.llm_router import LLMRouter
 
     _free_device()
-    cfg = llama.PRESETS[preset].replace(attn_impl="flash")
+    cfg = llama.PRESETS[preset]
+    cfg = cfg.replace(attn_impl="flash",
+                      n_layers=min(cfg.n_layers, SERVE_LAYERS))
     ekw = dict(cfg=cfg, max_slots=16, max_seq_len=2048, kv_layout="paged",
                page_size=64, seed=0, device=device)
     allp = _serve_prompts(cfg.vocab_size)
@@ -5924,7 +6025,9 @@ def phase_serve_disagg(preset="7b", device="cuda"):
     from ray_tpu_torch.serve.paged_kv import page_chain_hashes
 
     _free_device()
-    cfg = llama.PRESETS[preset].replace(attn_impl="flash")
+    cfg = llama.PRESETS[preset]
+    cfg = cfg.replace(attn_impl="flash",
+                      n_layers=min(cfg.n_layers, SERVE_LAYERS))
     ps, gp, n_new = 64, SERVE_GROUP_PAGES, SERVE_NEW_TOKENS
     ekw = dict(cfg=cfg, max_slots=8, max_seq_len=2048, kv_layout="paged",
                page_size=ps, seed=0, device=device)
@@ -6358,6 +6461,15 @@ def device_profile(timed, profiled):
 def ran_only(names, symbol) -> bool:
     """Kernel names, at least one, all of them the kernel `symbol`."""
     return bool(names) and all(symbol in n for n in names)
+
+
+def _ptxas_of(source: str, symbol: str, head_dim: int) -> list:
+    """The build phase's ptxas lines ("registers; spills") of the entry
+    functions of `source` that instantiate kernel `symbol` at `head_dim`
+    (its mangled name holds ``<symbol>ILi<head_dim>E``)."""
+    logs = RESULTS["phases"].get("build", {}).get("ptxas", {}).get(source, {})
+    key = f"{symbol}ILi{head_dim}E"
+    return sorted({v for n, v in logs.items() if key in n})
 
 
 def ran_wgmma_fwd_only(profile) -> bool:

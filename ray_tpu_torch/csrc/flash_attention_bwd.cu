@@ -32,32 +32,37 @@
 // Kernels, chosen explicitly by dtype and head dim in launch_dq and
 // launch_dkdv:
 //
-// K3, bf16 at head dims 64 and 128 (every card preset),
-// flash_bwd_dq_wgmma_kernel, on K1's parts (hopper.cuh): one block of 3
-// warpgroups a 128-row query tile. Warpgroup 0 is the producer (after
-// setmaxnreg.dec): one thread loads the tile's Q and dO once by TMA (K1's
-// 4-D tensor maps, 128-byte swizzle, so a box past S or T is zero-filled
-// inside its own batch) and the band's 64-key K/V tiles into a 2-stage
-// ring with full and empty mbarriers (K freed after dS k, V after dO v^T).
-// Warpgroups 1-2 are consumers (setmaxnreg.inc), 64 query rows each: they
-// form delta from O and dO in device memory while the first tiles land;
-// then per K/V tile S = Q K^T and dP = dO V^T by wgmma m64n64k16 with both
-// operands in shared memory (K-major), P = exp2(S scale log2(e) - lse
-// log2(e)) by one FMA and ex2.approx while dO V^T runs, dS = P (dP -
-// delta) scale rounded to bf16 in registers, and dQ += dS K by wgmma with
-// dS from registers and K as the MN-major operand, exactly as K1 treats P
-// and V. 64-key tiles keep S, dP (32 f32 registers a thread each), dQ (64
-// at D 128) and the dS fragments (16) in registers without spills. Only
-// tiles that cross the diagonal, the band's lower edge or the ragged end
-// are masked; a tile no row of a group sees is only waited for and freed.
+// K3, bf16 at head dims 64, 96, 128 and 256 (every card preset, Phi-3's
+// 96, Gemma's 256), flash_bwd_dq_wgmma_kernel, on K1's parts (hopper.cuh):
+// one block of 3 warpgroups a 128-row query tile. Warpgroup 0 is the
+// producer (after setmaxnreg.dec): one thread loads the tile's Q and dO
+// once by TMA (4-D tensor maps; a box past S or T is zero-filled inside
+// its own batch) and the band's 64-key K/V tiles into rings with full and
+// empty mbarriers (K freed after dS k, V after dO v^T). Tiles are TMA boxes
+// of 64 columns with the 128-byte swizzle, or at head dim 96 three boxes
+// of 32 columns with the 64-byte swizzle (TileCols). Warpgroups 1-2 are
+// consumers (setmaxnreg.inc), 64 query rows each: they form delta from O
+// and dO in device memory while the first tiles land; then per K/V tile S
+// = Q K^T and dP = dO V^T by wgmma m64n64k16 with both operands in shared
+// memory (K-major), P = exp2(S scale log2(e) - lse log2(e)) by one FMA and
+// ex2.approx while dO V^T runs, dS = P (dP - delta) scale rounded to bf16
+// in registers, and dQ += dS K by wgmma m64nDk16 with dS from registers
+// and K as the MN-major operand, exactly as K1 treats P and V. 64-key tiles
+// keep S, dP (32 f32 registers a thread each), dQ (D / 2) and the dS
+// fragments (16) in registers without spills. At head dim 256 Q and dO
+// take 128 KB, so K keeps a 2-stage ring and V one stage (V is free again
+// early in a tile; one K stage too was 11% slower), 226 KB in all, and dQ
+// is 128 registers: the consumers get 240, the producer 24. Only tiles
+// that cross the diagonal, the band's lower edge or the ragged end are
+// masked; a tile no row of a group sees is only waited for and freed.
 // Blocks go heaviest query tile first, one (batch, head) after another,
 // which keeps a head's K/V in L2; on this card a persistent form, a global
 // heaviest-first order, a deeper ring, delta formed by the producer's
 // spare warps and the next tile's products queued behind dQ += dS K were
-// each slower (PERF.md, PR 6). At the 1b train shape it runs at ~30% of
-// the tensor cores' rate.
+// each slower (PERF.md). It runs at ~30-38% of the tensor cores'
+// rate (PERF.md).
 //
-// K4, bf16 at head dims 64 and 128, flash_bwd_dkdv_wgmma_kernel: K3's
+// K4, bf16 at head dims 64, 96 and 128, flash_bwd_dkdv_wgmma_kernel: K3's
 // design with the roles of queries and keys swapped. One block of 3
 // warpgroups owns 128 keys of one (batch, kv head). The producer's thread
 // 0 loads the block's K and V once by TMA (128-row boxes of the same 4-D
@@ -71,8 +76,8 @@
 // K-major B; P^T = exp2(S^T scale log2(e) - lse log2(e)) by one FMA and
 // ex2.approx; dV += P^T dO and dK += dS^T q with P^T and dS^T rounded to
 // bf16 in registers and dO/q as the MN-major B, exactly as K3 treats K.
-// dK and dV (64 + 64 f32 registers a thread at D 128) stay in registers
-// across every query head of the group, so the consumers run at
+// dK and dV (2 x D / 2 f32 registers a thread) stay in registers across
+// every query head of the group, so the consumers run at
 // FlashAttention-3's 240 registers and the producer at 24. A query tile
 // no key of a group sees (the block's diagonal tile for the second group,
 // tiles past the window for the first) is only waited for and freed, in
@@ -80,19 +85,32 @@
 // read from device memory on the consumers' chain, their latency doubled
 // the kernel's time (PERF.md).
 //
-// bf16 at head dims 16, 32, 80, 96 and 256 (K3 and K4): mma.sync.m16n8k16
-// with f32 accumulation in the fragment layouts of K1 (mma.cuh). The
-// recomputed scores and dP stay in f32
-// registers; P (for dV) and dS (for dK, dQ) are rounded to bf16 as the
-// A operand of the gradient products. K/V tiles (K3) and q/dO tiles (K4)
-// arrive through cp.async, double-buffered. A operands come from shared
-// memory by ldmatrix per 32-wide k-step (16-wide for the odd last step of
-// head dims 16 and 80), which keeps registers for the f32 accumulators (K4
-// holds dK and dV, 2 x 16 x D per warp). At head dim 256 that would be 256
-// registers a thread: the block has 8 warps there, two a 16-row tile, each
-// recomputing the tile's P and dS and keeping half of the output columns
-// (K3: 64 f32 a thread, K4: 128), over 203 KB of tiles. Other head dims
-// <= 256 are zero-padded to the next of these by the wrapper.
+// K4 at head dim 256, the same kernel (dkdv_wide): dK and dV of 64 keys
+// would be 256 f32 registers a thread, so a block owns 64 keys and gives
+// each consumer one gradient of all of them. Consumer 0 computes S^T = K
+// Q^T and P^T, passes P^T (f32) to consumer 1 through 16 KB of shared
+// memory under two named barriers, and sums dV += P^T dO; consumer 1
+// computes dP^T = V dO^T, dS^T from P^T, and sums dK += dS^T q: two
+// products each a tile, 128 accumulators each, 210 KB of tiles. With one
+// kv head and 64-key blocks Gemma-2B's grid is 128 blocks for 132 SMs,
+// each walking 8 query heads, the first 16 query tiles deep: so while
+// B KV ceil(T / 64) is short of two waves, the query heads of a kv head
+// are split over the 2 or 4 blocks of a thread block cluster, and the
+// blocks add their f32 sums in rank order through distributed shared
+// memory (each block the columns it stores): deterministic, with no
+// atomics and no partial sums in device memory. Four blocks ran 0.18 ms
+// at Gemma-2B's shape, two 0.196, one 0.221 (PERF.md).
+//
+// bf16 at head dims 16, 32 and 80 (K3 and K4): mma.sync.m16n8k16 with f32
+// accumulation in the fragment layouts of K1 (mma.cuh). The recomputed
+// scores and dP stay in f32 registers; P (for dV) and dS (for dK, dQ) are
+// rounded to bf16 as the A operand of the gradient products. K/V tiles
+// (K3) and q/dO tiles (K4) arrive through cp.async, double-buffered. A
+// operands come from shared memory by ldmatrix per 32-wide k-step (16-wide
+// for the odd last step of head dims 16 and 80), which keeps registers for
+// the f32 accumulators (K4 holds dK and dV, 2 x 16 x D per warp). Other
+// head dims <= 256 are zero-padded to the next compiled one by the
+// wrapper.
 //
 // f32 (parity runs): exact f32 FMAs on the CUDA cores through shared-memory
 // tiles; P and dS stay f32. A lane owns output columns lane + 32 c (the
@@ -191,11 +209,10 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NS][4],
   }
 }
 
-// acc[DN / 8][4] (16 x DN) += X (16 x 64, the C fragments x[8][4], rounded
-// to bf16) . M (64 rows x DN columns from `Mt` of a [64, D] tile in shared
-// memory)
-template <int D, int DN = D>
-__device__ __forceinline__ void mma_xm(float (&acc)[DN / 8][4],
+// acc[D / 8][4] (16 x D) += X (16 x 64, the C fragments x[8][4], rounded
+// to bf16) . M (a [64, D] tile `Mt` in shared memory)
+template <int D>
+__device__ __forceinline__ void mma_xm(float (&acc)[D / 8][4],
                                        const float (&x)[8][4],
                                        const bf16* Mt, int lane) {
   constexpr int LD = D + 8;
@@ -207,7 +224,7 @@ __device__ __forceinline__ void mma_xm(float (&acc)[DN / 8][4],
     xf[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
     xf[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
 #pragma unroll
-    for (int n = 0; n < DN / 8; n += 2) {
+    for (int n = 0; n < D / 8; n += 2) {
       uint32_t mf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
       ldmatrix_x4_trans(mf, Mt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                      LD + n * 8 + (lane >> 4) * 8);
@@ -218,17 +235,14 @@ __device__ __forceinline__ void mma_xm(float (&acc)[DN / 8][4],
 }
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dq_bf16_kernel(
+__global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ o,
     const bf16* __restrict__ g, const float* __restrict__ lse,
     bf16* __restrict__ dq, float* __restrict__ delta, int S, int T_len, int H,
     int KV, int window, float scale) {
   constexpr int LD = D + 8;
-  constexpr int DSPLIT = dsplit(D);
-  constexpr int NTH = NT * DSPLIT;
-  constexpr int DN = D / DSPLIT;  // dq columns a warp keeps
-  constexpr int ND = DN / 8;
+  constexpr int ND = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ, LD]
   bf16* Gs = Qs + BQ * LD;                   // [BQ, LD] dO
@@ -241,9 +255,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dq_bf16_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  // the warp's 16-row tile, and which DN columns of dq it keeps
-  const int warp = DSPLIT == 1 ? threadIdx.x >> 5 : (threadIdx.x >> 5) % 4;
-  const int c0 = DSPLIT == 1 ? 0 : (threadIdx.x >> 5) / 4 * DN;
+  const int warp = threadIdx.x >> 5;  // the warp's 16-row tile
   const int lane = threadIdx.x & 31;
   const int g8 = lane >> 2;
   const int t4 = lane & 3;
@@ -257,24 +269,23 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dq_bf16_kernel(
   int kt_lo, kt_hi;
   key_tiles<CAUSAL>(q0, T_len, window, kt_lo, kt_hi);
 
-  async_rows<D, LD, NTH>(Qs, q + head + (size_t)q0 * q_stride, q_stride,
+  async_rows<D, LD, NT>(Qs, q + head + (size_t)q0 * q_stride, q_stride,
                          S - q0, BQ);
-  async_rows<D, LD, NTH>(Gs, g + head + (size_t)q0 * q_stride, q_stride,
+  async_rows<D, LD, NT>(Gs, g + head + (size_t)q0 * q_stride, q_stride,
                          S - q0, BQ);
   if (kt_lo < kt_hi) {
     const int k0 = kt_lo * BK;
-    async_rows<D, LD, NTH>(Ks, kb + (size_t)k0 * kv_stride, kv_stride,
+    async_rows<D, LD, NT>(Ks, kb + (size_t)k0 * kv_stride, kv_stride,
                            T_len - k0, BK);
-    async_rows<D, LD, NTH>(Vs, vb + (size_t)k0 * kv_stride, kv_stride,
+    async_rows<D, LD, NT>(Vs, vb + (size_t)k0 * kv_stride, kv_stride,
                            T_len - k0, BK);
   }
   cp_async_commit();
 
   // delta = rowsum(O * dO) in f32 from device memory, while the tiles land
-  // (16 / DSPLIT rows a warp)
-  constexpr int DR = 16 / DSPLIT;
-  const int dr0 = (threadIdx.x >> 5) * DR;
-  for (int r = dr0; r < dr0 + DR; ++r) {
+  // (16 rows a warp)
+  const int dr0 = warp * 16;
+  for (int r = dr0; r < dr0 + 16; ++r) {
     const int row = q0 + r;
     float a = 0.f;
     if (row < S) {
@@ -311,10 +322,10 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dq_bf16_kernel(
     if (kt + 1 < kt_hi) {
       // the other stage was released by the barrier ending iteration kt-1
       const int k1 = k0 + BK;
-      async_rows<D, LD, NTH>(Ks + (stage ^ 1) * BK * LD,
+      async_rows<D, LD, NT>(Ks + (stage ^ 1) * BK * LD,
                              kb + (size_t)k1 * kv_stride, kv_stride,
                              T_len - k1, BK);
-      async_rows<D, LD, NTH>(Vs + (stage ^ 1) * BK * LD,
+      async_rows<D, LD, NT>(Vs + (stage ^ 1) * BK * LD,
                              vb + (size_t)k1 * kv_stride, kv_stride,
                              T_len - k1, BK);
       cp_async_commit();
@@ -348,7 +359,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dq_bf16_kernel(
                 : 0.f;
         s[n][e] = p * (dp[n][e] - (top ? dl_a : dl_b)) * scale;
       }
-    mma_xm<D, DN>(acc, s, Kt + c0, lane);  // dq += dS k
+    mma_xm<D>(acc, s, Kt, lane);  // dq += dS k
     __syncthreads();  // every warp is done with this stage
   }
 
@@ -356,7 +367,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dq_bf16_kernel(
   for (int half = 0; half < 2; ++half) {
     const int row = half ? row_b : row_a;
     if (row >= S) continue;
-    bf16* out = dq + head + (size_t)row * q_stride + c0;
+    bf16* out = dq + head + (size_t)row * q_stride;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + t4 * 2) =
@@ -365,17 +376,14 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dq_bf16_kernel(
 }
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
+__global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T_len, int H,
     int KV, int window, float scale) {
   constexpr int LD = D + 8;
-  constexpr int DSPLIT = dsplit(D);
-  constexpr int NTH = NT * DSPLIT;
-  constexpr int DN = D / DSPLIT;  // dk/dv columns a warp keeps
-  constexpr int ND = DN / 8;
+  constexpr int ND = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK, LD]
   bf16* Vs = Ks + BK * LD;                   // [BK, LD]
@@ -389,9 +397,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int groups = H / KV;
-  // the warp's 16 keys, and which DN columns of dk/dv it keeps
-  const int warp = DSPLIT == 1 ? threadIdx.x >> 5 : (threadIdx.x >> 5) % 4;
-  const int c0 = DSPLIT == 1 ? 0 : (threadIdx.x >> 5) / 4 * DN;
+  const int warp = threadIdx.x >> 5;  // the warp's 16 keys
   const int lane = threadIdx.x & 31;
   const int g8 = lane >> 2;
   const int t4 = lane & 3;
@@ -409,9 +415,9 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
     const int hh = kvh * groups + it / nq;
     const int q0 = (qt_lo + it % nq) * BQ;
     const size_t off = ((size_t)b * S * H + hh) * D + (size_t)q0 * q_stride;
-    async_rows<D, LD, NTH>(Qs + stage * BQ * LD, q + off, q_stride, S - q0,
+    async_rows<D, LD, NT>(Qs + stage * BQ * LD, q + off, q_stride, S - q0,
                            BQ);
-    async_rows<D, LD, NTH>(Gs + stage * BQ * LD, g + off, q_stride, S - q0,
+    async_rows<D, LD, NT>(Gs + stage * BQ * LD, g + off, q_stride, S - q0,
                            BQ);
     if (threadIdx.x < BQ) {
       const int row = q0 + threadIdx.x;
@@ -421,9 +427,9 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
     }
   };
 
-  async_rows<D, LD, NTH>(Ks, k + kv_off + (size_t)k0 * kv_stride, kv_stride,
+  async_rows<D, LD, NT>(Ks, k + kv_off + (size_t)k0 * kv_stride, kv_stride,
                          T_len - k0, BK);
-  async_rows<D, LD, NTH>(Vs, v + kv_off + (size_t)k0 * kv_stride, kv_stride,
+  async_rows<D, LD, NT>(Vs, v + kv_off + (size_t)k0 * kv_stride, kv_stride,
                          T_len - k0, BK);
   if (n_it > 0) load_q(0, 0);
   cp_async_commit();
@@ -473,7 +479,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
                       ? expf(p[n][e] * scale - lt[c])
                       : 0.f;
       }
-    mma_xm<D, DN>(dv_acc, p, Gt + c0, lane);  // dv += P^T dO
+    mma_xm<D>(dv_acc, p, Gt, lane);  // dv += P^T dO
 
     // dS^T = P^T (v dO^T - delta) scale
     float ds[8][4];
@@ -489,7 +495,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
         const int c = n * 8 + t4 * 2 + (e & 1);
         ds[n][e] = p[n][e] * (ds[n][e] - dt[c]) * scale;
       }
-    mma_xm<D, DN>(dk_acc, ds, Qt + c0, lane);  // dk += dS^T q
+    mma_xm<D>(dk_acc, ds, Qt, lane);  // dk += dS^T q
     __syncthreads();  // every warp is done with this stage
   }
 
@@ -497,7 +503,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
   for (int half = 0; half < 2; ++half) {
     const int key = half ? key_b : key_a;
     if (key >= T_len) continue;
-    const size_t off = kv_off + (size_t)key * kv_stride + c0;
+    const size_t off = kv_off + (size_t)key * kv_stride;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + t4 * 2) =
@@ -513,55 +519,100 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_bwd_dkdv_bf16_kernel(
 constexpr int WG_BQ = 128;    // query rows a block: 64 per consumer group
 constexpr int WG_BK = 64;     // key rows a K/V tile
 constexpr int WG_NT = 384;    // producer group + 2 consumer groups
-constexpr int WG_STAGES = 2;  // K/V ring depth
+constexpr int WG_STAGES = 2;  // ring depth
 constexpr float LOG2E = 1.4426950408889634f;
+
+// How a head dim's tiles lie in shared memory: TMA boxes of BC columns,
+// each row of a box one swizzled row of RB bytes (64 columns and the
+// 128-byte swizzle where D is a multiple of 64; 32 and the 64-byte swizzle
+// at head dim 96), NB boxes across a row of the tile, KPB 16-column
+// k-steps a box.
+template <int D>
+struct TileCols {
+  static constexpr int BC = D % 64 == 0 ? 64 : 32;
+  static constexpr int RB = 2 * BC;
+  static constexpr int NB = D / BC;
+  static constexpr int KPB = BC / 16;
+  static_assert(D % 32 == 0, "whole boxes");
+  // bytes from a tile's start to its k-step ks, where its boxes are `box`
+  // bytes apart: the box, then 32 bytes a step inside its swizzled rows
+  static __device__ __forceinline__ uint32_t kstep(int ks, int box) {
+    return (ks / KPB) * box + (ks % KPB) * 32;
+  }
+  // descriptors: K-major (rows of RB bytes, 8-row atoms), and MN-major
+  // with boxes `box` bytes apart (LBO) and 8-row atoms (SBO)
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+    return sw_desc<RB>(addr, 16, 8 * RB);
+  }
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t addr,
+                                                     int box) {
+    return sw_desc<RB>(addr, box, 8 * RB);
+  }
+};
 
 template <int D>
 struct DqSmem {
-  static constexpr int HALF_Q = WG_BQ * 128;  // a 64-column box of Q or dO
-  static constexpr int TILE_Q = HALF_Q * (D / 64);
-  static constexpr int HALF_K = WG_BK * 128;  // a 64-column box of K or V
-  static constexpr int TILE_K = HALF_K * (D / 64);
+  using C = TileCols<D>;
+  // ring depths: at head dim 256 Q and dO take 128 KB, so V keeps one
+  // stage (it is free again after dO V^T, early in a tile)
+  static constexpr int KST = WG_STAGES;
+  static constexpr int VST = D == 256 ? 1 : WG_STAGES;
+  static constexpr int BOX_Q = WG_BQ * C::RB;  // a box of Q or dO
+  static constexpr int TILE_Q = BOX_Q * C::NB;
+  static constexpr int BOX_K = WG_BK * C::RB;  // a box of K or V
+  static constexpr int TILE_K = BOX_K * C::NB;
   static constexpr int Q = 0;
   static constexpr int G = TILE_Q;  // dO
   static constexpr int K = G + TILE_Q;
-  static constexpr int V = K + WG_STAGES * TILE_K;
-  static constexpr int DELTA = V + WG_STAGES * TILE_K;  // f32 [WG_BQ]
+  static constexpr int V = K + KST * TILE_K;
+  static constexpr int DELTA = V + VST * TILE_K;  // f32 [WG_BQ]
   static constexpr int BAR = DELTA + 4 * WG_BQ;
-  // qg_full, then k_full, v_full, k_empty, v_empty (one each a stage);
-  // + 1024 to align the tiles
-  static constexpr size_t kBytes = BAR + 8 * (1 + 4 * WG_STAGES) + 1024;
+  // qg_full, then k_full and k_empty (one each a K stage), v_full and
+  // v_empty (one each a V stage); + 1024 to align the tiles
+  static constexpr size_t kBytes = BAR + 8 * (1 + 2 * KST + 2 * VST) + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
+  // setmaxnreg: dQ at head dim 256 is 128 f32 a consumer thread
+  static constexpr int PRODUCER_REGS = D == 256 ? 24 : 40;
+  static constexpr int CONSUMER_REGS = D == 256 ? 240 : 232;
 };
 
 // delta = rowsum(O * dO) in f32 of the 64 rows from `row0` of one (batch,
-// head), by a warpgroup (this is thread t), D / 8 threads a row with one
-// 16-byte chunk of O and of dO each; into dl[r] (r from 0) and, for
+// head), by a warpgroup (this is thread t), TPR threads a row with CPT
+// 16-byte chunks of O and of dO each; into dl[r] (r from 0) and, for
 // rows < S, into delta (from lrow).
 template <int D>
 __device__ __forceinline__ void group_delta(
     const bf16* __restrict__ o, const bf16* __restrict__ g,
     float* __restrict__ delta, float* dl, size_t head, size_t q_stride,
     size_t lrow, int row0, int S, int t) {
-  constexpr int TPR = D / 8;
+  constexpr int CH = D / 8;  // chunks a row
+  constexpr int TPR = CH % 32 == 0 ? 32 : CH % 16 == 0 ? 16 : CH % 8 == 0 ? 8
+                                                                          : 4;
+  constexpr int CPT = CH / TPR;
   constexpr int RPP = 128 / TPR;  // rows a pass
-  const int c = (t % TPR) * 8;
 #pragma unroll
   for (int r0 = 0; r0 < 64; r0 += RPP) {
     const int r = r0 + t / TPR;
     const int row = row0 + r;
     float a = 0.f;
     if (row < S) {
-      const size_t off = head + (size_t)row * q_stride + c;
-      const uint4 ov = __ldg(reinterpret_cast<const uint4*>(o + off));
-      const uint4 gv = __ldg(reinterpret_cast<const uint4*>(g + off));
-      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 x = __bfloat1622float2(op[i]);
-        const float2 y = __bfloat1622float2(gp[i]);
-        a = fmaf(x.x, y.x, a);
-        a = fmaf(x.y, y.y, a);
+      for (int cc = 0; cc < CPT; ++cc) {
+        const size_t off =
+            head + (size_t)row * q_stride + (t % TPR + cc * TPR) * 8;
+        const uint4 ov = __ldg(reinterpret_cast<const uint4*>(o + off));
+        const uint4 gv = __ldg(reinterpret_cast<const uint4*>(g + off));
+        const __nv_bfloat162* op =
+            reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* gp =
+            reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(op[i]);
+          const float2 y = __bfloat1622float2(gp[i]);
+          a = fmaf(x.x, y.x, a);
+          a = fmaf(x.y, y.y, a);
+        }
       }
     }
 #pragma unroll
@@ -584,8 +635,11 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
     bf16* __restrict__ dq, float* __restrict__ delta, int S, int T_len,
     int H, int KV, int window, float scale) {
   using L = DqSmem<D>;
+  using C = TileCols<D>;
+  constexpr int KST = L::KST, VST = L::VST;
   extern __shared__ __align__(1024) unsigned char smem_tiles[];
-  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  // the swizzle repeats every 1024 (128-byte) or 512 (64-byte) bytes:
+  // align the tiles to it
   const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::Q, sG = base + L::G;
   const uint32_t sK = base + L::K, sV = base + L::V;
@@ -593,12 +647,10 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
   float* dl_sh = reinterpret_cast<float*>(aligned + L::DELTA);
   const uint32_t qg_full = base + L::BAR;
   auto k_full = [&](int st) { return qg_full + 8 * (1 + st); };
-  auto v_full = [&](int st) { return qg_full + 8 * (1 + WG_STAGES + st); };
-  auto k_empty = [&](int st) {
-    return qg_full + 8 * (1 + 2 * WG_STAGES + st);
-  };
+  auto k_empty = [&](int st) { return qg_full + 8 * (1 + KST + st); };
+  auto v_full = [&](int st) { return qg_full + 8 * (1 + 2 * KST + st); };
   auto v_empty = [&](int st) {
-    return qg_full + 8 * (1 + 3 * WG_STAGES + st);
+    return qg_full + 8 * (1 + 2 * KST + VST + st);
   };
 
   // causal tiles near the end do the most work: schedule them first, one
@@ -622,10 +674,12 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
 
   if (threadIdx.x == 0) {
     mbar_init(qg_full, 1);
-    for (int st = 0; st < WG_STAGES; ++st) {
+    for (int st = 0; st < KST; ++st) {
       mbar_init(k_full(st), 1);
-      mbar_init(v_full(st), 1);
       mbar_init(k_empty(st), 8);  // one arrival per consumer warp
+    }
+    for (int st = 0; st < VST; ++st) {
+      mbar_init(v_full(st), 1);
       mbar_init(v_empty(st), 8);
     }
     mbar_fence_init();
@@ -633,39 +687,38 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // ---- producer: one thread loads Q and dO once, then keeps the K/V
-    // ring full by TMA ----
-    setmaxnreg_dec<40>();
+    // ---- producer: one thread loads Q and dO once, then keeps the K and
+    // V rings full by TMA ----
+    setmaxnreg_dec<L::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       const int kvh = h / (H / KV);
       mbar_expect_tx(qg_full, 2 * L::TILE_Q);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load_4d(sQ + c * L::HALF_Q, &tm_q, qg_full, c * 64, h, q0, b);
-        tma_load_4d(sG + c * L::HALF_Q, &tm_g, qg_full, c * 64, h, q0, b);
+      for (int c = 0; c < C::NB; ++c) {
+        tma_load_4d(sQ + c * L::BOX_Q, &tm_q, qg_full, c * C::BC, h, q0, b);
+        tma_load_4d(sG + c * L::BOX_Q, &tm_g, qg_full, c * C::BC, h, q0, b);
       }
       for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % WG_STAGES;
-        const uint32_t prev = ((i / WG_STAGES) - 1) & 1;
+        const int sk = i % KST, sv = i % VST;
         const int k0 = (kt_lo + i) * WG_BK;
-        const uint32_t kt = sK + st * L::TILE_K, vt = sV + st * L::TILE_K;
+        const uint32_t kt = sK + sk * L::TILE_K, vt = sV + sv * L::TILE_K;
         // K is freed after dq += dS k, V after dP: each waits for its own
-        if (i >= WG_STAGES) mbar_wait(k_empty(st), prev);
-        mbar_expect_tx(k_full(st), L::TILE_K);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(kt + c * L::HALF_K, &tm_k, k_full(st), c * 64, kvh, k0,
-                      b);
-        if (i >= WG_STAGES) mbar_wait(v_empty(st), prev);
-        mbar_expect_tx(v_full(st), L::TILE_K);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(vt + c * L::HALF_K, &tm_v, v_full(st), c * 64, kvh, k0,
-                      b);
+        if (i >= KST) mbar_wait(k_empty(sk), ((i / KST) - 1) & 1);
+        mbar_expect_tx(k_full(sk), L::TILE_K);
+        for (int c = 0; c < C::NB; ++c)
+          tma_load_4d(kt + c * L::BOX_K, &tm_k, k_full(sk), c * C::BC, kvh,
+                      k0, b);
+        if (i >= VST) mbar_wait(v_empty(sv), ((i / VST) - 1) & 1);
+        mbar_expect_tx(v_full(sv), L::TILE_K);
+        for (int c = 0; c < C::NB; ++c)
+          tma_load_4d(vt + c * L::BOX_K, &tm_v, v_full(sv), c * C::BC, kvh,
+                      k0, b);
       }
     }
     return;
   }
 
   // ---- consumers: group cw owns query rows q0 + 64 cw .. + 63 ----
-  setmaxnreg_inc<232>();
+  setmaxnreg_inc<L::CONSUMER_REGS>();
   const int cw = threadIdx.x / 128 - 1;
   const int tid = threadIdx.x % 128;
   const int warp = tid >> 5;
@@ -686,8 +739,8 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
   const float scale_log2 = scale * LOG2E;
   const float nl_a = row_a < S ? -lse[lrow + row_a] * LOG2E : 0.f;
   const float nl_b = row_b < S ? -lse[lrow + row_b] * LOG2E : 0.f;
-  const uint32_t q_rows = sQ + cw * 64 * 128;  // this group's 64 rows
-  const uint32_t g_rows = sG + cw * 64 * 128;
+  const uint32_t q_rows = sQ + cw * 64 * C::RB;  // this group's 64 rows
+  const uint32_t g_rows = sG + cw * 64 * C::RB;
   auto release = [&](uint32_t bar) {  // this warp is done with a buffer
     __syncwarp();
     if (lane == 0) mbar_arrive(bar);
@@ -706,45 +759,35 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
          grow - ((kt_lo + i_lo) * WG_BK + WG_BK - 1) >= window)
     ++i_lo;
   auto skip = [&](int i) {
-    const int st = i % WG_STAGES;
-    const uint32_t ph = (i / WG_STAGES) & 1;
-    mbar_wait(k_full(st), ph);
-    mbar_wait(v_full(st), ph);
-    release(v_empty(st));
-    release(k_empty(st));
+    mbar_wait(k_full(i % KST), (i / KST) & 1);
+    mbar_wait(v_full(i % VST), (i / VST) & 1);
+    release(v_empty(i % VST));
+    release(k_empty(i % KST));
   };
 
   mbar_wait(qg_full, 0);
   for (int i = 0; i < i_lo; ++i) skip(i);
   for (int i = i_lo; i < i_hi; ++i) {
-    const int st = i % WG_STAGES;
-    const uint32_t ph = (i / WG_STAGES) & 1;
+    const int sk = i % KST, sv = i % VST;
     const int k0 = (kt_lo + i) * WG_BK;
-    const uint32_t kt = sK + st * L::TILE_K, vt = sV + st * L::TILE_K;
+    const uint32_t kt = sK + sk * L::TILE_K, vt = sV + sv * L::TILE_K;
 
     // s = q k^T and dp = dO v^T: key n-tile j of rows g8 (x[4j], x[4j+1])
     // and g8 + 8 (x[4j+2], x[4j+3]); two commit groups
     float s[32], dp[32];
-    mbar_wait(k_full(st), ph);
+    mbar_wait(k_full(sk), (i / KST) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      // 16 columns = 32 bytes a k-step inside a 128-byte atom
-      const uint32_t qo = (ks / 4) * L::HALF_Q + (ks % 4) * 32;
-      const uint32_t ko = (ks / 4) * L::HALF_K + (ks % 4) * 32;
-      wgmma_m64n64k16_ss(s, sw128_desc(q_rows + qo, 16, 1024),
-                         sw128_desc(kt + ko, 16, 1024), ks > 0);
-    }
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_m64n64k16_ss(s, C::kmajor(q_rows + C::kstep(ks, L::BOX_Q)),
+                         C::kmajor(kt + C::kstep(ks, L::BOX_K)), ks > 0);
     wgmma_commit();
-    mbar_wait(v_full(st), ph);
+    mbar_wait(v_full(sv), (i / VST) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const uint32_t qo = (ks / 4) * L::HALF_Q + (ks % 4) * 32;
-      const uint32_t ko = (ks / 4) * L::HALF_K + (ks % 4) * 32;
-      wgmma_m64n64k16_ss(dp, sw128_desc(g_rows + qo, 16, 1024),
-                         sw128_desc(vt + ko, 16, 1024), ks > 0);
-    }
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_m64n64k16_ss(dp, C::kmajor(g_rows + C::kstep(ks, L::BOX_Q)),
+                         C::kmajor(vt + C::kstep(ks, L::BOX_K)), ks > 0);
     wgmma_commit();
 
     // P from the saved lse while dO v^T runs: one FMA and one ex2 an
@@ -773,7 +816,7 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
     }
     wgmma_wait<0>();
     fence_regs(dp);
-    release(v_empty(st));
+    release(v_empty(sv));
 
     // dS = P (dP - delta) scale, rounded to bf16 as the A fragments of
     // dS k: the n-tiles 2kk and 2kk+1 are exactly the 16-key step kk
@@ -792,21 +835,16 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
     }
 
     // dq += dS k: K is MN-major here (d contiguous), so a 16-key step is
-    // 16 rows of K (2048 bytes) and its 64-column boxes are LBO apart
+    // 16 rows of K and its boxes are LBO apart
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t dk = sw128_desc(kt + kk * 2048, L::HALF_K, 1024);
-      if constexpr (D == 128)
-        wgmma_m64n128k16_rs_tb(acc, df[kk], dk, 1);
-      else
-        wgmma_m64n64k16_rs_tb(acc, df[kk], dk, 1);
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_tb<D>(acc, df[kk], C::mnmajor(kt + kk * 16 * C::RB, L::BOX_K));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-    release(k_empty(st));
+    release(k_empty(sk));
   }
   for (int i = max(i_hi, i_lo); i < n_tiles; ++i) skip(i);
 
@@ -830,11 +868,12 @@ int launch_dq_wgmma(int causal, int window, const void* q, const void* k,
                     const void* v, const void* o, const void* g,
                     const void* lse, void* dq, void* delta, int B, int S,
                     int T_len, int H, int KV, float scale, cudaStream_t st) {
+  constexpr int BC = TileCols<D>::BC;
   CUtensorMap mq, mg, mk, mv;
-  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG_BQ);
-  if (rc == 0) rc = rt_bshd_map(&mg, g, B, S, H, D, WG_BQ);
-  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, WG_BK);
-  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, WG_BK);
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG_BQ, BC);
+  if (rc == 0) rc = rt_bshd_map(&mg, g, B, S, H, D, WG_BQ, BC);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, WG_BK, BC);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, WG_BK, BC);
   if (rc != 0) return rc;
   const size_t smem = DqSmem<D>::kBytes;
   auto kernel = window > 0 ? flash_bwd_dq_wgmma_kernel<D, true, true>
@@ -855,13 +894,15 @@ int launch_dq_wgmma(int causal, int window, const void* q, const void* k,
 
 constexpr int WG4_BK = 128;  // keys a block: 64 per consumer group
 constexpr int WG4_BQ = 64;   // query rows a Q/dO tile
+constexpr int WIDE_BK = 64;  // keys a block at head dim 256
 
 template <int D>
 struct DkdvSmem {
-  static constexpr int HALF_K = WG4_BK * 128;  // a 64-column box of K or V
-  static constexpr int TILE_K = HALF_K * (D / 64);
-  static constexpr int HALF_Q = WG4_BQ * 128;  // a 64-column box of Q or dO
-  static constexpr int TILE_Q = HALF_Q * (D / 64);
+  using C = TileCols<D>;
+  static constexpr int BOX_K = WG4_BK * C::RB;  // a box of K or V
+  static constexpr int TILE_K = BOX_K * C::NB;
+  static constexpr int BOX_Q = WG4_BQ * C::RB;  // a box of Q or dO
+  static constexpr int TILE_Q = BOX_Q * C::NB;
   static constexpr int K = 0;
   static constexpr int V = TILE_K;
   static constexpr int Q = V + TILE_K;
@@ -872,37 +913,195 @@ struct DkdvSmem {
   // kv_full, then q_full, g_full, q_empty, g_empty, c_full (one each a
   // stage); + 1024 to align the tiles
   static constexpr size_t kBytes = BAR + 8 * (1 + 5 * WG_STAGES) + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
+// Head dim 256: K, V and the Q/dO ring are tiles of 64 rows x 256 columns
+// (four 64-column boxes); P^T passes from one consumer to the other in f32
+// (a float4 of thread t's accumulator n-tile j at [j][t]); after the loop
+// the Q/dO ring holds both consumers' f32 sums (128 threads x 128 each)
+// for the cluster's blocks to add up.
+struct DkdvWideSmem {
+  static constexpr int BOX = WIDE_BK * 128;
+  static constexpr int TILE = 4 * BOX;
+  static constexpr int K = 0;
+  static constexpr int V = TILE;
+  static constexpr int Q = 2 * TILE;
+  static constexpr int G = Q + WG_STAGES * TILE;  // dO
+  static constexpr int PT = G + WG_STAGES * TILE;
+  static constexpr int COLS = PT + 8 * 128 * 16;
+  static constexpr int BAR = COLS + 4 * 2 * WG4_BQ * WG_STAGES;
+  static constexpr size_t kBytes = BAR + 8 * (1 + 5 * WG_STAGES) + 1024;
+  static constexpr int SUMS = Q;
+  static constexpr int SUM_BYTES = 128 * 128 * 4;  // a consumer's
+  static_assert(2 * SUM_BYTES <= 2 * WG_STAGES * TILE, "sums fit the ring");
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// Barriers of both K4 layouts, from `bar`: kv_full, then q_full, g_full,
+// q_empty, g_empty, c_full (one each a stage)
+struct DkdvBars {
+  uint32_t kv_full;
+  __device__ __forceinline__ uint32_t q_full(int st) const {
+    return kv_full + 8 * (1 + st);
+  }
+  __device__ __forceinline__ uint32_t g_full(int st) const {
+    return kv_full + 8 * (1 + WG_STAGES + st);
+  }
+  __device__ __forceinline__ uint32_t q_empty(int st) const {
+    return kv_full + 8 * (1 + 2 * WG_STAGES + st);
+  }
+  __device__ __forceinline__ uint32_t g_empty(int st) const {
+    return kv_full + 8 * (1 + 3 * WG_STAGES + st);
+  }
+  __device__ __forceinline__ uint32_t c_full(int st) const {
+    return kv_full + 8 * (1 + 4 * WG_STAGES + st);
+  }
+  __device__ __forceinline__ void init() const {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < WG_STAGES; ++st) {
+      mbar_init(q_full(st), 1);
+      mbar_init(g_full(st), 1);
+      mbar_init(q_empty(st), 8);  // one arrival per consumer warp
+      mbar_init(g_empty(st), 8);
+      mbar_init(c_full(st), 32);  // one arrival per lane of producer warp 1
+    }
+    mbar_fence_init();
+  }
+};
+
+// The producer group of K4: thread 0 loads the block's K and V once (NB
+// boxes of `box_k` bytes each) and streams the (query head, query tile)
+// pairs [0, n_tiles) of heads h_lo.. into the Q/dO ring; warp 1 puts each
+// tile's lse and delta columns beside it.
+template <int NB, int BC>
+__device__ __forceinline__ void dkdv_produce(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_g, const CUtensorMap& tm_k,
+    const CUtensorMap& tm_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, const DkdvBars& bars, uint32_t sK,
+    uint32_t sV, uint32_t sQ, uint32_t sG, float* cols_sh, int box_k,
+    int box_q, int k0, int kvh, int b, int h_lo, int qt_lo, int nq,
+    int n_tiles, int S, int H) {
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bars.kv_full, 2 * NB * box_k);
+    for (int c = 0; c < NB; ++c) {
+      tma_load_4d(sK + c * box_k, &tm_k, bars.kv_full, c * BC, kvh, k0, b);
+      tma_load_4d(sV + c * box_k, &tm_v, bars.kv_full, c * BC, kvh, k0, b);
+    }
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % WG_STAGES;
+      const uint32_t prev = ((i / WG_STAGES) - 1) & 1;
+      const int h = h_lo + i / nq;
+      const int q0 = (qt_lo + i % nq) * WG4_BQ;
+      const uint32_t qt = sQ + st * NB * box_q, gt = sG + st * NB * box_q;
+      // Q is freed after dk += dS^T q, dO after dv += P^T dO: each waits
+      // for its own
+      if (i >= WG_STAGES) mbar_wait(bars.q_empty(st), prev);
+      mbar_expect_tx(bars.q_full(st), NB * box_q);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(qt + c * box_q, &tm_q, bars.q_full(st), c * BC, h, q0, b);
+      if (i >= WG_STAGES) mbar_wait(bars.g_empty(st), prev);
+      mbar_expect_tx(bars.g_full(st), NB * box_q);
+      for (int c = 0; c < NB; ++c)
+        tma_load_4d(gt + c * box_q, &tm_g, bars.g_full(st), c * BC, h, q0, b);
+    }
+  } else if (threadIdx.x / 32 == 1) {
+    // lane l: query columns 2l and 2l + 1 of each tile, 0 from S on; the
+    // stage is free again once Q is (the consumers read it before dk)
+    const int c = 2 * (threadIdx.x % 32);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % WG_STAGES;
+      if (i >= WG_STAGES)
+        mbar_wait(bars.q_empty(st), ((i / WG_STAGES) - 1) & 1);
+      const size_t lrow = ((size_t)b * H + h_lo + i / nq) * S;
+      const int col = (qt_lo + i % nq) * WG4_BQ + c;
+      float* cs = cols_sh + st * 2 * WG4_BQ;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = col + e < S;
+        cs[c + e] = in ? -lse[lrow + col + e] * LOG2E : 0.f;
+        cs[WG4_BQ + c + e] = in ? delta[lrow + col + e] : 0.f;
+      }
+      mbar_arrive(bars.c_full(st));
+    }
+  }
+}
+
+// P^T = exp2(S^T scale log2(e) - lse log2(e)) in place in s (a consumer
+// group's 64 keys x 64 query columns, query n-tile jj of keys g8 in
+// s[4jj], s[4jj+1] and g8 + 8 in s[4jj+2], s[4jj+3]), with the tile's
+// -lse log2(e) columns from `cs` (this thread's, from 2 t4); 0 where
+// masked. Only tiles that cross the diagonal, the window's edge or S are
+// masked; keys past T are zero-filled rows whose dk and dv are never
+// stored.
+template <bool CAUSAL, bool WINDOW>
+__device__ __forceinline__ void dkdv_probs(float (&s)[32], const float* cs,
+                                           float scale_log2, int q0,
+                                           int key0, int key_a, int t4,
+                                           int S, int window) {
+  const bool edge = q0 + WG4_BQ > S || (CAUSAL && key0 + 15 > q0) ||
+                    (WINDOW && q0 + WG4_BQ - 1 - key0 >= window);
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const float2 nl = *reinterpret_cast<const float2*>(cs + 8 * jj);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2_approx(
+          fmaf(s[4 * jj + e], scale_log2, (e & 1) ? nl.y : nl.x));
+      if (edge) {
+        const int col = q0 + jj * 8 + t4 * 2 + (e & 1);
+        const int ahead = col - key_a - (e < 2 ? 0 : 8);  // query - key
+        if (col >= S ||
+            (CAUSAL && (ahead < 0 || (WINDOW && ahead >= window))))
+          p = 0.f;
+      }
+      s[4 * jj + e] = p;
+    }
+  }
+}
+
+// dS^T = P^T (dP^T - delta) scale for 16-query step kk, as the bf16 A
+// fragment of dk += dS^T q; p holds P^T of the step's n-tiles 2kk, 2kk+1
+// (8 values), dp all of dP^T, cs this thread's columns (delta from WG4_BQ)
+__device__ __forceinline__ void dkdv_dsfrag(uint32_t (&df)[4],
+                                            const float (&p)[8],
+                                            const float (&dp)[32],
+                                            const float* cs, int kk,
+                                            float scale) {
+  // delta of query columns 16kk + 2t4 + {0, 1} and 16kk + 8 + ...
+  const float2 d0 = *reinterpret_cast<const float2*>(cs + WG4_BQ + 16 * kk);
+  const float2 d1 =
+      *reinterpret_cast<const float2*>(cs + WG4_BQ + 16 * kk + 8);
+  const float dl[4] = {d0.x, d0.y, d1.x, d1.y};
+  float x[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    x[e] = p[e] * (dp[8 * kk + e] - dl[((e >> 2) << 1) + (e & 1)]) * scale;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) df[r] = pack_bf16(x[2 * r], x[2 * r + 1]);
+}
+
+// K4 at head dims 64, 96 and 128: one block of 3 warpgroups owns 128 keys
+// of one (batch, kv head); each consumer group 64 of them, keeping its dK
+// and dV in registers across every query head of the group.
 template <int D, bool CAUSAL, bool WINDOW>
-__global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
-    const __grid_constant__ CUtensorMap tm_q,
-    const __grid_constant__ CUtensorMap tm_g,
-    const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+__device__ __forceinline__ void dkdv_pair(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_g, const CUtensorMap& tm_k,
+    const CUtensorMap& tm_v, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int S, int T_len, int H, int KV, int window,
     float scale) {
   using L = DkdvSmem<D>;
+  using C = TileCols<D>;
   extern __shared__ __align__(1024) unsigned char smem_tiles[];
-  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  // the swizzle repeats every 1024 (128-byte) or 512 (64-byte) bytes:
+  // align the tiles to it
   const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
   const uint32_t sK = base + L::K, sV = base + L::V;
   const uint32_t sQ = base + L::Q, sG = base + L::G;
   unsigned char* aligned = smem_tiles + (base - smem_u32(smem_tiles));
   float* cols_sh = reinterpret_cast<float*>(aligned + L::COLS);
-  const uint32_t kv_full = base + L::BAR;
-  auto q_full = [&](int st) { return kv_full + 8 * (1 + st); };
-  auto g_full = [&](int st) { return kv_full + 8 * (1 + WG_STAGES + st); };
-  auto q_empty = [&](int st) {
-    return kv_full + 8 * (1 + 2 * WG_STAGES + st);
-  };
-  auto g_empty = [&](int st) {
-    return kv_full + 8 * (1 + 3 * WG_STAGES + st);
-  };
-  auto c_full = [&](int st) {
-    return kv_full + 8 * (1 + 4 * WG_STAGES + st);
-  };
+  const DkdvBars bars{base + L::BAR};
 
   // under causal attention the first key blocks see the most query tiles:
   // block x is the x-th heaviest of its (batch, kv head), and the blocks go
@@ -923,69 +1122,15 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
   const int nq = max(0, qt_hi - qt_lo);
   const int n_tiles = groups * nq;  // (query head of the group, query tile)
 
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int st = 0; st < WG_STAGES; ++st) {
-      mbar_init(q_full(st), 1);
-      mbar_init(g_full(st), 1);
-      mbar_init(q_empty(st), 8);  // one arrival per consumer warp
-      mbar_init(g_empty(st), 8);
-      mbar_init(c_full(st), 32);  // one arrival per lane of producer warp 1
-    }
-    mbar_fence_init();
-  }
+  if (threadIdx.x == 0) bars.init();
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // ---- producer: one thread loads K and V once, then keeps the Q/dO
-    // ring full by TMA; warp 1 puts each tile's lse and delta columns
-    // beside it ----
     setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(kv_full, 2 * L::TILE_K);
-      for (int c = 0; c < D / 64; ++c) {
-        tma_load_4d(sK + c * L::HALF_K, &tm_k, kv_full, c * 64, kvh, k0, b);
-        tma_load_4d(sV + c * L::HALF_K, &tm_v, kv_full, c * 64, kvh, k0, b);
-      }
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % WG_STAGES;
-        const uint32_t prev = ((i / WG_STAGES) - 1) & 1;
-        const int h = kvh * groups + i / nq;
-        const int q0 = (qt_lo + i % nq) * WG4_BQ;
-        const uint32_t qt = sQ + st * L::TILE_Q, gt = sG + st * L::TILE_Q;
-        // Q is freed after dk += dS^T q, dO after dv += P^T dO: each waits
-        // for its own
-        if (i >= WG_STAGES) mbar_wait(q_empty(st), prev);
-        mbar_expect_tx(q_full(st), L::TILE_Q);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(qt + c * L::HALF_Q, &tm_q, q_full(st), c * 64, h, q0,
-                      b);
-        if (i >= WG_STAGES) mbar_wait(g_empty(st), prev);
-        mbar_expect_tx(g_full(st), L::TILE_Q);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(gt + c * L::HALF_Q, &tm_g, g_full(st), c * 64, h, q0,
-                      b);
-      }
-    } else if (threadIdx.x / 32 == 1) {
-      // lane l: query columns 2l and 2l + 1 of each tile, 0 from S on; the
-      // stage is free again once Q is (the consumers read it before dk)
-      const int c = 2 * (threadIdx.x % 32);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % WG_STAGES;
-        if (i >= WG_STAGES)
-          mbar_wait(q_empty(st), ((i / WG_STAGES) - 1) & 1);
-        const size_t lrow = ((size_t)b * H + kvh * groups + i / nq) * S;
-        const int col = (qt_lo + i % nq) * WG4_BQ + c;
-        float* cs = cols_sh + st * 2 * WG4_BQ;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool in = col + e < S;
-          cs[c + e] = in ? -lse[lrow + col + e] * LOG2E : 0.f;
-          cs[WG4_BQ + c + e] = in ? delta[lrow + col + e] : 0.f;
-        }
-        mbar_arrive(c_full(st));
-      }
-    }
+    dkdv_produce<C::NB, C::BC>(tm_q, tm_g, tm_k, tm_v, lse, delta, bars, sK,
+                               sV, sQ, sG, cols_sh, L::BOX_K, L::BOX_Q, k0,
+                               kvh, b, kvh * groups, qt_lo, nq, n_tiles, S,
+                               H);
     return;
   }
 
@@ -1002,10 +1147,9 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
   const int gk = k0 + cw * 64;  // the group's first key
   const int key0 = gk + warp * 16;
   const int key_a = key0 + g8;  // accumulator rows: keys key_a, key_a + 8
-  // P = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
   const float scale_log2 = scale * LOG2E;
-  const uint32_t k_rows = sK + cw * 64 * 128;  // this group's 64 keys
-  const uint32_t v_rows = sV + cw * 64 * 128;
+  const uint32_t k_rows = sK + cw * 64 * C::RB;  // this group's 64 keys
+  const uint32_t v_rows = sV + cw * 64 * C::RB;
   auto release = [&](uint32_t bar) {  // this warp is done with a buffer
     __syncwarp();
     if (lane == 0) mbar_arrive(bar);
@@ -1013,10 +1157,10 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
   auto skip = [&](int i) {
     const int st = i % WG_STAGES;
     const uint32_t ph = (i / WG_STAGES) & 1;
-    mbar_wait(q_full(st), ph);
-    mbar_wait(g_full(st), ph);
-    release(g_empty(st));
-    release(q_empty(st));
+    mbar_wait(bars.q_full(st), ph);
+    mbar_wait(bars.g_full(st), ph);
+    release(bars.g_empty(st));
+    release(bars.q_empty(st));
   };
 
   // f32 dk and dv across every query head of the group: d-tile j in
@@ -1034,7 +1178,7 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
   if (WINDOW)
     j_hi = max(j_lo, min(j_hi, (gk + 63 + window - 1) / WG4_BQ + 1 - qt_lo));
 
-  mbar_wait(kv_full, 0);
+  mbar_wait(bars.kv_full, 0);
   for (int hg = 0; hg < groups; ++hg) {
     const int i0 = hg * nq;
     for (int j = 0; j < j_lo; ++j) skip(i0 + j);
@@ -1049,113 +1193,67 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
       // (x[4jj], x[4jj+1]) and g8 + 8 (x[4jj+2], x[4jj+3]); two commit
       // groups
       float s[32], dp[32];
-      mbar_wait(q_full(st), ph);
+      mbar_wait(bars.q_full(st), ph);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        // 16 columns = 32 bytes a k-step inside a 128-byte atom
-        const uint32_t ko = (ks / 4) * L::HALF_K + (ks % 4) * 32;
-        const uint32_t qo = (ks / 4) * L::HALF_Q + (ks % 4) * 32;
-        wgmma_m64n64k16_ss(s, sw128_desc(k_rows + ko, 16, 1024),
-                           sw128_desc(qt + qo, 16, 1024), ks > 0);
-      }
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_m64n64k16_ss(s, C::kmajor(k_rows + C::kstep(ks, L::BOX_K)),
+                           C::kmajor(qt + C::kstep(ks, L::BOX_Q)), ks > 0);
       wgmma_commit();
-      mbar_wait(g_full(st), ph);
+      mbar_wait(bars.g_full(st), ph);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        const uint32_t ko = (ks / 4) * L::HALF_K + (ks % 4) * 32;
-        const uint32_t qo = (ks / 4) * L::HALF_Q + (ks % 4) * 32;
-        wgmma_m64n64k16_ss(dp, sw128_desc(v_rows + ko, 16, 1024),
-                           sw128_desc(gt + qo, 16, 1024), ks > 0);
-      }
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_m64n64k16_ss(dp, C::kmajor(v_rows + C::kstep(ks, L::BOX_K)),
+                           C::kmajor(gt + C::kstep(ks, L::BOX_Q)), ks > 0);
       wgmma_commit();
 
-      // P^T by one FMA and one ex2 an element with -lse log2(e) of this
-      // thread's query columns 8jj + 2t4 + {0, 1} from the ring, 0 where
-      // masked (only tiles that cross the diagonal, the window's edge or
-      // S are masked; keys past T are zero-filled rows whose dk and dv
-      // are never stored)
+      // P^T while dO v^T runs
       const float* cs = cols_sh + st * 2 * WG4_BQ + 2 * t4;
-      mbar_wait(c_full(st), ph);
+      mbar_wait(bars.c_full(st), ph);
       wgmma_wait<1>();
       fence_regs(s);
-      const bool edge = q0 + WG4_BQ > S || (CAUSAL && key0 + 15 > q0) ||
-                        (WINDOW && q0 + WG4_BQ - 1 - key0 >= window);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 nl = *reinterpret_cast<const float2*>(cs + 8 * jj);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = ex2_approx(
-              fmaf(s[4 * jj + e], scale_log2, (e & 1) ? nl.y : nl.x));
-          if (edge) {
-            const int col = q0 + jj * 8 + t4 * 2 + (e & 1);
-            const int ahead = col - key_a - (e < 2 ? 0 : 8);  // query - key
-            if (col >= S ||
-                (CAUSAL && (ahead < 0 || (WINDOW && ahead >= window))))
-              p = 0.f;
-          }
-          s[4 * jj + e] = p;
-        }
-      }
+      dkdv_probs<CAUSAL, WINDOW>(s, cs, scale_log2, q0, key0, key_a, t4, S,
+                                 window);
       wgmma_wait<0>();
       fence_regs(dp);
 
-      // P^T (for dv) and dS^T = P^T (dP^T - delta) scale (for dk), rounded
-      // to bf16 as A fragments: the n-tiles 2kk and 2kk+1 are exactly the
-      // 16-query step kk
+      // P^T (for dv) and dS^T (for dk), rounded to bf16 as A fragments:
+      // the n-tiles 2kk and 2kk+1 are exactly the 16-query step kk
       uint32_t pf[4][4], df[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        // delta of query columns 16kk + 2t4 + {0, 1} and 16kk + 8 + ...
-        const float2 d0 =
-            *reinterpret_cast<const float2*>(cs + WG4_BQ + 16 * kk);
-        const float2 d1 =
-            *reinterpret_cast<const float2*>(cs + WG4_BQ + 16 * kk + 8);
-        const float dl[4] = {d0.x, d0.y, d1.x, d1.y};
-        float x[8];
+        float p[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e)
-          x[e] = s[8 * kk + e] *
-                 (dp[8 * kk + e] - dl[((e >> 2) << 1) + (e & 1)]) * scale;
+        for (int e = 0; e < 8; ++e) p[e] = s[8 * kk + e];
+        dkdv_dsfrag(df[kk], p, dp, cs, kk, scale);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-          df[kk][r] = pack_bf16(x[2 * r], x[2 * r + 1]);
-        }
+        for (int r = 0; r < 4; ++r)
+          pf[kk][r] = pack_bf16(p[2 * r], p[2 * r + 1]);
       }
 
       // dv += P^T dO and dk += dS^T q: dO and q are MN-major here (d
-      // contiguous), so a 16-query step is 16 rows (2048 bytes) and their
-      // 64-column boxes are LBO apart
+      // contiguous), so a 16-query step is 16 rows and their boxes are LBO
+      // apart
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dg = sw128_desc(gt + kk * 2048, L::HALF_Q, 1024);
-        if constexpr (D == 128)
-          wgmma_m64n128k16_rs_tb(dv_acc, pf[kk], dg, 1);
-        else
-          wgmma_m64n64k16_rs_tb(dv_acc, pf[kk], dg, 1);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_tb<D>(dv_acc, pf[kk],
+                       C::mnmajor(gt + kk * 16 * C::RB, L::BOX_Q));
       wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dqt = sw128_desc(qt + kk * 2048, L::HALF_Q, 1024);
-        if constexpr (D == 128)
-          wgmma_m64n128k16_rs_tb(dk_acc, df[kk], dqt, 1);
-        else
-          wgmma_m64n64k16_rs_tb(dk_acc, df[kk], dqt, 1);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_tb<D>(dk_acc, df[kk],
+                       C::mnmajor(qt + kk * 16 * C::RB, L::BOX_Q));
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(dv_acc);
-      release(g_empty(st));
+      release(bars.g_empty(st));
       wgmma_wait<0>();
       fence_regs(dk_acc);
-      release(q_empty(st));
+      release(bars.q_empty(st));
     }
     for (int j = max(j_hi, j_lo); j < nq; ++j) skip(i0 + j);
   }
@@ -1179,6 +1277,253 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
   }
 }
 
+// K4 at head dim 256: dK and dV of 64 keys would be 256 f32 a thread, so
+// one block of 3 warpgroups owns 64 keys and gives each consumer one
+// gradient. Consumer 0 computes S^T = K Q^T, P^T, hands P^T to consumer 1
+// through shared memory (f32, a named-barrier handshake), and sums dV +=
+// P^T dO; consumer 1 computes dP^T = V dO^T, dS^T from P^T, and sums dK +=
+// dS^T q: two products each a tile, 128 f32 accumulators each. Where the
+// grid is short of two waves, the query heads of a kv head are split over
+// the n_split blocks of a thread block cluster, which then add their f32
+// sums in rank order through distributed shared memory: deterministic,
+// with no atomics and no partial sums in device memory.
+template <bool CAUSAL, bool WINDOW>
+__device__ __forceinline__ void dkdv_wide(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_g, const CUtensorMap& tm_k,
+    const CUtensorMap& tm_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int S, int T_len, int H, int KV, int window,
+    float scale, int n_split) {
+  using L = DkdvWideSmem;
+  constexpr int D = 256;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
+  const uint32_t sK = base + L::K, sV = base + L::V;
+  const uint32_t sQ = base + L::Q, sG = base + L::G;
+  unsigned char* aligned = smem_tiles + (base - smem_u32(smem_tiles));
+  float* cols_sh = reinterpret_cast<float*>(aligned + L::COLS);
+  float4* pt_sh = reinterpret_cast<float4*>(aligned + L::PT);
+  const DkdvBars bars{base + L::BAR};
+
+  // block x: key block x / n_split (heaviest first under causal
+  // attention), query-head slice x % n_split (its rank in the cluster)
+  const int split = blockIdx.x % n_split;
+  const int k0 = blockIdx.x / n_split * WIDE_BK;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int groups = H / KV;
+  const int h_lo = kvh * groups + split * groups / n_split;
+  const int nh = kvh * groups + (split + 1) * groups / n_split - h_lo;
+  int qt_lo = 0, qt_hi = (S + WG4_BQ - 1) / WG4_BQ;
+  if (CAUSAL) {
+    qt_lo = k0 / WG4_BQ;
+    if (WINDOW)
+      qt_hi = min(qt_hi, (k0 + WIDE_BK - 1 + window - 1) / WG4_BQ + 1);
+  }
+  // every tile of the band is seen by some key of the block: none is
+  // skipped
+  const int nq = max(0, qt_hi - qt_lo);
+  const int n_tiles = nh * nq;
+
+  if (threadIdx.x == 0) bars.init();
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    dkdv_produce<4, 64>(tm_q, tm_g, tm_k, tm_v, lse, delta, bars, sK, sV,
+                        sQ, sG, cols_sh, L::BOX, L::BOX, k0, kvh, b, h_lo,
+                        qt_lo, nq, n_tiles, S, H);
+    __syncwarp();
+    if (n_split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int role = threadIdx.x / 128 - 1;  // 0: P^T and dV; 1: dS^T and dK
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  const int key0 = k0 + warp * 16;
+  const int key_a = key0 + g8;  // accumulator rows: keys key_a, key_a + 8
+  const float scale_log2 = scale * LOG2E;
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // named barriers between the consumers: P^T of the tile is in pt_sh,
+  // and consumer 1 has read it
+  constexpr int PT_FULL = 1, PT_EMPTY = 2, RING_IDLE = 3;
+
+  float acc[D / 2];  // f32 dv (role 0) or dk (role 1): d-tile j in 4j..
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bars.kv_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % WG_STAGES;
+    const uint32_t ph = (i / WG_STAGES) & 1;
+    const int q0 = (qt_lo + i % nq) * WG4_BQ;
+    const uint32_t qt = sQ + st * L::TILE, gt = sG + st * L::TILE;
+    const float* cs = cols_sh + st * 2 * WG4_BQ + 2 * t4;
+    float x[32];  // S^T (role 0) or dP^T (role 1), as in dkdv_pair
+    uint32_t af[4][4];  // P^T or dS^T: bf16 A fragments, 16 queries each
+    if (role == 0) {
+      mbar_wait(bars.q_full(st), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks / 4) * L::BOX + (ks % 4) * 32;
+        wgmma_m64n64k16_ss(x, sw128_desc(sK + off, 16, 1024),
+                           sw128_desc(qt + off, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      mbar_wait(bars.c_full(st), ph);
+      wgmma_wait<0>();
+      fence_regs(x);
+      dkdv_probs<CAUSAL, WINDOW>(x, cs, scale_log2, q0, key0, key_a, t4, S,
+                                 window);
+      release(bars.q_empty(st));  // K Q^T is done and lse read
+      if (i > 0) named_bar_sync(PT_EMPTY, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        pt_sh[j * 128 + tid] =
+            make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      named_bar_arrive(PT_FULL, 256);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          af[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+      // dv += P^T dO (dO MN-major)
+      mbar_wait(bars.g_full(st), ph);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_tb<D>(acc, af[kk], sw128_desc(gt + kk * 2048, L::BOX, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(bars.g_empty(st));
+    } else {
+      mbar_wait(bars.g_full(st), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks / 4) * L::BOX + (ks % 4) * 32;
+        wgmma_m64n64k16_ss(x, sw128_desc(sV + off, 16, 1024),
+                           sw128_desc(gt + off, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      mbar_wait(bars.c_full(st), ph);
+      wgmma_wait<0>();
+      fence_regs(x);
+      release(bars.g_empty(st));  // V dO^T is done
+      named_bar_sync(PT_FULL, 256);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 p0 = pt_sh[2 * kk * 128 + tid];
+        const float4 p1 = pt_sh[(2 * kk + 1) * 128 + tid];
+        const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        dkdv_dsfrag(af[kk], p, x, cs, kk, scale);
+      }
+      if (i + 1 < n_tiles) named_bar_arrive(PT_EMPTY, 256);
+      // dk += dS^T q (q MN-major)
+      mbar_wait(bars.q_full(st), ph);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_tb<D>(acc, af[kk], sw128_desc(qt + kk * 2048, L::BOX, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(bars.q_empty(st));
+    }
+  }
+
+  bf16* out = role == 0 ? dv : dk;
+  auto store = [&](int j, float a0, float a1, float a2, float a3) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = key_a + 8 * half;
+      if (key >= T_len) continue;
+      const size_t off = (((size_t)b * T_len + key) * KV + kvh) * D;
+      *reinterpret_cast<__nv_bfloat162*>(out + off + j * 8 + t4 * 2) =
+          half ? __floats2bfloat162_rn(a2, a3) : __floats2bfloat162_rn(a0, a1);
+    }
+  };
+  if (n_split == 1) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store(j, acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    return;
+  }
+  // the cluster's sums: each consumer puts its accumulator over the ring
+  // (idle once both consumers are past their last tile), and block r adds
+  // d-tiles [32 r / n_split, 32 (r + 1) / n_split) of all of them in rank
+  // order
+  named_bar_sync(RING_IDLE, 256);
+  const uint32_t mine = base + L::SUMS + role * L::SUM_BYTES;
+  float4* mine_sh =
+      reinterpret_cast<float4*>(aligned + L::SUMS + role * L::SUM_BYTES);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    mine_sh[j * 128 + tid] =
+        make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+  cluster_sync();
+  for (int j = split * (D / 8) / n_split; j < (split + 1) * (D / 8) / n_split;
+       ++j) {
+    const uint32_t at = mine + (j * 128 + tid) * 16;
+    float4 sum = ld_cluster_f4(cluster_map(at, 0));
+    for (int r = 1; r < n_split; ++r) {
+      const float4 p = ld_cluster_f4(cluster_map(at, r));
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    store(j, sum.x, sum.y, sum.z, sum.w);
+  }
+  cluster_sync();  // no block leaves while the others read its sums
+}
+
+template <int D, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_g,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int S, int T_len, int H, int KV, int window,
+    float scale, int n_split) {
+  if constexpr (D == 256)
+    dkdv_wide<CAUSAL, WINDOW>(tm_q, tm_g, tm_k, tm_v, lse, delta, dk, dv, S,
+                              T_len, H, KV, window, scale, n_split);
+  else
+    dkdv_pair<D, CAUSAL, WINDOW>(tm_q, tm_g, tm_k, tm_v, lse, delta, dk, dv,
+                                 S, T_len, H, KV, window, scale);
+}
+
+// The query-head slices of K4 at head dim 256: 1, 2 or 4 (the blocks of a
+// cluster), doubled while the grid of `blocks` is short of two waves of
+// the card's SMs and the group has the heads to split.
+inline int dkdv_wide_splits(int blocks, int groups) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  int n = 1;
+  while (n < 4 && 2 * n <= groups && blocks * n < 2 * sms) n *= 2;
+  return n;
+}
+
 template <int D>
 int launch_dkdv_wgmma(int causal, int window, const void* q, const void* k,
                       const void* v, const void* g, const void* lse,
@@ -1191,23 +1536,53 @@ int launch_dkdv_wgmma(int causal, int window, const void* q, const void* k,
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, st);
     return static_cast<int>(err);
   }
+  constexpr bool wide = D == 256;
+  constexpr int BC = TileCols<D>::BC;
+  const int bk = wide ? WIDE_BK : WG4_BK;
   CUtensorMap mq, mg, mk, mv;
-  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG4_BQ);
-  if (rc == 0) rc = rt_bshd_map(&mg, g, B, S, H, D, WG4_BQ);
-  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, WG4_BK);
-  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, WG4_BK);
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG4_BQ, BC);
+  if (rc == 0) rc = rt_bshd_map(&mg, g, B, S, H, D, WG4_BQ, BC);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, bk, BC);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, bk, BC);
   if (rc != 0) return rc;
-  const size_t smem = DkdvSmem<D>::kBytes;
+  size_t smem;
+  if constexpr (wide)
+    smem = DkdvWideSmem::kBytes;
+  else
+    smem = DkdvSmem<D>::kBytes;
   auto kernel = window > 0 ? flash_bwd_dkdv_wgmma_kernel<D, true, true>
                 : causal   ? flash_bwd_dkdv_wgmma_kernel<D, true, false>
                            : flash_bwd_dkdv_wgmma_kernel<D, false, false>;
   cudaError_t err = rt_set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((T_len + WG4_BK - 1) / WG4_BK, KV, B);
-  kernel<<<grid, WG_NT, smem, st>>>(
-      mq, mg, mk, mv, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), S, T_len, H, KV, window, scale);
+  const int n_kb = (T_len + bk - 1) / bk;
+  const int n_split = wide ? dkdv_wide_splits(B * KV * n_kb, H / KV) : 1;
+  const dim3 grid(n_kb * n_split, KV, B);
+  if (n_split == 1) {
+    kernel<<<grid, WG_NT, smem, st>>>(
+        mq, mg, mk, mv, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), S, T_len, H, KV, window, scale, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(WG_NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, mq, mg, mk, mv,
+                           static_cast<const float*>(lse),
+                           static_cast<const float*>(delta),
+                           static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
+                           T_len, H, KV, window, scale, n_split);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1510,9 +1885,9 @@ int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
               float scale, cudaStream_t st) {
   dim3 grid((S + BQ - 1) / BQ, H, B);
   if (dtype == RT_BF16) {
-    // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
-    // kernel is not even instantiated for them
-    if constexpr (D == 64 || D == 128) {
+    // head dims 64, 96, 128 and 256 run only the TMA/wgmma kernel: the
+    // mma.sync kernel is not even instantiated for them
+    if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
       return launch_dq_wgmma<D>(causal, window, q, k, v, o, g, lse, dq,
                                 delta, B, S, T_len, H, KV, scale, st);
     } else {
@@ -1523,7 +1898,7 @@ int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
                            : flash_bwd_dq_bf16_kernel<D, false>;
       cudaError_t err = rt_set_smem(kernel, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<grid, NT * dsplit(D), smem, st>>>(
+      kernel<<<grid, NT, smem, st>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(o),
           static_cast<const bf16*>(g), static_cast<const float*>(lse),
@@ -1557,9 +1932,9 @@ int launch_dkdv(int dtype, int causal, int window, const void* q,
                 int T_len, int H, int KV, float scale, cudaStream_t st) {
   dim3 grid((T_len + BK - 1) / BK, KV, B);
   if (dtype == RT_BF16) {
-    // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
-    // kernel is not even instantiated for them
-    if constexpr (D == 64 || D == 128) {
+    // head dims 64, 96, 128 and 256 run only the TMA/wgmma kernel: the
+    // mma.sync kernel is not even instantiated for them
+    if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
       return launch_dkdv_wgmma<D>(causal, window, q, k, v, g, lse, delta,
                                   dk, dv, B, S, T_len, H, KV, scale, st);
     } else {
@@ -1570,7 +1945,7 @@ int launch_dkdv(int dtype, int causal, int window, const void* q,
                            : flash_bwd_dkdv_bf16_kernel<D, false>;
       cudaError_t err = rt_set_smem(kernel, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<grid, NT * dsplit(D), smem, st>>>(
+      kernel<<<grid, NT, smem, st>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(g),
           static_cast<const float*>(lse), static_cast<const float*>(delta),

@@ -3,12 +3,17 @@
 // run time, so the library needs no -lcuda), mbarriers, TMA loads and
 // stores, wgmma shared-memory descriptors for the 128-byte swizzle, the
 // wgmma instructions the attention kernels use, stmatrix, named barriers,
-// setmaxnreg and ex2.approx.
+// thread block clusters (barrier, distributed shared memory), setmaxnreg
+// and ex2.approx.
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes) by R
 // rows, written with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r
 // lands at r * 128 + ((c ^ (r % 8)) * 16), in 1024-byte atoms of 8 rows. A
-// tile with 128 columns is two such boxes, one after the other.
+// tile with 128 columns is two such boxes, one after the other. Head dim
+// 96 is not a multiple of 64: its tiles are three boxes of 32 columns (64
+// bytes) with CU_TENSOR_MAP_SWIZZLE_64B (chunk c of row r at r * 64 + ((c
+// ^ (r / 2 % 4)) * 16), 512-byte atoms of 8 rows), the wgmma descriptors'
+// 64-byte layout.
 #pragma once
 
 #include <cstdint>
@@ -49,22 +54,25 @@ inline EncodeTiledFn rt_encode_tiled() {
 }
 
 // A 4-D bf16 map over a contiguous [B, seq, heads, D] tensor, as dims (D,
-// heads, seq, B), with boxes of 64 columns x 1 head x `rows` rows x 1
-// batch and the 128-byte swizzle. Rows past seq read as zeros and are not
-// stored, inside each batch. Returns a cudaError_t code.
+// heads, seq, B), with boxes of `cols` columns (64, with the 128-byte
+// swizzle, or 32, with the 64-byte one) x 1 head x `rows` rows x 1 batch.
+// Rows past seq read as zeros and are not stored, inside each batch; so do
+// columns past D. Returns a cudaError_t code.
 inline int rt_bshd_map(CUtensorMap* map, const void* base, int B, int seq,
-                       int heads, int D, int rows) {
+                       int heads, int D, int rows, int cols = 64) {
   EncodeTiledFn encode = rt_encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t row = 2ull * D;  // bytes
   cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)seq,
                         (cuuint64_t)B};
   cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   cuuint32_t unit[4] = {1, 1, 1, 1};
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                       const_cast<void*>(base), dims, strides, box, unit,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
@@ -146,6 +154,37 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+// arrive on named barrier `id` without waiting (its shared-memory writes
+// before it are seen by the threads that bar.sync on it)
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// every thread of the cluster that has not exited arrives, then waits for
+// the others: shared-memory writes before it are seen by the whole cluster
+// after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// `addr` of this block's shared memory, as the address of the same bytes
+// in block `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -176,15 +215,24 @@ __device__ __forceinline__ float ex2_approx(float x) {
 
 // --------------------------------------------------------------- wgmma ---
 
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1). For a
-// K-major operand (rows of 64 contiguous bf16) SBO is the 1024-byte stride
-// of 8-row groups and LBO is unused; for an MN-major operand LBO is the
-// stride between 64-column blocks and SBO that of 8-row (K) groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// Shared-memory matrix descriptor for a swizzled operand, RB the bytes a
+// swizzled row holds: 128 (layout type 1, 1024-byte atoms of 8 rows) or
+// 64 (type 2, 512-byte atoms). For a K-major operand (rows of RB / 2
+// contiguous bf16) SBO is the stride of 8-row groups and LBO is unused;
+// for an MN-major operand LBO is the stride between blocks of RB / 2
+// columns and SBO that of 8-row (K) groups.
+template <int RB>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(RB == 128 || RB == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t type = RB == 128 ? 1 : 2;
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (type << 62);
+}
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return sw_desc<128>(addr, lbo, sbo);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -305,6 +353,93 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// d (64 x 96, f32) (+)= A (64 x 16 bf16, registers in the mma.sync A
+// fragment layout, one 16-row slice a warp) . B (16 x 96, smem desc, MN-major)
+__device__ __forceinline__ void wgmma_m64n96k16_rs_tb(float (&d)[48],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// d (64 x 256, f32) (+)= A (64 x 16 bf16, registers in the mma.sync A
+// fragment layout, one 16-row slice a warp) . B (16 x 256, smem desc, MN-major)
+__device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float (&d)[128],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// d (64 x N) += A (registers) . B (MN-major), for the N a head dim needs
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (N == 64)
+    wgmma_m64n64k16_rs_tb(d, a, desc_b, 1);
+  else if constexpr (N == 96)
+    wgmma_m64n96k16_rs_tb(d, a, desc_b, 1);
+  else if constexpr (N == 128)
+    wgmma_m64n128k16_rs_tb(d, a, desc_b, 1);
+  else
+    wgmma_m64n256k16_rs_tb(d, a, desc_b, 1);
 }
 
 }  // namespace

@@ -16,11 +16,13 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV
   pass over key tiles, both recomputing P from the saved log-sum-exp, with
   no atomics (the gradients are deterministic, so a remat recompute is
-  bit-identical). bf16 with head dim 64 or 128 runs the Hopper kernels in
-  both passes (TMA, mbarriers, warp-specialised ``wgmma``): dQ over
-  128-row query tiles, dK/dV over 128-key blocks that stream every query
-  head of their kv head; bf16 with head dim 16, 32, 80, 96 or 256 runs
-  ``mma.sync`` kernels; f32 exact CUDA-core FMAs;
+  bit-identical). bf16 with head dim 64, 96, 128 or 256 runs the Hopper
+  kernels in both passes (TMA, mbarriers, warp-specialised ``wgmma``): dQ
+  over 128-row query tiles, dK/dV over 128-key blocks that stream every
+  query head of their kv head (at head dim 256 64-key blocks, one
+  consumer a gradient, the query heads split over a thread block cluster
+  where the grid is short of two waves); bf16 with head dim 16, 32 or 80
+  runs ``mma.sync`` kernels; f32 exact CUDA-core FMAs;
 - ``_Flash``, a ``torch.autograd.Function``, takes the place of ``_flash``'s
   ``custom_vjp``.
 
@@ -64,8 +66,8 @@ launches_dkdv = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the kernels (forward and backward, both dtypes) are
-#: compiled for; bf16 at 64 and 128 runs the wgmma kernels, the others
-#: mma.sync
+#: compiled for; bf16 runs the wgmma kernels at 64 and 128 in the forward
+#: and at 64, 96, 128 and 256 in the backward, mma.sync at the others
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 

@@ -19,6 +19,7 @@ from test_torch_support import jax_reference, require_cuda, to_np
 
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.parallel import train_step as ts
 
 TOL = 1e-5
 # gradients: f32 products of 128 keys, both sides' sums in another order
@@ -379,7 +380,7 @@ def _dq_case_on_card(S, T, H, KV, D, causal, window, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 96, 256])
 @pytest.mark.parametrize("S,T,H,KV,causal,window", [
     (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
     (200, 200, 16, 8, True, None), (200, 200, 16, 8, False, None),
@@ -389,7 +390,7 @@ def _dq_case_on_card(S, T, H, KV, D, causal, window, seed):
     (256, 512, 16, 8, True, None)])
 def test_wgmma_dq_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
                                                window):
-    """K3's TMA/wgmma kernel (bf16, head dims 64 and 128): dq elementwise
+    """K3's TMA/wgmma kernel (bf16, head dims 64, 96, 128 and 256): dq elementwise
     within grad_tolerance of the plain backward, delta = rowsum(out * dO)
     within its f32 rounding (D-long sums in another order: D 2^-23 rowsum
     |out dO|), and both bit-identical on a second run (no atomics), for
@@ -420,7 +421,7 @@ def test_wgmma_dq_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 96, 256])
 def test_wgmma_dq_kernel_reads_no_row_past_t_or_outside_the_band(D):
     """NaN where K3 must not read: (a) memory just past the last batch's T
     rows of k and v (TMA zero-fills the ragged tile inside its batch); (b)
@@ -468,7 +469,7 @@ def test_wgmma_dq_kernel_reads_no_row_past_t_or_outside_the_band(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 96, 256])
 @pytest.mark.parametrize("S,T,H,KV,causal,window", [
     (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
     (200, 200, 16, 8, True, None), (200, 200, 16, 8, False, None),
@@ -478,11 +479,12 @@ def test_wgmma_dq_kernel_reads_no_row_past_t_or_outside_the_band(D):
     (256, 512, 16, 8, True, None)])
 def test_wgmma_dkdv_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
                                                  window):
-    """K4's TMA/wgmma kernel (bf16, head dims 64 and 128), fed K3's delta:
-    dk and dv elementwise within grad_tolerance of the plain backward and
-    bit-identical on a second run (no atomics), for causal and full
-    attention, GQA and H = KV, windows, ragged 128-key blocks and 64-row
-    query tiles, and T > S."""
+    """K4's TMA/wgmma kernel (bf16, head dims 64, 96, 128 and 256), fed
+    K3's delta: dk and dv elementwise within grad_tolerance of the plain
+    backward and bit-identical on a second run (no atomics), for causal and
+    full attention, GQA and H = KV, windows, ragged key blocks (128 keys,
+    64 at head dim 256, where G 2 also splits the query heads over a
+    cluster) and 64-row query tiles, and T > S."""
     require_cuda()
     q, k, v, out, lse, g = _dq_case_on_card(S, T, H, KV, D, causal, window,
                                             seed=29)
@@ -507,15 +509,16 @@ def test_wgmma_dkdv_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 96, 256])
 def test_wgmma_dkdv_kernel_reads_no_row_past_s_or_outside_the_band(D):
     """NaN where K4 must not read: (a) memory just past the last batch's S
     rows of q and dO, and of lse and delta (TMA zero-fills the ragged
     query tile inside its batch; the column loads stop at S); (b) query
-    rows 0-127 under causal attention, which no 128-key block from key 128
-    on may load (its band starts at its diagonal tile); (c) query rows
-    from 192 on under window 64, which the block of keys 0-127 may not
-    load (its last key's band ends at row 190). dk and dv stay finite and
+    rows 0-127 under causal attention, which no key block (128 keys, 64 at
+    head dim 256) from key 128 on may load (its band starts at its
+    diagonal tile); (c) query rows from 192 on under window 64, which the
+    blocks of keys 0-127 may not load (their last key's band ends at row
+    190). dk and dv stay finite and
     within grad_tolerance of the plain backward on clean inputs, in the
     key rows those blocks own."""
     require_cuda()
@@ -565,12 +568,13 @@ def test_wgmma_dkdv_kernel_reads_no_row_past_s_or_outside_the_band(D):
 
 
 @pytest.mark.cuda
-def test_wgmma_dkdv_kernel_gives_zero_grads_without_queries():
-    """S = 0 (no query sees any key): K4 at head dim 128 writes dk = dv =
-    0 for every key, as the plain backward gives, and counts its launch."""
+@pytest.mark.parametrize("D", [64, 128, 96, 256])
+def test_wgmma_dkdv_kernel_gives_zero_grads_without_queries(D):
+    """S = 0 (no query sees any key): K4 writes dk = dv = 0 for every key,
+    as the plain backward gives, and counts its launch."""
     require_cuda()
-    _, k, v = _qkv_on_card(2, 1, 200, 16, 8, 128, seed=37)
-    q = torch.empty((2, 0, 16, 128), device="cuda", dtype=torch.bfloat16)
+    _, k, v = _qkv_on_card(2, 1, 200, 16, 8, D, seed=37)
+    q = torch.empty((2, 0, 16, D), device="cuda", dtype=torch.bfloat16)
     lse = torch.empty((2, 16, 0), device="cuda")
     delta = torch.empty((2, 16, 0), device="cuda")
     before = fa.launches_dkdv
@@ -579,6 +583,63 @@ def test_wgmma_dkdv_kernel_gives_zero_grads_without_queries():
     assert fa.launches_dkdv == before + 1
     assert dk.shape == k.shape and dv.shape == v.shape
     assert not dk.any() and not dv.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 256])
+@pytest.mark.parametrize("S,T,H,KV,causal,window", [
+    (200, 200, 8, 1, True, None), (200, 200, 7, 1, True, None),
+    (300, 500, 8, 2, True, None), (256, 256, 8, 1, True, 96),
+    (200, 200, 8, 1, False, None)])
+def test_wgmma_bwd_kernels_run_at_head_dims_96_and_256_on_card(
+        D, S, T, H, KV, causal, window):
+    """bf16 K3 and K4 at head dims 96 and 256 run the TMA/wgmma kernels and
+    nothing else, by the kernel names the profiler records; dq, dk and dv
+    lie within grad_tolerance of the plain backward and are bit-identical
+    on a second run. The cases: G 8 with one kv head (at head dim 256 its
+    B KV T / 64 = 8 key blocks are short of two waves, so K4 splits the
+    query heads over a cluster of 4 blocks), G 7 (uneven slices of 1-2
+    heads), ragged S != T, window 96 and non-causal."""
+    require_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, out, lse, g = _dq_case_on_card(S, T, H, KV, D, causal, window,
+                                            seed=41)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                 window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                   window=window)
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+    tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, plain, tols):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all()), name
+        over = float(((a.float() - b.float()).abs() / t).max())
+        assert over <= 1.0, (name, over)
+    assert [torch.equal(a, b) for a, b in zip(got, again)] == [True] * 3
+    # the kernels' names: CUPTI now and then drops a kernel from a trace,
+    # so a trace missing one of the two is taken again (up to 5 times);
+    # every name any trace holds must be a TMA/wgmma kernel's
+    names: set = set()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                   window=window)
+            torch.cuda.synchronize()
+        traced = {e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "flash_bwd_" in e.name}
+        names |= traced
+        if (any("flash_bwd_dq_wgmma_kernel" in n for n in traced)
+                and any("flash_bwd_dkdv_wgmma_kernel" in n for n in traced)):
+            break
+    assert any("flash_bwd_dq_wgmma_kernel" in n for n in names), names
+    assert any("flash_bwd_dkdv_wgmma_kernel" in n for n in names), names
+    assert all("_wgmma_kernel" in n for n in names), names
 
 
 def _refuse_plain(monkeypatch):
@@ -645,3 +706,28 @@ def test_head_dim_above_256_raises_on_card():
                for a in make_qkv(1, 128, 2, 2, 264, seed=15))
     with pytest.raises(NotImplementedError, match="256"):
         fa.flash_attention_fwd(q, k, v)
+
+
+@pytest.mark.parametrize("name", ["phi3-mini", "llama3.2-3b", "gemma-2b"])
+def test_shapes_bf16_grads_hold_their_bound_on_the_plain_path(name):
+    """chip_smoke.py's bf16-against-f32 gradient check of the public model
+    shapes, rehearsed on the CPU (plain attention) at each model's heads
+    with 1 layer, vocab 256 and d_ff 512: loss_fn's gradients in bf16
+    compute lie within SHAPES_BF16_GRAD_RTOL of the f32 run's, each leaf
+    against its largest element (1.4-1.5e-2 here; 1.8-2.1e-2 on an H100
+    at full width and 2 layers)."""
+    import chip_smoke
+
+    cfg = llama.LlamaConfig(**dict(chip_smoke.SHAPE_MODELS[name],
+                                   vocab_size=256, d_ff=512, n_layers=1))
+    cfg = cfg.replace(dtype=torch.float32, attn_impl="flash",
+                      max_seq_len=256)
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = np.random.default_rng(12).integers(0, cfg.vocab_size,
+                                               size=(1, 129))
+    p = ts._map(lambda t: t.detach().clone().requires_grad_(True), params)
+    llama.loss_fn(p, {"tokens": torch.as_tensor(batch)}, cfg).backward()
+    grads_f32 = [t.grad.float() for t in ts._leaves(p)]
+    r = chip_smoke._shapes_bf16_grads(cfg, params, batch, "cpu", grads_f32)
+    assert 0 < r["grad_max_rel_err"] <= chip_smoke.SHAPES_BF16_GRAD_RTOL
+    assert r["ok"]
