@@ -13,8 +13,9 @@ printing one JSON line:
    for K6 the pools after the write too (every byte equal to the plain
    version's, and only the new rows changed), for K5 the pools unchanged
    byte for byte and K5 over the pools K6 just wrote against K6's output;
-   for K1 the profiler's kernel names (bf16 at head dims 64/128 runs the
-   TMA/wgmma kernel and nothing else); times of the kernel (CUPTI device
+   for K1 the profiler's kernel names (bf16 at head dims 64/96/128/256
+   runs the TMA/wgmma kernel and nothing else) and each instance's ptxas
+   registers and spills; times of the kernel (CUPTI device
    time, and CUDA events), the plain version and (K1) SDPA with the names
    of its kernels, beside the bound;
 4. card_vs_cpu: the 7b width cut to 2 layers, f32, the same weights in the
@@ -60,8 +61,8 @@ printing one JSON line:
    gradients in bf16 compute on the card against the f32 card run's
    (SHAPES_BF16_GRAD_RTOL; the TMA/wgmma K3/K4 at head dims 96 and 256
    on that path); each served at full
-   width in bf16 (paged, flash prefill; Phi-3-mini at all 32 layers, with
-   the K5 path over its pools, the others at 4): 4 greedy prompts of
+   width in bf16 (paged, flash prefill; Phi-3-mini at 8 of its 32 layers,
+   with the K5 path over its pools, the others at 4): 4 greedy prompts of
    64-512 tokens, 32 new tokens each, TTFT, decode tokens/s, peak memory;
    the tiny presets (Llama and MoE, head dim 16) trained with flash, 3
    AdamW steps card vs CPU; its launches counted from 0;
@@ -109,7 +110,7 @@ printing one JSON line:
    AdamW steps, within the train_card_vs_cpu bounds); GPT-2 125M at full
    width and all 12 layers (bf16 compute, f32 params, remat, B 8 S 1024)
    in a train worker holding one GPU unit, 20 steps with a DCP checkpoint
-   every 5, dying after the step-10 one and resuming from it under
+   every 10, dying after the step-10 one and resuming from it under
    FailureConfig(max_failures=1): losses finite, falling and bit for bit
    those of an uninterrupted run (deterministic algorithms), the result's
    checkpoint loaded in the driver equal to the worker's last saved
@@ -175,7 +176,7 @@ printing one JSON line:
    rate; after ``shutdown()`` no process of the session alive;
 22. serve: the monolithic app through the serve layer: ``serve.run`` of an
    ``LLMServer`` replica (``num_gpus=1``; the engine phase's paged 7b
-   engine at SERVE_LAYERS (8) of its 32 layers, decode_block 8) behind an
+   engine at SERVE_LAYERS (4) of its 32 layers, decode_block 8) behind an
    ``LLMRouter`` with an HTTP route;
    four greedy prompts one at a time through the router's streaming
    handle, then again as HTTP POSTs (two plain, two ``?stream=1``), equal
@@ -201,7 +202,7 @@ printing one JSON line:
    no process left; a learn window's idle share and kernels per update
    each, MAML's second-order meta-update against its first-order cost. No
    kernel of ours runs;
-25. tune: ``ray_tpu_torch.tune`` sweeping GPT-2 125M's lr over four values
+25. tune: ``ray_tpu_torch.tune`` sweeping GPT-2 125M's lr over two values
    under ASHA (max_t 8, grace 2, halving), one trial at a time, each
    holding the card: the params on the card, trial 0's first loss against
    the same step run in the driver, ASHA's decisions replayed, the best
@@ -630,10 +631,10 @@ def phase_k5():
 # --- K1 / K2: the flash forward ---------------------------------------------
 
 
-# the symbols of the TMA/wgmma forward kernel (K1/K2), which every bf16
-# launch with head dim 64 or 128 must run, and of the dQ kernel (K3) and
-# dK/dV kernel (K4), which every bf16 launch with head dim 64, 96, 128 or
-# 256 must run (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu)
+# the symbols of the TMA/wgmma forward kernel (K1/K2), of the dQ kernel
+# (K3) and of the dK/dV kernel (K4), which every bf16 launch with head dim
+# 64, 96, 128 or 256 must run (csrc/flash_attention.cu,
+# csrc/flash_attention_bwd.cu)
 WGMMA_FWD_SYMBOL = "flash_fwd_wgmma_kernel"
 WGMMA_DQ_SYMBOL = "flash_bwd_dq_wgmma_kernel"
 WGMMA_DKDV_SYMBOL = "flash_bwd_dkdv_wgmma_kernel"
@@ -651,9 +652,10 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
              seed, timed=True):
     """One forward case (K1, or K2 under a window) against the plain
     version on the same inputs: out within kernel_tolerance, the LSE within
-    LSE_TOL; the profiler's kernel names (bf16 with head dim 64 or 128 must
-    run WGMMA_FWD_SYMBOL and nothing else). Timed: the kernel by CUDA
-    events (cuda_ms, through the wrapper) and by CUPTI device time
+    LSE_TOL; the profiler's kernel names (bf16 with head dim 64, 96, 128
+    or 256 must run WGMMA_FWD_SYMBOL and nothing else) and the instance's
+    ptxas registers and spills from the build phase. Timed: the kernel by
+    CUDA events (cuda_ms, through the wrapper) and by CUPTI device time
     (device_ms), the plain version, SDPA (with a band mask under a window)
     and the names of the kernels SDPA launched, beside the bound."""
     import numpy as np
@@ -700,7 +702,7 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
     # the kernel its head dim (zero-padded to the next compiled one where
     # the kernels are not compiled for it) and dtype must run
     dk = fa.kernel_head_dim(D)
-    wgmma = dtype == "bfloat16" and dk in (64, 128)
+    wgmma = dtype == "bfloat16" and dk in (64, 96, 128, 256)
     symbol = (WGMMA_FWD_SYMBOL if wgmma else "flash_fwd_bf16_kernel"
               if dtype == "bfloat16" else "flash_fwd_f32_kernel")
     ran_new = ran_only([n for n in names if "flash_" in n], symbol)
@@ -712,7 +714,8 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
            else "2^-7 (attention of |v| + |plain|) + 1e-5",
            "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
            "kernel_names": sorted(names), "kernel_head_dim": dk,
-           "expects_kernel": symbol, "ran_expected_kernel_only": ran_new}
+           "expects_kernel": symbol, "ran_expected_kernel_only": ran_new,
+           "ptxas": _ptxas_of("flash_attention", symbol, dk)}
     ok = finite and over <= 1.0 and lse_err <= LSE_TOL and ran_new
     if timed:
         res["kernel_ms"] = dev
@@ -1036,9 +1039,9 @@ SHAPE_MODELS = {
                      n_heads=8, n_kv_heads=1, d_ff=16384,
                      rope_theta=10000.0, max_seq_len=4096),
 }
-# served at full width, bf16: Phi-3-mini at all its layers, the others cut
-# to 4 (the phase's time; their attention is the same at every layer)
-SHAPE_SERVE_LAYERS = {"phi3-mini": None, "llama3.2-3b": 4, "gemma-2b": 4}
+# served at full width, bf16: Phi-3-mini at 8 of its 32 layers, the others
+# at 4 (the script's time; their attention is the same at every layer)
+SHAPE_SERVE_LAYERS = {"phi3-mini": 8, "llama3.2-3b": 4, "gemma-2b": 4}
 SHAPE_PROMPT_LENS = (64, 192, 320, 512)
 SHAPE_NEW_TOKENS = 32
 
@@ -1334,8 +1337,8 @@ def phase_shapes(device="cuda", models=None, serve_layers=None):
     (SHAPE_MODELS): Phi-3-mini (head dim 96), Llama-3.2-3B (G 3) and
     Gemma-2B's attention (head dim 256, G 8). (a) each at full width cut
     to 2 layers, f32, card vs CPU (``_shapes_card_vs_cpu``); (b) each
-    served at full width in bf16 (``_shapes_serve``): Phi-3-mini at all 32
-    layers (with the K5 path over its pools), the others at 4; (c) the
+    served at full width in bf16 (``_shapes_serve``): Phi-3-mini at 8 of
+    its 32 layers (with the K5 path over its pools), the others at 4; (c) the
     tiny presets' training with flash (head dim 16; ``_shapes_train``).
     The launch counters are set to 0 just before and read just after;
     the attention comparisons of (a) are not counted."""
@@ -2146,7 +2149,7 @@ def phase_vit(device="cuda", preset="base", batch=64, steps=5,
 # the trainer phase's GPT-2 run: TRAINER_STEPS steps on one batch, a
 # checkpoint (session.report with state=) every TRAINER_EVERY, and on the
 # first attempt a death (os._exit) right after the TRAINER_DIE_AFTER one
-TRAINER_STEPS, TRAINER_EVERY, TRAINER_DIE_AFTER = 20, 5, 10
+TRAINER_STEPS, TRAINER_EVERY, TRAINER_DIE_AFTER = 20, 10, 10
 # its Llama run: the train phase's recipe cut to this many layers and steps
 TRAINER_LLAMA_LAYERS, TRAINER_LLAMA_STEPS = 4, 3
 
@@ -4321,7 +4324,7 @@ def phase_rl_final(device="cuda"):
 
 # --- tune: an ASHA sweep of GPT-2 125M on the card -------------------------
 
-TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+TUNE_LRS = (1e-4, 1e-3)
 TUNE_MAX_T = 8
 TUNE_FIRST_LOSS_RTOL = 1e-5
 # a trial's reading of the card's use at its start (mem_get_info): over the
@@ -5655,8 +5658,9 @@ SERVE_TIMEOUT_S = 300.0
 SERVE_NEW_TOKENS = 64
 # serve and serve_disagg run the 7b width at this depth of its 32 layers
 # (the script's time: at 32 their in-process references and replica
-# set-ups took 44-58 s of the phases' 83-89 s on an H100's host)
-SERVE_LAYERS = 8
+# set-ups took 44-58 s of the phases' 83-89 s on an H100's host, at 8 the
+# replicas' set-ups 28-47 s of 56-76 s on a slow one)
+SERVE_LAYERS = 4
 # full KV pages per handoff group of the disaggregated app
 SERVE_GROUP_PAGES = 4
 
@@ -5853,7 +5857,7 @@ def _end_session(pids):
 def phase_serve(preset="7b", device="cuda"):
     """The monolithic app behind the router: ``serve.run`` of an
     ``LLMServer`` replica (the engine phase's paged engine cut to
-    SERVE_LAYERS (8) of its 32 layers: bf16, flash, page 64, 16 slots,
+    SERVE_LAYERS (4) of its 32 layers: bf16, flash, page 64, 16 slots,
     max_seq 2048, seed 0; decode_block 8)
     behind an ``LLMRouter`` with an HTTP route. Four greedy prompts (two
     unique, two sharing the 512-token prefix; 64 new tokens each) go one

@@ -22,42 +22,50 @@
 // Three kernels, chosen explicitly by dtype and head dim in launch_d (head
 // dims 16, 32, 64, 80, 96, 128 and 256 are compiled):
 //
-// bf16, head dims 64 and 128 (every card preset), flash_fwd_wgmma_kernel:
-// persistent, one block of 3 warpgroups an SM (192 KB of shared memory),
-// each walking its share of the work tiles: 128 query rows of one (batch,
-// head), against 128-row K/V tiles (up to the diagonal when causal, from
-// the band's first tile under a window; tiles above or below are never
-// loaded). Work tiles go heaviest first inside groups of (batch, head)
-// pairs whose K/V fit in L2, in a snake order over the blocks.
+// bf16, head dims 64, 96, 128 and 256 (every card preset; Phi-3-mini's 96,
+// Gemma-2B's 256), flash_fwd_wgmma_kernel: persistent, one block of 3
+// warpgroups an SM, each walking its share of the work tiles: 128 query
+// rows of one (batch, head), against K/V tiles of 128 rows (64 at head dim
+// 256), up to the diagonal when causal, from the band's first tile under a
+// window (tiles above or below are never loaded). Work tiles go heaviest
+// first inside groups of (batch, head) pairs whose K/V fit in L2, in a
+// snake order over the blocks. Tiles are TMA boxes of 64 columns with the
+// 128-byte swizzle, or at head dim 96 three boxes of 32 columns with the
+// 64-byte swizzle (TileCols, hopper.cuh), which also give the k-step
+// offsets, the descriptors and the epilogue's swizzled addresses.
 // Warpgroup 0 is the producer: after setmaxnreg.dec one thread issues TMA
-// loads (4-D tensor maps over (D, heads, seq, batch), 128-byte swizzle, so
-// a box past S or T is zero-filled inside its own batch) of each tile's Q
-// and of K/V into a 2-stage ring, with "full" mbarriers (complete_tx byte
-// counts) and "empty" ones the consumers arrive on (K and V apart, and Q,
-// so the next tile's Q loads while this one ends). Warpgroups 1-2 are
-// consumers (setmaxnreg.inc), 64 query rows each: S = Q K^T by wgmma
-// m64n128k16 with both operands in shared memory, the online softmax in
-// registers (one FMA and one ex2 an element in log2 units; the LSE written
-// is natural-log), then O += P V by wgmma with P from registers, rounded
-// to bf16 as the TPU kernel rounds it, and V as an MN-major shared
-// operand. The accumulators' rows are those of mma.sync (g and g+8 of each
-// warp's 16), so a row's max and sum combine over its 4 lanes by shuffles.
-// Only tiles that cross the diagonal, the band's lower edge or the ragged
-// end are masked. The epilogue writes O / l through stmatrix into an O
-// buffer and stores it with TMA (rows past S are clipped) while the next
-// tile starts; rows < S also get their LSE. The consumers' CUDA-core work
-// (the softmax), not the tensor cores, sets its pace at the 7b shape.
+// loads (4-D tensor maps over (D, heads, seq, batch), so a box past S or T
+// is zero-filled inside its own batch) of each tile's Q and of K/V into
+// 2-stage rings, with "full" mbarriers (complete_tx byte counts) and
+// "empty" ones the consumers arrive on (K and V apart, and Q, so the next
+// tile's Q loads while this one ends). Warpgroups 1-2 are consumers
+// (setmaxnreg.inc), 64 query rows each: S = Q K^T by wgmma m64n128k16 (or
+// m64n64k16 on 64-key tiles) with both operands in shared memory, the
+// online softmax in registers (one FMA and one ex2 an element in log2
+// units; the LSE written is natural-log), then O += P V by wgmma m64nDk16
+// with P from registers, rounded to bf16 as the TPU kernel rounds it, and
+// V as an MN-major shared operand. The accumulators' rows are those of
+// mma.sync (g and g+8 of each warp's 16), so a row's max and sum combine
+// over its 4 lanes by shuffles. Only tiles that cross the diagonal, the
+// band's lower edge or the ragged end are masked (waiting for and freeing
+// a 64-key tile that no row of a consumer sees, instead of computing its
+// p = 0, measured no faster and cost the 128-key kernels 6-10%). The
+// epilogue writes O / l through stmatrix into an O buffer and stores it
+// with TMA (rows past S are clipped) while the next tile starts; rows < S
+// also get their LSE. At head dim 256 O is 128 f32 a
+// consumer thread: 64-key tiles keep the scores at 32 (with 128 keys,
+// scores and P beside O would not fit 232 registers), and Q and O's buffer
+// (64 KB each) leave room for two K stages and one V stage (224 KB); O
+// stored from registers, which would free 64 KB for a second V stage, took
+// 14-35% longer (PERF.md). The consumers' CUDA-core work (the softmax),
+// not the tensor cores, sets its pace at the 7b shape.
 //
-// bf16, head dims 16, 32, 80, 96 and 256 (the tiny preset; Phi-2's 80,
-// Phi-3-mini's 96, Gemma-2B's 256), flash_fwd_bf16_kernel:
-// FlashAttention-2 style on mma.sync.m16n8k16, 4 warps a 64-row query
-// tile, K/V tiles through cp.async double buffers and ldmatrix, rows padded
-// by 16 bytes against bank conflicts. At head dim 256 (169 KB of tiles) the
-// block has 8 warps: two a 16-row tile, each keeping half of O's columns
-// in registers (64 f32 a thread instead of 128) and both computing the
-// scores, with Q's fragments read from shared memory at each k-step
-// instead of held. Other head dims <= 256 are zero-padded to the next of
-// these by the wrapper (ops/flash_attention.py).
+// bf16, head dims 16, 32 and 80 (the tiny preset's 16, Phi-2's 80),
+// flash_fwd_bf16_kernel: FlashAttention-2 style on mma.sync.m16n8k16, 4
+// warps a 64-row query tile, K/V tiles through cp.async double buffers and
+// ldmatrix, rows padded by 16 bytes against bank conflicts. Other head
+// dims <= 256 are zero-padded to the next compiled one by the wrapper
+// (ops/flash_attention.py).
 //
 // f32 (parity runs), flash_fwd_f32_kernel: exact f32 FMAs on the CUDA cores
 // through shared-memory tiles, so the f32 path agrees with the plain
@@ -68,7 +76,7 @@
 // T read as zeros and are scored -1e30, rows past S are not stored. A row
 // whose keys in a tile are all masked (the band's first tile under a
 // window) gets p = 0 there: the exponent is taken against 0 while the
-// row's running max is still -1e30.
+// row's running max is still that of a masked score.
 
 #include <cstdint>
 #include <numeric>
@@ -83,10 +91,10 @@ constexpr int BQ = 64;   // query rows a block (mma.sync and f32 kernels)
 constexpr int BK = 64;   // key rows a tile
 constexpr int NT = 128;  // 4 warps x 16 query rows
 
-// ------------------------------- bf16, mma.sync (head dims other than 64/128) ---
+// ------------------------------------- bf16, mma.sync (head dims 16, 32, 80) ---
 
 template <int D, bool CAUSAL, bool WINDOW>
-__global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
+__global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int S, int T_len, int H, int KV, int window,
@@ -94,10 +102,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
   constexpr int LD = D + 8;  // padded row (elements): conflict-free ldmatrix
   constexpr int KS = D / 16;  // k-steps of Q.K^T
   constexpr int NS = BK / 8;  // 8-key n-tiles of the scores
-  constexpr int DSPLIT = dsplit(D);
-  constexpr int NTH = NT * DSPLIT;
-  constexpr int ND = D / 8 / DSPLIT;  // 8-wide d-tiles of this warp's output
-  constexpr bool Q_REGS = DSPLIT == 1;  // Q's fragments held in registers
+  constexpr int ND = D / 8;   // 8-wide d-tiles of the output
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ, LD]
   __nv_bfloat16* Ks = Qs + BQ * LD;   // [2][BK, LD]
@@ -108,10 +113,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  // the warp's 16-row tile, and which D / DSPLIT output columns it keeps
-  const int warp = DSPLIT == 1 ? threadIdx.x >> 5 : (threadIdx.x >> 5) % 4;
-  const int part = DSPLIT == 1 ? 0 : (threadIdx.x >> 5) / 4;
-  const int c0 = part * (D / DSPLIT);
+  const int warp = threadIdx.x >> 5;  // the warp's 16-row tile
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;   // row within the 8-row half of an mma tile
   const int t4 = lane & 3;   // column pair within an 8-column n-tile
@@ -129,27 +131,24 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
     if (WINDOW) kt_lo = max(0, q0 - window + 1) / BK;  // band's start
   }
 
-  async_rows<D, LD, NTH>(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0, BQ);
+  async_rows<D, LD, NT>(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0, BQ);
   {
     const int k0 = kt_lo * BK;
-    async_rows<D, LD, NTH>(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
+    async_rows<D, LD, NT>(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
                       BK);
-    async_rows<D, LD, NTH>(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
+    async_rows<D, LD, NT>(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
                       BK);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, one per 16-wide k-step (at
-  // head dim 256 read from shared memory where they are used)
+  // this warp's 16 query rows as A fragments, one per 16-wide k-step
   const __nv_bfloat16* q_frag = Qs + (warp * 16 + (lane & 15)) * LD +
                                 (lane >> 4) * 8;
-  uint32_t qf[Q_REGS ? KS : 1][4];
-  if constexpr (Q_REGS) {
+  uint32_t qf[KS][4];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], q_frag + ks * 16);
-  }
+  for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], q_frag + ks * 16);
 
   float acc[ND][4];
 #pragma unroll
@@ -165,10 +164,10 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
     if (kt + 1 < n_k) {
       // the other stage was released by the barrier ending iteration kt-1
       const int k1 = k0 + BK;
-      async_rows<D, LD, NTH>(Ks + (stage ^ 1) * BK * LD, kb + (size_t)k1 * kv_stride,
-                        kv_stride, T_len - k1, BK);
-      async_rows<D, LD, NTH>(Vs + (stage ^ 1) * BK * LD, vb + (size_t)k1 * kv_stride,
-                        kv_stride, T_len - k1, BK);
+      async_rows<D, LD, NT>(Ks + (stage ^ 1) * BK * LD, kb + (size_t)k1 * kv_stride,
+                           kv_stride, T_len - k1, BK);
+      async_rows<D, LD, NT>(Vs + (stage ^ 1) * BK * LD, vb + (size_t)k1 * kv_stride,
+                           kv_stride, T_len - k1, BK);
       cp_async_commit();
       cp_async_wait<1>();  // tile kt has landed, tile kt+1 may be in flight
     } else {
@@ -184,18 +183,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      if constexpr (!Q_REGS) {
-#pragma unroll
-        for (int ks = 0; ks < KS; ks += 2) {
-          uint32_t qa[4], qb2[4], kf[4];
-          ldmatrix_x4(qa, q_frag + ks * 16);
-          ldmatrix_x4(qb2, q_frag + (ks + 1) * 16);
-          ldmatrix_x4(kf, Kt + (n * 8 + (lane & 7)) * LD + ks * 16 +
-                              (lane >> 3) * 8);
-          mma_bf16(s[n], qa, kf[0], kf[1]);
-          mma_bf16(s[n], qb2, kf[2], kf[3]);
-        }
-      } else if constexpr (KS % 2 == 0) {
+      if constexpr (KS % 2 == 0) {
 #pragma unroll
         for (int ks = 0; ks < KS; ks += 2) {
           uint32_t kf[4];  // b0, b1 of k-step ks, then of ks + 1
@@ -287,7 +275,7 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
       for (int n = 0; n < ND; n += 2) {
         uint32_t vf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
         ldmatrix_x4_trans(vf, Vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                       LD + c0 + n * 8 + (lane >> 4) * 8);
+                                       LD + n * 8 + (lane >> 4) * 8);
         mma_bf16(acc[n], pf, vf[0], vf[1]);
         mma_bf16(acc[n + 1], pf, vf[2], vf[3]);
       }
@@ -312,9 +300,9 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
     for (int n = 0; n < ND; ++n) {
       const __nv_bfloat162 pair = __floats2bfloat162_rn(
           acc[n][half * 2] * inv, acc[n][half * 2 + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + c0 + n * 8 + t4 * 2) = pair;
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + t4 * 2) = pair;
     }
-    if (t4 == 0 && part == 0) {
+    if (t4 == 0) {
       const float l = half ? l_b : l_a;
       const float m = half ? m_b : m_a;
       lse[((size_t)b * H + h) * S + row] = m + logf(fmaxf(l, 1e-30f));
@@ -325,24 +313,38 @@ __global__ void __launch_bounds__(NT * dsplit(D)) flash_fwd_bf16_kernel(
 // ------------------------------------------------- bf16, TMA + wgmma ---
 
 constexpr int WG_BQ = 128;     // query rows a work tile: 64 per consumer group
-constexpr int WG_BK = 128;     // key rows a K/V tile
 constexpr int WG_NT = 384;     // producer group + 2 consumer groups
-constexpr int WG_STAGES = 2;   // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// A head dim's tiles in shared memory: Q (128 rows), the epilogue's O
+// buffer, and rings of K and V tiles of BK rows, each tile NB boxes of
+// TileCols' columns. At head dim 256 O is 128 f32 a consumer thread, so
+// the scores take 64-key tiles (32 f32 a thread; 128 keys would leave no
+// room within the consumers' registers), and Q and O (64 KB each) leave
+// room for two K stages and one V stage: V is read last in a tile, and O
+// stored from registers instead took 14-35% longer (PERF.md).
 template <int D>
-struct WgmmaSmem {
-  static constexpr int HALF = 128 * 128;  // bytes of a 64-column box of 128 rows
-  static constexpr int TILE = HALF * (D / 64);  // a 128-row tile, D columns
+struct FwdSmem {
+  using C = TileCols<D>;
+  static constexpr int BK = D == 256 ? 64 : 128;  // key rows a K/V tile
+  static constexpr int KST = 2;                   // K ring depth
+  static constexpr int VST = D == 256 ? 1 : 2;    // V ring depth
+  static constexpr int BOX_Q = WG_BQ * C::RB;  // a box of Q or O
+  static constexpr int TILE_Q = BOX_Q * C::NB;
+  static constexpr int BOX_K = BK * C::RB;  // a box of K or V
+  static constexpr int TILE_K = BOX_K * C::NB;
   static constexpr int Q = 0;
-  static constexpr int O = TILE;  // the epilogue's output tile
-  static constexpr int K = O + TILE;
-  static constexpr int V = K + WG_STAGES * TILE;
-  static constexpr int BAR = V + WG_STAGES * TILE;
-  // q_full, q_empty, then k_full, v_full, k_empty, v_empty (one each a
-  // stage); + 1024 to align the tiles
-  static constexpr size_t kBytes = BAR + 8 * (2 + 4 * WG_STAGES) + 1024;
+  static constexpr int O = TILE_Q;
+  static constexpr int K = O + TILE_Q;
+  static constexpr int V = K + KST * TILE_K;
+  static constexpr int BAR = V + VST * TILE_K;
+  // q_full, q_empty, then k_full and k_empty (one each a K stage), v_full
+  // and v_empty (one each a V stage); + 1024 to align the tiles
+  static constexpr size_t kBytes = BAR + 8 * (2 + 2 * KST + 2 * VST) + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
 };
 
 // The work tiles (128 query rows of one batch and head) in the order the
@@ -370,6 +372,24 @@ struct WorkTiles {
   }
 };
 
+// s = q k^T for a consumer's 64 rows against BK keys, both operands
+// K-major in shared memory
+template <int D, int BK>
+__device__ __forceinline__ void fwd_scores(float (&s)[BK / 2],
+                                           uint32_t q_rows, uint32_t kt) {
+  using C = TileCols<D>;
+  using L = FwdSmem<D>;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint64_t a = C::kmajor(q_rows + C::kstep(ks, L::BOX_Q));
+    const uint64_t b = C::kmajor(kt + C::kstep(ks, L::BOX_K));
+    if constexpr (BK == 128)
+      wgmma_m64n128k16_ss(s, a, b, ks > 0);
+    else
+      wgmma_m64n64k16_ss(s, a, b, ks > 0);
+  }
+}
+
 template <int D, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -377,28 +397,33 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_v,
     const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse, int B,
     int S, int T_len, int H, int KV, int window, float scale_log2, int hbg) {
-  using L = WgmmaSmem<D>;
+  using L = FwdSmem<D>;
+  using C = TileCols<D>;
+  constexpr int BK = L::BK, KST = L::KST, VST = L::VST;
   extern __shared__ __align__(1024) unsigned char smem_tiles[];
-  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  // the swizzle repeats every 1024 (128-byte) or 512 (64-byte) bytes:
+  // align the tiles to it
   const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::Q, sO = base + L::O;
   const uint32_t sK = base + L::K, sV = base + L::V;
   const uint32_t q_full = base + L::BAR, q_empty = q_full + 8;
   auto k_full = [&](int st) { return q_full + 8 * (2 + st); };
-  auto v_full = [&](int st) { return q_full + 8 * (2 + WG_STAGES + st); };
-  auto k_empty = [&](int st) { return q_full + 8 * (2 + 2 * WG_STAGES + st); };
-  auto v_empty = [&](int st) { return q_full + 8 * (2 + 3 * WG_STAGES + st); };
+  auto k_empty = [&](int st) { return q_full + 8 * (2 + KST + st); };
+  auto v_full = [&](int st) { return q_full + 8 * (2 + 2 * KST + st); };
+  auto v_empty = [&](int st) {
+    return q_full + 8 * (2 + 2 * KST + VST + st);
+  };
 
   const int n_qt = (S + WG_BQ - 1) / WG_BQ;
   const WorkTiles work{n_qt, H, H * B, hbg, n_qt * H * B};
   // the K/V tiles a query tile reads: up to the diagonal when causal, from
   // the band's first under a window (tiles above or below are never loaded)
   auto kv_range = [&](int q0, int& kt_lo, int& n_tiles) {
-    int n_k = (T_len + WG_BK - 1) / WG_BK;
+    int n_k = (T_len + BK - 1) / BK;
     kt_lo = 0;
     if (CAUSAL) {
-      n_k = min(n_k, q0 / WG_BK + 1);
-      if (WINDOW) kt_lo = max(0, q0 - window + 1) / WG_BK;
+      n_k = min(n_k, (q0 + WG_BQ - 1) / BK + 1);
+      if (WINDOW) kt_lo = max(0, q0 - window + 1) / BK;
     }
     n_tiles = max(0, n_k - kt_lo);
   };
@@ -406,10 +431,12 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, 8);  // one arrival per consumer warp
-    for (int st = 0; st < WG_STAGES; ++st) {
+    for (int st = 0; st < KST; ++st) {
       mbar_init(k_full(st), 1);
-      mbar_init(v_full(st), 1);
       mbar_init(k_empty(st), 8);
+    }
+    for (int st = 0; st < VST; ++st) {
+      mbar_init(v_full(st), 1);
       mbar_init(v_empty(st), 8);
     }
     mbar_fence_init();
@@ -418,10 +445,10 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
 
   if (threadIdx.x < 128) {
     // ---- producer: one thread walks the block's work tiles and keeps Q
-    // and the K/V ring full by TMA, running ahead into the next tile ----
-    setmaxnreg_dec<40>();
+    // and the K/V rings full by TMA, running ahead into the next tile ----
+    setmaxnreg_dec<L::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      int it = 0;  // K/V tiles loaded so far: the ring's position
+      int it = 0;  // K/V tiles loaded so far: the rings' position
       for (int r = 0, n = 0;; ++r, ++n) {
         const int w = work.at(r, blockIdx.x, gridDim.x);
         if (w >= work.n) break;
@@ -431,41 +458,40 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
         const int kvh = h / (H / KV);
         // the consumers are done with the previous tile's Q
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
-        mbar_expect_tx(q_full, L::TILE);
-        for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(sQ + c * L::HALF, &tm_q, q_full, c * 64, h, q0, b);
+        mbar_expect_tx(q_full, L::TILE_Q);
+        for (int c = 0; c < C::NB; ++c)
+          tma_load_4d(sQ + c * L::BOX_Q, &tm_q, q_full, c * C::BC, h, q0, b);
         for (int i = 0; i < n_tiles; ++i, ++it) {
-          const int st = it % WG_STAGES;
-          const uint32_t prev = ((it / WG_STAGES) - 1) & 1;
-          const int k0 = (kt_lo + i) * WG_BK;
-          const uint32_t kt = sK + st * L::TILE, vt = sV + st * L::TILE;
+          const int sk = it % KST, sv = it % VST;
+          const int k0 = (kt_lo + i) * BK;
+          const uint32_t kt = sK + sk * L::TILE_K, vt = sV + sv * L::TILE_K;
           // K and V are released apart (K once q k^T is done): wait for
           // the consumers to free this stage's previous tile
-          if (it >= WG_STAGES) mbar_wait(k_empty(st), prev);
-          mbar_expect_tx(k_full(st), L::TILE);
-          for (int c = 0; c < D / 64; ++c)
-            tma_load_4d(kt + c * L::HALF, &tm_k, k_full(st), c * 64, kvh, k0,
-                        b);
-          if (it >= WG_STAGES) mbar_wait(v_empty(st), prev);
-          mbar_expect_tx(v_full(st), L::TILE);
-          for (int c = 0; c < D / 64; ++c)
-            tma_load_4d(vt + c * L::HALF, &tm_v, v_full(st), c * 64, kvh, k0,
-                        b);
+          if (it >= KST) mbar_wait(k_empty(sk), ((it / KST) - 1) & 1);
+          mbar_expect_tx(k_full(sk), L::TILE_K);
+          for (int c = 0; c < C::NB; ++c)
+            tma_load_4d(kt + c * L::BOX_K, &tm_k, k_full(sk), c * C::BC, kvh,
+                        k0, b);
+          if (it >= VST) mbar_wait(v_empty(sv), ((it / VST) - 1) & 1);
+          mbar_expect_tx(v_full(sv), L::TILE_K);
+          for (int c = 0; c < C::NB; ++c)
+            tma_load_4d(vt + c * L::BOX_K, &tm_v, v_full(sv), c * C::BC, kvh,
+                        k0, b);
         }
       }
     }
   } else {
     // ---- consumers: group cw owns query rows q0 + 64 cw .. + 63 of each
     // work tile ----
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<L::CONSUMER_REGS>();
     const int cw = threadIdx.x / 128 - 1;
     const int tid = threadIdx.x % 128;
     const int warp = tid >> 5;
     const int lane = tid & 31;
     const int g = lane >> 2;  // accumulator rows g and g + 8 of the warp's 16
     const int t4 = lane & 3;  // column pair within an 8-column n-tile
-    const uint32_t q_rows = sQ + cw * 64 * 128;  // this group's 64 rows
-    const uint32_t o_rows = sO + cw * 64 * 128;
+    const uint32_t q_rows = sQ + cw * 64 * C::RB;  // this group's 64 rows
+    const uint32_t o_rows = sO + cw * 64 * C::RB;
     auto release = [&](uint32_t bar) {  // this warp is done with a buffer
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
@@ -478,7 +504,8 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
       int q0, h, b, kt_lo, n_tiles;
       work.decode(w, q0, h, b);
       kv_range(q0, kt_lo, n_tiles);
-      const int row0 = q0 + cw * 64 + warp * 16;  // the warp's first row
+      const int grow = q0 + cw * 64;  // the group's first row
+      const int row0 = grow + warp * 16;  // the warp's first row
       const int row_a = row0 + g;
       const int row_b = row_a + 8;
 
@@ -491,39 +518,31 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
       mbar_wait(q_full, n & 1);
       if (n_tiles == 0) release(q_empty);
       for (int i = 0; i < n_tiles; ++i, ++it) {
-        const int st = it % WG_STAGES;
-        const uint32_t ph = (it / WG_STAGES) & 1;
-        const int k0 = (kt_lo + i) * WG_BK;
-        const uint32_t kt = sK + st * L::TILE, vt = sV + st * L::TILE;
-
+        const int sk = it % KST, sv = it % VST;
+        const int k0 = (kt_lo + i) * BK;
+        const uint32_t kt = sK + sk * L::TILE_K, vt = sV + sv * L::TILE_K;
         // s = q k^T: key n-tile j of rows g (s[4j], s[4j+1]) and g+8 (+2,
         // +3)
-        float s[64];
-        mbar_wait(k_full(st), ph);
+        float s[BK / 2];
+        mbar_wait(k_full(sk), (it / KST) & 1);
         wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < D / 16; ++ks) {
-          // 16 columns = 32 bytes a k-step inside a 128-byte atom
-          const uint32_t off = (ks / 4) * L::HALF + (ks % 4) * 32;
-          wgmma_m64n128k16_ss(s, sw128_desc(q_rows + off, 16, 1024),
-                              sw128_desc(kt + off, 16, 1024), ks > 0);
-        }
+        fwd_scores<D, BK>(s, q_rows, kt);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(s);
-        release(k_empty(st));
+        release(k_empty(sk));
         if (i == n_tiles - 1) release(q_empty);
 
         // mask (only tiles that cross the diagonal, the band's lower edge
         // or the ragged end) the raw scores, then the online-softmax step in
         // log2 units: the max of the raw scores (the scale is positive),
         // then p = exp2(s * scale log2(e) - m) by one FMA
-        const bool edge = k0 + WG_BK > T_len ||
-                          (CAUSAL && k0 + WG_BK - 1 > row0) ||
+        const bool edge = k0 + BK > T_len ||
+                          (CAUSAL && k0 + BK - 1 > row0) ||
                           (WINDOW && row0 + 15 - k0 >= window);
         float mx_a = -1e30f, mx_b = -1e30f;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float x = s[4 * j + e];
@@ -552,15 +571,17 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
         m_b = mn_b;
         // under a window a row may have no visible key yet: exp against 0
         // gives its masked p = 0 (without one, key 0 is in every row's
-        // first tile); a masked score becomes <= -1e30 scale log2(e)
-        const float e_a = WINDOW && mn_a <= -1e29f ? 0.f : mn_a;
-        const float e_b = WINDOW && mn_b <= -1e29f ? 0.f : mn_b;
+        // first tile); a masked score becomes -1e30 scale log2(e), and
+        // scale log2(e) is below 0.1 from head dim 208 on
+        const float masked = -1e29f * scale_log2;
+        const float e_a = WINDOW && mn_a <= masked ? 0.f : mn_a;
+        const float e_b = WINDOW && mn_b <= masked ? 0.f : mn_b;
         float sum_a = 0.f, sum_b = 0.f;
         // p, rounded to bf16, as the A fragments of p.v: the n-tiles 2kk
         // and 2kk+1 of the scores are exactly the 16-key step kk
-        uint32_t pf[8][4];
+        uint32_t pf[BK / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < BK / 16; ++kk) {
           float p[8];
 #pragma unroll
           for (int e = 0; e < 8; ++e)
@@ -584,22 +605,18 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
         }
 
         // o += p v: V is MN-major (d contiguous), so a 16-key step is 16
-        // rows of V (2048 bytes) and the two 64-column boxes are LBO apart
-        mbar_wait(v_full(st), ph);
+        // rows of V and its boxes are LBO apart
+        mbar_wait(v_full(sv), (it / VST) & 1);
         fence_regs(o);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const uint64_t dv = sw128_desc(vt + kk * 2048, L::HALF, 1024);
-          if constexpr (D == 128)
-            wgmma_m64n128k16_rs_tb(o, pf[kk], dv, 1);
-          else
-            wgmma_m64n64k16_rs_tb(o, pf[kk], dv, 1);
-        }
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs_tb<D>(o, pf[kk],
+                         C::mnmajor(vt + kk * 16 * C::RB, L::BOX_K));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
-        release(v_empty(st));
+        release(v_empty(sv));
       }
 
       // epilogue: o / l in bf16 into this group's rows of O's buffer (the
@@ -620,9 +637,7 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
 #pragma unroll
         for (int j = 0; j < D / 8; j += 2) {
           const int col = (j + (mi >> 1)) * 8;
-          const uint32_t addr = o_rows + (col / 64) * L::HALF + rr * 128 +
-                                ((((col % 64) / 8) ^ (rr & 7)) * 16);
-          stmatrix_x4(addr,
+          stmatrix_x4(o_rows + C::chunk(rr, col, L::BOX_Q),
                       pack_bf16(o[4 * j] * inv_a, o[4 * j + 1] * inv_a),
                       pack_bf16(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b),
                       pack_bf16(o[4 * j + 4] * inv_a, o[4 * j + 5] * inv_a),
@@ -632,9 +647,8 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_fwd_wgmma_kernel(
       fence_proxy_async();
       named_bar_sync(1 + cw, 128);
       if (tid == 0) {
-        for (int c = 0; c < D / 64; ++c)
-          tma_store_4d(&tm_o, o_rows + c * L::HALF, c * 64, h,
-                       q0 + cw * 64, b);
+        for (int c = 0; c < C::NB; ++c)
+          tma_store_4d(&tm_o, o_rows + c * L::BOX_Q, c * C::BC, h, grow, b);
         tma_store_commit();
       }
       if (t4 == 0) {
@@ -651,13 +665,15 @@ template <int D>
 int launch_wgmma(int causal, int window, const void* q, const void* k,
                  const void* v, void* o, void* lse, int B, int S, int T_len,
                  int H, int KV, float scale, cudaStream_t st) {
+  using L = FwdSmem<D>;
+  constexpr int BC = TileCols<D>::BC;
   CUtensorMap mq, mk, mv, mo;
-  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG_BQ);
-  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, WG_BK);
-  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, WG_BK);
-  if (rc == 0) rc = rt_bshd_map(&mo, o, B, S, H, D, 64);
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, WG_BQ, BC);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, L::BK, BC);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, L::BK, BC);
+  if (rc == 0) rc = rt_bshd_map(&mo, o, B, S, H, D, 64, BC);
   if (rc != 0) return rc;
-  const size_t smem = WgmmaSmem<D>::kBytes;
+  const size_t smem = L::kBytes;
   auto kernel = window > 0 ? flash_fwd_wgmma_kernel<D, true, true>
                 : causal   ? flash_fwd_wgmma_kernel<D, true, false>
                            : flash_fwd_wgmma_kernel<D, false, false>;
@@ -849,9 +865,9 @@ int launch_d(int dtype, int causal, int window, const void* q,
              const void* k, const void* v, void* o, void* lse, int B, int S,
              int T_len, int H, int KV, float scale, cudaStream_t st) {
   if (dtype == RT_BF16) {
-    // head dims 64 and 128 run only the TMA/wgmma kernel: the mma.sync
-    // kernel is not even instantiated for them
-    if constexpr (D == 64 || D == 128) {
+    // head dims 64, 96, 128 and 256 run only the TMA/wgmma kernel: the
+    // mma.sync kernel is instantiated for 16, 32 and 80 alone
+    if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
       return launch_wgmma<D>(causal, window, q, k, v, o, lse, B, S, T_len, H,
                              KV, scale, st);
     } else {
@@ -863,7 +879,7 @@ int launch_d(int dtype, int causal, int window, const void* q,
       cudaError_t err = rt_set_smem(kernel, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       dim3 grid((S + BQ - 1) / BQ, H, B);
-      kernel<<<grid, NT * dsplit(D), smem, st>>>(
+      kernel<<<grid, NT, smem, st>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(o),
           static_cast<float*>(lse), S, T_len, H, KV, window, scale);

@@ -522,34 +522,6 @@ constexpr int WG_NT = 384;    // producer group + 2 consumer groups
 constexpr int WG_STAGES = 2;  // ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 
-// How a head dim's tiles lie in shared memory: TMA boxes of BC columns,
-// each row of a box one swizzled row of RB bytes (64 columns and the
-// 128-byte swizzle where D is a multiple of 64; 32 and the 64-byte swizzle
-// at head dim 96), NB boxes across a row of the tile, KPB 16-column
-// k-steps a box.
-template <int D>
-struct TileCols {
-  static constexpr int BC = D % 64 == 0 ? 64 : 32;
-  static constexpr int RB = 2 * BC;
-  static constexpr int NB = D / BC;
-  static constexpr int KPB = BC / 16;
-  static_assert(D % 32 == 0, "whole boxes");
-  // bytes from a tile's start to its k-step ks, where its boxes are `box`
-  // bytes apart: the box, then 32 bytes a step inside its swizzled rows
-  static __device__ __forceinline__ uint32_t kstep(int ks, int box) {
-    return (ks / KPB) * box + (ks % KPB) * 32;
-  }
-  // descriptors: K-major (rows of RB bytes, 8-row atoms), and MN-major
-  // with boxes `box` bytes apart (LBO) and 8-row atoms (SBO)
-  static __device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
-    return sw_desc<RB>(addr, 16, 8 * RB);
-  }
-  static __device__ __forceinline__ uint64_t mnmajor(uint32_t addr,
-                                                     int box) {
-    return sw_desc<RB>(addr, box, 8 * RB);
-  }
-};
-
 template <int D>
 struct DqSmem {
   using C = TileCols<D>;

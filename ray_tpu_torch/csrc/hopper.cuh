@@ -13,7 +13,8 @@
 // 96 is not a multiple of 64: its tiles are three boxes of 32 columns (64
 // bytes) with CU_TENSOR_MAP_SWIZZLE_64B (chunk c of row r at r * 64 + ((c
 // ^ (r / 2 % 4)) * 16), 512-byte atoms of 8 rows), the wgmma descriptors'
-// 64-byte layout.
+// 64-byte layout. TileCols says which a head dim takes, for the forward
+// and the backward alike.
 #pragma once
 
 #include <cstdint>
@@ -234,6 +235,42 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
                                                uint32_t sbo) {
   return sw_desc<128>(addr, lbo, sbo);
 }
+
+// How a head dim's tiles lie in shared memory: TMA boxes of BC columns,
+// each row of a box one swizzled row of RB bytes (64 columns and the
+// 128-byte swizzle where D is a multiple of 64; 32 and the 64-byte swizzle
+// at head dim 96), NB boxes across a row of the tile, KPB 16-column
+// k-steps a box.
+template <int D>
+struct TileCols {
+  static constexpr int BC = D % 64 == 0 ? 64 : 32;
+  static constexpr int RB = 2 * BC;
+  static constexpr int NB = D / BC;
+  static constexpr int KPB = BC / 16;
+  static_assert(D % 32 == 0, "whole boxes");
+  // bytes from a tile's start to its k-step ks, where its boxes are `box`
+  // bytes apart: the box, then 32 bytes a step inside its swizzled rows
+  static __device__ __forceinline__ uint32_t kstep(int ks, int box) {
+    return (ks / KPB) * box + (ks % KPB) * 32;
+  }
+  // bytes from a tile's start to its 16-byte chunk holding column `col` of
+  // row r, where its boxes are `box` bytes apart: the swizzle puts chunk c
+  // of row r at chunk c ^ (r % 8) (128 bytes) or c ^ (r / 2 % 4) (64)
+  static __device__ __forceinline__ uint32_t chunk(int r, int col, int box) {
+    const int c = (col % BC) / 8;
+    const int x = RB == 128 ? r % 8 : (r / 2) % 4;
+    return (col / BC) * box + r * RB + ((c ^ x) * 16);
+  }
+  // descriptors: K-major (rows of RB bytes, 8-row atoms), and MN-major
+  // with boxes `box` bytes apart (LBO) and 8-row atoms (SBO)
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
+    return sw_desc<RB>(addr, 16, 8 * RB);
+  }
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t addr,
+                                                     int box) {
+    return sw_desc<RB>(addr, box, 8 * RB);
+  }
+};
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

@@ -14,12 +14,6 @@
 
 namespace {
 
-// Warps that share a 16-row tile of the mma.sync kernels, each summing
-// D / dsplit(D) of the output columns: 2 above head dim 128, where a whole
-// row of f32 accumulators (D / 2 a thread, 2 D for K4's dK and dV) would
-// not fit a thread's registers. The scores are computed by both warps.
-__host__ __device__ constexpr int dsplit(int D) { return D > 128 ? 2 : 1; }
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -7,10 +7,11 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   causal or full) and K2 (``_fwd_kernel_stream``, the sliding window) are
   one CUDA kernel here (``csrc/flash_attention.cu``) with a ``window``
   argument, which streams only the K/V tiles inside the causal band, so a
-  window costs O(S * W). bf16 with head dim 64 or 128 runs the Hopper
-  kernel (TMA, mbarriers, warp-specialised ``wgmma``, 128-row tiles); bf16
-  with head dim 16, 32, 80, 96 or 256 an ``mma.sync`` kernel; f32 exact
-  CUDA-core FMAs;
+  window costs O(S * W). bf16 with head dim 64, 96, 128 or 256 runs the
+  Hopper kernel (TMA, mbarriers, warp-specialised ``wgmma``, 128-row query
+  tiles; 64-key tiles and one V stage at head dim 256); bf16
+  with head dim 16, 32 or 80 an ``mma.sync`` kernel; f32 exact CUDA-core
+  FMAs;
 - backward, ``flash_attention_bwd``: the FlashAttention-2 split of the TPU
   kernels K3 (``_bwd_dq_kernel``) and K4 (``_bwd_dkdv_kernel``) in
   ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV
@@ -66,8 +67,8 @@ launches_dkdv = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the kernels (forward and backward, both dtypes) are
-#: compiled for; bf16 runs the wgmma kernels at 64 and 128 in the forward
-#: and at 64, 96, 128 and 256 in the backward, mma.sync at the others
+#: compiled for; bf16 runs the wgmma kernels at 64, 96, 128 and 256 in
+#: both passes, mma.sync at the others
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 

@@ -91,15 +91,19 @@ class ScalingConfig:
         r = dict(self.resources_per_worker)
         r.setdefault("CPU", 1.0)
         if self.holds_gpu():
-            # resolve the logical chip resource name the same way task
-            # submission does (cfg.chip_resource; "GPU" in the port)
-            from ray_tpu_torch.core import runtime as _rt
-            from ray_tpu_torch.core.config import GLOBAL_CONFIG
-
-            rt = _rt.current_runtime_or_none()
-            cfg = rt.cfg if rt is not None else GLOBAL_CONFIG
-            r[cfg.chip_resource] = float(self.gpus_per_worker)
+            r[chip_resource()] = float(self.gpus_per_worker)
         return r
+
+
+def chip_resource() -> str:
+    """The logical chip resource's name, resolved the same way task
+    submission does (cfg.chip_resource; "GPU" in the port)."""
+    from ray_tpu_torch.core import runtime as _rt
+    from ray_tpu_torch.core.config import GLOBAL_CONFIG
+
+    rt = _rt.current_runtime_or_none()
+    cfg = rt.cfg if rt is not None else GLOBAL_CONFIG
+    return cfg.chip_resource
 
 
 @dataclass

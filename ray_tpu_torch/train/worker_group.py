@@ -16,9 +16,32 @@ import os
 from typing import Any, Callable, Dict, List, Optional
 
 import ray_tpu_torch
+from ray_tpu_torch.train.config import chip_resource
 from ray_tpu_torch.train.session import TrainContext, _set_context
 from ray_tpu_torch.util import (PlacementGroupSchedulingStrategy,
                                 placement_group, remove_placement_group)
+
+
+def worker_process_env(resources: Dict[str, float]) -> Dict[str, str]:
+    """The environment a train worker's process starts with, before it
+    loads torch, where the worker computes its step on the CPU: its CPU
+    libraries' threading fixed, so that the same state gives the same
+    step in every attempt. The intra-op thread count is the worker's CPUs
+    (at least 1, as the reference cluster sets OMP_NUM_THREADS for its
+    workers), OpenMP's and MKL's dynamic thread counts are off, and MKL
+    takes one code path for every call (MKL_CBWR=AUTO: conditional
+    numerical reproducibility, whatever the buffers' alignment): another
+    of its code paths moves the tiny GPT-2's CPU losses in the 6th digit
+    from the second step on, which a resumed attempt must not. A worker
+    that reserves a card runs its step there, where MKL takes no part:
+    it gets no such environment and keeps the pool's prestarted
+    processes."""
+    if resources.get(chip_resource()):
+        return {}
+    n = str(max(1, int(resources.get("CPU", 1))))
+    return {"OMP_NUM_THREADS": n, "MKL_NUM_THREADS": n,
+            "OMP_DYNAMIC": "FALSE", "MKL_DYNAMIC": "FALSE",
+            "MKL_CBWR": "AUTO"}
 
 
 @ray_tpu_torch.remote
@@ -186,10 +209,12 @@ class WorkerGroup:
             self._placements.append((self.pg, rank))
 
     def _spawn(self, pg, bundle_index: int, rank: int, world: int):
+        env = worker_process_env(self.resources)
         w = TrainWorker.options(
             num_cpus=0,
             resources={k: v for k, v in self.resources.items()},
             max_concurrency=2,
+            runtime_env={"process_env_vars": env} if env else None,
             scheduling_strategy=PlacementGroupSchedulingStrategy(
                 placement_group=pg,
                 placement_group_bundle_index=bundle_index),

@@ -301,7 +301,7 @@ def _qkv_on_card(B, S, T, H, KV, D, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 96, 256])
 @pytest.mark.parametrize("S,T,H,KV,causal,window", [
     (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
     (200, 200, 16, 8, False, None), (1000, 1000, 16, 8, True, None),
@@ -309,8 +309,8 @@ def _qkv_on_card(B, S, T, H, KV, D, seed):
     (200, 200, 16, 8, True, 64), (1000, 1000, 16, 8, True, 200),
     (128, 128, 4, 4, True, 64), (256, 512, 16, 8, True, 200)])
 def test_wgmma_kernel_matches_plain_on_card(D, S, T, H, KV, causal, window):
-    """The TMA/wgmma kernel (bf16, head dims 64 and 128) against the plain
-    version: out elementwise within kernel_tolerance, the LSE within 1e-4,
+    """The TMA/wgmma kernel (bf16, head dims 64, 96, 128 and 256) against
+    the plain version: out elementwise within kernel_tolerance, the LSE within 1e-4,
     for causal and full attention, GQA, windows, ragged S and T > S."""
     require_cuda()
     q, k, v = _qkv_on_card(2, S, T, H, KV, D, seed=13)
@@ -326,7 +326,7 @@ def test_wgmma_kernel_matches_plain_on_card(D, S, T, H, KV, causal, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 96, 256])
 def test_wgmma_kernel_reads_no_row_past_t_or_outside_the_band(D):
     """NaN where the kernel must not read: (a) memory just past the last
     batch's T rows (TMA zero-fills the ragged tile inside its batch); (b)
@@ -359,7 +359,8 @@ def test_wgmma_kernel_reads_no_row_past_t_or_outside_the_band(D):
     check(out, ref, fa.kernel_tolerance(q, k[:, :384], v[:, :384], ref,
                                         causal=True))
     # (c) S = T = 1000, window 64: keys 0-127 poisoned; rows >= 256 never
-    # see them, and their query tiles start at tile 1
+    # see them, and their query tiles start past key 127 (at the second
+    # 128-key tile, or the fourth 64-key one at head dim 256)
     q, k, v = _qkv_on_card(2, 1000, 1000, 16, 8, D, seed=16)
     ref, _ = _plain_on_card(q, k, v, True, 64)
     tol = fa.kernel_tolerance(q, k, v, ref, causal=True, window=64)
@@ -367,6 +368,67 @@ def test_wgmma_kernel_reads_no_row_past_t_or_outside_the_band(D):
     out, _ = fa.flash_attention_fwd(q, k, v, causal=True, window=64)
     torch.cuda.synchronize()
     check(out, ref, tol, rows=slice(256, None))
+
+
+def _first_kernel_of_trace():
+    """A small kernel of no interest, launched and finished first inside a
+    profiler trace: the kernels whose names a test reads come after it."""
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 256])
+@pytest.mark.parametrize("S,T,H,KV,causal,window", [
+    (1024, 1024, 8, 1, True, None), (200, 200, 7, 1, True, None),
+    (256, 512, 8, 2, True, None), (200, 200, 4, 4, True, None),
+    (256, 256, 8, 1, True, 96), (200, 200, 8, 1, False, None)])
+def test_wgmma_fwd_kernel_runs_at_head_dims_96_and_256_on_card(
+        D, S, T, H, KV, causal, window):
+    """bf16 K1/K2 at head dims 96 and 256 run the TMA/wgmma kernel and
+    nothing else, by the kernel names the profiler records; out lies within
+    kernel_tolerance of the plain version, the LSE within 1e-4, and both
+    are bit-identical on a second run. The cases: G 8 with one kv head
+    (Gemma-2B's heads, 8 query tiles of 128 rows a head), G 7, T 512 > S
+    256, ragged S 200 with H = KV, window 96 and non-causal."""
+    require_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _qkv_on_card(2, S, T, H, KV, D, seed=43)
+
+    def run():
+        return fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+    out, lse = run()
+    again = run()
+    ref, lse_ref = _plain_on_card(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert bool(torch.isfinite(out.float()).all())
+    over = float(((out.float() - ref.float()).abs() / fa.kernel_tolerance(
+        q, k, v, ref, causal=causal, window=window)).max())
+    assert over <= 1.0, over
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    # the kernel's name: CUPTI now and then drops a kernel from a trace,
+    # the first one most often, so each trace starts with a kernel of its
+    # own and a trace without it is taken again (up to 5 times); every
+    # forward kernel any trace holds must be the TMA/wgmma one
+    names: set = set()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _first_kernel_of_trace()
+            run()
+            torch.cuda.synchronize()
+        traced = {e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "flash_fwd_" in e.name}
+        names |= traced
+        if any("flash_fwd_wgmma_kernel" in n for n in traced):
+            break
+    assert any("flash_fwd_wgmma_kernel" in n for n in names), names
+    assert all("flash_fwd_wgmma_kernel" in n for n in names), names
 
 
 def _dq_case_on_card(S, T, H, KV, D, causal, window, seed):
@@ -621,12 +683,14 @@ def test_wgmma_bwd_kernels_run_at_head_dims_96_and_256_on_card(
         assert over <= 1.0, (name, over)
     assert [torch.equal(a, b) for a, b in zip(got, again)] == [True] * 3
     # the kernels' names: CUPTI now and then drops a kernel from a trace,
-    # so a trace missing one of the two is taken again (up to 5 times);
-    # every name any trace holds must be a TMA/wgmma kernel's
+    # the first one most often, so each trace starts with a kernel of its
+    # own and a trace missing one of the two is taken again (up to 5
+    # times); every name any trace holds must be a TMA/wgmma kernel's
     names: set = set()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _first_kernel_of_trace()
             fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
                                    window=window)
             torch.cuda.synchronize()

@@ -119,6 +119,52 @@ def test_trainer_restart_resumes_exact_state(ray_start_regular, tmp_path):
             if m["step"] in resumed} == resumed
 
 
+_FIXED_THREADING = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OMP_DYNAMIC",
+                    "MKL_DYNAMIC", "MKL_CBWR")
+
+
+def _threading_loop(config):
+    import os
+
+    import torch
+
+    from ray_tpu_torch.train import session
+
+    mkl = [ln.split(":")[1].strip()
+           for ln in torch.__config__.parallel_info().splitlines()
+           if ln.strip().startswith("mkl_get_max_threads")]
+    session.report({"threads": torch.get_num_threads(), "mkl": mkl,
+                    "env": {k: os.environ.get(k) for k in _FIXED_THREADING}})
+    return {}
+
+
+def test_train_worker_threading_is_fixed(ray_start_regular, tmp_path):
+    """A CPU train worker's process starts with its CPU libraries'
+    threading fixed (worker_process_env): as many intra-op threads as the
+    worker's CPUs, OpenMP's and MKL's dynamic thread counts off and one MKL code
+    path (MKL_CBWR), so that a resumed attempt's step equals the live one
+    bit for bit (test_trainer_restart_resumes_exact_state): another MKL
+    code path moves the tiny GPT-2's losses in the 6th digit."""
+    from ray_tpu_torch.train.worker_group import worker_process_env
+
+    result = DataParallelTrainer(
+        _threading_loop,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=False,
+                                     resources_per_worker={"CPU": 2}),
+        run_config=RunConfig(name="threads",
+                             storage_path=str(tmp_path))).fit()
+    assert result.ok, result.error
+    assert result.metrics["threads"] == 2
+    assert result.metrics["mkl"] in ([], ["2"])
+    assert result.metrics["env"] == {
+        "OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2",
+        "OMP_DYNAMIC": "FALSE", "MKL_DYNAMIC": "FALSE", "MKL_CBWR": "AUTO"}
+    assert worker_process_env({"CPU": 0.5})["OMP_NUM_THREADS"] == "1"
+    # a worker that reserves a card steps there and keeps a prestarted
+    # process
+    assert worker_process_env({"CPU": 1.0, "GPU": 1.0}) == {}
+
+
 def _quick_loop(config):
     """Steps of no work, a checkpoint every fifth, and on the first
     attempt a death right after the `die_after` one: its reports all come
