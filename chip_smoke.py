@@ -48,11 +48,14 @@ printing one JSON line:
    ``grad_tolerance``; CUPTI device times and CUDA events beside the
    bound, the plain version and SDPA (with a band mask; its backward), and
    the kernels' names (bf16 K3 and K4 at head dim 64, 96, 128 or 256 must
-   run the TMA/wgmma dQ and dK/dV kernels and nothing else), with their
-   ptxas registers and spills; every kernel phase also at the head dims
-   and groups outside the presets (16 in the backward, 48 zero-padded to
-   64, 80, 96, 256; G 3, 7, 16; HD 100 in paged decode), bf16 timed at
-   Phi-3-mini's and Gemma-2B's heads (and K3/K4 at the tiny presets');
+   run the TMA/wgmma dQ and dK/dV kernels and nothing else, at 16 and 32
+   the small-head ones), with their ptxas registers and spills; every
+   kernel phase also at the head dims and groups outside the presets (16
+   in the backward, 48 zero-padded to 64, 80, 96, 256; G 3, 7, 16; HD 100
+   in paged decode), bf16 timed at Phi-3-mini's and Gemma-2B's heads, and
+   K1/K3/K4 at the tiny presets' heads (head dim 16, and 32 on the same
+   heads) and H2O-Danube-1.8B's (80); the SFU's time for the
+   exponentials (exp_ms) beside the bound;
 9. shapes: public model shapes outside the presets (SHAPE_MODELS):
    Phi-3-mini (head dim 96), Llama-3.2-3B (G 3) and Gemma-2B's attention
    (head dim 256, G 8), each cut to 2 layers in f32 card vs CPU (prefill
@@ -252,6 +255,13 @@ OUT_DIR = REPO / "chiprun_out"
 # work is the larger of bytes / HBM rate and operations / peak for the type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the flash kernels' exponentials, reported beside the bound and not in
+# it: the SFU's ex2 at 16 an SM a clock on 132 SMs at the card's maximum
+# SM clock (1,980 MHz: nvidia-smi's clocks.max.sm on an H100 SXM). Not a
+# hard floor: exp2 can also be computed on the FMA pipes
+SMS = 132
+SM_CLOCK_MAX_HZ = 1.98e9
+EXP_PER_S = SMS * 16 * SM_CLOCK_MAX_HZ
 
 # kernel-vs-plain outputs are held elementwise within each ops module's
 # kernel_tolerance (its docstring derives the bound). The LSE is f32 in
@@ -638,6 +648,20 @@ def phase_k5():
 WGMMA_FWD_SYMBOL = "flash_fwd_wgmma_kernel"
 WGMMA_DQ_SYMBOL = "flash_bwd_dq_wgmma_kernel"
 WGMMA_DKDV_SYMBOL = "flash_bwd_dkdv_wgmma_kernel"
+# ... and bf16 K3/K4 at kernel head dims 16 and 32
+SMALL_DQ_SYMBOL = "flash_bwd_dq_small_kernel"
+SMALL_DKDV_SYMBOL = "flash_bwd_dkdv_small_kernel"
+
+
+def bwd_symbols(dtype: str, head_dim: int):
+    """The (K3, K4) kernels a dtype and kernel head dim must run."""
+    if dtype != "bfloat16":
+        return "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel"
+    if head_dim in (64, 96, 128, 256):
+        return WGMMA_DQ_SYMBOL, WGMMA_DKDV_SYMBOL
+    if head_dim in (16, 32):
+        return SMALL_DQ_SYMBOL, SMALL_DKDV_SYMBOL
+    return "flash_bwd_dq_bf16_kernel", "flash_bwd_dkdv_bf16_kernel"
 
 
 def band_pairs(S: int, T: int, causal: bool, window=None) -> int:
@@ -646,6 +670,33 @@ def band_pairs(S: int, T: int, causal: bool, window=None) -> int:
         return S * T
     w = window or max(S, T)
     return sum(max(0, min(s + 1, T) - max(0, s - w + 1)) for s in range(S))
+
+
+def fwd_bound(*, B, S, T, H, KV, D, dtype, causal=True, window=None):
+    """K1's (K2's) {"bound_ms", "bound_by", "exp_ms"}: q, k, v read and out,
+    lse written once; the two products; beside them the SFU's time for an
+    exponential a (query, key) pair of the band."""
+    elt = 4 if dtype == "float32" else 2
+    work = B * H * band_pairs(S, T, causal, window)
+    nbytes = elt * (2 * B * S * H * D + 2 * B * T * KV * D) + 4 * B * H * S
+    ms, by = bound(nbytes, 4 * work * D, dtype)
+    return {"bound_ms": ms, "bound_by": by, "exp_ms": work / EXP_PER_S * 1e3}
+
+
+def k3k4_bounds(*, B, S, H, KV, D, dtype, causal=True, window=None):
+    """{"k3_bound_ms", "k3_bound_by", "k4_...": ..., "exp_ms"} at T = S: K3
+    reads q, o, dO, k, v, lse and writes dq, delta, with 3 products; K4
+    reads q, dO, k, v, lse, delta and writes dk, dv, with 4; beside them
+    the SFU's time for the exponentials each recomputes (P, one a (query,
+    key) pair of the band)."""
+    elt = 4 if dtype == "float32" else 2
+    work = B * H * band_pairs(S, S, causal, window)
+    bshd, btkd, bhs = B * S * H * D, B * S * KV * D, B * H * S
+    k3 = bound(elt * (4 * bshd + 2 * btkd) + 8 * bhs, 6 * work * D, dtype)
+    k4 = bound(elt * (2 * bshd + 4 * btkd) + 8 * bhs, 8 * work * D, dtype)
+    return {"k3_bound_ms": k3[0], "k3_bound_by": k3[1],
+            "k4_bound_ms": k4[0], "k4_bound_by": k4[1],
+            "exp_ms": work / EXP_PER_S * 1e3}
 
 
 def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
@@ -738,10 +789,8 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
         lib_names: set = set()
         res["library_device_ms"] = device_ms(lib, iters=10, names=lib_names)
         res["library_kernels"] = sorted(lib_names)
-        elt = torch.finfo(dt).bits // 8
-        flops = 4 * B * H * band_pairs(S, T, causal, window) * D
-        nbytes = elt * (2 * B * S * H * D + 2 * B * T * KV * D) + 4 * B * H * S
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops, dtype)
+        res.update(fwd_bound(B=B, S=S, T=T, H=H, KV=KV, D=D, dtype=dtype,
+                             causal=causal, window=window))
     # comparison and timing launches are not main-path launches
     fa.launches, fa.launches_window = before
     res["ok"] = ok
@@ -753,7 +802,8 @@ def phase_k1():
     128, causal), the 1b GQA shape (H 16, KV 8) and debug-125m's heads (H =
     KV = 12, D 64), in bf16 and f32; untimed: ragged S = T = 200 causal and
     full, S = T = 1000 (a ragged last 128-row tile), S = T = 130 (one row
-    past a tile), T = 512 > S = 256 (forward_with_cache's cache row)."""
+    past a tile), T = 512 > S = 256 (forward_with_cache's cache row); then
+    bf16 timed at FLASH_SMALL_TIMED's heads (head dims 16, 32, 80)."""
     cases = []
     timed = (("7b", dict(H=32, KV=32, D=128)),
              ("1b-gqa", dict(H=16, KV=8, D=128)),
@@ -773,7 +823,39 @@ def phase_k1():
                          dtype=dtype, seed=3, timed=False)
             r["config"] = name
             cases.append(r)
-    return cases + _head_dim_fwd_cases(window=None)
+    return cases + _small_head_fwd_cases() + _head_dim_fwd_cases(window=None)
+
+
+# bf16 rows timed at B 8 S 1024 causal, K1 and (but for the tiny heads,
+# timed in phase_k3k4 with f32 beside them) K3/K4: the tiny presets' heads
+# (head dim 16), the same heads at 32, and H2O-Danube-1.8B's attention
+# (h2oai/h2o-danube-1.8b-base: hidden 2560 over 32 heads, 8 kv heads: head
+# dim 80)
+FLASH_SMALL_TIMED = (("tiny", dict(H=4, KV=2, D=16)),
+                     ("tiny-d32", dict(H=4, KV=2, D=32)),
+                     ("danube", dict(H=32, KV=8, D=80)))
+
+
+def _small_head_fwd_cases():
+    """K1 timed in bf16 at FLASH_SMALL_TIMED's heads, B 8 S 1024 causal."""
+    cases = []
+    for name, shape in FLASH_SMALL_TIMED:
+        r = fwd_case(B=8, S=1024, **shape, dtype="bfloat16", seed=4)
+        r["config"] = name
+        cases.append(r)
+    return cases
+
+
+def _small_head_bwd_cases():
+    """K3/K4 timed in bf16 at FLASH_SMALL_TIMED's heads but the tiny ones
+    (timed in phase_k3k4 with f32 beside them), B 8 S 1024 causal."""
+    cases = []
+    for name, shape in FLASH_SMALL_TIMED[1:]:
+        r = k3k4_case(B=8, S=1024, **shape, causal=True, window=None,
+                      dtype="bfloat16", seed=22)
+        r["config"] = name
+        cases.append(r)
+    return cases
 
 
 # the flash shapes outside the presets: Phi-3-mini's head dim 96 and
@@ -844,11 +926,13 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
     """K3 and K4 against the plain backward on the same (q, k, v, out, lse,
     dO), dq/dk/dv elementwise within grad_tolerance, bit-identical on a
     second run. Timed: each kernel by CUPTI device time (device_ms) and by
-    CUDA events, with the names of the kernels it ran (bf16 K3 and K4 at
-    head dim 64, 96, 128 or 256 must run WGMMA_DQ_SYMBOL and
-    WGMMA_DKDV_SYMBOL and nothing else) and their ptxas registers and
-    spills from the build phase, the plain backward and SDPA's backward
-    (bf16 only), beside the bounds."""
+    CUDA events, with the names of the kernels it ran (``bwd_symbols``:
+    bf16 K3 and K4 at head dim 64, 96, 128 or 256 must run
+    WGMMA_DQ_SYMBOL and WGMMA_DKDV_SYMBOL and nothing else, at 16 and 32
+    SMALL_DQ_SYMBOL and SMALL_DKDV_SYMBOL, with their cluster sizes) and
+    their ptxas registers and spills from the build phase, the plain
+    backward and SDPA's backward (bf16 only), beside the bounds
+    (``k3k4_bounds``)."""
     import numpy as np
     import torch
 
@@ -908,25 +992,28 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
             res[pre + "event_ms"] = cuda_ms(fn, iters=10)
             res[pre + "kernels"] = sorted(names)
         dk = fa.kernel_head_dim(D)
-        if dtype == "bfloat16" and dk in (64, 96, 128, 256):
+        symbols = bwd_symbols(dtype, dk)
+        if symbols == (WGMMA_DQ_SYMBOL, WGMMA_DKDV_SYMBOL):
             res["ran_wgmma_dq_only"] = ran_only(res["k3_kernels"],
                                                 WGMMA_DQ_SYMBOL)
             res["ran_wgmma_dkdv_only"] = ran_only(res["k4_kernels"],
                                                   WGMMA_DKDV_SYMBOL)
             ok = (ok and res["ran_wgmma_dq_only"]
                   and res["ran_wgmma_dkdv_only"])
-            symbols = (WGMMA_DQ_SYMBOL, WGMMA_DKDV_SYMBOL)
         else:
-            # the mma.sync (bf16) or FMA (f32) kernels, beside any pad's
-            kind = "bf16" if dtype == "bfloat16" else "f32"
-            symbols = (f"flash_bwd_dq_{kind}_kernel",
-                       f"flash_bwd_dkdv_{kind}_kernel")
+            # the small-head or mma.sync (bf16) or FMA (f32) kernels,
+            # beside any pad's
             res["ran_expected_kernels_only"] = (
                 ran_only([n for n in res["k3_kernels"] if "flash_" in n],
                          symbols[0])
                 and ran_only([n for n in res["k4_kernels"]
                               if "flash_" in n], symbols[1]))
             ok = ok and res["ran_expected_kernels_only"]
+        # the cluster sizes the small-head kernels ran with
+        if (symbols[0] == SMALL_DQ_SYMBOL
+                and res["ran_expected_kernels_only"]):
+            res["cluster_sizes"] = fa.bwd_cluster_sizes(
+                B, S, S, H, KV, causal=causal, window=window)
         res["ptxas"] = {sym: _ptxas_of("flash_attention_bwd", sym, dk)
                         for sym in symbols}
         res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
@@ -950,17 +1037,8 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
             res["library_device_ms"] = device_ms(lib, iters=10,
                                                  names=lib_names)
             res["library_kernels"] = sorted(lib_names)
-        elt = torch.finfo(dt).bits // 8
-        pairs = band_pairs(S, S, causal, window)
-        bshd, btkd, bhs = B * S * H * D, B * S * KV * D, B * H * S
-        # K3 reads q, o, dO, k, v, lse and writes dq, delta; 3 products
-        res["k3_bound_ms"], res["k3_bound_by"] = bound(
-            elt * (4 * bshd + 2 * btkd) + 8 * bhs, 6 * B * H * pairs * D,
-            dtype)
-        # K4 reads q, dO, k, v, lse, delta and writes dk, dv; 4 products
-        res["k4_bound_ms"], res["k4_bound_by"] = bound(
-            elt * (2 * bshd + 4 * btkd) + 8 * bhs, 8 * B * H * pairs * D,
-            dtype)
+        res.update(k3k4_bounds(B=B, S=S, H=H, KV=KV, D=D, dtype=dtype,
+                               causal=causal, window=window))
     fa.launches_dq, fa.launches_dkdv = before
     res["ok"] = ok
     return res
@@ -972,9 +1050,10 @@ def phase_k3k4():
     non-causal (S = 512) and window 256, each in bf16 and f32; then bf16
     timed at Phi-3-mini's (H = KV = 32, D 96), Gemma-2B's (H 8, KV 1, D
     256) and the tiny presets' heads (H 4, KV 2, D 16) at B 8 S 1024 (f32
-    untimed at B 2), and untimed at head dim 16 (G 3), 48 (zero-padded to
-    64), 80 (non-causal), 96 (G 7, window 96) and 256, ragged S 200 (256
-    under the window)."""
+    untimed at B 2), bf16 alone at the tiny heads with head dim 32 and at
+    H2O-Danube-1.8B's (H 32, KV 8, D 80), and untimed at head dim 16 (G 3),
+    48 (zero-padded to 64), 80 (non-causal), 96 (G 7, window 96) and 256,
+    ragged S 200 (256 under the window)."""
     cases = []
     shapes = (("1b", dict(B=8, S=1024, H=16, KV=8, D=128, causal=True,
                           window=None), True),
@@ -1013,7 +1092,7 @@ def phase_k3k4():
                 r = k3k4_case(**shape, dtype=dtype, seed=22, timed=timed)
             r["config"] = name
             cases.append(r)
-    return cases
+    return cases + _small_head_bwd_cases()
 
 
 # --- public model shapes outside the presets -------------------------------------
@@ -6552,8 +6631,9 @@ def _run_phase(ph: str) -> bool:
              ptxas=logs)
         return True
     if ph in KERNEL_PHASES:
+        t0 = time.perf_counter()
         cases = KERNEL_PHASES[ph]()
-        emit(ph, cases=cases)
+        emit(ph, cases=cases, phase_s=time.perf_counter() - t0)
         return all(c["ok"] for c in cases)
     t0 = time.perf_counter()
     r = PATH_PHASES[ph]()

@@ -101,16 +101,54 @@
 // atomics and no partial sums in device memory. Four blocks ran 0.18 ms
 // at Gemma-2B's shape, two 0.196, one 0.221 (PERF.md).
 //
-// bf16 at head dims 16, 32 and 80 (K3 and K4): mma.sync.m16n8k16 with f32
+// K3 and K4, bf16 at head dims 16 and 32 (the tiny presets' heads, and
+// every D of 17-32), flash_bwd_dq_small_kernel and
+// flash_bwd_dkdv_small_kernel. At D <= 32 the products are cheap and every
+// score still needs an exponential: at the SFU's 16 an SM a clock (1.98
+// GHz) the B H S^2 / 2 of each pass take ~4.0 us at the tiny presets' B 8,
+// H 4, S 1024, more than their bytes or products (not a hard floor: exp2
+// can also run on the FMA pipes), and
+// the grid (512 blocks in K3, 256 in K4) fits one wave, so a kernel takes
+// as long as its heaviest block's serial chain (the mma.sync kernels these
+// replaced: 16 and 32 iterations of ~3.3 us, held by two __syncthreads, a
+// cp.async wait and, in K4, lse and delta loaded on the chain). So:
+// - a block owns 64 rows (queries in K3, keys in K4; 16 a consumer warp)
+//   and walks its band in 128-row stages (keys in K3; (query head, query
+//   rows) pairs in K4), which a fifth warp loads by TMA into a 3-stage
+//   ring with full and empty mbarriers: no block-wide barrier in the
+//   walk. A whole row is one TMA box (32 or 64 bytes, with the 32- or
+//   64-byte swizzle, so ldmatrix reads conflict-free); in K4 each stage's
+//   lse and delta come as 1-D f32 boxes beside its Q and dO;
+// - where the heaviest chain is long against the grid, the walk is split
+//   over the 2-8 blocks of a thread block cluster, every n-th stage to
+//   each (small_splits picks n from the chain and the grid), and the
+//   blocks add their f32 sums in rank order through distributed shared
+//   memory: deterministic, no atomics, no partial sums in device memory;
+//   K3's rank 0 alone stores delta;
+// - P = ex2.approx of one FMA (scale log2(e) folded in), masked only on
+//   64-row steps that cross the diagonal, the window's edge or S/T, on a
+//   code path of their own (if-converted, the mask took 130 of a step's
+//   367 instructions); dP's sums start at -delta (mma.sync's C operand)
+//   and the scale multiplies dq (dk) once after the walk, so a score
+//   costs an FMA, an ex2 and a multiply beside the products; steps a
+//   warp's rows do not see are skipped by that warp alone;
+// - the products are mma.sync.m16n8k16, not wgmma: each warp keeps its
+//   own rows' operands (q and dO in K3, k and v in K4) as A fragments in
+//   registers for the whole walk, reads the streamed rows by ldmatrix,
+//   and skips steps and releases stages alone, where wgmma would tie four
+//   warps to one 64-row tile and add a warpgroup wait to each of the five
+//   products of a step; at D 16 a step's products are 24 (K3) or 32 (K4)
+//   mma.sync a warp against 1,024 exponentials, so they are not the chain.
+//
+// bf16 at head dim 80 (K3 and K4): mma.sync.m16n8k16 with f32
 // accumulation in the fragment layouts of K1 (mma.cuh). The recomputed
 // scores and dP stay in f32 registers; P (for dV) and dS (for dK, dQ) are
 // rounded to bf16 as the A operand of the gradient products. K/V tiles
 // (K3) and q/dO tiles (K4) arrive through cp.async, double-buffered. A
 // operands come from shared memory by ldmatrix per 32-wide k-step (16-wide
-// for the odd last step of head dims 16 and 80), which keeps registers for
-// the f32 accumulators (K4 holds dK and dV, 2 x 16 x D per warp). Other
-// head dims <= 256 are zero-padded to the next compiled one by the
-// wrapper.
+// for the odd last step of head dim 80), which keeps registers for the f32
+// accumulators (K4 holds dK and dV, 2 x 16 x D per warp). Other head dims
+// <= 256 are zero-padded to the next compiled one by the wrapper.
 //
 // f32 (parity runs): exact f32 FMAs on the CUDA cores through shared-memory
 // tiles; P and dS stay f32. A lane owns output columns lane + 32 c (the
@@ -124,6 +162,7 @@
 // with nothing visible in a tile contribute exactly 0.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -1249,6 +1288,33 @@ __device__ __forceinline__ void dkdv_pair(
   }
 }
 
+// The partial sums of a cluster's blocks, added in rank order: each
+// summing thread `tid` (0-127) put its float4s (n-tile n of thread t at
+// [n][t]) at `sums`; block `split` of `n_split` adds float4s [split E /
+// n_split, (split + 1) E / n_split) of every block and hands each sum to
+// store(n, t, sum) (t == tid where E / n_split is a multiple of 128).
+// Deterministic, with no atomics and no partial sums in device memory.
+template <int E, typename Store>
+__device__ __forceinline__ void cluster_add(uint32_t sums, int split,
+                                            int n_split, int tid,
+                                            Store store) {
+  cluster_sync();  // every block's sums are in place
+  for (int e = split * E / n_split + tid; e < (split + 1) * E / n_split;
+       e += 128) {
+    const uint32_t at = sums + e * 16;
+    float4 sum = ld_cluster_f4(cluster_map(at, 0));
+    for (int r = 1; r < n_split; ++r) {
+      const float4 p = ld_cluster_f4(cluster_map(at, r));
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    store(e / 128, e % 128, sum);
+  }
+  cluster_sync();  // no block leaves while the others read its sums
+}
+
 // K4 at head dim 256: dK and dV of 64 keys would be 256 f32 a thread, so
 // one block of 3 warpgroups owns 64 keys and gives each consumer one
 // gradient. Consumer 0 computes S^T = K Q^T, P^T, hands P^T to consumer 1
@@ -1439,30 +1505,18 @@ __device__ __forceinline__ void dkdv_wide(
   // the cluster's sums: each consumer puts its accumulator over the ring
   // (idle once both consumers are past their last tile), and block r adds
   // d-tiles [32 r / n_split, 32 (r + 1) / n_split) of all of them in rank
-  // order
+  // order (n_split divides 32, so each thread sums its own fragments)
   named_bar_sync(RING_IDLE, 256);
-  const uint32_t mine = base + L::SUMS + role * L::SUM_BYTES;
   float4* mine_sh =
       reinterpret_cast<float4*>(aligned + L::SUMS + role * L::SUM_BYTES);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
     mine_sh[j * 128 + tid] =
         make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
-  cluster_sync();
-  for (int j = split * (D / 8) / n_split; j < (split + 1) * (D / 8) / n_split;
-       ++j) {
-    const uint32_t at = mine + (j * 128 + tid) * 16;
-    float4 sum = ld_cluster_f4(cluster_map(at, 0));
-    for (int r = 1; r < n_split; ++r) {
-      const float4 p = ld_cluster_f4(cluster_map(at, r));
-      sum.x += p.x;
-      sum.y += p.y;
-      sum.z += p.z;
-      sum.w += p.w;
-    }
-    store(j, sum.x, sum.y, sum.z, sum.w);
-  }
-  cluster_sync();  // no block leaves while the others read its sums
+  cluster_add<D / 8 * 128>(base + L::SUMS + role * L::SUM_BYTES, split,
+                           n_split, tid, [&](int j, int, float4 sum) {
+                             store(j, sum.x, sum.y, sum.z, sum.w);
+                           });
 }
 
 template <int D, bool CAUSAL, bool WINDOW>
@@ -1482,15 +1536,48 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dkdv_wgmma_kernel(
                                  S, T_len, H, KV, window, scale);
 }
 
-// The query-head slices of K4 at head dim 256: 1, 2 or 4 (the blocks of a
-// cluster), doubled while the grid of `blocks` is short of two waves of
-// the card's SMs and the group has the heads to split.
-inline int dkdv_wide_splits(int blocks, int groups) {
+// the card's SMs (an H100 SXM's 132 where the query fails)
+inline int sm_count() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     sms = 132;
+  return sms;
+}
+
+// `kernel` on `grid` x n_split blocks of `threads`, in clusters of n_split
+// along x; n_split is the kernel's last argument
+template <typename Kernel, typename... Args>
+int launch_split(Kernel kernel, dim3 grid, int threads, size_t smem,
+                 cudaStream_t st, int n_split, Args... args) {
+  grid.x *= n_split;
+  if (n_split == 1) {
+    kernel<<<grid, threads, smem, st>>>(args..., 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args..., n_split);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The query-head slices of K4 at head dim 256: 1, 2 or 4 (the blocks of a
+// cluster), doubled while the grid of `blocks` is short of two waves of
+// the card's SMs and the group has the heads to split.
+inline int dkdv_wide_splits(int blocks, int groups) {
+  const int sms = sm_count();
   int n = 1;
   while (n < 4 && 2 * n <= groups && blocks * n < 2 * sms) n *= 2;
   return n;
@@ -1529,33 +1616,720 @@ int launch_dkdv_wgmma(int causal, int window, const void* q, const void* k,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_kb = (T_len + bk - 1) / bk;
   const int n_split = wide ? dkdv_wide_splits(B * KV * n_kb, H / KV) : 1;
-  const dim3 grid(n_kb * n_split, KV, B);
-  if (n_split == 1) {
-    kernel<<<grid, WG_NT, smem, st>>>(
-        mq, mg, mk, mv, static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), S, T_len, H, KV, window, scale, 1);
-    return static_cast<int>(cudaGetLastError());
+  return launch_split(kernel, dim3(n_kb, KV, B), WG_NT, smem, st, n_split,
+                      mq, mg, mk, mv, static_cast<const float*>(lse),
+                      static_cast<const float*>(delta),
+                      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
+                      T_len, H, KV, window, scale);
+}
+
+// --------------------- bf16 dQ and dK/dV at head dims 16 and 32 (K3, K4) ---
+
+constexpr int SM_ROWS = 64;    // query rows (K3) or keys (K4) a block
+constexpr int SM_CHUNK = 128;  // keys (K3) or query rows (K4) a ring stage
+constexpr int SM_STAGES = 3;   // ring depth
+constexpr int SM_NT = 160;     // 4 consumer warps (16 rows each) + producer
+constexpr int SM_MAX_SPLIT = 8;  // blocks of a cluster
+
+// 16-byte chunk c of row r of a tile written by TMA with whole rows as its
+// box: 32-byte rows with the 32-byte swizzle (head dim 16), or 64-byte rows
+// with the 64-byte one (32); each ldmatrix phase (8 rows, one chunk) then
+// hits 32 distinct banks
+template <int D>
+__device__ __forceinline__ uint32_t sw_chunk(int r, int c) {
+  static_assert(D == 16 || D == 32, "whole-row boxes of 32 or 64 bytes");
+  if constexpr (D == 16)
+    return r * 32 + ((c ^ ((r >> 2) & 1)) << 4);
+  else
+    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the A fragments (16 rows from r0 of a swizzled tile, D columns: D / 16
+// k-steps) a warp keeps in registers for its whole walk
+template <int D>
+__device__ __forceinline__ void load_rows_a(uint32_t (&a)[D / 16][4],
+                                            uint32_t tile, int r0,
+                                            int lane) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ldsm_x4(a[ks], tile + sw_chunk<D>(r0 + (lane & 15), 2 * ks + (lane >> 4)));
+}
+
+// d = a (16x16 bf16, row) . b (16x8 bf16, col) + c, f32; c is only read,
+// so one set of registers can start many n-tiles' sums
+__device__ __forceinline__ void mma_bf16_c(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1,
+                                           const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// acc[8][4] (16 rows x 64 columns) = A (16 x D, fragments a) . B^T + c, B
+// the 64 rows from r0 of a swizzled tile (n-tile n: rows r0 + 8n ..), c
+// the sums n-tile n starts from (c_of(n), four f32)
+template <int D, typename C>
+__device__ __forceinline__ void mma_rows(float (&acc)[8][4],
+                                         const uint32_t (&a)[D / 16][4],
+                                         uint32_t tile, int r0, int lane,
+                                         C c_of) {
+  if constexpr (D == 16) {
+    // one ldmatrix: b0, b1 of n-tile n, then of n + 1
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, tile + sw_chunk<D>(r0 + n * 8 + (lane & 7) +
+                                        ((lane >> 4) << 3),
+                                    (lane >> 3) & 1));
+      mma_bf16_c(acc[n], a[0], b[0], b[1], c_of(n));
+      mma_bf16_c(acc[n + 1], a[0], b[2], b[3], c_of(n + 1));
+    }
+  } else {
+    // one ldmatrix: b0, b1 of k-step 0, then of k-step 1
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t b[4];
+      ldsm_x4(b, tile + sw_chunk<D>(r0 + n * 8 + (lane & 7), lane >> 3));
+      mma_bf16_c(acc[n], a[0], b[0], b[1], c_of(n));
+      mma_bf16(acc[n], a[1], b[2], b[3]);
+    }
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(WG_NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, mq, mg, mk, mv,
-                           static_cast<const float*>(lse),
-                           static_cast<const float*>(delta),
-                           static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
-                           T_len, H, KV, window, scale, n_split);
+}
+
+// acc[D / 8][4] (16 x D) += X (16 x 64, the C fragments x[8][4], rounded to
+// bf16) . M, M the 64 rows from r0 of a swizzled tile (D columns)
+template <int D>
+__device__ __forceinline__ void mma_xm_rows(float (&acc)[D / 8][4],
+                                            const float (&x)[8][4],
+                                            uint32_t tile, int r0,
+                                            int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t xf[4];  // the C fragments of n-tiles 2j, 2j+1 are the A of step j
+    xf[0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
+    xf[1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
+    xf[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
+    xf[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      uint32_t mf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
+      ldsm_x4_t(mf, tile + sw_chunk<D>(r0 + j * 16 + (lane & 7) +
+                                           ((lane >> 3) & 1) * 8,
+                                       n + (lane >> 4)));
+      mma_bf16(acc[n], xf, mf[0], mf[1]);
+      mma_bf16(acc[n + 1], xf, mf[2], mf[3]);
+    }
+  }
+}
+
+// K3: the key chunks [lo, hi) the query tile at q0 walks (the band's, up to
+// the diagonal when causal, from its lower edge under a window)
+__host__ __device__ __forceinline__ void dq_small_band(int q0, int T_len,
+                                                       int causal, int window,
+                                                       int& lo, int& hi) {
+  lo = 0;
+  hi = (T_len + SM_CHUNK - 1) / SM_CHUNK;
+  if (causal) {
+    const int diag = (q0 + SM_ROWS - 1) / SM_CHUNK + 1;
+    if (diag < hi) hi = diag;
+    if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / SM_CHUNK;
+    if (lo > hi) lo = hi;
+  }
+}
+
+// K4: the query chunks [lo, hi) some key of the block at k0 sees
+__host__ __device__ __forceinline__ void dkdv_small_band(int k0, int S,
+                                                         int causal,
+                                                         int window, int& lo,
+                                                         int& hi) {
+  lo = 0;
+  hi = (S + SM_CHUNK - 1) / SM_CHUNK;
+  if (causal) {
+    if (window > 0) {
+      const int last = (k0 + SM_ROWS - 1 + window - 1) / SM_CHUNK + 1;
+      if (last < hi) hi = last;
+    }
+    lo = k0 / SM_CHUNK;
+    if (lo > hi) lo = hi;
+  }
+}
+
+// Shared memory of both kernels, from a 1024-byte aligned base: the
+// block's own 64 rows (q and dO in K3, k and v in K4), the ring (K3: a K
+// and a V chunk a stage; K4: a Q and a dO chunk and their lse and delta),
+// the f32 sums the cluster adds, the mbarriers
+template <int D, bool DKDV>
+struct SmallSmem {
+  static constexpr int RB = 2 * D;                // bytes a row
+  static constexpr int OWN = SM_ROWS * RB;        // 64 rows
+  static constexpr int CHUNK = SM_CHUNK * RB;     // 128 rows
+  static constexpr int COLS = 4 * SM_CHUNK;       // f32 lse (or delta)
+  static constexpr int STAGE = 2 * CHUNK + (DKDV ? 2 * COLS : 0);
+  static constexpr int A = 0;                     // q (K3) or k (K4)
+  static constexpr int B = OWN;                   // dO (K3) or v (K4)
+  static constexpr int RING = 2 * OWN;
+  static constexpr int SUMS = RING + SM_STAGES * STAGE;
+  // f32 [float4 index][consumer thread]: dq (K3), or dk then dv (K4)
+  static constexpr int SUM_BYTES = (DKDV ? 2 : 1) * SM_ROWS * D * 4;
+  static constexpr int BAR = SUMS + SUM_BYTES;
+  // own_full, then full and empty (one each a stage); + 1024 to align
+  static constexpr size_t kBytes = BAR + 8 * (1 + 2 * SM_STAGES) + 1024;
+  static_assert(OWN % 1024 == 0 && STAGE % 1024 == 0, "swizzle atoms");
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// K3 at head dims 16 and 32: block x / n_split owns a 64-row query tile of
+// one (batch, head), heaviest first; its n_split blocks (a cluster) take
+// every n_split-th 128-key chunk of the tile's band from x % n_split on.
+// Warp 4's lane 0 loads q and dO once and the chunks' K and V into a ring
+// by TMA; warps 0-3 own 16 query rows each, with q and dO as mma.sync A
+// fragments in registers for the whole walk.
+template <int D, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(SM_NT) flash_bwd_dq_small_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_g,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ o,
+    const bf16* __restrict__ g, const float* __restrict__ lse,
+    bf16* __restrict__ dq, float* __restrict__ delta, int S, int T_len,
+    int H, int KV, int window, float scale, int n_split) {
+  using L = SmallSmem<D, false>;
+  constexpr int ST = SM_STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
+  unsigned char* aligned = smem_tiles + (base - smem_u32(smem_tiles));
+  const uint32_t sQ = base + L::A, sG = base + L::B, ring = base + L::RING;
+  const uint32_t own_full = base + L::BAR;
+  auto full = [&](int st) { return own_full + 8 * (1 + st); };
+  auto empty = [&](int st) { return own_full + 8 * (1 + ST + st); };
+
+  const int split = blockIdx.x % n_split;
+  const int n_qt = gridDim.x / n_split;
+  const int q0 = (n_qt - 1 - blockIdx.x / n_split) * SM_ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  int c_lo, c_hi;
+  dq_small_band(q0, T_len, CAUSAL, WINDOW ? window : 0, c_lo, c_hi);
+  const int n_all = c_hi - c_lo;
+  const int n_mine =
+      n_all > split ? (n_all - split + n_split - 1) / n_split : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer ----
+    if (threadIdx.x == 128) {
+      const int kvh = h / (H / KV);
+      mbar_expect_tx(own_full, 2 * L::OWN);
+      tma_load_4d(sQ, &tm_q, own_full, 0, h, q0, b);
+      tma_load_4d(sG, &tm_g, own_full, 0, h, q0, b);
+      for (int i = 0; i < n_mine; ++i) {
+        const int st = i % ST;
+        const int k0 = (c_lo + split + i * n_split) * SM_CHUNK;
+        const uint32_t kt = ring + st * L::STAGE;
+        if (i >= ST) mbar_wait(empty(st), ((i / ST) - 1) & 1);
+        mbar_expect_tx(full(st), 2 * L::CHUNK);
+        tma_load_4d(kt, &tm_k, full(st), 0, kvh, k0, b);
+        tma_load_4d(kt + L::CHUNK, &tm_v, full(st), 0, kvh, k0, b);
+      }
+    }
+    __syncwarp();
+    if (n_split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---- consumers: warp w owns query rows q0 + 16 w .. + 15 ----
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g8 = lane >> 2;  // accumulator rows g8 and g8 + 8 of the warp's
+  const int t4 = lane & 3;   // column pair within an 8-column n-tile
+  const int row0 = q0 + warp * 16;
+  const int row_a = row0 + g8;
+  const int row_b = row_a + 8;
+  const size_t q_stride = (size_t)H * D;
+  const size_t head = ((size_t)b * S * H + h) * D;
+  const size_t lrow = ((size_t)b * H + h) * S;
+
+  // delta = rowsum(O * dO) in f32 from device memory while the tiles land:
+  // lanes 2r and 2r + 1 share row r of the warp's 16; rank 0 stores it
+  float dl_a, dl_b;
+  {
+    const int row = row0 + (lane >> 1);
+    float a = 0.f;
+    if (row < S) {
+#pragma unroll
+      for (int c = lane & 1; c < D / 8; c += 2) {
+        const size_t off = head + (size_t)row * q_stride + c * 8;
+        const uint4 ov = __ldg(reinterpret_cast<const uint4*>(o + off));
+        const uint4 gv = __ldg(reinterpret_cast<const uint4*>(g + off));
+        const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(op[i]);
+          const float2 y = __bfloat1622float2(gp[i]);
+          a = fmaf(x.x, y.x, a);
+          a = fmaf(x.y, y.y, a);
+        }
+      }
+    }
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    if (split == 0 && (lane & 1) == 0 && row < S) delta[lrow + row] = a;
+    dl_a = __shfl_sync(0xffffffffu, a, 2 * g8);
+    dl_b = __shfl_sync(0xffffffffu, a, 2 * g8 + 16);
+  }
+  // P = exp(s scale - lse) = exp2(s scale log2(e) - lse log2(e))
+  const float scale_log2 = scale * LOG2E;
+  const float nl_a = row_a < S ? -lse[lrow + row_a] * LOG2E : 0.f;
+  const float nl_b = row_b < S ? -lse[lrow + row_b] * LOG2E : 0.f;
+
+  // the sums q k^T starts from (0), and dO v^T (-delta: dP - delta)
+  const float z4[4] = {0.f, 0.f, 0.f, 0.f};
+  const float nd[4] = {-dl_a, -dl_a, -dl_b, -dl_b};
+  auto zero = [&](int) -> const float(&)[4] { return z4; };
+  auto neg_dl = [&](int) -> const float(&)[4] { return nd; };
+
+  uint32_t qf[D / 16][4], gf[D / 16][4];
+  mbar_wait(own_full, 0);
+  load_rows_a<D>(qf, sQ, warp * 16, lane);
+  load_rows_a<D>(gf, sG, warp * 16, lane);
+
+  float acc[D / 8][4];  // f32 dq: rows g8 (acc[n][0..1]) and g8 + 8
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const bool live = row0 < S;
+  for (int i = 0; i < n_mine; ++i) {
+    const int st = i % ST;
+    const int kc = (c_lo + split + i * n_split) * SM_CHUNK;
+    const uint32_t kt = ring + st * L::STAGE, vt = kt + L::CHUNK;
+    mbar_wait(full(st), (i / ST) & 1);
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub) {
+      const int k0 = kc + sub * 64;
+      // 64 keys no row of the warp sees: past T, above its diagonal, or
+      // below its window
+      if (!live || k0 >= T_len || (CAUSAL && k0 > row0 + 15) ||
+          (WINDOW && row0 - (k0 + 63) >= window))
+        continue;
+      float s[8][4], dp[8][4];
+      mma_rows<D>(s, qf, kt, sub * 64, lane, zero);  // s = q k^T
+      // dp = dO v^T - delta
+      mma_rows<D>(dp, gf, vt, sub * 64, lane, neg_dl);
+      // dS / scale = P (dP - delta), P = exp2(s scale log2(e) - lse
+      // log2(e)); only keys that cross T, the diagonal or the window's
+      // edge are masked, on their own code path
+      const bool edge = k0 + 64 > T_len || (CAUSAL && k0 + 63 > row0) ||
+                        (WINDOW && row0 + 15 - k0 >= window);
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2_approx(
+                fmaf(s[n][e], scale_log2, e < 2 ? nl_a : nl_b));
+            if constexpr (decltype(masked)::value) {
+              const int col = k0 + n * 8 + t4 * 2 + (e & 1);
+              const int row = e < 2 ? row_a : row_b;
+              if (col >= T_len ||
+                  (CAUSAL && (col > row || (WINDOW && row - col >= window))))
+                p = 0.f;
+            }
+            s[n][e] = p * dp[n][e];
+          }
+      };
+      if (edge)
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+      mma_xm_rows<D>(acc, s, kt, sub * 64, lane);  // dq += dS k / scale
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= scale;
+
+  // epilogue: dq in bf16, rows < S
+  auto store = [&](int n, int t, float4 x) {
+    const int ra = q0 + (t >> 5) * 16 + ((t & 31) >> 2);
+    const int col = n * 8 + (t & 3) * 2;
+    if (ra < S)
+      *reinterpret_cast<__nv_bfloat162*>(dq + head + (size_t)ra * q_stride +
+                                         col) = __floats2bfloat162_rn(x.x, x.y);
+    if (ra + 8 < S)
+      *reinterpret_cast<__nv_bfloat162*>(
+          dq + head + (size_t)(ra + 8) * q_stride + col) =
+          __floats2bfloat162_rn(x.z, x.w);
+  };
+  if (n_split == 1) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store(n, threadIdx.x,
+            make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]));
+    return;
+  }
+  float4* mine = reinterpret_cast<float4*>(aligned + L::SUMS);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    mine[n * 128 + threadIdx.x] =
+        make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+  cluster_add<D / 8 * 128>(base + L::SUMS, split, n_split, threadIdx.x,
+                           store);
+}
+
+// K4 at head dims 16 and 32: block x / n_split owns 64 keys of one (batch,
+// kv head), heaviest first; its n_split blocks (a cluster) take every
+// n_split-th (query head of the group, 128-row query chunk) pair of the
+// band from x % n_split on. Warp 4's lane 0 loads k and v once and each
+// pair's Q and dO chunks, with their 128 lse and delta, into a ring by TMA;
+// warps 0-3 own 16 keys each, with k and v as mma.sync A fragments in
+// registers for the whole walk, and dK, dV in f32 registers.
+template <int D, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(SM_NT) flash_bwd_dkdv_small_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_g,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_lse,
+    const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int S, int T_len, int H, int KV, int window,
+    float scale, int n_split) {
+  using L = SmallSmem<D, true>;
+  constexpr int ST = SM_STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
+  unsigned char* aligned = smem_tiles + (base - smem_u32(smem_tiles));
+  const uint32_t sK = base + L::A, sV = base + L::B, ring = base + L::RING;
+  const uint32_t own_full = base + L::BAR;
+  auto full = [&](int st) { return own_full + 8 * (1 + st); };
+  auto empty = [&](int st) { return own_full + 8 * (1 + ST + st); };
+
+  const int split = blockIdx.x % n_split;
+  const int k0 = blockIdx.x / n_split * SM_ROWS;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int groups = H / KV;
+  int c_lo, c_hi;
+  dkdv_small_band(k0, S, CAUSAL, WINDOW ? window : 0, c_lo, c_hi);
+  const int nq = c_hi - c_lo;
+  const int n_all = groups * nq;  // (query head of the group, query chunk)
+  const int n_mine =
+      n_all > split ? (n_all - split + n_split - 1) / n_split : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer ----
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(own_full, 2 * L::OWN);
+      tma_load_4d(sK, &tm_k, own_full, 0, kvh, k0, b);
+      tma_load_4d(sV, &tm_v, own_full, 0, kvh, k0, b);
+      for (int i = 0; i < n_mine; ++i) {
+        const int st = i % ST;
+        const int j = split + i * n_split;
+        const int hh = kvh * groups + j / nq;
+        const int q0 = (c_lo + j % nq) * SM_CHUNK;
+        const int col = ((b * H + hh) * S) + q0;  // lse and delta
+        const uint32_t qt = ring + st * L::STAGE;
+        if (i >= ST) mbar_wait(empty(st), ((i / ST) - 1) & 1);
+        mbar_expect_tx(full(st), L::STAGE);
+        tma_load_4d(qt, &tm_q, full(st), 0, hh, q0, b);
+        tma_load_4d(qt + L::CHUNK, &tm_g, full(st), 0, hh, q0, b);
+        tma_load_1d(qt + 2 * L::CHUNK, &tm_lse, full(st), col);
+        tma_load_1d(qt + 2 * L::CHUNK + L::COLS, &tm_delta, full(st), col);
+      }
+    }
+    __syncwarp();
+    if (n_split > 1) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---- consumers: warp w owns keys k0 + 16 w .. + 15, in the key-row
+  // frame: S^T = K Q^T, dP^T = V dO^T ----
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g8 = lane >> 2;  // accumulator rows: keys key_a, key_a + 8
+  const int t4 = lane & 3;   // query column pair within an n-tile
+  const int key0 = k0 + warp * 16;
+  const int key_a = key0 + g8;
+  const float scale_log2 = scale * LOG2E;
+
+  const float z4[4] = {0.f, 0.f, 0.f, 0.f};
+  auto zero = [&](int) -> const float(&)[4] { return z4; };
+
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  mbar_wait(own_full, 0);
+  load_rows_a<D>(kf, sK, warp * 16, lane);
+  load_rows_a<D>(vf, sV, warp * 16, lane);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  const bool live = key0 < T_len;
+  for (int i = 0; i < n_mine; ++i) {
+    const int st = i % ST;
+    const int j = split + i * n_split;
+    const int qc = (c_lo + j % nq) * SM_CHUNK;
+    const uint32_t qt = ring + st * L::STAGE, gt = qt + L::CHUNK;
+    const float* cols = reinterpret_cast<const float*>(
+        aligned + L::RING + st * L::STAGE + 2 * L::CHUNK);
+    mbar_wait(full(st), (i / ST) & 1);
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub) {
+      const int qs = qc + sub * 64;
+      // 64 queries no key of the warp sees: past S, before its diagonal, or
+      // past its window
+      if (!live || qs >= S || (CAUSAL && qs + 63 < key0) ||
+          (WINDOW && qs - (key0 + 15) >= window))
+        continue;
+      // s^T = k q^T: keys g8, g8 + 8 (rows), queries qs + 8n + 2 t4 + {0,
+      // 1} (columns)
+      const float* lse_c = cols + sub * 64 + t4 * 2;
+      const float* dl_c = lse_c + SM_CHUNK;
+      float p[8][4];
+      mma_rows<D>(p, kf, qt, sub * 64, lane, zero);
+      // P^T = exp2(s^T scale log2(e) - lse log2(e)); only queries that
+      // cross S, the diagonal or the window's edge are masked, on their
+      // own code path
+      const bool edge = qs + 64 > S || (CAUSAL && key0 + 15 > qs) ||
+                        (WINDOW && qs + 63 - key0 >= window);
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lse_c + n * 8);
+          const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = ex2_approx(fmaf(p[n][e], scale_log2, nl[e & 1]));
+            if constexpr (decltype(masked)::value) {
+              const int col = qs + n * 8 + t4 * 2 + (e & 1);
+              const int ahead = col - key_a - (e < 2 ? 0 : 8);  // q - k
+              if (col >= S ||
+                  (CAUSAL && (ahead < 0 || (WINDOW && ahead >= window))))
+                x = 0.f;
+            }
+            p[n][e] = x;
+          }
+        }
+      };
+      if (edge)
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+      mma_xm_rows<D>(dv_acc, p, gt, sub * 64, lane);  // dv += P^T dO
+      // dp^T = v dO^T - delta, each n-tile's sums started at its columns'
+      // -delta; dS^T / scale = P^T (dP^T - delta)
+      float ds[8][4], nd[4];
+      mma_rows<D>(ds, vf, gt, sub * 64, lane,
+                  [&](int n) -> const float(&)[4] {
+                    const float2 d2 =
+                        *reinterpret_cast<const float2*>(dl_c + n * 8);
+                    nd[0] = nd[2] = -d2.x;
+                    nd[1] = nd[3] = -d2.y;
+                    return nd;
+                  });
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ds[n][e] *= p[n][e];
+      mma_xm_rows<D>(dk_acc, ds, qt, sub * 64, lane);  // dk += dS^T q / scale
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] *= scale;
+
+  // epilogue: dk and dv in bf16, keys < T (float4 index n: dk's n-tile n,
+  // then dv's n-tile n - D / 8)
+  auto store = [&](int n, int t, float4 x) {
+    const int key = k0 + (t >> 5) * 16 + ((t & 31) >> 2);
+    bf16* out = n < D / 8 ? dk : dv;
+    const int col = (n % (D / 8)) * 8 + (t & 3) * 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (key + 8 * half >= T_len) continue;
+      const size_t off = (((size_t)b * T_len + key + 8 * half) * KV + kvh) * D;
+      *reinterpret_cast<__nv_bfloat162*>(out + off + col) =
+          half ? __floats2bfloat162_rn(x.z, x.w)
+               : __floats2bfloat162_rn(x.x, x.y);
+    }
+  };
+  if (n_split == 1) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      store(n, threadIdx.x, make_float4(dk_acc[n][0], dk_acc[n][1],
+                                        dk_acc[n][2], dk_acc[n][3]));
+      store(D / 8 + n, threadIdx.x,
+            make_float4(dv_acc[n][0], dv_acc[n][1], dv_acc[n][2],
+                        dv_acc[n][3]));
+    }
+    return;
+  }
+  float4* mine = reinterpret_cast<float4*>(aligned + L::SUMS);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    mine[n * 128 + threadIdx.x] =
+        make_float4(dk_acc[n][0], dk_acc[n][1], dk_acc[n][2], dk_acc[n][3]);
+    mine[(D / 8 + n) * 128 + threadIdx.x] =
+        make_float4(dv_acc[n][0], dv_acc[n][1], dv_acc[n][2], dv_acc[n][3]);
+  }
+  cluster_add<2 * (D / 8) * 128>(base + L::SUMS, split, n_split,
+                                 threadIdx.x, store);
+}
+
+// The blocks of a cluster at head dims 16 and 32: doubled (up to
+// SM_MAX_SPLIT) while the heaviest block's chain of `chain` ring stages
+// gives each block at least two and the grid of `blocks` is short of three
+// blocks an SM. A split costs each block its own loads of q and dO (or k
+// and v) and the cluster's sum: at the tiny presets' shape K3 ran 0.0233
+// ms split in two, 0.0209 whole, and K4 0.0291 in two, 0.0297-0.0300 in
+// four, 0.0305-0.0310 whole (PERF.md).
+inline int small_splits(int blocks, int chain) {
+  const int sms = sm_count();
+  int n = 1;
+  while (n < SM_MAX_SPLIT && 4 * n <= chain && blocks * n < 3 * sms) n *= 2;
+  return n;
+}
+
+// the cluster sizes of K3 and K4 at a shape (the heaviest block's chain:
+// its key chunks in K3, its (query head, query chunk) pairs in K4)
+inline int dq_small_splits(int causal, int window, int B, int S, int T_len,
+                           int H) {
+  const int n_qt = (S + SM_ROWS - 1) / SM_ROWS;
+  int chain = 0;
+  for (int t = 0; t < n_qt; ++t) {
+    int lo, hi;
+    dq_small_band(t * SM_ROWS, T_len, causal, window, lo, hi);
+    if (hi - lo > chain) chain = hi - lo;
+  }
+  return small_splits(n_qt * H * B, chain);
+}
+inline int dkdv_small_splits(int causal, int window, int B, int S, int T_len,
+                             int H, int KV) {
+  const int n_kb = (T_len + SM_ROWS - 1) / SM_ROWS;
+  int chain = 0;
+  for (int t = 0; t < n_kb; ++t) {
+    int lo, hi;
+    dkdv_small_band(t * SM_ROWS, S, causal, window, lo, hi);
+    if ((H / KV) * (hi - lo) > chain) chain = (H / KV) * (hi - lo);
+  }
+  return small_splits(n_kb * KV * B, chain);
+}
+
+template <int D>
+int launch_dq_small(int causal, int window, const void* q, const void* k,
+                    const void* v, const void* o, const void* g,
+                    const void* lse, void* dq, void* delta, int B, int S,
+                    int T_len, int H, int KV, float scale, cudaStream_t st) {
+  CUtensorMap mq, mg, mk, mv;
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, SM_ROWS, D);
+  if (rc == 0) rc = rt_bshd_map(&mg, g, B, S, H, D, SM_ROWS, D);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, SM_CHUNK, D);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, SM_CHUNK, D);
+  if (rc != 0) return rc;
+  const size_t smem = SmallSmem<D, false>::kBytes;
+  auto kernel = window > 0 ? flash_bwd_dq_small_kernel<D, true, true>
+                : causal   ? flash_bwd_dq_small_kernel<D, true, false>
+                           : flash_bwd_dq_small_kernel<D, false, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const int n_qt = (S + SM_ROWS - 1) / SM_ROWS;
+  return launch_split(kernel, dim3(n_qt, H, B), SM_NT, smem, st,
+                      dq_small_splits(causal, window, B, S, T_len, H), mq,
+                      mg, mk, mv, static_cast<const bf16*>(o),
+                      static_cast<const bf16*>(g),
+                      static_cast<const float*>(lse), static_cast<bf16*>(dq),
+                      static_cast<float*>(delta), S, T_len, H, KV, window,
+                      scale);
+}
+
+template <int D>
+int launch_dkdv_small(int causal, int window, const void* q, const void* k,
+                      const void* v, const void* g, const void* lse,
+                      const void* delta, void* dk, void* dv, int B, int S,
+                      int T_len, int H, int KV, float scale,
+                      cudaStream_t st) {
+  if (S == 0) {  // no query sees any key: the gradients are 0
+    const size_t bytes = sizeof(bf16) * (size_t)B * T_len * KV * D;
+    cudaError_t err = cudaMemsetAsync(dk, 0, bytes, st);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, st);
+    return static_cast<int>(err);
+  }
+  CUtensorMap mq, mg, mk, mv, ml, md;
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, SM_CHUNK, D);
+  if (rc == 0) rc = rt_bshd_map(&mg, g, B, S, H, D, SM_CHUNK, D);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, SM_ROWS, D);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, SM_ROWS, D);
+  // lse and delta as one row of B H S floats: a chunk past its row's S
+  // reads the next row's (or zeros past the end), and those columns are
+  // masked
+  if (rc == 0) rc = rt_f32_map(&ml, lse, (size_t)B * H * S, SM_CHUNK);
+  if (rc == 0) rc = rt_f32_map(&md, delta, (size_t)B * H * S, SM_CHUNK);
+  if (rc != 0) return rc;
+  const size_t smem = SmallSmem<D, true>::kBytes;
+  auto kernel = window > 0 ? flash_bwd_dkdv_small_kernel<D, true, true>
+                : causal   ? flash_bwd_dkdv_small_kernel<D, true, false>
+                           : flash_bwd_dkdv_small_kernel<D, false, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_kb = (T_len + SM_ROWS - 1) / SM_ROWS;
+  return launch_split(kernel, dim3(n_kb, KV, B), SM_NT, smem, st,
+                      dkdv_small_splits(causal, window, B, S, T_len, H, KV),
+                      mq, mg, mk, mv, ml, md, static_cast<bf16*>(dk),
+                      static_cast<bf16*>(dv), S, T_len, H, KV, window,
+                      scale);
 }
 
 // ------------------------------------------------------------------- f32 ---
@@ -1857,10 +2631,14 @@ int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
               float scale, cudaStream_t st) {
   dim3 grid((S + BQ - 1) / BQ, H, B);
   if (dtype == RT_BF16) {
-    // head dims 64, 96, 128 and 256 run only the TMA/wgmma kernel: the
-    // mma.sync kernel is not even instantiated for them
+    // head dims 64, 96, 128 and 256 run only the TMA/wgmma kernel, 16 and
+    // 32 only the small-head one: the mma.sync kernel is instantiated for
+    // 80 alone
     if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
       return launch_dq_wgmma<D>(causal, window, q, k, v, o, g, lse, dq,
+                                delta, B, S, T_len, H, KV, scale, st);
+    } else if constexpr (D == 16 || D == 32) {
+      return launch_dq_small<D>(causal, window, q, k, v, o, g, lse, dq,
                                 delta, B, S, T_len, H, KV, scale, st);
     } else {
       const size_t smem =
@@ -1904,10 +2682,12 @@ int launch_dkdv(int dtype, int causal, int window, const void* q,
                 int T_len, int H, int KV, float scale, cudaStream_t st) {
   dim3 grid((T_len + BK - 1) / BK, KV, B);
   if (dtype == RT_BF16) {
-    // head dims 64, 96, 128 and 256 run only the TMA/wgmma kernel: the
-    // mma.sync kernel is not even instantiated for them
+    // as in launch_dq
     if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
       return launch_dkdv_wgmma<D>(causal, window, q, k, v, g, lse, delta,
+                                  dk, dv, B, S, T_len, H, KV, scale, st);
+    } else if constexpr (D == 16 || D == 32) {
+      return launch_dkdv_small<D>(causal, window, q, k, v, g, lse, delta,
                                   dk, dv, B, S, T_len, H, KV, scale, st);
     } else {
       const size_t smem =
@@ -1972,6 +2752,17 @@ extern "C" int flash_attention_bwd_dq(
     case 256: return launch_dq<256>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The cluster size (blocks) bf16 K3 (dkdv 0) or K4 (dkdv 1) launch with at
+// kernel head dims 16 and 32 for a shape, as their launchers pick it.
+extern "C" int flash_attention_bwd_small_splits(int dkdv, int causal,
+                                                int window, int B, int S,
+                                                int T_len, int H, int KV) {
+  if (B <= 0 || S <= 0 || H <= 0 || bad_args(causal, window, H, KV, T_len))
+    return 0;
+  return dkdv ? dkdv_small_splits(causal, window, B, S, T_len, H, KV)
+              : dq_small_splits(causal, window, B, S, T_len, H);
 }
 
 // K4: dk, dv [B, T, KV, D] in the input type, from K3's delta.

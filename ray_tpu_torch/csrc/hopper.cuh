@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's TMA / wgmma kernels: tensor
 // maps (encoded on the host through libcuda's entry point, looked up at
 // run time, so the library needs no -lcuda), mbarriers, TMA loads and
-// stores, wgmma shared-memory descriptors for the 128-byte swizzle, the
-// wgmma instructions the attention kernels use, stmatrix, named barriers,
-// thread block clusters (barrier, distributed shared memory), setmaxnreg
-// and ex2.approx.
+// stores (4-D bf16 and 1-D f32 maps), wgmma shared-memory descriptors for
+// the 128-byte swizzle, the wgmma instructions the attention kernels use,
+// stmatrix, named barriers, thread block clusters (barrier, distributed
+// shared memory), setmaxnreg and ex2.approx.
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes) by R
 // rows, written with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r
@@ -14,7 +14,10 @@
 // bytes) with CU_TENSOR_MAP_SWIZZLE_64B (chunk c of row r at r * 64 + ((c
 // ^ (r / 2 % 4)) * 16), 512-byte atoms of 8 rows), the wgmma descriptors'
 // 64-byte layout. TileCols says which a head dim takes, for the forward
-// and the backward alike.
+// and the backward alike. The backward's kernels at head dims 16 and 32
+// take whole rows as one box: 16 columns with CU_TENSOR_MAP_SWIZZLE_32B
+// (chunk c of row r at r * 32 + ((c ^ (r / 4 % 2)) * 16)) or 32 with the
+// 64-byte swizzle, read by ldmatrix.
 #pragma once
 
 #include <cstdint>
@@ -56,9 +59,9 @@ inline EncodeTiledFn rt_encode_tiled() {
 
 // A 4-D bf16 map over a contiguous [B, seq, heads, D] tensor, as dims (D,
 // heads, seq, B), with boxes of `cols` columns (64, with the 128-byte
-// swizzle, or 32, with the 64-byte one) x 1 head x `rows` rows x 1 batch.
-// Rows past seq read as zeros and are not stored, inside each batch; so do
-// columns past D. Returns a cudaError_t code.
+// swizzle, 32, with the 64-byte one, or 16, with the 32-byte one) x 1 head
+// x `rows` rows x 1 batch. Rows past seq read as zeros and are not stored,
+// inside each batch; so do columns past D. Returns a cudaError_t code.
 inline int rt_bshd_map(CUtensorMap* map, const void* base, int B, int seq,
                        int heads, int D, int rows, int cols = 64) {
   EncodeTiledFn encode = rt_encode_tiled();
@@ -72,9 +75,29 @@ inline int rt_bshd_map(CUtensorMap* map, const void* base, int B, int seq,
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                       const_cast<void*>(base), dims, strides, box, unit,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : CU_TENSOR_MAP_SWIZZLE_64B,
+                      cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                   : CU_TENSOR_MAP_SWIZZLE_32B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 1-D f32 map over `n` contiguous floats, in boxes of `box` (<= 256)
+// floats; elements past n read as zeros. Returns a cudaError_t code.
+inline int rt_f32_map(CUtensorMap* map, const void* base, size_t n,
+                      int box) {
+  EncodeTiledFn encode = rt_encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t dims[1] = {(cuuint64_t)n};
+  cuuint64_t strides[1] = {4};  // rank 1: no stride is read
+  cuuint32_t boxes[1] = {(cuuint32_t)box};
+  cuuint32_t unit[1] = {1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                      const_cast<void*>(base), dims, strides, boxes, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_NONE,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -124,6 +147,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,

@@ -22,8 +22,12 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   over 128-row query tiles, dK/dV over 128-key blocks that stream every
   query head of their kv head (at head dim 256 64-key blocks, one
   consumer a gradient, the query heads split over a thread block cluster
-  where the grid is short of two waves); bf16 with head dim 16, 32 or 80
-  runs ``mma.sync`` kernels; f32 exact CUDA-core FMAs;
+  where the grid is short of two waves); bf16 with head dim 16 or 32 the
+  small-head kernels (64-row blocks, a TMA ring of 128-row stages,
+  ``mma.sync`` from registers, the walk split over a cluster of up to 8
+  blocks where the heaviest block's chain is long:
+  ``bwd_cluster_sizes``); bf16 with head dim 80 ``mma.sync`` kernels; f32
+  exact CUDA-core FMAs;
 - ``_Flash``, a ``torch.autograd.Function``, takes the place of ``_flash``'s
   ``custom_vjp``.
 
@@ -68,7 +72,8 @@ launches_dkdv = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the kernels (forward and backward, both dtypes) are
 #: compiled for; bf16 runs the wgmma kernels at 64, 96, 128 and 256 in
-#: both passes, mma.sync at the others
+#: both passes, the backward's small-head kernels at 16 and 32, mma.sync
+#: at the others
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 
@@ -263,16 +268,21 @@ def grad_tolerance(q, k, v, out, lse, g, plain, *, causal: bool = True,
 
 def _lib(name: str):
     lib = _build.load(name)
-    for fn_name, n_ptr in (("flash_attention_fwd", 5),
-                           ("flash_attention_bwd_dq", 8),
-                           ("flash_attention_bwd_dkdv", 8)):
+    P, I = ctypes.c_void_p, ctypes.c_int
+
+    def launch(n_ptr):
+        return [I, I, I] + [P] * n_ptr + [I] * 6 + [ctypes.c_float, P]
+
+    # the forward's library holds the first entry point, the backward's
+    # the other three
+    for fn_name, argtypes in (("flash_attention_fwd", launch(5)),
+                              ("flash_attention_bwd_dq", launch(8)),
+                              ("flash_attention_bwd_dkdv", launch(8)),
+                              ("flash_attention_bwd_small_splits", [I] * 8)):
         fn = getattr(lib, fn_name, None)
         if fn is None or fn.argtypes is not None:
             continue
-        P = ctypes.c_void_p
-        I = ctypes.c_int
-        fn.argtypes = ([I, I, I] + [P] * n_ptr + [I] * 6
-                       + [ctypes.c_float, P])
+        fn.argtypes = argtypes
         fn.restype = I
     return lib
 
@@ -295,7 +305,8 @@ def _check(what, q, k, v, *rest):
 
 
 def _aligned(*ts):
-    """Contiguous copies where needed; the kernels load 16-byte vectors."""
+    """Contiguous copies where needed; the kernels load 16-byte vectors
+    (and TMA maps need 16-byte aligned bases)."""
     ts = [t.contiguous() for t in ts]
     return [t.clone() if t.data_ptr() % 16 else t for t in ts]
 
@@ -348,8 +359,8 @@ def _bwd_inputs(what, q, k, v, out, lse, g):
             lse.shape != (B, H, S):
         raise ValueError(f"{what}: bad shapes out {tuple(out.shape)} g "
                          f"{tuple(g.shape)} lse {tuple(lse.shape)}")
-    q, k, v, out, g = _aligned(q, k, v, out, g.to(q.dtype))
-    return q, k, v, out, lse.float().contiguous(), g
+    q, k, v, out, g, lse = _aligned(q, k, v, out, g.to(q.dtype), lse.float())
+    return q, k, v, out, lse, g
 
 
 def _dq_launch(q, k, v, out, g, lse, causal, w, *, scale):
@@ -417,11 +428,23 @@ def flash_attention_bwd_dkdv(q, k, v, lse, g, delta, *, causal: bool = True,
             delta.device != q.device:
         raise ValueError("flash_attention_bwd_dkdv: delta must be f32 "
                          "[B, H, S] on the inputs' device")
-    delta = delta.contiguous()
+    delta, = _aligned(delta)
     return on_kernel_head_dim(
         lambda q, k, v, g, scale: _dkdv_launch(
             q, k, v, g, lse, delta, causal, w, scale=scale),
         (q, k, v, g), n_out=2)
+
+
+def bwd_cluster_sizes(B: int, S: int, T: int, H: int, KV: int, *,
+                      causal: bool = True,
+                      window: Optional[int] = None) -> tuple:
+    """(K3's, K4's) blocks a thread block cluster at this shape, as the bf16
+    kernels at kernel head dims 16 and 32 pick them on the current card
+    (from the heaviest block's chain and the grid; 1: no cluster)."""
+    lib = _lib("flash_attention_bwd")
+    w = _window(window)
+    return tuple(lib.flash_attention_bwd_small_splits(
+        which, int(causal), w, B, S, T, H, KV) for which in (0, 1))
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,

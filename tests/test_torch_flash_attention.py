@@ -663,8 +663,6 @@ def test_wgmma_bwd_kernels_run_at_head_dims_96_and_256_on_card(
     query heads over a cluster of 4 blocks), G 7 (uneven slices of 1-2
     heads), ragged S != T, window 96 and non-causal."""
     require_cuda()
-    from torch.profiler import ProfilerActivity, profile
-
     q, k, v, out, lse, g = _dq_case_on_card(S, T, H, KV, D, causal, window,
                                             seed=41)
     got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
@@ -682,10 +680,23 @@ def test_wgmma_bwd_kernels_run_at_head_dims_96_and_256_on_card(
         over = float(((a.float() - b.float()).abs() / t).max())
         assert over <= 1.0, (name, over)
     assert [torch.equal(a, b) for a, b in zip(got, again)] == [True] * 3
-    # the kernels' names: CUPTI now and then drops a kernel from a trace,
-    # the first one most often, so each trace starts with a kernel of its
-    # own and a trace missing one of the two is taken again (up to 5
-    # times); every name any trace holds must be a TMA/wgmma kernel's
+    # every name any trace holds must be a TMA/wgmma kernel's
+    names = _bwd_kernel_names(q, k, v, out, lse, g, causal, window,
+                              ("flash_bwd_dq_wgmma_kernel",
+                               "flash_bwd_dkdv_wgmma_kernel"))
+    assert any("flash_bwd_dq_wgmma_kernel" in n for n in names), names
+    assert any("flash_bwd_dkdv_wgmma_kernel" in n for n in names), names
+    assert all("_wgmma_kernel" in n for n in names), names
+
+
+def _bwd_kernel_names(q, k, v, out, lse, g, causal, window, symbols):
+    """The names of the flash backward kernels one flash_attention_bwd
+    call launches, from the profiler. CUPTI now and then drops a kernel
+    from a trace, the first one most often, so each trace starts with a
+    kernel of its own and a trace missing one of `symbols` (K3's, K4's) is
+    taken again (up to 5 times); the names of every trace taken."""
+    from torch.profiler import ProfilerActivity, profile
+
     names: set = set()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
@@ -698,12 +709,192 @@ def test_wgmma_bwd_kernels_run_at_head_dims_96_and_256_on_card(
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and "flash_bwd_" in e.name}
         names |= traced
-        if (any("flash_bwd_dq_wgmma_kernel" in n for n in traced)
-                and any("flash_bwd_dkdv_wgmma_kernel" in n for n in traced)):
+        if all(any(s in n for n in traced) for s in symbols):
             break
-    assert any("flash_bwd_dq_wgmma_kernel" in n for n in names), names
-    assert any("flash_bwd_dkdv_wgmma_kernel" in n for n in names), names
-    assert all("_wgmma_kernel" in n for n in names), names
+    return names
+
+
+def _bwd_held(q, k, v, out, lse, g, causal, window, rows=slice(None)):
+    """flash_attention_bwd twice and the plain backward: each of (dq, dk,
+    dv) finite and within grad_tolerance in `rows` (of dq's S and dk/dv's
+    T), and the second run bit-identical to the first. Returns the first
+    run's gradients."""
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                 window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                   window=window)
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+    tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    for name, a, b, t in zip(("dq", "dk", "dv"), got, plain, tols):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert bool(torch.isfinite(a[:, rows].float()).all()), name
+        over = float(((a.float() - b.float()).abs() / t)[:, rows].max())
+        assert over <= 1.0, (name, over)
+    assert [torch.equal(a, b) for a, b in zip(got, again)] == [True] * 3
+    return got
+
+
+SMALL_SYMBOLS = ("flash_bwd_dq_small_kernel", "flash_bwd_dkdv_small_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("S,T,H,KV,causal,window", [
+    (200, 200, 4, 4, True, None), (200, 200, 8, 4, False, None),
+    (256, 512, 6, 2, True, None), (256, 512, 7, 1, False, None),
+    (1000, 1000, 4, 2, True, 200), (1024, 1024, 4, 2, True, None),
+    (1024, 1024, 6, 2, True, 96), (1000, 1000, 7, 1, True, None),
+    (200, 200, 6, 2, True, 64)])
+def test_small_head_bwd_kernels_match_plain_on_card(D, S, T, H, KV, causal,
+                                                    window):
+    """bf16 K3 and K4 at head dims 16 and 32 run the small-head kernels
+    and nothing else, by the names the profiler records; dq, dk and dv
+    lie within grad_tolerance of the plain backward and are bit-identical
+    on a second run; delta = rowsum(out * dO) within its f32 rounding. The
+    cases: causal, full and windowed; G 1, 2, 3 and 7; ragged S = T = 200,
+    S 256 with T 512, and S 1000 and 1024."""
+    require_cuda()
+    q, k, v, out, lse, g = _dq_case_on_card(S, T, H, KV, D, causal, window,
+                                            seed=43)
+    before = (fa.launches_dq, fa.launches_dkdv)
+    _bwd_held(q, k, v, out, lse, g, causal, window)
+    assert (fa.launches_dq, fa.launches_dkdv) == (before[0] + 2,
+                                                 before[1] + 2)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                         causal=causal, window=window)
+    og = out.float() * g.float()
+    delta_ref = og.sum(-1).transpose(1, 2)
+    delta_tol = D * 2.0 ** -23 * og.abs().sum(-1).transpose(1, 2) + 1e-7
+    assert ((delta - delta_ref).abs() <= delta_tol).all()
+    names = _bwd_kernel_names(q, k, v, out, lse, g, causal, window,
+                              SMALL_SYMBOLS)
+    for sym in SMALL_SYMBOLS:
+        assert any(sym in n for n in names), names
+    assert all("_small_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("B,S,T,H,KV,causal,sizes", [
+    (2, 200, 200, 4, 4, True, (1, 1)), (1, 128, 2048, 2, 2, False, (8, 1)),
+    (2, 200, 200, 8, 4, False, (1, 2)), (2, 256, 512, 7, 1, False, (2, 4)),
+    (1, 1024, 1024, 2, 2, False, (4, 4)), (1, 1024, 1024, 2, 1, True,
+                                           (4, 8))])
+def test_small_head_bwd_kernels_take_every_cluster_size_on_card(
+        D, B, S, T, H, KV, causal, sizes):
+    """The launch rule picks each cluster size it can (1, 2, 4 and 8
+    blocks, for K3 and for K4) at one of these shapes, on an H100's 132
+    SMs; at each, the cluster's sums (added in rank order through
+    distributed shared memory) give dq, dk and dv within grad_tolerance
+    of the plain backward, bit-identical on a second run."""
+    require_cuda()
+    assert torch.cuda.get_device_properties(0).multi_processor_count == 132
+    assert fa.bwd_cluster_sizes(B, S, T, H, KV, causal=causal) == sizes
+    q, k, v = _qkv_on_card(B, S, T, H, KV, D, seed=47)
+    g = torch.from_numpy(np.random.default_rng(48).standard_normal(
+        q.shape).astype(np.float32)).cuda().to(torch.bfloat16)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    _bwd_held(q, k, v, out, lse, g, causal, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+def test_small_head_bwd_kernels_give_zero_grads_for_unseen_keys(D):
+    """Keys no query sees get dk = dv = 0 exactly: under causal attention
+    with T 512 > S 256 every key from 256 on, under window 64 too; and
+    with S = 0 every key (K4 writes zeros and counts its launch)."""
+    require_cuda()
+    for window in (None, 64):
+        q, k, v, out, lse, g = _dq_case_on_card(256, 512, 6, 2, D, True,
+                                                window, seed=51)
+        _, dk, dv = _bwd_held(q, k, v, out, lse, g, True, window)
+        assert not dk[:, 256:].any() and not dv[:, 256:].any()
+        assert dk[:, :256].any() and dv[:, :256].any()
+    _, k, v = _qkv_on_card(2, 1, 200, 6, 2, D, seed=53)
+    q = torch.empty((2, 0, 6, D), device="cuda", dtype=torch.bfloat16)
+    empty = torch.empty((2, 6, 0), device="cuda")
+    before = fa.launches_dkdv
+    dk, dv = fa.flash_attention_bwd_dkdv(q, k, v, empty, q, empty)
+    torch.cuda.synchronize()
+    assert fa.launches_dkdv == before + 1
+    assert not dk.any() and not dv.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+def test_small_head_bwd_kernels_read_no_row_past_s_or_t_or_the_band(D):
+    """NaN where the small-head K3 and K4 must not read. K3: (a) memory
+    just past the last batch's T rows of k and v (TMA zero-fills the
+    ragged chunk inside its batch); (b) keys from 384 on at S 300, T 1000
+    (above the last query tile's diagonal chunk); (c) keys 0-127 under
+    window 64, which no query tile from row 256 on may load. K4: (a)
+    memory just past q, dO, lse and delta (S 200); (b) query rows 0-127
+    under causal attention, which no key block from key 128 on may load;
+    (c) query rows from 192 on under window 64, which the block of keys
+    0-63 may not load. The gradients those loads would feed stay finite
+    and within grad_tolerance of the plain backward on clean inputs."""
+    require_cuda()
+
+    def nan_front(x, extra=4096):
+        buf = torch.full((x.numel() + extra,), float("nan"), device="cuda",
+                         dtype=x.dtype)
+        return buf[:x.numel()].view(x.shape).copy_(x)
+
+    def held(got, want, tol, rows):
+        assert bool(torch.isfinite(got[:, rows].float()).all())
+        assert ((got.float() - want.float()).abs()[:, rows]
+                <= tol[:, rows]).all()
+
+    def check(S, T, window, seed, poison, dq_rows, dkdv_rows,
+              causal=True):
+        q, k, v, out, lse, g = _dq_case_on_card(S, T, 6, 2, D, causal,
+                                                window, seed=seed)
+        plain = fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, g, causal=causal, window=window)
+        tols = fa.grad_tolerance(q, k, v, out, lse, g, plain,
+                                 causal=causal, window=window)
+        _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+        qp, kp, vp, gp, lp, dp = poison(q, k, v, g, lse, delta)
+        if dq_rows is not None:
+            dq, _ = fa.flash_attention_bwd_dq(q, kp, vp, out, lse, g,
+                                              causal=causal, window=window)
+            held(dq, plain[0], tols[0], dq_rows)
+        if dkdv_rows is not None:
+            dk, dv = fa.flash_attention_bwd_dkdv(qp, k, v, lp, gp, dp,
+                                                 causal=causal,
+                                                 window=window)
+            held(dk, plain[1], tols[1], dkdv_rows)
+            held(dv, plain[2], tols[2], dkdv_rows)
+        torch.cuda.synchronize()
+
+    def rows_nan(x, rows):
+        x = x.clone()
+        x[:, rows] = float("nan")
+        return x
+
+    everything = slice(None)
+    for causal in (True, False):  # (a), both kernels
+        check(200, 200, None, 55, lambda q, k, v, g, lse, d: (
+            nan_front(q), nan_front(k), nan_front(v), nan_front(g),
+            nan_front(lse), nan_front(d)), everything, everything, causal)
+    # K3 (b) and (c)
+    check(300, 1000, None, 57, lambda q, k, v, g, lse, d: (
+        q, rows_nan(k, slice(384, None)), rows_nan(v, slice(384, None)), g,
+        lse, d), everything, None)
+    check(1000, 1000, 64, 59, lambda q, k, v, g, lse, d: (
+        q, rows_nan(k, slice(0, 128)), rows_nan(v, slice(0, 128)), g, lse,
+        d), slice(256, None), None)
+    # K4 (b) and (c)
+    check(1000, 1000, None, 61, lambda q, k, v, g, lse, d: (
+        rows_nan(q, slice(0, 128)), k, v, rows_nan(g, slice(0, 128)), lse,
+        d), None, slice(128, None))
+    check(1000, 1000, 64, 63, lambda q, k, v, g, lse, d: (
+        rows_nan(q, slice(192, None)), k, v, rows_nan(g, slice(192, None)),
+        lse, d), None, slice(0, 64))
 
 
 def _refuse_plain(monkeypatch):
@@ -795,3 +986,50 @@ def test_shapes_bf16_grads_hold_their_bound_on_the_plain_path(name):
     r = chip_smoke._shapes_bf16_grads(cfg, params, batch, "cpu", grads_f32)
     assert 0 < r["grad_max_rel_err"] <= chip_smoke.SHAPES_BF16_GRAD_RTOL
     assert r["ok"]
+
+
+def test_chip_smoke_bounds_count_exponentials():
+    """chip_smoke.py counts an exponential a (query, key) pair of the band
+    and reports the SFU's time for them (exp_ms: 16 an SM a clock on 132
+    SMs at the card's 1.98 GHz maximum) beside the bound, which stays the
+    larger of bytes and products: at the tiny presets' heads (B 8, S 1024,
+    H 4, KV 2, D 16, causal) exp_ms is ~0.0040 ms, above K3's and K4's
+    bounds; at the 1b train shape (D 128) the bounds are the products',
+    as before; and the kernel names each dtype and head dim must run."""
+    import chip_smoke as cs
+
+    tiny = cs.k3k4_bounds(B=8, S=1024, H=4, KV=2, D=16, dtype="bfloat16")
+    exps = 8 * 4 * 1024 * 1025 // 2
+    assert cs.band_pairs(1024, 1024, True) * 32 == exps
+    assert tiny["exp_ms"] == pytest.approx(
+        exps / (132 * 16 * 1.98e9) * 1e3, rel=1e-12)
+    assert 0.0040 < tiny["exp_ms"] < 0.0041
+    bshd, btkd, bhs = 8 * 1024 * 4 * 16, 8 * 1024 * 2 * 16, 8 * 4 * 1024
+    assert tiny == {
+        "k3_bound_ms": (2 * (4 * bshd + 2 * btkd) + 8 * bhs) / 3.35e12 * 1e3,
+        "k3_bound_by": "bytes",
+        "k4_bound_ms": 8 * exps * 16 / 989e12 * 1e3,
+        "k4_bound_by": "operations",
+        "exp_ms": tiny["exp_ms"]}
+    assert max(tiny["k3_bound_ms"], tiny["k4_bound_ms"]) < tiny["exp_ms"]
+    one_b = cs.k3k4_bounds(B=8, S=1024, H=16, KV=8, D=128, dtype="bfloat16")
+    pairs = cs.band_pairs(1024, 1024, True)
+    assert one_b == {
+        "k3_bound_ms": 6 * 8 * 16 * pairs * 128 / 989e12 * 1e3,
+        "k3_bound_by": "operations",
+        "k4_bound_ms": 8 * 8 * 16 * pairs * 128 / 989e12 * 1e3,
+        "k4_bound_by": "operations",
+        "exp_ms": 8 * 16 * pairs / (132 * 16 * 1.98e9) * 1e3}
+    fwd = cs.fwd_bound(B=8, S=1024, T=1024, H=4, KV=2, D=16,
+                       dtype="bfloat16")
+    assert fwd == {"bound_ms": 4 * exps * 16 / 989e12 * 1e3,
+                   "bound_by": "operations", "exp_ms": tiny["exp_ms"]}
+    assert cs.fwd_bound(B=8, S=1024, T=1024, H=32, KV=32, D=128,
+                        dtype="bfloat16")["bound_by"] == "bytes"
+    assert cs.bwd_symbols("bfloat16", 16) == cs.bwd_symbols(
+        "bfloat16", 32) == (cs.SMALL_DQ_SYMBOL, cs.SMALL_DKDV_SYMBOL)
+    assert cs.bwd_symbols("bfloat16", 80) == ("flash_bwd_dq_bf16_kernel",
+                                              "flash_bwd_dkdv_bf16_kernel")
+    assert cs.bwd_symbols("bfloat16", 128) == (cs.WGMMA_DQ_SYMBOL,
+                                               cs.WGMMA_DKDV_SYMBOL)
+    assert cs.bwd_symbols("float32", 16)[0] == "flash_bwd_dq_f32_kernel"
