@@ -47,9 +47,9 @@ printing one JSON line:
    1b train shape and others, in bf16 and f32, within ``kernel_tolerance`` /
    ``grad_tolerance``; CUPTI device times and CUDA events beside the
    bound, the plain version and SDPA (with a band mask; its backward), and
-   the kernels' names (bf16 K3 and K4 at head dim 64, 96, 128 or 256 must
-   run the TMA/wgmma dQ and dK/dV kernels and nothing else, at 16 and 32
-   the small-head ones), with their ptxas registers and spills; every
+   the kernels' names (bf16 K3 and K4 at head dim 64, 80, 96, 128 or 256
+   must run the TMA/wgmma dQ and dK/dV kernels and nothing else, at 16 and
+   32 the small-head ones), with their ptxas registers and spills; every
    kernel phase also at the head dims and groups outside the presets (16
    in the backward, 48 zero-padded to 64, 80, 96, 256; G 3, 7, 16; HD 100
    in paged decode), bf16 timed at Phi-3-mini's and Gemma-2B's heads, and
@@ -57,15 +57,16 @@ printing one JSON line:
    heads) and H2O-Danube-1.8B's (80); the SFU's time for the
    exponentials (exp_ms) beside the bound;
 9. shapes: public model shapes outside the presets (SHAPE_MODELS):
-   Phi-3-mini (head dim 96), Llama-3.2-3B (G 3) and Gemma-2B's attention
-   (head dim 256, G 8), each cut to 2 layers in f32 card vs CPU (prefill
-   logits, the paged engine's greedy tokens, loss_fn and its gradients,
-   the attention's gradients within grad_tolerance), and loss_fn's
-   gradients in bf16 compute on the card against the f32 card run's
-   (SHAPES_BF16_GRAD_RTOL; the TMA/wgmma K3/K4 at head dims 96 and 256
-   on that path); each served at full
-   width in bf16 (paged, flash prefill; Phi-3-mini at 8 of its 32 layers,
-   with the K5 path over its pools, the others at 4): 4 greedy prompts of
+   Phi-3-mini (head dim 96), Llama-3.2-3B (G 3), Gemma-2B's attention
+   (head dim 256, G 8) and H2O-Danube-1.8B (head dim 80, sliding window),
+   each cut to 2 layers in f32 card vs CPU (prefill logits, the engine's
+   greedy tokens, loss_fn and its gradients, the attention's gradients
+   within grad_tolerance), and loss_fn's gradients in bf16 compute on the
+   card against the f32 card run's (SHAPES_BF16_GRAD_RTOL; the TMA/wgmma
+   K3/K4 at head dims 80, 96 and 256 on that path); each served at full
+   width in bf16 (flash prefill, paged but for the windowed Danube;
+   Phi-3-mini at 8 of its 32 layers, with the K5 path over its pools,
+   Danube at 2, the others at 4): 4 greedy prompts of
    64-512 tokens, 32 new tokens each, TTFT, decode tokens/s, peak memory;
    the tiny presets (Llama and MoE, head dim 16) trained with flash, 3
    AdamW steps card vs CPU; its launches counted from 0;
@@ -641,9 +642,10 @@ def phase_k5():
 # --- K1 / K2: the flash forward ---------------------------------------------
 
 
-# the symbols of the TMA/wgmma forward kernel (K1/K2), of the dQ kernel
-# (K3) and of the dK/dV kernel (K4), which every bf16 launch with head dim
-# 64, 96, 128 or 256 must run (csrc/flash_attention.cu,
+# the symbols of the TMA/wgmma forward kernel (K1/K2), which every bf16
+# launch with head dim 64, 96, 128 or 256 must run, and of the dQ kernel
+# (K3) and the dK/dV kernel (K4), which every bf16 launch with head dim 64,
+# 80, 96, 128 or 256 must run (csrc/flash_attention.cu,
 # csrc/flash_attention_bwd.cu)
 WGMMA_FWD_SYMBOL = "flash_fwd_wgmma_kernel"
 WGMMA_DQ_SYMBOL = "flash_bwd_dq_wgmma_kernel"
@@ -657,11 +659,9 @@ def bwd_symbols(dtype: str, head_dim: int):
     """The (K3, K4) kernels a dtype and kernel head dim must run."""
     if dtype != "bfloat16":
         return "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel"
-    if head_dim in (64, 96, 128, 256):
-        return WGMMA_DQ_SYMBOL, WGMMA_DKDV_SYMBOL
     if head_dim in (16, 32):
         return SMALL_DQ_SYMBOL, SMALL_DKDV_SYMBOL
-    return "flash_bwd_dq_bf16_kernel", "flash_bwd_dkdv_bf16_kernel"
+    return WGMMA_DQ_SYMBOL, WGMMA_DKDV_SYMBOL
 
 
 def band_pairs(S: int, T: int, causal: bool, window=None) -> int:
@@ -925,14 +925,14 @@ def phase_k2():
 def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
     """K3 and K4 against the plain backward on the same (q, k, v, out, lse,
     dO), dq/dk/dv elementwise within grad_tolerance, bit-identical on a
-    second run. Timed: each kernel by CUPTI device time (device_ms) and by
-    CUDA events, with the names of the kernels it ran (``bwd_symbols``:
-    bf16 K3 and K4 at head dim 64, 96, 128 or 256 must run
-    WGMMA_DQ_SYMBOL and WGMMA_DKDV_SYMBOL and nothing else, at 16 and 32
-    SMALL_DQ_SYMBOL and SMALL_DKDV_SYMBOL, with their cluster sizes) and
-    their ptxas registers and spills from the build phase, the plain
-    backward and SDPA's backward (bf16 only), beside the bounds
-    (``k3k4_bounds``)."""
+    second run; the names of the kernels each pass ran (``bwd_symbols``:
+    bf16 K3 and K4 at head dim 64, 80, 96, 128 or 256 must run
+    WGMMA_DQ_SYMBOL and WGMMA_DKDV_SYMBOL, at 16 and 32 SMALL_DQ_SYMBOL and
+    SMALL_DKDV_SYMBOL, with their cluster sizes; nothing else where timed,
+    no other flash kernel in an untimed bf16 case) and their ptxas
+    registers and spills from the build phase. Timed: each kernel by CUPTI
+    device time (device_ms) and by CUDA events, the plain backward and
+    SDPA's backward (bf16 only), beside the bounds (``k3k4_bounds``)."""
     import numpy as np
     import torch
 
@@ -973,49 +973,66 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
         res[f"{name}_max_err_over_tol"] = over
         ok = ok and over <= 1.0 and bool(torch.isfinite(a.float()).all())
     del plain, tols
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
+                                          causal=causal, window=window)
+
+    def k3():
+        fa.flash_attention_bwd_dq(q, k, v, out, lse, g, causal=causal,
+                                  window=window)
+
+    def k4():
+        fa.flash_attention_bwd_dkdv(q, k, v, lse, g, delta, causal=causal,
+                                    window=window)
+
+    # the kernels each pass ran: timed, from the timing runs, where every
+    # kernel must be the expected one (the time is theirs); untimed, in
+    # bf16, from traces of both passes, where each pass's flash kernels
+    # must (beside any pad's). Late in a long run CUPTI drops kernels from
+    # short traces, so a trace runs both three times and is taken again,
+    # up to 5 times, until it holds a kernel of each pass
     if timed:
-        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, g,
-                                              causal=causal, window=window)
-
-        def k3():
-            fa.flash_attention_bwd_dq(q, k, v, out, lse, g, causal=causal,
-                                      window=window)
-
-        def k4():
-            fa.flash_attention_bwd_dkdv(q, k, v, lse, g, delta,
-                                        causal=causal, window=window)
-
         for pre, fn in (("k3_", k3), ("k4_", k4)):
             names: set = set()
             res[pre + "kernel_ms"] = device_ms(fn, iters=10, names=names,
                                                per_call=1)
             res[pre + "event_ms"] = cuda_ms(fn, iters=10)
             res[pre + "kernels"] = sorted(names)
-        dk = fa.kernel_head_dim(D)
-        symbols = bwd_symbols(dtype, dk)
+    elif dtype == "bfloat16":
+        names = set()
+        parts = (("k3_", "flash_bwd_dq_"), ("k4_", "flash_bwd_dkdv_"))
+        for _ in range(5):
+            device_ms(lambda: (k3(), k4()), iters=3, names=names)
+            if all(any(part in n for n in names) for _, part in parts):
+                break
+        for pre, part in parts:
+            res[pre + "kernels"] = sorted(n for n in names if part in n)
+    dk = fa.kernel_head_dim(D)
+    symbols = bwd_symbols(dtype, dk)
+    if "k3_kernels" in res:
+        def ran(pre, symbol, every):
+            names = res[pre + "kernels"]
+            return ran_only(names if every else
+                            [n for n in names if "flash_" in n], symbol)
+
         if symbols == (WGMMA_DQ_SYMBOL, WGMMA_DKDV_SYMBOL):
-            res["ran_wgmma_dq_only"] = ran_only(res["k3_kernels"],
-                                                WGMMA_DQ_SYMBOL)
-            res["ran_wgmma_dkdv_only"] = ran_only(res["k4_kernels"],
-                                                  WGMMA_DKDV_SYMBOL)
+            res["ran_wgmma_dq_only"] = ran("k3_", WGMMA_DQ_SYMBOL, timed)
+            res["ran_wgmma_dkdv_only"] = ran("k4_", WGMMA_DKDV_SYMBOL, timed)
             ok = (ok and res["ran_wgmma_dq_only"]
                   and res["ran_wgmma_dkdv_only"])
         else:
-            # the small-head or mma.sync (bf16) or FMA (f32) kernels,
-            # beside any pad's
+            # the small-head (bf16) or FMA (f32) kernels, beside any pad's
             res["ran_expected_kernels_only"] = (
-                ran_only([n for n in res["k3_kernels"] if "flash_" in n],
-                         symbols[0])
-                and ran_only([n for n in res["k4_kernels"]
-                              if "flash_" in n], symbols[1]))
+                ran("k3_", symbols[0], False)
+                and ran("k4_", symbols[1], False))
             ok = ok and res["ran_expected_kernels_only"]
-        # the cluster sizes the small-head kernels ran with
-        if (symbols[0] == SMALL_DQ_SYMBOL
-                and res["ran_expected_kernels_only"]):
-            res["cluster_sizes"] = fa.bwd_cluster_sizes(
-                B, S, S, H, KV, causal=causal, window=window)
-        res["ptxas"] = {sym: _ptxas_of("flash_attention_bwd", sym, dk)
-                        for sym in symbols}
+            # the cluster sizes the small-head kernels ran with
+            if (symbols[0] == SMALL_DQ_SYMBOL
+                    and res["ran_expected_kernels_only"]):
+                res["cluster_sizes"] = fa.bwd_cluster_sizes(
+                    B, S, S, H, KV, causal=causal, window=window)
+    res["ptxas"] = {sym: _ptxas_of("flash_attention_bwd", sym, dk)
+                    for sym in symbols}
+    if timed:
         res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, g, causal=causal, window=window), iters=3)
         res["library_ms"] = None
@@ -1117,12 +1134,27 @@ SHAPE_MODELS = {
     "gemma-2b": dict(vocab_size=256000, d_model=2048, n_layers=18,
                      n_heads=8, n_kv_heads=1, d_ff=16384,
                      rope_theta=10000.0, max_seq_len=4096),
+    # h2oai/h2o-danube-1.8b-base: head dim 80, G 4, and its sliding_window
+    # (4096), which binds no key at these lengths but routes prefill
+    # through K2 and the gradients through the windowed K3/K4
+    "danube": dict(vocab_size=32000, d_model=2560, n_layers=24,
+                   n_heads=32, n_kv_heads=8, d_ff=6912, rope_theta=10000.0,
+                   max_seq_len=4096, sliding_window=4096),
 }
-# served at full width, bf16: Phi-3-mini at 8 of its 32 layers, the others
-# at 4 (the script's time; their attention is the same at every layer)
-SHAPE_SERVE_LAYERS = {"phi3-mini": 8, "llama3.2-3b": 4, "gemma-2b": 4}
+# served at full width, bf16: Phi-3-mini at 8 of its 32 layers, Danube at
+# 2, the others at 4 (the script's time; their attention is the same at
+# every layer)
+SHAPE_SERVE_LAYERS = {"phi3-mini": 8, "llama3.2-3b": 4, "gemma-2b": 4,
+                      "danube": 2}
 SHAPE_PROMPT_LENS = (64, 192, 320, 512)
 SHAPE_NEW_TOKENS = 32
+
+
+def _kv_layout(cfg) -> str:
+    """The engine's KV layout for `cfg`: paged, or contiguous for a model
+    with a sliding window (which the paged engine refuses, as JAX's
+    does)."""
+    return "paged" if cfg.sliding_window is None else "contiguous"
 
 
 def _all_kernel_launches():
@@ -1251,11 +1283,11 @@ def _shapes_bf16_grads(cfg, params, batch, device, grads_f32):
 def _shapes_card_vs_cpu(cfg, device):
     """`cfg` cut to 2 layers, f32 (no TF32), flash, from one seeded init on
     `device` and on the CPU: prefill logits of 2 prompts (bucket 256)
-    within LOGITS_TOL, the paged engine's greedy tokens (8 each) equal,
-    loss_fn at B 1 S 128 within TRAIN_LOSS_RTOL and every gradient within
-    MOE_GRAD_RTOL of its leaf's largest; and the attention at these heads
-    against the plain versions (``_attention_grads_held``); then loss_fn
-    in bf16 compute on `device` from the same params
+    within LOGITS_TOL, the engine's greedy tokens (8 each; ``_kv_layout``)
+    equal, loss_fn at B 1 S 128 within TRAIN_LOSS_RTOL and every gradient
+    within MOE_GRAD_RTOL of its leaf's largest; and the attention at these
+    heads against the plain versions (``_attention_grads_held``); then
+    loss_fn in bf16 compute on `device` from the same params
     (``_shapes_bf16_grads``)."""
     import numpy as np
     import torch
@@ -1284,7 +1316,7 @@ def _shapes_card_vs_cpu(cfg, device):
                                                              device=dev),
                                  torch.as_tensor(lens, device=dev), cfg)
         eng = LLMEngine(cfg=cfg, params=params[dev], max_slots=4,
-                        kv_layout="paged", page_size=64, device=dev)
+                        kv_layout=_kv_layout(cfg), page_size=64, device=dev)
         reqs = [eng.submit(pr, max_new_tokens=8) for pr in prompts]
         while eng.has_work():
             eng.step_n(8)
@@ -1320,8 +1352,9 @@ def _shapes_card_vs_cpu(cfg, device):
 
 
 def _shapes_serve(cfg, layers, device, k5=False):
-    """The paged engine at `cfg`'s full width (and `layers`, or all), bf16
-    on the card, flash prefill, page 64, 4 slots: after a warm-up, the
+    """The engine at `cfg`'s full width (and `layers`, or all), bf16 on
+    the card, flash prefill, paged (page 64) or, for a windowed model,
+    contiguous (``_kv_layout``), 4 slots: after a warm-up, the
     SHAPE_PROMPT_LENS prompts greedily, SHAPE_NEW_TOKENS each, submitted at
     once; TTFT, decode tokens/s, peak memory. k5: then, with those slots
     live again, the K5 path over the engine's pools (``k5_path``)."""
@@ -1339,8 +1372,9 @@ def _shapes_serve(cfg, layers, device, k5=False):
     else:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    layout = _kv_layout(cfg)
     eng = LLMEngine(cfg=cfg, max_slots=4, max_seq_len=1024,
-                    kv_layout="paged", page_size=64, seed=0, device=device)
+                    kv_layout=layout, page_size=64, seed=0, device=device)
     rng = np.random.default_rng(14)
     V = cfg.vocab_size
     eng.generate(rng.integers(0, V, size=64).tolist(), max_new_tokens=2)
@@ -1358,8 +1392,9 @@ def _shapes_serve(cfg, layers, device, k5=False):
     del m["all_finished_64"]
     res = {"cfg": f"{cfg.d_model} wide, {cfg.n_layers} layers, H "
                   f"{cfg.n_heads}, KV {cfg.n_kv_heads}, head dim "
-                  f"{cfg.head_dim}, {str(cfg.dtype)[6:]}, paged page 64, "
-                  f"4 slots, flash prefill",
+                  f"{cfg.head_dim}, {str(cfg.dtype)[6:]}, {layout}"
+                  f"{' page 64' if layout == 'paged' else ''}, 4 slots, "
+                  f"flash prefill",
            "setup_s": setup_s, **m,
            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                            if on_card else None),
@@ -1413,12 +1448,13 @@ def _shapes_train(device):
 
 def phase_shapes(device="cuda", models=None, serve_layers=None):
     """The attention kernels at public model shapes outside the presets
-    (SHAPE_MODELS): Phi-3-mini (head dim 96), Llama-3.2-3B (G 3) and
-    Gemma-2B's attention (head dim 256, G 8). (a) each at full width cut
-    to 2 layers, f32, card vs CPU (``_shapes_card_vs_cpu``); (b) each
-    served at full width in bf16 (``_shapes_serve``): Phi-3-mini at 8 of
-    its 32 layers (with the K5 path over its pools), the others at 4; (c) the
-    tiny presets' training with flash (head dim 16; ``_shapes_train``).
+    (SHAPE_MODELS): Phi-3-mini (head dim 96), Llama-3.2-3B (G 3),
+    Gemma-2B's attention (head dim 256, G 8) and H2O-Danube-1.8B (head dim
+    80, G 4, sliding window). (a) each at full width cut to 2 layers, f32,
+    card vs CPU (``_shapes_card_vs_cpu``); (b) each served at full width in
+    bf16 (``_shapes_serve``): Phi-3-mini at 8 of its 32 layers (with the K5
+    path over its pools), Danube at 2, the others at 4; (c) the tiny
+    presets' training with flash (head dim 16; ``_shapes_train``).
     The launch counters are set to 0 just before and read just after;
     the attention comparisons of (a) are not counted."""
     import torch
@@ -1459,9 +1495,8 @@ def phase_shapes(device="cuda", models=None, serve_layers=None):
     launches["paged_attention"] = k5
     res["launches"] = launches
     if on_card:
-        # K2 has no windowed model here; every other kernel ran
-        ok = ok and all(n > 0 for k, n in launches.items()
-                        if k != "flash_attention_fwd_window")
+        # every kernel ran (K2 in Danube's prefills)
+        ok = ok and all(n > 0 for n in launches.values())
     res["ok"] = ok
     return res
 
@@ -5388,9 +5423,11 @@ def profile_windows(eng, rng):
     profiler (device time by kernel class); idle = 1 - busy / wall.
     Windows: an admission of 8 prompts of 1000 tokens (prefill, bucket
     1024), then a decode block of 8 steps with all 16 slots live. Both
-    passes admit 8, so 16 slots stay live with ~1000-token contexts."""
+    passes admit 8, so 16 slots stay live with ~1000-token contexts. Now
+    and then CUPTI loses a whole trace: an admission traced with no
+    kernel at all (its prefills launch thousands) is taken again, up to 2
+    more times, after the 16 requests finish."""
     V = eng.cfg.vocab_size
-    full = [rng.integers(0, V, size=1000).tolist() for _ in range(16)]
 
     def admit(prompts):
         def run():
@@ -5399,8 +5436,14 @@ def profile_windows(eng, rng):
             eng._admit()
         return run
 
-    return {"profile_prefill": device_profile(admit(full[:8]),
-                                              admit(full[8:])),
+    for _ in range(3):
+        full = [rng.integers(0, V, size=1000).tolist() for _ in range(16)]
+        prefill = device_profile(admit(full[:8]), admit(full[8:]))
+        if prefill["device_events"]:
+            break
+        while eng.has_work():
+            eng.step_n(8)
+    return {"profile_prefill": prefill,
             "profile_decode_block": device_profile(lambda: eng.step_n(8),
                                                    lambda: eng.step_n(8))}
 

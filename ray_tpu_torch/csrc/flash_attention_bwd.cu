@@ -32,15 +32,17 @@
 // Kernels, chosen explicitly by dtype and head dim in launch_dq and
 // launch_dkdv:
 //
-// K3, bf16 at head dims 64, 96, 128 and 256 (every card preset, Phi-3's
-// 96, Gemma's 256), flash_bwd_dq_wgmma_kernel, on K1's parts (hopper.cuh):
+// K3, bf16 at head dims 64, 80, 96, 128 and 256 (every card preset,
+// H2O-Danube's and Phi-2's 80, Phi-3's 96, Gemma's 256),
+// flash_bwd_dq_wgmma_kernel, on K1's parts (hopper.cuh):
 // one block of 3 warpgroups a 128-row query tile. Warpgroup 0 is the
 // producer (after setmaxnreg.dec): one thread loads the tile's Q and dO
 // once by TMA (4-D tensor maps; a box past S or T is zero-filled inside
 // its own batch) and the band's 64-key K/V tiles into rings with full and
 // empty mbarriers (K freed after dS k, V after dO v^T). Tiles are TMA boxes
-// of 64 columns with the 128-byte swizzle, or at head dim 96 three boxes
-// of 32 columns with the 64-byte swizzle (TileCols). Warpgroups 1-2 are
+// of 64 columns with the 128-byte swizzle, at head dim 96 three boxes of
+// 32 columns with the 64-byte swizzle, at 80 five of 16 columns with the
+// 32-byte swizzle (TileCols). Warpgroups 1-2 are
 // consumers (setmaxnreg.inc), 64 query rows each: they form delta from O
 // and dO in device memory while the first tiles land; then per K/V tile S
 // = Q K^T and dP = dO V^T by wgmma m64n64k16 with both operands in shared
@@ -62,7 +64,7 @@
 // each slower (PERF.md). It runs at ~30-38% of the tensor cores'
 // rate (PERF.md).
 //
-// K4, bf16 at head dims 64, 96 and 128, flash_bwd_dkdv_wgmma_kernel: K3's
+// K4, bf16 at head dims 64, 80, 96 and 128, flash_bwd_dkdv_wgmma_kernel: K3's
 // design with the roles of queries and keys swapped. One block of 3
 // warpgroups owns 128 keys of one (batch, kv head). The producer's thread
 // 0 loads the block's K and V once by TMA (128-row boxes of the same 4-D
@@ -140,15 +142,15 @@
 //   products of a step; at D 16 a step's products are 24 (K3) or 32 (K4)
 //   mma.sync a warp against 1,024 exponentials, so they are not the chain.
 //
-// bf16 at head dim 80 (K3 and K4): mma.sync.m16n8k16 with f32
-// accumulation in the fragment layouts of K1 (mma.cuh). The recomputed
-// scores and dP stay in f32 registers; P (for dV) and dS (for dK, dQ) are
-// rounded to bf16 as the A operand of the gradient products. K/V tiles
-// (K3) and q/dO tiles (K4) arrive through cp.async, double-buffered. A
-// operands come from shared memory by ldmatrix per 32-wide k-step (16-wide
-// for the odd last step of head dim 80), which keeps registers for the f32
-// accumulators (K4 holds dK and dV, 2 x 16 x D per warp). Other head dims
-// <= 256 are zero-padded to the next compiled one by the wrapper.
+// At head dim 80 (H2O-Danube-1.8B, Phi-2; every D of 65-80) both kernels
+// take 80 = 5 x 16: five 16-column boxes with the 32-byte swizzle, so S
+// and dP (S^T and dP^T in K4) are five m64n64k16 k-steps, one a box, and
+// the gradient products wgmma m64n80k16 with dS/P from registers (dQ 40
+// f32 registers a consumer thread, dK and dV 80), ~82 KB of tiles a block
+// in either kernel. Head dim 96's three 32-column boxes over the
+// 80-column tensor (TMA zero-filling columns 80-95, 1.2x the gradient
+// products) ran the pair 1.3% slower (PERF.md). Other head dims <= 256
+// are zero-padded to the next compiled one by the wrapper.
 //
 // f32 (parity runs): exact f32 FMAs on the CUDA cores through shared-memory
 // tiles; P and dS stay f32. A lane owns output columns lane + 32 c (the
@@ -210,349 +212,6 @@ __device__ __forceinline__ void query_tiles(int k0, int S, int window,
   }
 }
 
-// ------------------------------------------------------------------ bf16 ---
-
-// acc[NS][4] (16 rows of A, 8 columns per n-tile) += A (16 x D, rows of
-// `Aw` in shared memory) . B^T (B rows of `Bt`, 8 per n-tile), over D
-template <int D, int NS>
-__device__ __forceinline__ void mma_abt(float (&acc)[NS][4],
-                                        const bf16* Aw, const bf16* Bt,
-                                        int lane) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / 16;
-#pragma unroll
-  for (int ks = 0; ks + 1 < KS; ks += 2) {
-    uint32_t a0[4], a1[4];
-    ldmatrix_x4(a0, Aw + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
-    ldmatrix_x4(a1, Aw + (lane & 15) * LD + (ks + 1) * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      uint32_t bf[4];  // b0, b1 of k-step ks, then of ks + 1
-      ldmatrix_x4(bf, Bt + (n * 8 + (lane & 7)) * LD + ks * 16 +
-                          (lane >> 3) * 8);
-      mma_bf16(acc[n], a0, bf[0], bf[1]);
-      mma_bf16(acc[n], a1, bf[2], bf[3]);
-    }
-  }
-  if constexpr (KS % 2 == 1) {  // the last 16-wide step alone
-    constexpr int ks = KS - 1;
-    uint32_t a0[4];
-    ldmatrix_x4(a0, Aw + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      uint32_t bf[2];
-      ldmatrix_x2(bf, Bt + (n * 8 + (lane & 7)) * LD + ks * 16 +
-                          ((lane >> 3) & 1) * 8);
-      mma_bf16(acc[n], a0, bf[0], bf[1]);
-    }
-  }
-}
-
-// acc[D / 8][4] (16 x D) += X (16 x 64, the C fragments x[8][4], rounded
-// to bf16) . M (a [64, D] tile `Mt` in shared memory)
-template <int D>
-__device__ __forceinline__ void mma_xm(float (&acc)[D / 8][4],
-                                       const float (&x)[8][4],
-                                       const bf16* Mt, int lane) {
-  constexpr int LD = D + 8;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t xf[4];  // the C fragments of n-tiles 2j, 2j+1 are the A of step j
-    xf[0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-    xf[1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-    xf[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-    xf[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t mf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
-      ldmatrix_x4_trans(mf, Mt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                     LD + n * 8 + (lane >> 4) * 8);
-      mma_bf16(acc[n], xf, mf[0], mf[1]);
-      mma_bf16(acc[n + 1], xf, mf[2], mf[3]);
-    }
-  }
-}
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ o,
-    const bf16* __restrict__ g, const float* __restrict__ lse,
-    bf16* __restrict__ dq, float* __restrict__ delta, int S, int T_len, int H,
-    int KV, int window, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ, LD]
-  bf16* Gs = Qs + BQ * LD;                   // [BQ, LD] dO
-  bf16* Ks = Gs + BQ * LD;                   // [2][BK, LD]
-  bf16* Vs = Ks + 2 * BK * LD;               // [2][BK, LD]
-  float* dl_sh = reinterpret_cast<float*>(Vs + 2 * BK * LD);  // [BQ]
-
-  // causal tiles near the end do the most work: schedule them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5;  // the warp's 16-row tile
-  const int lane = threadIdx.x & 31;
-  const int g8 = lane >> 2;
-  const int t4 = lane & 3;
-
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)KV * D;
-  const size_t head = ((size_t)b * S * H + h) * D;
-  const bf16* kb = k + ((size_t)b * T_len * KV + kvh) * D;
-  const bf16* vb = v + ((size_t)b * T_len * KV + kvh) * D;
-
-  int kt_lo, kt_hi;
-  key_tiles<CAUSAL>(q0, T_len, window, kt_lo, kt_hi);
-
-  async_rows<D, LD, NT>(Qs, q + head + (size_t)q0 * q_stride, q_stride,
-                         S - q0, BQ);
-  async_rows<D, LD, NT>(Gs, g + head + (size_t)q0 * q_stride, q_stride,
-                         S - q0, BQ);
-  if (kt_lo < kt_hi) {
-    const int k0 = kt_lo * BK;
-    async_rows<D, LD, NT>(Ks, kb + (size_t)k0 * kv_stride, kv_stride,
-                           T_len - k0, BK);
-    async_rows<D, LD, NT>(Vs, vb + (size_t)k0 * kv_stride, kv_stride,
-                           T_len - k0, BK);
-  }
-  cp_async_commit();
-
-  // delta = rowsum(O * dO) in f32 from device memory, while the tiles land
-  // (16 rows a warp)
-  const int dr0 = warp * 16;
-  for (int r = dr0; r < dr0 + 16; ++r) {
-    const int row = q0 + r;
-    float a = 0.f;
-    if (row < S) {
-      const size_t off = head + (size_t)row * q_stride;
-      for (int d = lane; d < D; d += 32)
-        a += to_f32(o[off + d]) * to_f32(g[off + d]);
-    }
-    a = warp_sum(a);
-    if (lane == 0) {
-      dl_sh[r] = a;
-      if (row < S) delta[((size_t)b * H + h) * S + row] = a;
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int row_a = q0 + warp * 16 + g8;
-  const int row_b = row_a + 8;
-  const size_t lrow = ((size_t)b * H + h) * S;
-  const float lse_a = row_a < S ? lse[lrow + row_a] : 0.f;
-  const float lse_b = row_b < S ? lse[lrow + row_b] : 0.f;
-  const float dl_a = dl_sh[warp * 16 + g8];
-  const float dl_b = dl_sh[warp * 16 + g8 + 8];
-  const bf16* Qw = Qs + warp * 16 * LD;
-  const bf16* Gw = Gs + warp * 16 * LD;
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int stage = (kt - kt_lo) & 1;
-    const int k0 = kt * BK;
-    if (kt + 1 < kt_hi) {
-      // the other stage was released by the barrier ending iteration kt-1
-      const int k1 = k0 + BK;
-      async_rows<D, LD, NT>(Ks + (stage ^ 1) * BK * LD,
-                             kb + (size_t)k1 * kv_stride, kv_stride,
-                             T_len - k1, BK);
-      async_rows<D, LD, NT>(Vs + (stage ^ 1) * BK * LD,
-                             vb + (size_t)k1 * kv_stride, kv_stride,
-                             T_len - k1, BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Kt = Ks + stage * BK * LD;
-    const bf16* Vt = Vs + stage * BK * LD;
-
-    // s = q k^T, dp = dO v^T: rows g, g+8 of the warp; keys k0 + 8n + 2t4
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, 8>(s, Qw, Kt, lane);
-    mma_abt<D, 8>(dp, Gw, Vt, lane);
-
-    // dS = P (dP - delta) scale, P from the saved lse (0 where masked)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + t4 * 2 + (e & 1);
-        const bool top = e < 2;
-        const float p =
-            visible<CAUSAL>(top ? row_a : row_b, col, S, T_len, window)
-                ? expf(s[n][e] * scale - (top ? lse_a : lse_b))
-                : 0.f;
-        s[n][e] = p * (dp[n][e] - (top ? dl_a : dl_b)) * scale;
-      }
-    mma_xm<D>(acc, s, Kt, lane);  // dq += dS k
-    __syncthreads();  // every warp is done with this stage
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? row_b : row_a;
-    if (row >= S) continue;
-    bf16* out = dq + head + (size_t)row * q_stride;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + n * 8 + t4 * 2) =
-          __floats2bfloat162_rn(acc[n][half * 2], acc[n][half * 2 + 1]);
-  }
-}
-
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(NT) flash_bwd_dkdv_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ g,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int T_len, int H,
-    int KV, int window, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK, LD]
-  bf16* Vs = Ks + BK * LD;                   // [BK, LD]
-  bf16* Qs = Vs + BK * LD;                   // [2][BQ, LD]
-  bf16* Gs = Qs + 2 * BQ * LD;               // [2][BQ, LD] dO
-  float* lse_sh = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // [2][BQ]
-  float* dl_sh = lse_sh + 2 * BQ;                              // [2][BQ]
-
-  // under causal attention the first key tiles see the most query tiles
-  const int k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int groups = H / KV;
-  const int warp = threadIdx.x >> 5;  // the warp's 16 keys
-  const int lane = threadIdx.x & 31;
-  const int g8 = lane >> 2;
-  const int t4 = lane & 3;
-
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)KV * D;
-  const size_t kv_off = ((size_t)b * T_len * KV + kvh) * D;
-
-  int qt_lo, qt_hi;
-  query_tiles<CAUSAL>(k0, S, window, qt_lo, qt_hi);
-  const int nq = max(0, qt_hi - qt_lo);
-  const int n_it = groups * nq;  // (query head of the group, query tile)
-
-  auto load_q = [&](int it, int stage) {
-    const int hh = kvh * groups + it / nq;
-    const int q0 = (qt_lo + it % nq) * BQ;
-    const size_t off = ((size_t)b * S * H + hh) * D + (size_t)q0 * q_stride;
-    async_rows<D, LD, NT>(Qs + stage * BQ * LD, q + off, q_stride, S - q0,
-                           BQ);
-    async_rows<D, LD, NT>(Gs + stage * BQ * LD, g + off, q_stride, S - q0,
-                           BQ);
-    if (threadIdx.x < BQ) {
-      const int row = q0 + threadIdx.x;
-      const size_t i = ((size_t)b * H + hh) * S + row;
-      lse_sh[stage * BQ + threadIdx.x] = row < S ? lse[i] : 0.f;
-      dl_sh[stage * BQ + threadIdx.x] = row < S ? delta[i] : 0.f;
-    }
-  };
-
-  async_rows<D, LD, NT>(Ks, k + kv_off + (size_t)k0 * kv_stride, kv_stride,
-                         T_len - k0, BK);
-  async_rows<D, LD, NT>(Vs, v + kv_off + (size_t)k0 * kv_stride, kv_stride,
-                         T_len - k0, BK);
-  if (n_it > 0) load_q(0, 0);
-  cp_async_commit();
-
-  const int key_a = k0 + warp * 16 + g8;
-  const int key_b = key_a + 8;
-  const bf16* Kw = Ks + warp * 16 * LD;
-  const bf16* Vw = Vs + warp * 16 * LD;
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int it = 0; it < n_it; ++it) {
-    const int stage = it & 1;
-    const int q0 = (qt_lo + it % nq) * BQ;
-    if (it + 1 < n_it) {
-      // the other stage was released by the barrier ending iteration it-1
-      load_q(it + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qt = Qs + stage * BQ * LD;
-    const bf16* Gt = Gs + stage * BQ * LD;
-    const float* lt = lse_sh + stage * BQ;
-    const float* dt = dl_sh + stage * BQ;
-
-    // P^T = exp(k q^T scale - lse): keys g, g+8 of the warp (rows),
-    // queries q0 + 8n + 2t4 (columns), 0 where masked
-    float p[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[n][e] = 0.f;
-    mma_abt<D, 8>(p, Kw, Qt, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + t4 * 2 + (e & 1);
-        p[n][e] = visible<CAUSAL>(q0 + c, e < 2 ? key_a : key_b, S, T_len,
-                                  window)
-                      ? expf(p[n][e] * scale - lt[c])
-                      : 0.f;
-      }
-    mma_xm<D>(dv_acc, p, Gt, lane);  // dv += P^T dO
-
-    // dS^T = P^T (v dO^T - delta) scale
-    float ds[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[n][e] = 0.f;
-    mma_abt<D, 8>(ds, Vw, Gt, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + t4 * 2 + (e & 1);
-        ds[n][e] = p[n][e] * (ds[n][e] - dt[c]) * scale;
-      }
-    mma_xm<D>(dk_acc, ds, Qt, lane);  // dk += dS^T q
-    __syncthreads();  // every warp is done with this stage
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int key = half ? key_b : key_a;
-    if (key >= T_len) continue;
-    const size_t off = kv_off + (size_t)key * kv_stride;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + n * 8 + t4 * 2) =
-          __floats2bfloat162_rn(dk_acc[n][half * 2], dk_acc[n][half * 2 + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + n * 8 + t4 * 2) =
-          __floats2bfloat162_rn(dv_acc[n][half * 2], dv_acc[n][half * 2 + 1]);
-    }
-  }
-}
-
 // ------------------------------------------ bf16 dQ, TMA + wgmma (K3) ---
 
 constexpr int WG_BQ = 128;    // query rows a block: 64 per consumer group
@@ -590,7 +249,9 @@ struct DqSmem {
 // delta = rowsum(O * dO) in f32 of the 64 rows from `row0` of one (batch,
 // head), by a warpgroup (this is thread t), TPR threads a row with CPT
 // 16-byte chunks of O and of dO each; into dl[r] (r from 0) and, for
-// rows < S, into delta (from lrow).
+// rows < S, into delta (from lrow). TPR is the largest power of two up to
+// 32 that divides a row's chunks (2 of head dim 80's 10), so every column
+// enters the sum.
 template <int D>
 __device__ __forceinline__ void group_delta(
     const bf16* __restrict__ o, const bf16* __restrict__ g,
@@ -598,7 +259,8 @@ __device__ __forceinline__ void group_delta(
     size_t lrow, int row0, int S, int t) {
   constexpr int CH = D / 8;  // chunks a row
   constexpr int TPR = CH % 32 == 0 ? 32 : CH % 16 == 0 ? 16 : CH % 8 == 0 ? 8
-                                                                          : 4;
+                      : CH % 4 == 0 ? 4 : CH % 2 == 0 ? 2 : 1;
+  static_assert(CH % TPR == 0, "every chunk of a row is summed");
   constexpr int CPT = CH / TPR;
   constexpr int RPP = 128 / TPR;  // rows a pass
 #pragma unroll
@@ -649,8 +311,8 @@ __global__ void __launch_bounds__(WG_NT, 1) flash_bwd_dq_wgmma_kernel(
   using C = TileCols<D>;
   constexpr int KST = L::KST, VST = L::VST;
   extern __shared__ __align__(1024) unsigned char smem_tiles[];
-  // the swizzle repeats every 1024 (128-byte) or 512 (64-byte) bytes:
-  // align the tiles to it
+  // the swizzle repeats every 1024 (128-byte), 512 (64-byte) or 256
+  // (32-byte) bytes: align the tiles to it
   const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::Q, sG = base + L::G;
   const uint32_t sK = base + L::K, sV = base + L::V;
@@ -1092,7 +754,7 @@ __device__ __forceinline__ void dkdv_dsfrag(uint32_t (&df)[4],
   for (int r = 0; r < 4; ++r) df[r] = pack_bf16(x[2 * r], x[2 * r + 1]);
 }
 
-// K4 at head dims 64, 96 and 128: one block of 3 warpgroups owns 128 keys
+// K4 at head dims 64, 80, 96 and 128: one block of 3 warpgroups owns 128 keys
 // of one (batch, kv head); each consumer group 64 of them, keeping its dK
 // and dV in registers across every query head of the group.
 template <int D, bool CAUSAL, bool WINDOW>
@@ -1105,8 +767,8 @@ __device__ __forceinline__ void dkdv_pair(
   using L = DkdvSmem<D>;
   using C = TileCols<D>;
   extern __shared__ __align__(1024) unsigned char smem_tiles[];
-  // the swizzle repeats every 1024 (128-byte) or 512 (64-byte) bytes:
-  // align the tiles to it
+  // the swizzle repeats every 1024 (128-byte), 512 (64-byte) or 256
+  // (32-byte) bytes: align the tiles to it
   const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
   const uint32_t sK = base + L::K, sV = base + L::V;
   const uint32_t sQ = base + L::Q, sG = base + L::G;
@@ -2629,33 +2291,15 @@ int launch_dq(int dtype, int causal, int window, const void* q, const void* k,
               const void* v, const void* o, const void* g, const void* lse,
               void* dq, void* delta, int B, int S, int T_len, int H, int KV,
               float scale, cudaStream_t st) {
-  dim3 grid((S + BQ - 1) / BQ, H, B);
   if (dtype == RT_BF16) {
-    // head dims 64, 96, 128 and 256 run only the TMA/wgmma kernel, 16 and
-    // 32 only the small-head one: the mma.sync kernel is instantiated for
-    // 80 alone
-    if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
-      return launch_dq_wgmma<D>(causal, window, q, k, v, o, g, lse, dq,
-                                delta, B, S, T_len, H, KV, scale, st);
-    } else if constexpr (D == 16 || D == 32) {
+    // head dims 16 and 32 run only the small-head kernel, the others only
+    // the TMA/wgmma one
+    if constexpr (D == 16 || D == 32)
       return launch_dq_small<D>(causal, window, q, k, v, o, g, lse, dq,
                                 delta, B, S, T_len, H, KV, scale, st);
-    } else {
-      const size_t smem =
-          sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * (D + 8) +
-          sizeof(float) * BQ;
-      auto kernel = causal ? flash_bwd_dq_bf16_kernel<D, true>
-                           : flash_bwd_dq_bf16_kernel<D, false>;
-      cudaError_t err = rt_set_smem(kernel, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<grid, NT, smem, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-          static_cast<const bf16*>(g), static_cast<const float*>(lse),
-          static_cast<bf16*>(dq), static_cast<float*>(delta), S, T_len, H,
-          KV, window, scale);
-      return static_cast<int>(cudaGetLastError());
-    }
+    else
+      return launch_dq_wgmma<D>(causal, window, q, k, v, o, g, lse, dq,
+                                delta, B, S, T_len, H, KV, scale, st);
   }
   if (dtype == RT_F32) {
     const size_t smem = F32Bwd<D>::kBytes;
@@ -2680,31 +2324,14 @@ int launch_dkdv(int dtype, int causal, int window, const void* q,
                 const void* k, const void* v, const void* g, const void* lse,
                 const void* delta, void* dk, void* dv, int B, int S,
                 int T_len, int H, int KV, float scale, cudaStream_t st) {
-  dim3 grid((T_len + BK - 1) / BK, KV, B);
   if (dtype == RT_BF16) {
     // as in launch_dq
-    if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
-      return launch_dkdv_wgmma<D>(causal, window, q, k, v, g, lse, delta,
-                                  dk, dv, B, S, T_len, H, KV, scale, st);
-    } else if constexpr (D == 16 || D == 32) {
+    if constexpr (D == 16 || D == 32)
       return launch_dkdv_small<D>(causal, window, q, k, v, g, lse, delta,
                                   dk, dv, B, S, T_len, H, KV, scale, st);
-    } else {
-      const size_t smem =
-          sizeof(bf16) * (size_t)(2 * BK + 4 * BQ) * (D + 8) +
-          sizeof(float) * 4 * BQ;
-      auto kernel = causal ? flash_bwd_dkdv_bf16_kernel<D, true>
-                           : flash_bwd_dkdv_bf16_kernel<D, false>;
-      cudaError_t err = rt_set_smem(kernel, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<grid, NT, smem, st>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(g),
-          static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, T_len, H, KV,
-          window, scale);
-      return static_cast<int>(cudaGetLastError());
-    }
+    else
+      return launch_dkdv_wgmma<D>(causal, window, q, k, v, g, lse, delta,
+                                  dk, dv, B, S, T_len, H, KV, scale, st);
   }
   if (dtype == RT_F32) {
     const size_t smem = F32Bwd<D>::kBytes;

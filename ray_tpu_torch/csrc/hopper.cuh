@@ -2,9 +2,9 @@
 // maps (encoded on the host through libcuda's entry point, looked up at
 // run time, so the library needs no -lcuda), mbarriers, TMA loads and
 // stores (4-D bf16 and 1-D f32 maps), wgmma shared-memory descriptors for
-// the 128-byte swizzle, the wgmma instructions the attention kernels use,
-// stmatrix, named barriers, thread block clusters (barrier, distributed
-// shared memory), setmaxnreg and ex2.approx.
+// the 128-, 64- and 32-byte swizzles, the wgmma instructions the attention
+// kernels use, stmatrix, named barriers, thread block clusters (barrier,
+// distributed shared memory), setmaxnreg and ex2.approx.
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes) by R
 // rows, written with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r
@@ -13,11 +13,13 @@
 // 96 is not a multiple of 64: its tiles are three boxes of 32 columns (64
 // bytes) with CU_TENSOR_MAP_SWIZZLE_64B (chunk c of row r at r * 64 + ((c
 // ^ (r / 2 % 4)) * 16), 512-byte atoms of 8 rows), the wgmma descriptors'
-// 64-byte layout. TileCols says which a head dim takes, for the forward
-// and the backward alike. The backward's kernels at head dims 16 and 32
-// take whole rows as one box: 16 columns with CU_TENSOR_MAP_SWIZZLE_32B
-// (chunk c of row r at r * 32 + ((c ^ (r / 4 % 2)) * 16)) or 32 with the
-// 64-byte swizzle, read by ldmatrix.
+// 64-byte layout. Head dim 80 is not a multiple of 32: its tiles are five
+// boxes of 16 columns (32 bytes) with CU_TENSOR_MAP_SWIZZLE_32B (chunk c of
+// row r at r * 32 + ((c ^ (r / 4 % 2)) * 16), 256-byte atoms of 8 rows),
+// the descriptors' 32-byte layout. TileCols says which a head dim takes,
+// for the forward and the backward alike. The backward's kernels at head
+// dims 16 and 32 take whole rows as one box: 16 columns with the 32-byte
+// swizzle or 32 with the 64-byte one, read by ldmatrix.
 #pragma once
 
 #include <cstdint>
@@ -248,16 +250,17 @@ __device__ __forceinline__ float ex2_approx(float x) {
 // --------------------------------------------------------------- wgmma ---
 
 // Shared-memory matrix descriptor for a swizzled operand, RB the bytes a
-// swizzled row holds: 128 (layout type 1, 1024-byte atoms of 8 rows) or
-// 64 (type 2, 512-byte atoms). For a K-major operand (rows of RB / 2
-// contiguous bf16) SBO is the stride of 8-row groups and LBO is unused;
-// for an MN-major operand LBO is the stride between blocks of RB / 2
-// columns and SBO that of 8-row (K) groups.
+// swizzled row holds: 128 (layout type 1, 1024-byte atoms of 8 rows), 64
+// (type 2, 512-byte atoms) or 32 (type 3, 256-byte atoms). For a K-major
+// operand (rows of RB / 2 contiguous bf16) SBO is the stride of 8-row
+// groups and LBO is unused; for an MN-major operand LBO is the stride
+// between blocks of RB / 2 columns and SBO that of 8-row (K) groups.
 template <int RB>
 __device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo,
                                             uint32_t sbo) {
-  static_assert(RB == 128 || RB == 64, "128- or 64-byte swizzle");
-  constexpr uint64_t type = RB == 128 ? 1 : 2;
+  static_assert(RB == 128 || RB == 64 || RB == 32,
+                "128-, 64- or 32-byte swizzle");
+  constexpr uint64_t type = RB == 128 ? 1 : RB == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (type << 62);
@@ -270,15 +273,15 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 // How a head dim's tiles lie in shared memory: TMA boxes of BC columns,
 // each row of a box one swizzled row of RB bytes (64 columns and the
 // 128-byte swizzle where D is a multiple of 64; 32 and the 64-byte swizzle
-// at head dim 96), NB boxes across a row of the tile, KPB 16-column
-// k-steps a box.
+// at head dim 96; 16 and the 32-byte swizzle at 80), NB boxes across a row
+// of the tile, KPB 16-column k-steps a box.
 template <int D>
 struct TileCols {
-  static constexpr int BC = D % 64 == 0 ? 64 : 32;
+  static constexpr int BC = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int RB = 2 * BC;
   static constexpr int NB = D / BC;
   static constexpr int KPB = BC / 16;
-  static_assert(D % 32 == 0, "whole boxes");
+  static_assert(D % 16 == 0, "whole boxes");
   // bytes from a tile's start to its k-step ks, where its boxes are `box`
   // bytes apart: the box, then 32 bytes a step inside its swizzled rows
   static __device__ __forceinline__ uint32_t kstep(int ks, int box) {
@@ -286,10 +289,11 @@ struct TileCols {
   }
   // bytes from a tile's start to its 16-byte chunk holding column `col` of
   // row r, where its boxes are `box` bytes apart: the swizzle puts chunk c
-  // of row r at chunk c ^ (r % 8) (128 bytes) or c ^ (r / 2 % 4) (64)
+  // of row r at chunk c ^ (r % 8) (128 bytes), c ^ (r / 2 % 4) (64) or
+  // c ^ (r / 4 % 2) (32)
   static __device__ __forceinline__ uint32_t chunk(int r, int col, int box) {
     const int c = (col % BC) / 8;
-    const int x = RB == 128 ? r % 8 : (r / 2) % 4;
+    const int x = RB == 128 ? r % 8 : RB == 64 ? (r / 2) % 4 : (r / 4) % 2;
     return (col / BC) * box + r * RB + ((c ^ x) * 16);
   }
   // descriptors: K-major (rows of RB bytes, 8-row atoms), and MN-major
@@ -423,6 +427,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "r"(scale_d));
 }
 
+// d (64 x 80, f32) (+)= A (64 x 16 bf16, registers in the mma.sync A
+// fragment layout, one 16-row slice a warp) . B (16 x 80, smem desc, MN-major)
+__device__ __forceinline__ void wgmma_m64n80k16_rs_tb(float (&d)[40],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 // d (64 x 96, f32) (+)= A (64 x 16 bf16, registers in the mma.sync A
 // fragment layout, one 16-row slice a warp) . B (16 x 96, smem desc, MN-major)
 __device__ __forceinline__ void wgmma_m64n96k16_rs_tb(float (&d)[48],
@@ -502,6 +530,8 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             uint64_t desc_b) {
   if constexpr (N == 64)
     wgmma_m64n64k16_rs_tb(d, a, desc_b, 1);
+  else if constexpr (N == 80)
+    wgmma_m64n80k16_rs_tb(d, a, desc_b, 1);
   else if constexpr (N == 96)
     wgmma_m64n96k16_rs_tb(d, a, desc_b, 1);
   else if constexpr (N == 128)

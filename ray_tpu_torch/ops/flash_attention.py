@@ -17,8 +17,9 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV
   pass over key tiles, both recomputing P from the saved log-sum-exp, with
   no atomics (the gradients are deterministic, so a remat recompute is
-  bit-identical). bf16 with head dim 64, 96, 128 or 256 runs the Hopper
-  kernels in both passes (TMA, mbarriers, warp-specialised ``wgmma``): dQ
+  bit-identical). bf16 with head dim 64, 80, 96, 128 or 256 runs the
+  Hopper kernels in both passes (TMA, mbarriers, warp-specialised
+  ``wgmma``; head dim 80 in five 16-column boxes): dQ
   over 128-row query tiles, dK/dV over 128-key blocks that stream every
   query head of their kv head (at head dim 256 64-key blocks, one
   consumer a gradient, the query heads split over a thread block cluster
@@ -26,8 +27,7 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   small-head kernels (64-row blocks, a TMA ring of 128-row stages,
   ``mma.sync`` from registers, the walk split over a cluster of up to 8
   blocks where the heaviest block's chain is long:
-  ``bwd_cluster_sizes``); bf16 with head dim 80 ``mma.sync`` kernels; f32
-  exact CUDA-core FMAs;
+  ``bwd_cluster_sizes``); f32 exact CUDA-core FMAs;
 - ``_Flash``, a ``torch.autograd.Function``, takes the place of ``_flash``'s
   ``custom_vjp``.
 
@@ -72,8 +72,8 @@ launches_dkdv = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the kernels (forward and backward, both dtypes) are
 #: compiled for; bf16 runs the wgmma kernels at 64, 96, 128 and 256 in
-#: both passes, the backward's small-head kernels at 16 and 32, mma.sync
-#: at the others
+#: both passes and at 80 in the backward, the backward's small-head kernels
+#: at 16 and 32, the forward's mma.sync kernel at 16, 32 and 80
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 

@@ -442,7 +442,7 @@ def _dq_case_on_card(S, T, H, KV, D, causal, window, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 96, 256])
+@pytest.mark.parametrize("D", [64, 128, 96, 256, 80])
 @pytest.mark.parametrize("S,T,H,KV,causal,window", [
     (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
     (200, 200, 16, 8, True, None), (200, 200, 16, 8, False, None),
@@ -452,12 +452,13 @@ def _dq_case_on_card(S, T, H, KV, D, causal, window, seed):
     (256, 512, 16, 8, True, None)])
 def test_wgmma_dq_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
                                                window):
-    """K3's TMA/wgmma kernel (bf16, head dims 64, 96, 128 and 256): dq elementwise
-    within grad_tolerance of the plain backward, delta = rowsum(out * dO)
-    within its f32 rounding (D-long sums in another order: D 2^-23 rowsum
-    |out dO|), and both bit-identical on a second run (no atomics), for
-    causal and full attention, GQA and H = KV, windows, ragged 128-row
-    tiles and T > S."""
+    """K3's TMA/wgmma kernel (bf16, head dims 64, 80, 96, 128 and 256): dq
+    elementwise within grad_tolerance of the plain backward, delta =
+    rowsum(out * dO) within its f32 rounding (D-long sums in another order:
+    D 2^-23 rowsum |out dO|; a row summed over fewer columns than D fails
+    it), and both bit-identical on a second run (no atomics), for causal
+    and full attention, GQA and H = KV, windows, ragged 128-row tiles and
+    T > S."""
     require_cuda()
     q, k, v, out, lse, g = _dq_case_on_card(S, T, H, KV, D, causal, window,
                                             seed=17)
@@ -483,7 +484,7 @@ def test_wgmma_dq_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 96, 256])
+@pytest.mark.parametrize("D", [64, 128, 96, 256, 80])
 def test_wgmma_dq_kernel_reads_no_row_past_t_or_outside_the_band(D):
     """NaN where K3 must not read: (a) memory just past the last batch's T
     rows of k and v (TMA zero-fills the ragged tile inside its batch); (b)
@@ -531,7 +532,7 @@ def test_wgmma_dq_kernel_reads_no_row_past_t_or_outside_the_band(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 96, 256])
+@pytest.mark.parametrize("D", [64, 128, 96, 256, 80])
 @pytest.mark.parametrize("S,T,H,KV,causal,window", [
     (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
     (200, 200, 16, 8, True, None), (200, 200, 16, 8, False, None),
@@ -541,7 +542,7 @@ def test_wgmma_dq_kernel_reads_no_row_past_t_or_outside_the_band(D):
     (256, 512, 16, 8, True, None)])
 def test_wgmma_dkdv_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
                                                  window):
-    """K4's TMA/wgmma kernel (bf16, head dims 64, 96, 128 and 256), fed
+    """K4's TMA/wgmma kernel (bf16, head dims 64, 80, 96, 128 and 256), fed
     K3's delta: dk and dv elementwise within grad_tolerance of the plain
     backward and bit-identical on a second run (no atomics), for causal and
     full attention, GQA and H = KV, windows, ragged key blocks (128 keys,
@@ -571,7 +572,7 @@ def test_wgmma_dkdv_kernel_matches_plain_on_card(D, S, T, H, KV, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 96, 256])
+@pytest.mark.parametrize("D", [64, 128, 96, 256, 80])
 def test_wgmma_dkdv_kernel_reads_no_row_past_s_or_outside_the_band(D):
     """NaN where K4 must not read: (a) memory just past the last batch's S
     rows of q and dO, and of lse and delta (TMA zero-fills the ragged
@@ -630,7 +631,7 @@ def test_wgmma_dkdv_kernel_reads_no_row_past_s_or_outside_the_band(D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 96, 256])
+@pytest.mark.parametrize("D", [64, 128, 96, 256, 80])
 def test_wgmma_dkdv_kernel_gives_zero_grads_without_queries(D):
     """S = 0 (no query sees any key): K4 writes dk = dv = 0 for every key,
     as the plain backward gives, and counts its launch."""
@@ -963,7 +964,8 @@ def test_head_dim_above_256_raises_on_card():
         fa.flash_attention_fwd(q, k, v)
 
 
-@pytest.mark.parametrize("name", ["phi3-mini", "llama3.2-3b", "gemma-2b"])
+@pytest.mark.parametrize("name", ["phi3-mini", "llama3.2-3b", "gemma-2b",
+                                  "danube"])
 def test_shapes_bf16_grads_hold_their_bound_on_the_plain_path(name):
     """chip_smoke.py's bf16-against-f32 gradient check of the public model
     shapes, rehearsed on the CPU (plain attention) at each model's heads
@@ -1028,8 +1030,7 @@ def test_chip_smoke_bounds_count_exponentials():
                         dtype="bfloat16")["bound_by"] == "bytes"
     assert cs.bwd_symbols("bfloat16", 16) == cs.bwd_symbols(
         "bfloat16", 32) == (cs.SMALL_DQ_SYMBOL, cs.SMALL_DKDV_SYMBOL)
-    assert cs.bwd_symbols("bfloat16", 80) == ("flash_bwd_dq_bf16_kernel",
-                                              "flash_bwd_dkdv_bf16_kernel")
-    assert cs.bwd_symbols("bfloat16", 128) == (cs.WGMMA_DQ_SYMBOL,
-                                               cs.WGMMA_DKDV_SYMBOL)
+    for d in (64, 80, 96, 128, 256):
+        assert cs.bwd_symbols("bfloat16", d) == (cs.WGMMA_DQ_SYMBOL,
+                                                 cs.WGMMA_DKDV_SYMBOL)
     assert cs.bwd_symbols("float32", 16)[0] == "flash_bwd_dq_f32_kernel"
