@@ -642,17 +642,25 @@ def phase_k5():
 # --- K1 / K2: the flash forward ---------------------------------------------
 
 
-# the symbols of the TMA/wgmma forward kernel (K1/K2), which every bf16
-# launch with head dim 64, 96, 128 or 256 must run, and of the dQ kernel
-# (K3) and the dK/dV kernel (K4), which every bf16 launch with head dim 64,
-# 80, 96, 128 or 256 must run (csrc/flash_attention.cu,
-# csrc/flash_attention_bwd.cu)
+# the symbols of the forward kernels (K1/K2, csrc/flash_attention.cu): the
+# TMA/wgmma kernel, which every bf16 launch with head dim 64, 80, 96, 128
+# or 256 must run, and the small-head kernel (head dims 16 and 32); of the
+# TMA/wgmma dQ kernel (K3) and dK/dV kernel (K4), which every bf16 launch
+# with head dim 64, 80, 96, 128 or 256 must run, and of their small-head
+# kernels (csrc/flash_attention_bwd.cu)
 WGMMA_FWD_SYMBOL = "flash_fwd_wgmma_kernel"
+SMALL_FWD_SYMBOL = "flash_fwd_small_kernel"
 WGMMA_DQ_SYMBOL = "flash_bwd_dq_wgmma_kernel"
 WGMMA_DKDV_SYMBOL = "flash_bwd_dkdv_wgmma_kernel"
-# ... and bf16 K3/K4 at kernel head dims 16 and 32
 SMALL_DQ_SYMBOL = "flash_bwd_dq_small_kernel"
 SMALL_DKDV_SYMBOL = "flash_bwd_dkdv_small_kernel"
+
+
+def fwd_symbol(dtype: str, head_dim: int) -> str:
+    """The K1/K2 kernel a dtype and kernel head dim must run."""
+    if dtype != "bfloat16":
+        return "flash_fwd_f32_kernel"
+    return SMALL_FWD_SYMBOL if head_dim in (16, 32) else WGMMA_FWD_SYMBOL
 
 
 def bwd_symbols(dtype: str, head_dim: int):
@@ -703,8 +711,8 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
              seed, timed=True):
     """One forward case (K1, or K2 under a window) against the plain
     version on the same inputs: out within kernel_tolerance, the LSE within
-    LSE_TOL; the profiler's kernel names (bf16 with head dim 64, 96, 128
-    or 256 must run WGMMA_FWD_SYMBOL and nothing else) and the instance's
+    LSE_TOL; the profiler's kernel names (``fwd_symbol`` and nothing
+    else) and the instance's
     ptxas registers and spills from the build phase. Timed: the kernel by
     CUDA events (cuda_ms, through the wrapper) and by CUPTI device time
     (device_ms), the plain version, SDPA (with a band mask under a window)
@@ -753,9 +761,7 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
     # the kernel its head dim (zero-padded to the next compiled one where
     # the kernels are not compiled for it) and dtype must run
     dk = fa.kernel_head_dim(D)
-    wgmma = dtype == "bfloat16" and dk in (64, 96, 128, 256)
-    symbol = (WGMMA_FWD_SYMBOL if wgmma else "flash_fwd_bf16_kernel"
-              if dtype == "bfloat16" else "flash_fwd_f32_kernel")
+    symbol = fwd_symbol(dtype, dk)
     ran_new = ran_only([n for n in names if "flash_" in n], symbol)
     shape = f"B={B} S={S} T={T} H={H} KV={KV} D={D}"
     res = {"shape": shape + (f" window={window}" if window else ""),
@@ -860,12 +866,14 @@ def _small_head_bwd_cases():
 
 # the flash shapes outside the presets: Phi-3-mini's head dim 96 and
 # Gemma-2B's 256 (G 8) timed at the 7b prefill size; untimed at ragged S,
-# full and windowed: head dim 16 (G 3), 48 (zero-padded to 64), 80 (full),
-# 96 (G 7) and 256 (T 512 > S)
+# causal (so windowed in k2 too) and full: head dim 16 (G 3), 32 (G 2), 48
+# (zero-padded to 64), 80 (G 4, and full), 96 (G 7) and 256 (T 512 > S)
 FLASH_TIMED = (("phi3-mini", dict(H=32, KV=32, D=96)),
                ("gemma-2b", dict(H=8, KV=1, D=256)))
 FLASH_UNTIMED = (("d16-g3", dict(S=200, H=6, KV=2, D=16), True),
+                 ("d32-g2", dict(S=200, H=4, KV=2, D=32), True),
                  ("d48", dict(S=200, H=8, KV=2, D=48), True),
+                 ("d80", dict(S=200, H=8, KV=2, D=80), True),
                  ("d80-full", dict(S=200, H=4, KV=4, D=80), False),
                  ("d96-g7", dict(S=200, H=7, KV=1, D=96), True),
                  ("d256-t512", dict(S=256, T=512, H=8, KV=1, D=256), True))
@@ -1222,8 +1230,9 @@ def _shapes_bf16_grads(cfg, params, batch, device, grads_f32):
     """loss_fn on `batch` in bf16 compute from the f32 `params` on
     `device`, its gradients against ``grads_f32`` (the same params' f32
     run, in leaf order) within SHAPES_BF16_GRAD_RTOL of each leaf's
-    largest; on the card, the flash backward's kernels by name (the
-    TMA/wgmma dQ and dK/dV kernels only)."""
+    largest; on the card, the flash kernels by name: the forward's (K1 and
+    the remat recompute) ``fwd_symbol`` only, the backward's
+    ``bwd_symbols`` only, at the kernels' head dim for cfg's heads."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1237,8 +1246,8 @@ def _shapes_bf16_grads(cfg, params, batch, device, grads_f32):
                                      else [])
 
     def step():
-        """(loss, the gradient leaves, the flash backward's kernel names),
-        the step run under the profiler"""
+        """(loss, the gradient leaves, the flash kernels' names), the step
+        run under the profiler"""
         p = ts._map(lambda t: t.detach().clone().requires_grad_(True),
                     params)
         with profile(activities=acts) as prof:
@@ -1246,8 +1255,7 @@ def _shapes_bf16_grads(cfg, params, batch, device, grads_f32):
             loss.backward()
             if on_card:
                 torch.cuda.synchronize()
-        names = sorted({n for n, _ in kernel_events(prof)
-                        if "flash_bwd_" in n})
+        names = sorted({n for n, _ in kernel_events(prof) if "flash_" in n})
         return loss.detach(), [t.grad for t in ts._leaves(p)], names
 
     loss, got, names = step()
@@ -1263,21 +1271,48 @@ def _shapes_bf16_grads(cfg, params, batch, device, grads_f32):
     res["ok"] = (res["grad_max_rel_err"] <= SHAPES_BF16_GRAD_RTOL
                  and bool(torch.isfinite(loss)))
     if on_card:
+        from ray_tpu_torch.ops import flash_attention as fa
+
         # a trace CUPTI dropped the kernels from is taken again, up to 2
         # more times (those launches are the path's too)
+        kinds = ("flash_fwd_", "flash_bwd_dq_", "flash_bwd_dkdv_")
         for _ in range(2):
-            if (any("flash_bwd_dq_" in n for n in names)
-                    and any("flash_bwd_dkdv_" in n for n in names)):
+            if all(any(k in n for n in names) for k in kinds):
                 break
             names = step()[2]
-        res["bwd_kernels"] = names
-        res["ran_wgmma_bwd_only"] = (
-            ran_only([n for n in names if "flash_bwd_dq_" in n],
-                     WGMMA_DQ_SYMBOL)
-            and ran_only([n for n in names if "flash_bwd_dkdv_" in n],
-                         WGMMA_DKDV_SYMBOL))
-        res["ok"] = res["ok"] and res["ran_wgmma_bwd_only"]
+        dk = fa.kernel_head_dim(cfg.head_dim)
+        res["kernels"] = names
+        res["expects_kernels"] = [fwd_symbol("bfloat16", dk),
+                                  *bwd_symbols("bfloat16", dk)]
+        res["ran_expected_kernels_only"] = all(
+            ran_only([n for n in names if k in n], sym)
+            for k, sym in zip(kinds, res["expects_kernels"]))
+        res["ok"] = res["ok"] and res["ran_expected_kernels_only"]
     return res
+
+
+def _shapes_tiny_bf16(device):
+    """The tiny Llama preset (head dim 16: the small-head forward, its
+    remat recompute and the small-head backward), flash, B 2 S 128, from
+    one seeded init on `device`: loss_fn's gradients in bf16 compute
+    against its f32 ones (``_shapes_bf16_grads``)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = llama.PRESETS["tiny"].replace(dtype=torch.float32,
+                                        attn_impl="flash")
+    params = llama.init_params(
+        torch.Generator(device=device).manual_seed(0), cfg)
+    batch = np.random.default_rng(16).integers(0, cfg.vocab_size,
+                                               size=(2, 129))
+    p = ts._map(lambda t: t.detach().clone().requires_grad_(True), params)
+    llama.loss_fn(p, {"tokens": torch.as_tensor(batch, device=device)},
+                  cfg).backward()
+    grads_f32 = [t.grad.float() for t in ts._leaves(p)]
+    return _shapes_bf16_grads(cfg, params, batch, device, grads_f32)
 
 
 def _shapes_card_vs_cpu(cfg, device):
@@ -1454,7 +1489,9 @@ def phase_shapes(device="cuda", models=None, serve_layers=None):
     card vs CPU (``_shapes_card_vs_cpu``); (b) each served at full width in
     bf16 (``_shapes_serve``): Phi-3-mini at 8 of its 32 layers (with the K5
     path over its pools), Danube at 2, the others at 4; (c) the tiny
-    presets' training with flash (head dim 16; ``_shapes_train``).
+    presets' training with flash (head dim 16; ``_shapes_train``); (d) the
+    tiny Llama preset's bf16 gradients against its f32 ones, through the
+    small-head kernels (``_shapes_tiny_bf16``).
     The launch counters are set to 0 just before and read just after;
     the attention comparisons of (a) are not counted."""
     import torch
@@ -1491,6 +1528,10 @@ def phase_shapes(device="cuda", models=None, serve_layers=None):
     res["train"] = _shapes_train(device)
     res["seconds"]["train"] = time.perf_counter() - t0
     ok = ok and all(r["ok"] for r in res["train"].values())
+    t0 = time.perf_counter()
+    res["tiny_bf16"] = _shapes_tiny_bf16(device)
+    res["seconds"]["tiny_bf16"] = time.perf_counter() - t0
+    ok = ok and res["tiny_bf16"]["ok"]
     launches = _all_kernel_launches()
     launches["paged_attention"] = k5
     res["launches"] = launches

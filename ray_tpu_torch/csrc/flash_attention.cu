@@ -20,52 +20,73 @@
 // and only wgmma reaches the tensor cores' full rate.
 //
 // Three kernels, chosen explicitly by dtype and head dim in launch_d (head
-// dims 16, 32, 64, 80, 96, 128 and 256 are compiled):
+// dims 16, 32, 64, 80, 96, 128 and 256 are compiled; other head dims <=
+// 256 are zero-padded to the next compiled one by the wrapper,
+// ops/flash_attention.py):
 //
-// bf16, head dims 64, 96, 128 and 256 (every card preset; Phi-3-mini's 96,
-// Gemma-2B's 256), flash_fwd_wgmma_kernel: persistent, one block of 3
-// warpgroups an SM, each walking its share of the work tiles: 128 query
-// rows of one (batch, head), against K/V tiles of 128 rows (64 at head dim
-// 256), up to the diagonal when causal, from the band's first tile under a
-// window (tiles above or below are never loaded). Work tiles go heaviest
-// first inside groups of (batch, head) pairs whose K/V fit in L2, in a
-// snake order over the blocks. Tiles are TMA boxes of 64 columns with the
-// 128-byte swizzle, or at head dim 96 three boxes of 32 columns with the
-// 64-byte swizzle (TileCols, hopper.cuh), which also give the k-step
-// offsets, the descriptors and the epilogue's swizzled addresses.
-// Warpgroup 0 is the producer: after setmaxnreg.dec one thread issues TMA
-// loads (4-D tensor maps over (D, heads, seq, batch), so a box past S or T
-// is zero-filled inside its own batch) of each tile's Q and of K/V into
-// 2-stage rings, with "full" mbarriers (complete_tx byte counts) and
-// "empty" ones the consumers arrive on (K and V apart, and Q, so the next
-// tile's Q loads while this one ends). Warpgroups 1-2 are consumers
-// (setmaxnreg.inc), 64 query rows each: S = Q K^T by wgmma m64n128k16 (or
-// m64n64k16 on 64-key tiles) with both operands in shared memory, the
-// online softmax in registers (one FMA and one ex2 an element in log2
-// units; the LSE written is natural-log), then O += P V by wgmma m64nDk16
-// with P from registers, rounded to bf16 as the TPU kernel rounds it, and
-// V as an MN-major shared operand. The accumulators' rows are those of
-// mma.sync (g and g+8 of each warp's 16), so a row's max and sum combine
+// bf16, head dims 64, 80, 96, 128 and 256 (every card preset; H2O-Danube's
+// and Phi-2's 80, Phi-3-mini's 96, Gemma-2B's 256), flash_fwd_wgmma_kernel:
+// persistent, one block of 3 warpgroups an SM, each walking its share of
+// the work tiles: 128 query rows of one (batch, head), against K/V tiles
+// of 128 rows (64 at head dim 256), up to the diagonal when causal, from
+// the band's first tile under a window (tiles above or below are never
+// loaded). Work tiles go heaviest first inside groups of (batch, head)
+// pairs whose K/V fit in L2, in a snake order over the blocks. Tiles are
+// TMA boxes of 64 columns with the 128-byte swizzle, at head dim 96 three
+// boxes of 32 columns with the 64-byte swizzle, at 80 five boxes of 16
+// columns with the 32-byte swizzle (TileCols, hopper.cuh), which also give
+// the k-step offsets, the descriptors and the epilogue's swizzled
+// addresses. Warpgroup 0 is the producer: after setmaxnreg.dec one thread
+// issues TMA loads (4-D tensor maps over (D, heads, seq, batch), so a box
+// past S or T is zero-filled inside its own batch) of each tile's Q and of
+// K/V into rings (FwdSmem), with "full" mbarriers (complete_tx byte
+// counts) and "empty" ones the consumers arrive on (K and V apart, and Q,
+// so the next tile's Q loads while this one ends). Warpgroups 1-2 are
+// consumers (setmaxnreg.inc), 64 query rows each: S = Q K^T by wgmma
+// m64n128k16 (or m64n64k16 on 64-key tiles) with both operands in shared
+// memory, the online softmax in registers (one FMA and one ex2 an element
+// in log2 units; the LSE written is natural-log), then O += P V by wgmma
+// m64nDk16 with P from registers, rounded to bf16 as the TPU kernel rounds
+// it, and V as an MN-major shared operand. The accumulators' rows are those
+// of mma.sync (g and g+8 of each warp's 16), so a row's max and sum combine
 // over its 4 lanes by shuffles. Only tiles that cross the diagonal, the
 // band's lower edge or the ragged end are masked (waiting for and freeing
 // a 64-key tile that no row of a consumer sees, instead of computing its
 // p = 0, measured no faster and cost the 128-key kernels 6-10%). The
 // epilogue writes O / l through stmatrix into an O buffer and stores it
 // with TMA (rows past S are clipped) while the next tile starts; rows < S
-// also get their LSE. At head dim 256 O is 128 f32 a
-// consumer thread: 64-key tiles keep the scores at 32 (with 128 keys,
-// scores and P beside O would not fit 232 registers), and Q and O's buffer
-// (64 KB each) leave room for two K stages and one V stage (224 KB); O
-// stored from registers, which would free 64 KB for a second V stage, took
-// 14-35% longer (PERF.md). The consumers' CUDA-core work (the softmax),
-// not the tensor cores, sets its pace at the 7b shape.
+// also get their LSE. At head dim 256 O is 128 f32 a consumer thread:
+// 64-key tiles keep the scores at 32 (with 128 keys, scores and P beside O
+// would not fit 232 registers), and Q and O's buffer (64 KB each) leave
+// room for two K stages and one V stage (224 KB); O stored from registers,
+// which would free 64 KB for a second V stage, took 14-35% longer
+// (PERF.md). The consumers' CUDA-core work (the softmax), not the tensor
+// cores, sets its pace at the 7b shape.
 //
-// bf16, head dims 16, 32 and 80 (the tiny preset's 16, Phi-2's 80),
-// flash_fwd_bf16_kernel: FlashAttention-2 style on mma.sync.m16n8k16, 4
-// warps a 64-row query tile, K/V tiles through cp.async double buffers and
-// ldmatrix, rows padded by 16 bytes against bank conflicts. Other head
-// dims <= 256 are zero-padded to the next compiled one by the wrapper
-// (ops/flash_attention.py).
+// bf16, head dims 16 and 32 (the tiny presets' 16; every D of 1-32),
+// flash_fwd_small_kernel. At D <= 32 the products are nearly free while
+// every score still costs an exponential, and at the tiny presets' shape
+// (B 8, H 4, S 1024) the grid is about one wave, so the kernel takes as
+// long as its heaviest block's serial chain. So it is built from the
+// small-head backward's parts (small_head.cuh): a block of 160 threads
+// owns 64 query rows of one (batch, head), the heaviest tiles of every
+// head first; a fifth warp's lane 0 loads the block's q once and the
+// band's K and V in 128-key stages by TMA into a 3-stage ring with full
+// and empty mbarriers, with no block-wide barrier in the walk (a whole row
+// is one box: 32 bytes with the 32-byte swizzle at 16, 64 with the
+// 64-byte one at 32, so ldmatrix reads are conflict-free; rows past T are
+// zero-filled inside their batch; no stage above the tile's diagonal or
+// below its window is loaded). Each consumer warp keeps its 16 q rows as
+// mma.sync A fragments in registers for the whole walk and takes a stage
+// in two halves of 64 keys: S = q k^T by mma.sync.m16n8k16, the online
+// softmax in registers (a row's max and sum combine over its 4 lanes by
+// shuffles; p = ex2.approx of one FMA with scale log2(e) folded in), then
+// O += P V with P's accumulators rounded to bf16 and repacked as A
+// fragments, V read by ldmatrix.trans. Only halves that cross the
+// diagonal, the window's lower edge or T are masked, on a code path of
+// their own; a warp skips halves its rows do not see and frees stages
+// alone. O / l is stored in bf16 from registers for rows < S, with the
+// natural-log LSE.
 //
 // f32 (parity runs), flash_fwd_f32_kernel: exact f32 FMAs on the CUDA cores
 // through shared-memory tiles, so the f32 path agrees with the plain
@@ -78,237 +99,19 @@
 // window) gets p = 0 there: the exponent is taken against 0 while the
 // row's running max is still that of a masked score.
 
+#include <climits>
 #include <cstdint>
 #include <numeric>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
-#include "mma.cuh"
+#include "small_head.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows a block (mma.sync and f32 kernels)
-constexpr int BK = 64;   // key rows a tile
-constexpr int NT = 128;  // 4 warps x 16 query rows
-
-// ------------------------------------- bf16, mma.sync (head dims 16, 32, 80) ---
-
-template <int D, bool CAUSAL, bool WINDOW>
-__global__ void __launch_bounds__(NT) flash_fwd_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int S, int T_len, int H, int KV, int window,
-    float scale) {
-  constexpr int LD = D + 8;  // padded row (elements): conflict-free ldmatrix
-  constexpr int KS = D / 16;  // k-steps of Q.K^T
-  constexpr int NS = BK / 8;  // 8-key n-tiles of the scores
-  constexpr int ND = D / 8;   // 8-wide d-tiles of the output
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ, LD]
-  __nv_bfloat16* Ks = Qs + BQ * LD;   // [2][BK, LD]
-  __nv_bfloat16* Vs = Ks + 2 * BK * LD;  // [2][BK, LD]
-
-  // causal tiles near the end do the most work: schedule them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5;  // the warp's 16-row tile
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // row within the 8-row half of an mma tile
-  const int t4 = lane & 3;   // column pair within an 8-column n-tile
-
-  const size_t q_stride = (size_t)H * D;
-  const size_t kv_stride = (size_t)KV * D;
-  const __nv_bfloat16* qb = q + ((size_t)b * S * H + h) * D;
-  const __nv_bfloat16* kb = k + ((size_t)b * T_len * KV + kvh) * D;
-  const __nv_bfloat16* vb = v + ((size_t)b * T_len * KV + kvh) * D;
-
-  int n_k = (T_len + BK - 1) / BK;
-  int kt_lo = 0;
-  if (CAUSAL) {
-    n_k = min(n_k, (q0 + BQ - 1) / BK + 1);  // up to the diagonal
-    if (WINDOW) kt_lo = max(0, q0 - window + 1) / BK;  // band's start
-  }
-
-  async_rows<D, LD, NT>(Qs, qb + (size_t)q0 * q_stride, q_stride, S - q0, BQ);
-  {
-    const int k0 = kt_lo * BK;
-    async_rows<D, LD, NT>(Ks, kb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
-                      BK);
-    async_rows<D, LD, NT>(Vs, vb + (size_t)k0 * kv_stride, kv_stride, T_len - k0,
-                      BK);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // this warp's 16 query rows as A fragments, one per 16-wide k-step
-  const __nv_bfloat16* q_frag = Qs + (warp * 16 + (lane & 15)) * LD +
-                                (lane >> 4) * 8;
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(qf[ks], q_frag + ks * 16);
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_a = -1e30f, m_b = -1e30f;  // rows g and g + 8 of the warp's tile
-  float l_a = 0.f, l_b = 0.f;        // this thread's share of the row sums
-  const int row_a = q0 + warp * 16 + g;
-  const int row_b = row_a + 8;
-
-  for (int kt = kt_lo; kt < n_k; ++kt) {
-    const int stage = (kt - kt_lo) & 1;
-    const int k0 = kt * BK;
-    if (kt + 1 < n_k) {
-      // the other stage was released by the barrier ending iteration kt-1
-      const int k1 = k0 + BK;
-      async_rows<D, LD, NT>(Ks + (stage ^ 1) * BK * LD, kb + (size_t)k1 * kv_stride,
-                           kv_stride, T_len - k1, BK);
-      async_rows<D, LD, NT>(Vs + (stage ^ 1) * BK * LD, vb + (size_t)k1 * kv_stride,
-                           kv_stride, T_len - k1, BK);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile kt has landed, tile kt+1 may be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kt = Ks + stage * BK * LD;
-    const __nv_bfloat16* Vt = Vs + stage * BK * LD;
-
-    // scores: s[n] holds keys k0 + 8n + 2*t4 + {0,1} of rows g (0,1), g+8 (2,3)
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      if constexpr (KS % 2 == 0) {
-#pragma unroll
-        for (int ks = 0; ks < KS; ks += 2) {
-          uint32_t kf[4];  // b0, b1 of k-step ks, then of ks + 1
-          ldmatrix_x4(kf, Kt + (n * 8 + (lane & 7)) * LD + ks * 16 +
-                              (lane >> 3) * 8);
-          mma_bf16(s[n], qf[ks], kf[0], kf[1]);
-          mma_bf16(s[n], qf[ks + 1], kf[2], kf[3]);
-        }
-      } else {
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint32_t kf[2];
-          ldmatrix_x2(kf, Kt + (n * 8 + (lane & 7)) * LD + ks * 16 +
-                              ((lane >> 3) & 1) * 8);
-          mma_bf16(s[n], qf[ks], kf[0], kf[1]);
-        }
-      }
-    }
-
-    // mask (only tiles that cross the diagonal or the ragged edge), then the
-    // online-softmax step; a row's 4 threads (same g) combine by shuffles
-    const bool edge =
-        k0 + BK > T_len || (CAUSAL && k0 + BK - 1 > q0 + warp * 16) ||
-        (WINDOW && q0 + warp * 16 + 15 - k0 >= window);
-    float mx_a = -1e30f, mx_b = -1e30f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        if (edge) {
-          const int col = k0 + n * 8 + t4 * 2 + (e & 1);
-          const int row = e < 2 ? row_a : row_b;
-          if (col >= T_len ||
-              (CAUSAL && (col > row || (WINDOW && row - col >= window))))
-            x = -1e30f;
-        }
-        s[n][e] = x;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a);
-    const float mn_b = fmaxf(m_b, mx_b);
-    const float al_a = expf(m_a - mn_a);
-    const float al_b = expf(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    // under a window a row may have no visible key yet: exp against 0
-    // gives its masked p = 0 (without one, key 0 is in every row's first
-    // tile)
-    const float e_a = WINDOW && mn_a <= -1e29f ? 0.f : mn_a;
-    const float e_b = WINDOW && mn_b <= -1e29f ? 0.f : mn_b;
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = expf(s[n][0] - e_a);
-      s[n][1] = expf(s[n][1] - e_a);
-      s[n][2] = expf(s[n][2] - e_b);
-      s[n][3] = expf(s[n][3] - e_b);
-      sum_a += s[n][0] + s[n][1];
-      sum_b += s[n][2] + s[n][3];
-    }
-    l_a = l_a * al_a + sum_a;
-    l_b = l_b * al_b + sum_b;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= al_a;
-      acc[n][1] *= al_a;
-      acc[n][2] *= al_b;
-      acc[n][3] *= al_b;
-    }
-
-    // acc += p . V; the score accumulators of n-tiles 2j, 2j+1 are exactly
-    // the A fragment of the 16-key step j
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pf[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pf[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pf[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        uint32_t vf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
-        ldmatrix_x4_trans(vf, Vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                       LD + n * 8 + (lane >> 4) * 8);
-        mma_bf16(acc[n], pf, vf[0], vf[1]);
-        mma_bf16(acc[n + 1], pf, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-  }
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half ? row_b : row_a;
-    if (row >= S) continue;
-    const float inv = half ? inv_b : inv_a;
-    __nv_bfloat16* orow = o + (((size_t)b * S + row) * H + h) * D;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      const __nv_bfloat162 pair = __floats2bfloat162_rn(
-          acc[n][half * 2] * inv, acc[n][half * 2 + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + t4 * 2) = pair;
-    }
-    if (t4 == 0) {
-      const float l = half ? l_b : l_a;
-      const float m = half ? m_b : m_a;
-      lse[((size_t)b * H + h) * S + row] = m + logf(fmaxf(l, 1e-30f));
-    }
-  }
-}
+constexpr int BK = 64;   // key rows a tile (f32 kernels)
+constexpr int NT = 128;  // 4 warps (f32 kernels)
 
 // ------------------------------------------------- bf16, TMA + wgmma ---
 
@@ -323,13 +126,16 @@ constexpr float LN2 = 0.6931471805599453f;
 // the scores take 64-key tiles (32 f32 a thread; 128 keys would leave no
 // room within the consumers' registers), and Q and O (64 KB each) leave
 // room for two K stages and one V stage: V is read last in a tile, and O
-// stored from registers instead took 14-35% longer (PERF.md).
+// stored from registers instead took 14-35% longer (PERF.md). At head dim
+// 80 a 128-row tile is five 16-column boxes of 4 KB, and the K and V rings
+// take 3 stages (Q, O and the rings: 160 KB), which ran Danube's shape
+// 0.1502-0.1510 ms against 0.1493-0.1574 with 2 (PERF.md).
 template <int D>
 struct FwdSmem {
   using C = TileCols<D>;
   static constexpr int BK = D == 256 ? 64 : 128;  // key rows a K/V tile
-  static constexpr int KST = 2;                   // K ring depth
-  static constexpr int VST = D == 256 ? 1 : 2;    // V ring depth
+  static constexpr int KST = D == 80 ? 3 : 2;     // K ring depth
+  static constexpr int VST = D == 256 ? 1 : KST;  // V ring depth
   static constexpr int BOX_Q = WG_BQ * C::RB;  // a box of Q or O
   static constexpr int TILE_Q = BOX_Q * C::NB;
   static constexpr int BOX_K = BK * C::RB;  // a box of K or V
@@ -704,6 +510,241 @@ int launch_wgmma(int causal, int window, const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- bf16, head dims 16 and 32 ---
+
+// Shared memory of flash_fwd_small_kernel, from a 1024-byte aligned base:
+// the block's 64 q rows, the ring (a K and a V chunk of 128 rows a stage),
+// the mbarriers
+template <int D>
+struct FwdSmallSmem {
+  static constexpr int RB = 2 * D;             // bytes a row
+  static constexpr int OWN = SM_ROWS * RB;     // q: 64 rows
+  static constexpr int CHUNK = SM_CHUNK * RB;  // K or V: 128 rows
+  static constexpr int STAGE = 2 * CHUNK;
+  static constexpr int RING = OWN;
+  static constexpr int BAR = RING + SM_STAGES * STAGE;
+  // q_full, then full and empty (one each a stage); + 1024 to align
+  static constexpr size_t kBytes = BAR + 8 * (1 + 2 * SM_STAGES) + 1024;
+  static_assert(OWN % 1024 == 0 && STAGE % 1024 == 0, "swizzle atoms");
+};
+
+// Block (x, y) owns the 64-row query tile gridDim.y - 1 - y of (batch,
+// head) x, so the heaviest causal tiles of every head go first. Warp 4's
+// lane 0 loads q once and the band's 128-key chunks of K and V into the
+// ring by TMA; warps 0-3 own 16 query rows each.
+template <int D, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(SM_NT) flash_fwd_small_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int S, int T_len, int H, int KV, int window,
+    float scale_log2) {
+  using L = FwdSmallSmem<D>;
+  constexpr int ST = SM_STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t base = (smem_u32(smem_tiles) + 1023u) & ~1023u;
+  const uint32_t sQ = base, ring = base + L::RING;
+  const uint32_t q_full = base + L::BAR;
+  auto full = [&](int st) { return q_full + 8 * (1 + st); };
+  auto empty = [&](int st) { return q_full + 8 * (1 + ST + st); };
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * SM_ROWS;
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  int c_lo, c_hi;
+  dq_small_band(q0, T_len, CAUSAL, WINDOW ? window : 0, c_lo, c_hi);
+  const int n_st = c_hi - c_lo;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 4);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer ----
+    if (threadIdx.x == 128) {
+      const int kvh = h / (H / KV);
+      mbar_expect_tx(q_full, L::OWN);
+      tma_load_4d(sQ, &tm_q, q_full, 0, h, q0, b);
+      for (int i = 0; i < n_st; ++i) {
+        const int st = i % ST;
+        const int k0 = (c_lo + i) * SM_CHUNK;
+        const uint32_t kt = ring + st * L::STAGE;
+        if (i >= ST) mbar_wait(empty(st), ((i / ST) - 1) & 1);
+        mbar_expect_tx(full(st), L::STAGE);
+        tma_load_4d(kt, &tm_k, full(st), 0, kvh, k0, b);
+        tma_load_4d(kt + L::CHUNK, &tm_v, full(st), 0, kvh, k0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warp w owns query rows q0 + 16 w .. + 15 ----
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g8 = lane >> 2;  // accumulator rows g8 and g8 + 8 of the warp's
+  const int t4 = lane & 3;   // column pair within an 8-column n-tile
+  const int row0 = q0 + warp * 16;
+  const int row_a = row0 + g8;
+  const int row_b = row_a + 8;
+  const float z4[4] = {0.f, 0.f, 0.f, 0.f};
+  auto zero = [&](int) -> const float(&)[4] { return z4; };
+
+  uint32_t qf[D / 16][4];
+  mbar_wait(q_full, 0);
+  load_rows_a<D>(qf, sQ, warp * 16, lane);
+
+  float acc[D / 8][4];  // f32 out: rows g8 (acc[n][0..1]) and g8 + 8
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_a = -1e30f, m_b = -1e30f;  // running max (log2 units)
+  float l_a = 0.f, l_b = 0.f;        // this thread's share of the row sums
+  // under a window a row may have no visible key yet: its running max is
+  // then that of a masked score (-1e30 scale log2(e)), and its p are taken
+  // against 0 (without one, key 0 is in every row's first half stage)
+  const float masked = -1e29f * scale_log2;
+
+  const bool live = row0 < S;
+  for (int i = 0; i < n_st; ++i) {
+    const int st = i % ST;
+    const int kc = (c_lo + i) * SM_CHUNK;
+    const uint32_t kt = ring + st * L::STAGE, vt = kt + L::CHUNK;
+    mbar_wait(full(st), (i / ST) & 1);
+#pragma unroll
+    for (int sub = 0; sub < 2; ++sub) {
+      const int k0 = kc + sub * 64;
+      // 64 keys no row of the warp sees: past T, above its diagonal, or
+      // below its window
+      if (!live || k0 >= T_len || (CAUSAL && k0 > row0 + 15) ||
+          (WINDOW && row0 - (k0 + 63) >= window))
+        continue;
+      // s = q k^T: keys k0 + 8n + 2 t4 + {0, 1} of rows g8 (s[n][0..1])
+      // and g8 + 8 (s[n][2..3])
+      float s[8][4];
+      mma_rows<D>(s, qf, kt, sub * 64, lane, zero);
+      // the online-softmax step in log2 units: the max of the raw scores
+      // (the scale is positive), then p = exp2(s scale log2(e) - m) by one
+      // FMA; only keys that cross T, the diagonal or the window's edge are
+      // masked, on their own code path
+      const bool edge = k0 + 64 > T_len || (CAUSAL && k0 + 63 > row0) ||
+                        (WINDOW && row0 + 15 - k0 >= window);
+      auto step = [&](auto masking) {
+        if constexpr (decltype(masking)::value) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = k0 + n * 8 + t4 * 2 + (e & 1);
+              const int row = e < 2 ? row_a : row_b;
+              if (col >= T_len ||
+                  (CAUSAL && (col > row || (WINDOW && row - col >= window))))
+                s[n][e] = -1e30f;
+            }
+        }
+        float mx_a = -1e30f, mx_b = -1e30f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+          mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+        }
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+        }
+        const float mn_a = fmaxf(m_a, mx_a * scale_log2);
+        const float mn_b = fmaxf(m_b, mx_b * scale_log2);
+        const float al_a = ex2_approx(m_a - mn_a);
+        const float al_b = ex2_approx(m_b - mn_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        const float e_a = WINDOW && mn_a <= masked ? 0.f : mn_a;
+        const float e_b = WINDOW && mn_b <= masked ? 0.f : mn_b;
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          s[n][0] = ex2_approx(fmaf(s[n][0], scale_log2, -e_a));
+          s[n][1] = ex2_approx(fmaf(s[n][1], scale_log2, -e_a));
+          s[n][2] = ex2_approx(fmaf(s[n][2], scale_log2, -e_b));
+          s[n][3] = ex2_approx(fmaf(s[n][3], scale_log2, -e_b));
+          sum_a += s[n][0] + s[n][1];
+          sum_b += s[n][2] + s[n][3];
+        }
+        l_a = l_a * al_a + sum_a;
+        l_b = l_b * al_b + sum_b;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][0] *= al_a;
+          acc[n][1] *= al_a;
+          acc[n][2] *= al_b;
+          acc[n][3] *= al_b;
+        }
+      };
+      if (edge)
+        step(std::true_type{});
+      else
+        step(std::false_type{});
+      mma_xm_rows<D>(acc, s, vt, sub * 64, lane);  // o += p v, p in bf16
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+  // epilogue: o / l in bf16 and the natural-log LSE, rows < S
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const size_t head = ((size_t)b * S * H + h) * D;
+  float* lrow = lse + ((size_t)b * H + h) * S;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row_b : row_a;
+    if (row >= S) continue;
+    const float l = fmaxf(half ? l_b : l_a, 1e-30f);
+    const float inv = 1.f / l;
+    __nv_bfloat16* orow = o + head + (size_t)row * H * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + t4 * 2) =
+          __floats2bfloat162_rn(acc[n][2 * half] * inv,
+                                acc[n][2 * half + 1] * inv);
+    if (t4 == 0) lrow[row] = (half ? m_b : m_a) * LN2 + logf(l);
+  }
+}
+
+template <int D>
+int launch_small(int causal, int window, const void* q, const void* k,
+                 const void* v, void* o, void* lse, int B, int S, int T_len,
+                 int H, int KV, float scale, cudaStream_t st) {
+  const int n_qt = (S + SM_ROWS - 1) / SM_ROWS;
+  if (n_qt > 65535 || (long long)H * B > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);  // the grid's limits
+  CUtensorMap mq, mk, mv;
+  int rc = rt_bshd_map(&mq, q, B, S, H, D, SM_ROWS, D);
+  if (rc == 0) rc = rt_bshd_map(&mk, k, B, T_len, KV, D, SM_CHUNK, D);
+  if (rc == 0) rc = rt_bshd_map(&mv, v, B, T_len, KV, D, SM_CHUNK, D);
+  if (rc != 0) return rc;
+  const size_t smem = FwdSmallSmem<D>::kBytes;
+  auto kernel = window > 0 ? flash_fwd_small_kernel<D, true, true>
+                : causal   ? flash_fwd_small_kernel<D, true, false>
+                           : flash_fwd_small_kernel<D, false, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(H * B, n_qt), SM_NT, smem, st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S,
+      T_len, H, KV, window, scale * LOG2E);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------------------------- f32 ---
 
 // query rows a warp of the f32 kernels takes: 8 at head dim 256, where
@@ -865,26 +906,14 @@ int launch_d(int dtype, int causal, int window, const void* q,
              const void* k, const void* v, void* o, void* lse, int B, int S,
              int T_len, int H, int KV, float scale, cudaStream_t st) {
   if (dtype == RT_BF16) {
-    // head dims 64, 96, 128 and 256 run only the TMA/wgmma kernel: the
-    // mma.sync kernel is instantiated for 16, 32 and 80 alone
-    if constexpr (D == 64 || D == 96 || D == 128 || D == 256) {
+    // head dims 16 and 32 run only the small-head kernel, every other one
+    // only the TMA/wgmma kernel
+    if constexpr (D == 16 || D == 32)
+      return launch_small<D>(causal, window, q, k, v, o, lse, B, S, T_len, H,
+                             KV, scale, st);
+    else
       return launch_wgmma<D>(causal, window, q, k, v, o, lse, B, S, T_len, H,
                              KV, scale, st);
-    } else {
-      using T = __nv_bfloat16;
-      const size_t smem = sizeof(T) * (size_t)(BQ + 4 * BK) * (D + 8);
-      auto kernel = window > 0 ? flash_fwd_bf16_kernel<D, true, true>
-                    : causal   ? flash_fwd_bf16_kernel<D, true, false>
-                               : flash_fwd_bf16_kernel<D, false, false>;
-      cudaError_t err = rt_set_smem(kernel, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      dim3 grid((S + BQ - 1) / BQ, H, B);
-      kernel<<<grid, NT, smem, st>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<T*>(o),
-          static_cast<float*>(lse), S, T_len, H, KV, window, scale);
-      return static_cast<int>(cudaGetLastError());
-    }
   }
   if (dtype == RT_F32) {
     const size_t smem = F32Tile<D>::kBytes;

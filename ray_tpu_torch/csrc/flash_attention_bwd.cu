@@ -168,7 +168,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
-#include "mma.cuh"
+#include "small_head.cuh"
 
 namespace {
 
@@ -1287,134 +1287,10 @@ int launch_dkdv_wgmma(int causal, int window, const void* q, const void* k,
 
 // --------------------- bf16 dQ and dK/dV at head dims 16 and 32 (K3, K4) ---
 
-constexpr int SM_ROWS = 64;    // query rows (K3) or keys (K4) a block
-constexpr int SM_CHUNK = 128;  // keys (K3) or query rows (K4) a ring stage
-constexpr int SM_STAGES = 3;   // ring depth
-constexpr int SM_NT = 160;     // 4 consumer warps (16 rows each) + producer
+// The blocks, the ring, the swizzled rows, the mma.sync helpers and K3's
+// band (dq_small_band) are small_head.cuh's, shared with K1's small-head
+// kernel.
 constexpr int SM_MAX_SPLIT = 8;  // blocks of a cluster
-
-// 16-byte chunk c of row r of a tile written by TMA with whole rows as its
-// box: 32-byte rows with the 32-byte swizzle (head dim 16), or 64-byte rows
-// with the 64-byte one (32); each ldmatrix phase (8 rows, one chunk) then
-// hits 32 distinct banks
-template <int D>
-__device__ __forceinline__ uint32_t sw_chunk(int r, int c) {
-  static_assert(D == 16 || D == 32, "whole-row boxes of 32 or 64 bytes");
-  if constexpr (D == 16)
-    return r * 32 + ((c ^ ((r >> 2) & 1)) << 4);
-  else
-    return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the A fragments (16 rows from r0 of a swizzled tile, D columns: D / 16
-// k-steps) a warp keeps in registers for its whole walk
-template <int D>
-__device__ __forceinline__ void load_rows_a(uint32_t (&a)[D / 16][4],
-                                            uint32_t tile, int r0,
-                                            int lane) {
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    ldsm_x4(a[ks], tile + sw_chunk<D>(r0 + (lane & 15), 2 * ks + (lane >> 4)));
-}
-
-// d = a (16x16 bf16, row) . b (16x8 bf16, col) + c, f32; c is only read,
-// so one set of registers can start many n-tiles' sums
-__device__ __forceinline__ void mma_bf16_c(float (&d)[4],
-                                           const uint32_t (&a)[4],
-                                           uint32_t b0, uint32_t b1,
-                                           const float (&c)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// acc[8][4] (16 rows x 64 columns) = A (16 x D, fragments a) . B^T + c, B
-// the 64 rows from r0 of a swizzled tile (n-tile n: rows r0 + 8n ..), c
-// the sums n-tile n starts from (c_of(n), four f32)
-template <int D, typename C>
-__device__ __forceinline__ void mma_rows(float (&acc)[8][4],
-                                         const uint32_t (&a)[D / 16][4],
-                                         uint32_t tile, int r0, int lane,
-                                         C c_of) {
-  if constexpr (D == 16) {
-    // one ldmatrix: b0, b1 of n-tile n, then of n + 1
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, tile + sw_chunk<D>(r0 + n * 8 + (lane & 7) +
-                                        ((lane >> 4) << 3),
-                                    (lane >> 3) & 1));
-      mma_bf16_c(acc[n], a[0], b[0], b[1], c_of(n));
-      mma_bf16_c(acc[n + 1], a[0], b[2], b[3], c_of(n + 1));
-    }
-  } else {
-    // one ldmatrix: b0, b1 of k-step 0, then of k-step 1
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      uint32_t b[4];
-      ldsm_x4(b, tile + sw_chunk<D>(r0 + n * 8 + (lane & 7), lane >> 3));
-      mma_bf16_c(acc[n], a[0], b[0], b[1], c_of(n));
-      mma_bf16(acc[n], a[1], b[2], b[3]);
-    }
-  }
-}
-
-// acc[D / 8][4] (16 x D) += X (16 x 64, the C fragments x[8][4], rounded to
-// bf16) . M, M the 64 rows from r0 of a swizzled tile (D columns)
-template <int D>
-__device__ __forceinline__ void mma_xm_rows(float (&acc)[D / 8][4],
-                                            const float (&x)[8][4],
-                                            uint32_t tile, int r0,
-                                            int lane) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t xf[4];  // the C fragments of n-tiles 2j, 2j+1 are the A of step j
-    xf[0] = pack_bf16(x[2 * j][0], x[2 * j][1]);
-    xf[1] = pack_bf16(x[2 * j][2], x[2 * j][3]);
-    xf[2] = pack_bf16(x[2 * j + 1][0], x[2 * j + 1][1]);
-    xf[3] = pack_bf16(x[2 * j + 1][2], x[2 * j + 1][3]);
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t mf[4];  // b0, b1 of d-tile n, then of d-tile n + 1
-      ldsm_x4_t(mf, tile + sw_chunk<D>(r0 + j * 16 + (lane & 7) +
-                                           ((lane >> 3) & 1) * 8,
-                                       n + (lane >> 4)));
-      mma_bf16(acc[n], xf, mf[0], mf[1]);
-      mma_bf16(acc[n + 1], xf, mf[2], mf[3]);
-    }
-  }
-}
-
-// K3: the key chunks [lo, hi) the query tile at q0 walks (the band's, up to
-// the diagonal when causal, from its lower edge under a window)
-__host__ __device__ __forceinline__ void dq_small_band(int q0, int T_len,
-                                                       int causal, int window,
-                                                       int& lo, int& hi) {
-  lo = 0;
-  hi = (T_len + SM_CHUNK - 1) / SM_CHUNK;
-  if (causal) {
-    const int diag = (q0 + SM_ROWS - 1) / SM_CHUNK + 1;
-    if (diag < hi) hi = diag;
-    if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / SM_CHUNK;
-    if (lo > hi) lo = hi;
-  }
-}
 
 // K4: the query chunks [lo, hi) some key of the block at k0 sees
 __host__ __device__ __forceinline__ void dkdv_small_band(int k0, int S,

@@ -17,9 +17,9 @@
 // boxes of 16 columns (32 bytes) with CU_TENSOR_MAP_SWIZZLE_32B (chunk c of
 // row r at r * 32 + ((c ^ (r / 4 % 2)) * 16), 256-byte atoms of 8 rows),
 // the descriptors' 32-byte layout. TileCols says which a head dim takes,
-// for the forward and the backward alike. The backward's kernels at head
-// dims 16 and 32 take whole rows as one box: 16 columns with the 32-byte
-// swizzle or 32 with the 64-byte one, read by ldmatrix.
+// for the forward and the backward alike. The kernels at head dims 16 and
+// 32 take whole rows as one box: 16 columns with the 32-byte swizzle or 32
+// with the 64-byte one, read by ldmatrix (small_head.cuh).
 #pragma once
 
 #include <cstdint>

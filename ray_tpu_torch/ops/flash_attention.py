@@ -7,11 +7,13 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   causal or full) and K2 (``_fwd_kernel_stream``, the sliding window) are
   one CUDA kernel here (``csrc/flash_attention.cu``) with a ``window``
   argument, which streams only the K/V tiles inside the causal band, so a
-  window costs O(S * W). bf16 with head dim 64, 96, 128 or 256 runs the
-  Hopper kernel (TMA, mbarriers, warp-specialised ``wgmma``, 128-row query
-  tiles; 64-key tiles and one V stage at head dim 256); bf16
-  with head dim 16, 32 or 80 an ``mma.sync`` kernel; f32 exact CUDA-core
-  FMAs;
+  window costs O(S * W). bf16 with head dim 64, 80, 96, 128 or 256 runs
+  the Hopper kernel (TMA, mbarriers, warp-specialised ``wgmma``, 128-row
+  query tiles; head dim 80 in five 16-column boxes; 64-key tiles and one V
+  stage at head dim 256); bf16 with head dim 16 or 32 the small-head
+  kernel (64-row blocks, a TMA ring of 128-key stages, ``mma.sync`` from
+  registers, as in the backward's small-head kernels); f32 exact
+  CUDA-core FMAs;
 - backward, ``flash_attention_bwd``: the FlashAttention-2 split of the TPU
   kernels K3 (``_bwd_dq_kernel``) and K4 (``_bwd_dkdv_kernel``) in
   ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV
@@ -71,9 +73,8 @@ launches_dkdv = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the kernels (forward and backward, both dtypes) are
-#: compiled for; bf16 runs the wgmma kernels at 64, 96, 128 and 256 in
-#: both passes and at 80 in the backward, the backward's small-head kernels
-#: at 16 and 32, the forward's mma.sync kernel at 16, 32 and 80
+#: compiled for; bf16 runs the wgmma kernels at 64, 80, 96, 128 and 256
+#: and the small-head kernels at 16 and 32, in both passes
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 

@@ -301,7 +301,7 @@ def _qkv_on_card(B, S, T, H, KV, D, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 96, 256])
+@pytest.mark.parametrize("D", [64, 128, 96, 256, 80])
 @pytest.mark.parametrize("S,T,H,KV,causal,window", [
     (128, 128, 16, 8, True, None), (130, 130, 16, 8, True, None),
     (200, 200, 16, 8, False, None), (1000, 1000, 16, 8, True, None),
@@ -309,8 +309,8 @@ def _qkv_on_card(B, S, T, H, KV, D, seed):
     (200, 200, 16, 8, True, 64), (1000, 1000, 16, 8, True, 200),
     (128, 128, 4, 4, True, 64), (256, 512, 16, 8, True, 200)])
 def test_wgmma_kernel_matches_plain_on_card(D, S, T, H, KV, causal, window):
-    """The TMA/wgmma kernel (bf16, head dims 64, 96, 128 and 256) against
-    the plain version: out elementwise within kernel_tolerance, the LSE within 1e-4,
+    """The TMA/wgmma kernel (bf16, head dims 64, 80, 96, 128 and 256)
+    against the plain version: out elementwise within kernel_tolerance, the LSE within 1e-4,
     for causal and full attention, GQA, windows, ragged S and T > S."""
     require_cuda()
     q, k, v = _qkv_on_card(2, S, T, H, KV, D, seed=13)
@@ -326,7 +326,7 @@ def test_wgmma_kernel_matches_plain_on_card(D, S, T, H, KV, causal, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 96, 256])
+@pytest.mark.parametrize("D", [64, 128, 96, 256, 80])
 def test_wgmma_kernel_reads_no_row_past_t_or_outside_the_band(D):
     """NaN where the kernel must not read: (a) memory just past the last
     batch's T rows (TMA zero-fills the ragged tile inside its batch); (b)
@@ -378,23 +378,33 @@ def _first_kernel_of_trace():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [96, 256])
+@pytest.mark.parametrize("D", [96, 256, 80])
 @pytest.mark.parametrize("S,T,H,KV,causal,window", [
     (1024, 1024, 8, 1, True, None), (200, 200, 7, 1, True, None),
     (256, 512, 8, 2, True, None), (200, 200, 4, 4, True, None),
     (256, 256, 8, 1, True, 96), (200, 200, 8, 1, False, None)])
 def test_wgmma_fwd_kernel_runs_at_head_dims_96_and_256_on_card(
         D, S, T, H, KV, causal, window):
-    """bf16 K1/K2 at head dims 96 and 256 run the TMA/wgmma kernel and
-    nothing else, by the kernel names the profiler records; out lies within
-    kernel_tolerance of the plain version, the LSE within 1e-4, and both
-    are bit-identical on a second run. The cases: G 8 with one kv head
-    (Gemma-2B's heads, 8 query tiles of 128 rows a head), G 7, T 512 > S
-    256, ragged S 200 with H = KV, window 96 and non-causal."""
+    """bf16 K1/K2 at head dims 96, 256 and 80 (five 16-column boxes with
+    the 32-byte swizzle) run the TMA/wgmma kernel and nothing else, by the
+    kernel names the profiler records; out lies within kernel_tolerance of
+    the plain version, the LSE within 1e-4, and both are bit-identical on
+    a second run. The cases: G 8 with one kv head (Gemma-2B's heads, 8
+    query tiles of 128 rows a head), G 7, T 512 > S 256, ragged S 200 with
+    H = KV, window 96 and non-causal."""
     require_cuda()
-    from torch.profiler import ProfilerActivity, profile
-
     q, k, v = _qkv_on_card(2, S, T, H, KV, D, seed=43)
+    # every forward kernel any trace holds must be the TMA/wgmma one
+    names = _fwd_held(q, k, v, causal, window, "flash_fwd_wgmma_kernel")
+    assert all("flash_fwd_wgmma_kernel" in n for n in names), names
+
+
+def _fwd_held(q, k, v, causal, window, symbol):
+    """flash_attention_fwd twice against the plain version: out in bf16,
+    finite and within kernel_tolerance, the LSE within 1e-4, the second
+    run bit-identical to the first; then the forward kernels' names from
+    the profiler (``_fwd_kernel_names``), of which one must be `symbol`'s.
+    Returns the names."""
 
     def run():
         return fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -410,10 +420,19 @@ def test_wgmma_fwd_kernel_runs_at_head_dims_96_and_256_on_card(
     assert over <= 1.0, over
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
-    # the kernel's name: CUPTI now and then drops a kernel from a trace,
-    # the first one most often, so each trace starts with a kernel of its
-    # own and a trace without it is taken again (up to 5 times); every
-    # forward kernel any trace holds must be the TMA/wgmma one
+    names = _fwd_kernel_names(run, symbol)
+    assert any(symbol in n for n in names), names
+    return names
+
+
+def _fwd_kernel_names(run, symbol):
+    """The names of the flash forward kernels `run` launches, from the
+    profiler. CUPTI now and then drops a kernel from a trace, the first one
+    most often, so each trace starts with a kernel of its own and a trace
+    without `symbol` is taken again (up to 5 times); the names of every
+    trace taken."""
+    from torch.profiler import ProfilerActivity, profile
+
     names: set = set()
     for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
@@ -425,10 +444,80 @@ def test_wgmma_fwd_kernel_runs_at_head_dims_96_and_256_on_card(
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and "flash_fwd_" in e.name}
         names |= traced
-        if any("flash_fwd_wgmma_kernel" in n for n in traced):
+        if any(symbol in n for n in traced):
             break
-    assert any("flash_fwd_wgmma_kernel" in n for n in names), names
-    assert all("flash_fwd_wgmma_kernel" in n for n in names), names
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("S,T,H,KV,causal,window", [
+    (200, 200, 4, 4, True, None), (200, 200, 8, 4, False, None),
+    (256, 512, 6, 2, True, None), (256, 512, 7, 1, False, None),
+    (1000, 1000, 4, 2, True, 200), (1024, 1024, 4, 2, True, None),
+    (1024, 1024, 6, 2, True, 96), (1000, 1000, 7, 1, True, None),
+    (200, 200, 6, 2, True, 64), (130, 300, 6, 3, True, 40)])
+def test_small_head_fwd_kernel_matches_plain_on_card(D, S, T, H, KV,
+                                                     causal, window):
+    """bf16 K1/K2 at head dims 16 and 32 run the small-head forward kernel
+    and nothing else, by the names the profiler records; out lies within
+    kernel_tolerance of the plain version, the LSE within 1e-4, and both
+    are bit-identical on a second run. The cases: causal, full and
+    windowed; G 1, 2, 3 and 7; ragged S = T = 200, S 1000, T 512 > S 256,
+    and S 130 against T 300 under window 40."""
+    require_cuda()
+    q, k, v = _qkv_on_card(2, S, T, H, KV, D, seed=61)
+    counter = "launches_window" if window else "launches"
+    before = getattr(fa, counter)
+    names = _fwd_held(q, k, v, causal, window, "flash_fwd_small_kernel")
+    assert getattr(fa, counter) > before
+    assert all("flash_fwd_small_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+def test_small_head_fwd_kernel_reads_no_row_past_t_or_outside_the_band(D):
+    """NaN where the small-head forward must not read: (a) memory just
+    past the last batch's T rows of k and v (TMA zero-fills the ragged
+    chunk inside its batch); (b) keys from 384 on at S 300, T 1000 (above
+    the last 64-row query tile's diagonal chunk); (c) keys 0-127 under
+    window 64, which no query tile from row 192 on may load (its band
+    starts at the chunk of key 128). The outputs those rows feed stay
+    finite and within kernel_tolerance of the plain version on clean
+    inputs."""
+    require_cuda()
+
+    def check(out, ref, tol, rows=slice(None)):
+        assert bool(torch.isfinite(out[:, rows].float()).all())
+        assert ((out.float() - ref.float()).abs()[:, rows]
+                <= tol[:, rows]).all()
+
+    # (a) k and v are the front of NaN buffers, S = T = 200
+    q, k, v = _qkv_on_card(2, 200, 200, 6, 2, D, seed=63)
+    kn, vn = (torch.full((x.numel() + 4096,), float("nan"), device="cuda",
+                         dtype=x.dtype) for x in (k, v))
+    kp = kn[:k.numel()].view(k.shape).copy_(k)
+    vp = vn[:v.numel()].view(v.shape).copy_(v)
+    for causal in (True, False):
+        out, _ = fa.flash_attention_fwd(q, kp, vp, causal=causal)
+        ref, _ = _plain_on_card(q, k, v, causal)
+        check(out, ref, fa.kernel_tolerance(q, k, v, ref, causal=causal))
+    # (b) S = 300, T = 1000: the query tile of rows 256-319 walks keys
+    # 0-383
+    q, k, v = _qkv_on_card(2, 300, 1000, 6, 2, D, seed=65)
+    ref, _ = _plain_on_card(q, k, v, True)
+    k[:, 384:], v[:, 384:] = float("nan"), float("nan")
+    out, _ = fa.flash_attention_fwd(q, k, v, causal=True)
+    check(out, ref, fa.kernel_tolerance(q, k[:, :384], v[:, :384], ref,
+                                        causal=True))
+    # (c) S = T = 1000, window 64: keys 0-127 poisoned
+    q, k, v = _qkv_on_card(2, 1000, 1000, 6, 2, D, seed=67)
+    ref, _ = _plain_on_card(q, k, v, True, 64)
+    tol = fa.kernel_tolerance(q, k, v, ref, causal=True, window=64)
+    k[:, :128], v[:, :128] = float("nan"), float("nan")
+    out, _ = fa.flash_attention_fwd(q, k, v, causal=True, window=64)
+    torch.cuda.synchronize()
+    check(out, ref, tol, rows=slice(192, None))
 
 
 def _dq_case_on_card(S, T, H, KV, D, causal, window, seed):
@@ -965,29 +1054,56 @@ def test_head_dim_above_256_raises_on_card():
 
 
 @pytest.mark.parametrize("name", ["phi3-mini", "llama3.2-3b", "gemma-2b",
-                                  "danube"])
+                                  "danube", "tiny"])
 def test_shapes_bf16_grads_hold_their_bound_on_the_plain_path(name):
     """chip_smoke.py's bf16-against-f32 gradient check of the public model
     shapes, rehearsed on the CPU (plain attention) at each model's heads
-    with 1 layer, vocab 256 and d_ff 512: loss_fn's gradients in bf16
-    compute lie within SHAPES_BF16_GRAD_RTOL of the f32 run's, each leaf
-    against its largest element (1.4-1.5e-2 here; 1.8-2.1e-2 on an H100
-    at full width and 2 layers)."""
+    with 1 layer, vocab 256 and d_ff 512, and of the tiny Llama preset as
+    the shapes phase runs it (2 layers, head dim 16, B 2 S 128): loss_fn's
+    gradients in bf16 compute lie within SHAPES_BF16_GRAD_RTOL of the f32
+    run's, each leaf against its largest element (1.4-1.5e-2 here at the
+    models' heads; 1.8-2.1e-2 on an H100 at full width and 2 layers)."""
     import chip_smoke
 
-    cfg = llama.LlamaConfig(**dict(chip_smoke.SHAPE_MODELS[name],
-                                   vocab_size=256, d_ff=512, n_layers=1))
-    cfg = cfg.replace(dtype=torch.float32, attn_impl="flash",
-                      max_seq_len=256)
-    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
-    batch = np.random.default_rng(12).integers(0, cfg.vocab_size,
-                                               size=(1, 129))
-    p = ts._map(lambda t: t.detach().clone().requires_grad_(True), params)
-    llama.loss_fn(p, {"tokens": torch.as_tensor(batch)}, cfg).backward()
-    grads_f32 = [t.grad.float() for t in ts._leaves(p)]
-    r = chip_smoke._shapes_bf16_grads(cfg, params, batch, "cpu", grads_f32)
+    if name == "tiny":
+        r = chip_smoke._shapes_tiny_bf16("cpu")
+    else:
+        cfg = llama.LlamaConfig(**dict(chip_smoke.SHAPE_MODELS[name],
+                                       vocab_size=256, d_ff=512,
+                                       n_layers=1))
+        cfg = cfg.replace(dtype=torch.float32, attn_impl="flash",
+                          max_seq_len=256)
+        params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+        batch = np.random.default_rng(12).integers(0, cfg.vocab_size,
+                                                   size=(1, 129))
+        p = ts._map(lambda t: t.detach().clone().requires_grad_(True),
+                    params)
+        llama.loss_fn(p, {"tokens": torch.as_tensor(batch)}, cfg).backward()
+        grads_f32 = [t.grad.float() for t in ts._leaves(p)]
+        r = chip_smoke._shapes_bf16_grads(cfg, params, batch, "cpu",
+                                          grads_f32)
     assert 0 < r["grad_max_rel_err"] <= chip_smoke.SHAPES_BF16_GRAD_RTOL
     assert r["ok"]
+
+
+def test_chip_smoke_fwd_symbols():
+    """The forward kernel chip_smoke.py requires of each dtype and kernel
+    head dim: the small-head kernel at 16 and 32, the TMA/wgmma kernel at
+    64, 80, 96, 128 and 256 (so no bf16 head dim is left to the deleted
+    mma.sync kernel), the exact f32 kernel at every head dim."""
+    import chip_smoke as cs
+
+    assert cs.SMALL_FWD_SYMBOL == "flash_fwd_small_kernel"
+    assert cs.WGMMA_FWD_SYMBOL == "flash_fwd_wgmma_kernel"
+    for d in fa.KERNEL_HEAD_DIMS:
+        want = cs.SMALL_FWD_SYMBOL if d <= 32 else cs.WGMMA_FWD_SYMBOL
+        assert cs.fwd_symbol("bfloat16", d) == want
+        assert cs.fwd_symbol("float32", d) == "flash_fwd_f32_kernel"
+    # every head dim reaches one of them through kernel_head_dim
+    assert {cs.fwd_symbol("bfloat16", fa.kernel_head_dim(d))
+            for d in range(1, 257)} == {cs.SMALL_FWD_SYMBOL,
+                                        cs.WGMMA_FWD_SYMBOL}
+    assert {name for name, *_ in cs.FLASH_UNTIMED} >= {"d32-g2", "d80"}
 
 
 def test_chip_smoke_bounds_count_exponentials():
