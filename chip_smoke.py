@@ -14,10 +14,13 @@ printing one JSON line:
    version's, and only the new rows changed), for K5 the pools unchanged
    byte for byte and K5 over the pools K6 just wrote against K6's output;
    for K1 the profiler's kernel names (bf16 at head dims 64/96/128/256
-   runs the TMA/wgmma kernel and nothing else) and each instance's ptxas
-   registers and spills; times of the kernel (CUPTI device
-   time, and CUDA events), the plain version and (K1) SDPA with the names
-   of its kernels, beside the bound;
+   runs the TMA/wgmma kernel and nothing else), for K5/K6 too (bf16 at a
+   head dim that is a multiple of 8 runs the ring kernel and its merge
+   pass and nothing else; two launches bit-identical), and each
+   instance's ptxas registers and spills; times of the kernel (CUPTI
+   device time, for K5/K6 the split and merge passes apart, and CUDA
+   events), the plain version and (K1) SDPA with the names of its
+   kernels, beside the bound;
 4. card_vs_cpu: the 7b width cut to 2 layers, f32, the same weights in the
    port's paged LLMEngine on the card (kernels) and on the CPU (plain
    versions): greedy tokens identical, first-step logits within a stated
@@ -26,7 +29,8 @@ printing one JSON line:
    layers, bf16, random seeded weights, paged KV (page 64, 16 slots, 2048
    tokens), flash prefill, 12 requests of 64-1000 prompt tokens (4 sharing
    a 512-token prefix), 64 new tokens each, driven by step_n(8); the launch
-   counters are set to 0 just before it and read just after. Then, with 16
+   counters are set to 0 just before it and read just after; a profiled
+   decode block's paged kernels all the ring kernel. Then, with 16
    slots still live at ~1000 tokens, the K5 path: ``paged_attention`` on
    all 32 layers of the engine's pools, each held against the plain
    version (its launch counter zeroed just before);
@@ -64,7 +68,8 @@ printing one JSON line:
    within grad_tolerance), and loss_fn's gradients in bf16 compute on the
    card against the f32 card run's (SHAPES_BF16_GRAD_RTOL; the TMA/wgmma
    K3/K4 at head dims 80, 96 and 256 on that path); each served at full
-   width in bf16 (flash prefill, paged but for the windowed Danube;
+   width in bf16 (flash prefill, paged but for the windowed Danube, whose
+   traced decode steps run the ring kernel only;
    Phi-3-mini at 8 of its 32 layers, with the K5 path over its pools,
    Danube at 2, the others at 4): 4 greedy prompts of
    64-512 tokens, 32 new tokens each, TTFT, decode tokens/s, peak memory;
@@ -343,7 +348,8 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, names=None, per_call=None) -> float:
+def device_ms(fn, iters: int = 20, names=None, per_call=None,
+              by_name=None) -> float:
     """Mean device milliseconds of the kernels one fn() call launches
     (CUPTI, under torch.profiler), after a warm-up: the kernels' own time,
     which cuda_ms cannot give when launching a call takes the host longer
@@ -353,7 +359,8 @@ def device_ms(fn, iters: int = 20, names=None, per_call=None) -> float:
     late in a long run it can drop every kernel of a few traces in a row:
     where `per_call` (the kernels one call launches) is given, a trace
     with another count is taken again, up to 10 times; otherwise a trace
-    with none is, up to 3 times."""
+    with none is, up to 3 times. `by_name`, where given, gets each kernel
+    name's device ms, one entry a launch, from the trace kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -371,6 +378,9 @@ def device_ms(fn, iters: int = 20, names=None, per_call=None) -> float:
         if (len(events) == per_call * iters if per_call is not None
                 else events):
             break
+    if by_name is not None:
+        for name, ms in events:
+            by_name.setdefault(name, []).append(ms)
     return sum(ms for _, ms in events) / iters
 
 
@@ -426,6 +436,76 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 
 
 # --- K6: fused paged decode write-and-attend --------------------------------
+
+
+# the paged decode kernels (csrc/paged_attention.cu): the ring kernel, which
+# every bf16 launch at a head dim that is a multiple of 8 must run, the f32
+# kernel of G 1, 2, 4, 8 at power-of-two rows, the any-shape kernel (other
+# shapes) and the merge pass after each
+RING_SYMBOL = "paged_decode_ring_kernel"
+FIXED_SYMBOL = "paged_decode_split_kernel"
+ANY_SYMBOL = "paged_decode_split_any_kernel"
+MERGE_SYMBOL = "paged_decode_merge_kernel"
+
+
+def paged_symbol(dtype: str, head_dim: int, G: int) -> str:
+    """The K5/K6 split kernel a dtype, head dim and group count must run."""
+    if dtype == "bfloat16":
+        return RING_SYMBOL if head_dim % 8 == 0 else ANY_SYMBOL
+    fixed = (G in (1, 2, 4, 8) and head_dim % 4 == 0
+             and 32 % (head_dim // 4) == 0)
+    return FIXED_SYMBOL if fixed else ANY_SYMBOL
+
+
+def ring_instance(head_dim: int) -> int:
+    """The ring kernel's template instance (16-dim k-steps) at a head dim."""
+    return 8 if head_dim <= 128 and head_dim % 16 == 0 else 16
+
+
+def ran_paged_only(names, symbol) -> bool:
+    """Paged decode kernel names: at least one split kernel, every split
+    kernel `symbol` (the merge pass beside it)."""
+    split = [n for n in names if "paged_decode" in n and MERGE_SYMBOL not in n]
+    return ran_only(split, symbol)
+
+
+def paged_times(res, run, dtype, HD, G, timed):
+    """The profiler's view of a K5/K6 case: the kernels' names, the gate
+    that a bf16 launch at a head dim that is a multiple of 8 ran the ring
+    kernel (and others the any-shape one), and, timed, the device ms of
+    the split and merge passes apart (their sum ``kernel_ms``). Each pass's
+    time is the mean over the launches the trace holds: CUPTI can drop a
+    kernel from a trace (often a short trace's first), which a trace of
+    one call would miss and a sum would undercount."""
+    import statistics
+
+    import torch
+
+    if timed:
+        # the card's clocks up before the trace
+        for _ in range(50):
+            run()
+        torch.cuda.synchronize()
+    names, by_name = set(), {}
+    # a split and a merge kernel a call: a trace that dropped one is taken
+    # again, up to 10 times
+    device_ms(run, iters=20 if timed else 3, names=names, per_call=2,
+              by_name=by_name)
+    res["kernels"] = sorted(names)
+    res["ran_expected_kernel"] = ran_paged_only(
+        names, paged_symbol(dtype, HD, G))
+    if timed:
+        merge = [x for n, v in by_name.items() if MERGE_SYMBOL in n for x in v]
+        split = [x for n, v in by_name.items()
+                 if "paged_decode" in n and MERGE_SYMBOL not in n for x in v]
+        res["merge_ms"] = statistics.fmean(merge) if merge else None
+        res["split_ms"] = statistics.fmean(split) if split else None
+        res["launches_traced"] = [len(split), len(merge)]
+        res["kernel_ms"] = (res["split_ms"] + res["merge_ms"]
+                            if split and merge else None)
+    if paged_symbol(dtype, HD, G) == RING_SYMBOL:
+        res["ptxas"] = _ptxas_of("paged_attention", RING_SYMBOL,
+                                 ring_instance(HD))
 
 
 def paged_inputs(*, S, H, KV, HD, ps, maxP, dtype, seed):
@@ -500,15 +580,22 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
            "rows_expected": expect_changed, "dead_slots_zero": dead_zero}
     ok = (over <= 1.0 and pools_equal and changed == expect_changed
           and dead_zero)
+
+    def run():
+        pa.paged_decode_attention_inplace(q, kn, vn, kp, vp, pt, ln)
+
+    # two launches on the same inputs give the same bits
+    o2, _, _ = pa.paged_decode_attention_inplace(q, kn, vn, kp, vp, pt, ln)
+    res["repeat_identical"] = bool(torch.equal(o, o2))
+    ok = ok and res["repeat_identical"]
+    if timed or dtype == "bfloat16":
+        paged_times(res, run, dtype, HD, H // KV, timed)
+        ok = ok and (res["ran_expected_kernel"] or dtype != "bfloat16")
     res["ok"] = ok
     if not timed:
         pa.launches = before
         return res
 
-    def run():
-        pa.paged_decode_attention_inplace(q, kn, vn, kp, vp, pt, ln)
-
-    res["kernel_ms"] = device_ms(run)
     res["event_ms"] = cuda_ms(run, iters=50)   # bound by the host's launches
     pa.launches = before   # timing launches are not main-path launches
     res["plain_ms"] = cuda_ms(
@@ -529,13 +616,13 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
 
 
 # (H, KV, HD) of the paged decode shapes outside the presets: the public
-# models of the shapes phase (SHAPE_MODELS), whose G or HD the fixed-G
-# kernel is not compiled for, and two more (16 query heads a kv head, two
-# chunks of 8; HD 100, not a multiple of a 16-byte vector)
+# models of the shapes phase (SHAPE_MODELS) and Qwen2-7B (G 7), timed in
+# bf16, and two more (16 query heads a kv head, two chunks of 8; HD 100,
+# not a multiple of a 16-byte vector: the any-shape kernel)
 PAGED_SHAPES = (("phi3-mini", (32, 32, 96), True),
                 ("gemma-2b", (8, 1, 256), True),
-                ("llama3.2-3b", (24, 8, 128), False),
-                ("qwen2-7b", (28, 4, 128), False),
+                ("llama3.2-3b", (24, 8, 128), True),
+                ("qwen2-7b", (28, 4, 128), True),
                 ("g16", (16, 1, 64), False),
                 ("hd100", (4, 2, 100), False))
 
@@ -560,9 +647,10 @@ def _paged_phase(case_fn):
 
 def phase_k6():
     """K6 timed at the 7b serving shape and the 1b GQA shape (HD 128, G 1
-    and 2), bf16 and f32, and in bf16 at Phi-3-mini's HD 96 and Gemma-2B's
-    HD 256 (G 8); untimed there in f32 and at Llama-3.2-3B's G 3,
-    Qwen2-7B's G 7, G 16 and HD 100 in both."""
+    and 2), bf16 and f32, and in bf16 at Phi-3-mini's HD 96, Gemma-2B's
+    HD 256 (G 8), Llama-3.2-3B's G 3 and Qwen2-7B's G 7; untimed there in
+    f32 and at G 16 and HD 100 in both. Every bf16 case traces its
+    kernels' names (``paged_times``); two launches give the same bits."""
     return _paged_phase(k6_case)
 
 
@@ -608,15 +696,22 @@ def k5_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
            "k6_to_k5_identical": bool(torch.equal(o5[live], o6[live]))}
     ok = (finite and over <= 1.0 and pools_unchanged and dead_zero
           and cross_over <= 1.0)
+
+    def run():
+        pa.paged_attention(q, kp, vp, pt, ln)
+
+    # two launches on the same inputs give the same bits
+    res["repeat_identical"] = bool(torch.equal(
+        o, pa.paged_attention(q, kp, vp, pt, ln)))
+    ok = ok and res["repeat_identical"]
+    if timed or dtype == "bfloat16":
+        paged_times(res, run, dtype, HD, H // KV, timed)
+        ok = ok and (res["ran_expected_kernel"] or dtype != "bfloat16")
     res["ok"] = ok
     if not timed:
         pa.launches_read, pa.launches = before, before6
         return res
 
-    def run():
-        pa.paged_attention(q, kp, vp, pt, ln)
-
-    res["kernel_ms"] = device_ms(run)
     res["event_ms"] = cuda_ms(run, iters=50)   # bound by the host's launches
     # comparison and timing launches are not main-path launches
     pa.launches_read, pa.launches = before, before6
@@ -1391,8 +1486,10 @@ def _shapes_serve(cfg, layers, device, k5=False):
     the card, flash prefill, paged (page 64) or, for a windowed model,
     contiguous (``_kv_layout``), 4 slots: after a warm-up, the
     SHAPE_PROMPT_LENS prompts greedily, SHAPE_NEW_TOKENS each, submitted at
-    once; TTFT, decode tokens/s, peak memory. k5: then, with those slots
-    live again, the K5 path over the engine's pools (``k5_path``)."""
+    once; TTFT, decode tokens/s, peak memory. Paged on the card: then,
+    with those slots live again, two decode steps traced, whose split
+    kernels must all be the ring kernel (bf16), and (k5) the K5 path over
+    the engine's pools (``k5_path``)."""
     import numpy as np
     import torch
 
@@ -1436,12 +1533,22 @@ def _shapes_serve(cfg, layers, device, k5=False):
            "tokens": [r.generated for r in reqs]}
     res["ok"] = all(len(r.generated) == SHAPE_NEW_TOKENS and r.error is None
                     and all(0 <= t < V for t in r.generated) for r in reqs)
-    if k5 and on_card:
+    if on_card and layout == "paged":
+        # the prompts again, live: decode steps traced for the paged
+        # kernels' names (bf16: the ring kernel only), then (k5) the K5
+        # path over the pools
         for pr in prompts:
             eng.submit(pr, max_new_tokens=64)
         eng.step_n(8)
-        res["k5_path"] = k5_path(eng)
-        res["ok"] = res["ok"] and res["k5_path"]["ok"]
+        names = set()
+        device_ms(lambda: eng.step_n(2), iters=1, names=names)
+        res["decode_paged_kernels"] = sorted(n for n in names
+                                             if "paged_decode" in n)
+        res["decode_ran_ring_only"] = ran_paged_only(names, RING_SYMBOL)
+        res["ok"] = res["ok"] and res["decode_ran_ring_only"]
+        if k5:
+            res["k5_path"] = k5_path(eng)
+            res["ok"] = res["ok"] and res["k5_path"]["ok"]
     return res
 
 
@@ -5467,7 +5574,8 @@ def profile_windows(eng, rng):
     passes admit 8, so 16 slots stay live with ~1000-token contexts. Now
     and then CUPTI loses a whole trace: an admission traced with no
     kernel at all (its prefills launch thousands) is taken again, up to 2
-    more times, after the 16 requests finish."""
+    more times, after the 16 requests finish; so is a decode block that
+    traced no paged decode kernel (each takes 16 of the 64 new tokens)."""
     V = eng.cfg.vocab_size
 
     def admit(prompts):
@@ -5484,9 +5592,11 @@ def profile_windows(eng, rng):
             break
         while eng.has_work():
             eng.step_n(8)
-    return {"profile_prefill": prefill,
-            "profile_decode_block": device_profile(lambda: eng.step_n(8),
-                                                   lambda: eng.step_n(8))}
+    for _ in range(3):
+        decode = device_profile(lambda: eng.step_n(8), lambda: eng.step_n(8))
+        if decode["paged_kernels"] or eng.kv_layout != "paged":
+            break
+    return {"profile_prefill": prefill, "profile_decode_block": decode}
 
 
 def phase_engine():
@@ -5536,9 +5646,12 @@ def phase_engine():
     res.update(profile_windows(eng, rng))
     res["prefill_ran_wgmma_fwd_only"] = ran_wgmma_fwd_only(
         res["profile_prefill"])
+    res["decode_ran_ring_only"] = ran_paged_only(
+        res["profile_decode_block"]["paged_kernels"], RING_SYMBOL)
     res["k5_path"] = k5_path(eng)
     res["ok"] = (res["ok"] and res["k5_path"]["ok"]
-                 and res["prefill_ran_wgmma_fwd_only"])
+                 and res["prefill_ran_wgmma_fwd_only"]
+                 and res["decode_ran_ring_only"])
     return res
 
 
@@ -6622,7 +6735,9 @@ def device_profile(timed, profiled):
             "idle_share": max(0.0, 1.0 - busy / wall_ms) if wall_ms else None,
             "device_ms_by_class": by, "device_events": n_kernels,
             "top_kernels_ms": top,
-            "flash_kernels": sorted(n for n in by_name if "flash_" in n)}
+            "flash_kernels": sorted(n for n in by_name if "flash_" in n),
+            "paged_kernels": sorted(n for n in by_name
+                                    if "paged_decode" in n)}
 
 
 def ran_only(names, symbol) -> bool:
@@ -6711,8 +6826,12 @@ def _run_phase(ph: str) -> bool:
         logs = {n: ptxas_report(_build.BUILD_DIR / f"{n}.log")
                 for n in _build.KERNEL_SOURCES
                 if (_build.BUILD_DIR / f"{n}.log").is_file()}
+        ring = {n: v for n, v in logs.get("paged_attention", {}).items()
+                if RING_SYMBOL in n}
         emit("build", seconds=time.perf_counter() - t0, per_source_s=took,
-             ptxas=logs)
+             ptxas=logs, ring_ptxas=ring, ring_spill_free=bool(ring) and all(
+                 "0 bytes spill stores, 0 bytes spill loads" in v
+                 for v in ring.values()))
         return True
     if ph in KERNEL_PHASES:
         t0 = time.perf_counter()

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks of the port's TMA / wgmma kernels: tensor
 // maps (encoded on the host through libcuda's entry point, looked up at
 // run time, so the library needs no -lcuda), mbarriers, TMA loads and
-// stores (4-D bf16 and 1-D f32 maps), wgmma shared-memory descriptors for
-// the 128-, 64- and 32-byte swizzles, the wgmma instructions the attention
-// kernels use, stmatrix, named barriers, thread block clusters (barrier,
-// distributed shared memory), setmaxnreg and ex2.approx.
+// stores (4-D bf16 maps of [B, seq, heads, D] tensors and of paged pools,
+// 1-D f32 maps), 1-D bulk copies without a map, wgmma shared-memory
+// descriptors for the 128-, 64- and 32-byte swizzles, the wgmma
+// instructions the attention kernels use, stmatrix, named barriers, thread
+// block clusters (barrier, distributed shared memory), setmaxnreg and
+// ex2.approx.
 //
 // Shared-memory tiles are TMA boxes of 64 bf16 columns (128 bytes) by R
 // rows, written with CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r
@@ -85,6 +87,33 @@ inline int rt_bshd_map(CUtensorMap* map, const void* base, int B, int seq,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A 4-D bf16 map over a contiguous paged pool [KV, NP, ps, HD], as dims
+// (HD, ps, NP, KV), with boxes of `bc` columns x `br` rows of one page of
+// one kv head; where `swz`, the box rows are swizzled as the columns ask
+// (64: 128-byte, 32: 64-byte, 16: 32-byte swizzle). Returns a cudaError_t
+// code.
+inline int rt_pool_map(CUtensorMap* map, const void* base, int KV, int NP,
+                       int ps, int HD, int bc, int br, int swz) {
+  EncodeTiledFn encode = rt_encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t row = 2ull * HD;  // bytes
+  cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)ps, (cuuint64_t)NP,
+                        (cuuint64_t)KV};
+  cuuint64_t strides[3] = {row, row * ps, row * ps * NP};
+  cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)br, 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(base), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      !swz         ? CU_TENSOR_MAP_SWIZZLE_NONE
+                      : bc == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : bc == 32   ? CU_TENSOR_MAP_SWIZZLE_64B
+                                   : CU_TENSOR_MAP_SWIZZLE_32B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // A 1-D f32 map over `n` contiguous floats, in boxes of `box` (<= 256)
 // floats; elements past n read as zeros. Returns a cudaError_t code.
 inline int rt_f32_map(CUtensorMap* map, const void* base, size_t n,
@@ -157,6 +186,17 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+// `bytes` (a multiple of 16) contiguous bytes from global `src` to shared
+// `dst` (both 16-byte aligned), completing as transaction bytes on `bar`:
+// cp.async.bulk without a tensor map
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,

@@ -6,7 +6,7 @@ row of page indices (its page table), so device memory scales with the
 tokens in use, not with ``slots * max_seq``. Page 0 is the trash page.
 
 Two kernels, one CUDA source (``csrc/paged_attention.cu``; a split pass
-over ~256-token pieces of each slot, then a merge pass):
+over pieces of each slot's pages, then a merge pass):
 
 - ``paged_decode_attention_inplace`` is the fused decode step (TPU kernel
   K6, ``_kernel_inplace``): write each live slot's new k/v at position
@@ -16,6 +16,18 @@ over ~256-token pieces of each slot, then a merge pass):
   ``_kernel``): the same split kernel with the write compiled out, every
   K/V row read from the pool, the pools never written.
 
+bf16 at a head dim that is a multiple of 8 runs the ring kernel
+(``paged_decode_ring_kernel``): a producer warp loads the split's pages by
+TMA, 16 keys a stage, through a tensor map of each pool (encoded once per
+pool and kept) into a ring with mbarriers, and four consumer warps each
+take every fourth stage in one pass (scores by ``mma.sync``, the online
+softmax, ``O += P V``); splits of ``split_pages(S, KV, chunks, maxP)``
+pages, then a merge pass (which also stores K6's new rows). f32 runs the
+fixed-G kernel at G 1, 2, 4, 8 and power-of-two rows, every other shape
+(and bf16 at HD 100) the any-shape kernel, both with 256-token splits.
+``block_geometry`` says which a launch takes, with its split and shared
+memory.
+
 For CPU tensors each wrapper runs its plain version
 (``paged_decode_attention_inplace_reference``,
 ``paged_attention_reference``); for CUDA tensors it launches its kernel or
@@ -24,16 +36,16 @@ raises.
 Shapes: q [S, H, HD] (one new token per slot), k_new/v_new [S, KV, HD],
 pools [KV, NP, ps, HD], page_table [S, maxP] int32, lengths [S] int32
 (tokens INCLUDING the current one; 0 marks an inactive slot). Any
-G = H / KV >= 1 and any HD <= MAX_HEAD_DIM: G in {1, 2, 4, 8} with rows of
-a power of two of 16-byte chunks (every preset) runs the kernel compiled
-for that G; every other shape (Phi-3-mini's HD 96, Llama-3.2-3B's G 3)
-the same kernel with G and HD at run time, in chunks of at most 8 query
-heads.
+G = H / KV >= 1 and any HD <= MAX_HEAD_DIM; the ring and any-shape kernels
+take a kv head's query heads in chunks of at most 8 (G 16: two blocks a kv
+head).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -47,13 +59,32 @@ launches = 0
 launches_read = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_GROUPS = (1, 2, 4, 8)          # query heads per kv head of the fixed kernel
-_GROUP_CHUNK = 8                # query heads a block of the any-G kernel
+_GROUP_CHUNK = 8                # query heads a block
 MAX_HEAD_DIM = 256
-_SPLIT_TOKENS = 256             # tokens of one slot a block attends over
-_THREADS = 128
+_SPLIT_TOKENS = 256             # tokens a block of the any-shape kernel
+_THREADS = 128                  # threads a block of the any-shape kernel
 _MAX_SMEM = 232448
+SMS = 132                       # the H100's SMs: the unit of the split rule
+SPLIT_BLOCKS = 16 * SMS         # blocks a launch aims at if slots were full
+RING_KEYS = 16                  # keys a ring stage
+RING_WARPS = 4                  # consumer warps a ring block
+RING_BYTES = 32768              # bytes a block's ring holds at least
 
+
+class PagedGeometry(NamedTuple):
+    """How ``csrc/paged_attention.cu`` runs one launch: ``kernel`` "ring"
+    (bf16), "fixed" (f32 at G 1, 2, 4, 8 and HD a power of two <= 128) or
+    "any"; ``heads`` query heads a block (a chunk of <= 8 of a kv
+    head's G), ``chunks`` of them a kv head; ``pps`` pages a split,
+    ``n_split`` splits a slot; ``slots`` ring slots (ring kernel; 0 for
+    the other); ``smem`` a block's shared-memory bytes."""
+    kernel: str
+    heads: int
+    chunks: int
+    pps: int
+    n_split: int
+    slots: int
+    smem: int
 
 def paged_attention_reference(q, k_pool, v_pool, page_table, lengths):
     """Plain version: gather the pages, mask, attend. Materializes the
@@ -104,21 +135,63 @@ def kernel_tolerance(plain_out):
     return 2.0 ** -7 * plain_out.float().abs() + 1e-5
 
 
-def block_geometry(G: int, HD: int, elt: int):
-    """(fixed, heads, lanes, vw): how ``csrc/paged_attention.cu`` lays one
-    split block out for G query heads a kv head, head dim HD and elements
-    of `elt` bytes. fixed: the kernel compiled for G runs (G in _GROUPS,
-    HD a power of two of 16-byte chunks <= 32); else the any-shape one.
-    heads: query heads a block takes (G, or a chunk of at most 8); lanes:
-    threads sharing one K/V row in p . V (the reduction buffer holds
-    128 / lanes partial rows); vw: elements a lane loads at once."""
+def split_pages(S: int, KV: int, chunks: int, maxP: int) -> int:
+    """The ring kernel's pages a split: a launch of S x KV x chunks x
+    splits blocks aims at about SPLIT_BLOCKS (16 an SM) if every slot held
+    maxP pages. Slots use a fraction of their pages and the blocks past a
+    slot's length exit at once, so the live blocks come to a few an SM: 8
+    pages (512 tokens at page 64) at the 7b serving shape (S 16, KV 32,
+    maxP 32), 2 at the 1b preset's (KV 8), 1 where S x KV is small
+    (Gemma-2B's one kv head). From the shapes alone: the lengths live on
+    the card. (Aiming at 32 an SM, or 64, ran the bf16 rows 0-25% slower
+    on an H100: more splits, more merging; PERF.md.)"""
+    return max(1, -(-(S * KV * chunks * maxP) // SPLIT_BLOCKS))
+
+
+def _ring_smem(HD: int, ps: int, pps: int):
+    """(slots, bytes) of a ring block: the csrc's RingSmem. A stage holds
+    16 K rows and 16 V rows in TMA boxes (2 HD bytes a row each: 64 HD bytes,
+    rounded up to 1 KB); at least RING_BYTES of ring in 1-4 slots a
+    consumer warp; then the new k/v row, three mbarriers' words (full and
+    empty a slot, one for the new row), the warps' (max, sum) of 8 heads,
+    the split's page ids, and 1 KB to align the ring."""
+    slot = -(-2 * RING_KEYS * 2 * HD // 1024) * 1024   # K and V rows, bf16
+    depth = min(4, max(1, -(-RING_BYTES // (RING_WARPS * slot))))
+    slots = RING_WARPS * depth
+    return slots, (slots * slot + 4 * HD + 8 * (2 * slots + 1)
+                   + 4 * RING_WARPS * 8 * 2 + 4 * (-(-pps // 4) * 4) + 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def block_geometry(G: int, HD: int, elt: int, *, S: int, KV: int, ps: int,
+                   maxP: int) -> PagedGeometry:
+    """Which paged decode kernel a launch with G query heads a kv head,
+    head dim HD and elements of `elt` bytes takes, and its split and shared
+    memory (the wrapper's check and the C launch compute the same): bf16
+    at HD a multiple of 8 the ring kernel, split by ``split_pages``; f32
+    at G 1, 2, 4 or 8 and rows of a power of two of 16-byte chunks the
+    fixed kernel, every other shape the any-shape kernel, both 256-token
+    splits, their shared memory the split's scores, q, the new row and the
+    p . V partial rows of 128 / (HD / vw) token groups."""
+    chunks = -(-G // _GROUP_CHUNK)
+    heads = -(-G // chunks)
+    if elt == 2 and HD % 8 == 0:
+        pps = split_pages(S, KV, chunks, maxP)
+        slots, smem = _ring_smem(HD, ps, pps)
+        return PagedGeometry("ring", heads, chunks, pps, -(-maxP // pps),
+                             slots, smem)
     vec = 16 // elt
-    lpt = HD // vec
-    if G in _GROUPS and HD % vec == 0 and 0 < lpt <= 32 and 32 % lpt == 0:
-        return True, G, lpt, vec
-    vw = vec if HD % vec == 0 else 1
-    n_chunks = -(-G // _GROUP_CHUNK)
-    return False, -(-G // n_chunks), min(HD // vw, _THREADS), vw
+    nch = HD // vec if HD % vec == 0 else HD
+    fixed = (elt == 4 and G in (1, 2, 4, 8) and HD % vec == 0
+             and 32 % nch == 0)
+    groups = _THREADS // nch if nch <= _THREADS else 1
+    pps = max(1, _SPLIT_TOKENS // ps)
+    smem = 4 * (heads * HD + 2 * HD + heads * pps * ps
+                + groups * heads * HD + 2 * heads)
+    if fixed:
+        return PagedGeometry("fixed", heads, chunks, pps, -(-maxP // pps), 0,
+                             smem)
+    return PagedGeometry("any", heads, chunks, pps, -(-maxP // pps), 0, smem)
 
 
 def _lib():
@@ -170,24 +243,23 @@ def _launch(what, q, k_pool, v_pool, page_table, lengths, k_new=None,
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("the pools are read (and K6 updates them) in place "
                          "and must be contiguous")
-    pps = max(1, _SPLIT_TOKENS // ps)     # pages a block attends over
-    n_split = -(-maxP // pps)
-    _, gb, lanes, vw = block_geometry(G, HD, q.element_size())
-    smem = 4 * (gb * HD + 2 * HD + gb * pps * ps
-                + (_THREADS // lanes) * gb * HD + 2 * gb)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"paged decode block needs {smem} bytes of shared "
-                         f"memory (G={G}, HD={HD}, page_size={ps})")
+    geo = block_geometry(G, HD, q.element_size(), S=S, KV=KV, ps=ps,
+                         maxP=maxP)
+    if geo.smem > _MAX_SMEM:
+        raise ValueError(f"paged decode block needs {geo.smem} bytes of "
+                         f"shared memory (G={G}, HD={HD}, page_size={ps})")
     q = q.contiguous()
     new = [t.contiguous() for t in new]
     page_table, lengths = page_table.contiguous(), lengths.contiguous()
-    if vw > 1 and any(t.data_ptr() % 16 for t in (k_pool, v_pool)):
-        raise ValueError("the pools must be 16-byte aligned")
+    if HD * q.element_size() % 16 == 0 and any(
+            t.data_ptr() % 16 for t in (q, k_pool, v_pool, *new)):
+        raise ValueError("q, the pools (and k_new, v_new) must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     # per-split softmax state, merged by the kernel's second pass
-    part_o = torch.empty((S, KV, n_split, G, HD), dtype=torch.float32,
+    part_o = torch.empty((S, KV, geo.n_split, G, HD), dtype=torch.float32,
                          device=q.device)
-    part_ml = torch.empty((S, KV, n_split, G, 2), dtype=torch.float32,
+    part_ml = torch.empty((S, KV, geo.n_split, G, 2), dtype=torch.float32,
                           device=q.device)
     lib = _lib()
     fn = getattr(lib, what)
@@ -196,8 +268,8 @@ def _launch(what, q, k_pool, v_pool, page_table, lengths, k_new=None,
         rc = fn(_DTYPES[dt], q.data_ptr(), *(t.data_ptr() for t in new),
                 k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
                 lengths.data_ptr(), out.data_ptr(), part_o.data_ptr(),
-                part_ml.data_ptr(), S, H, KV, NP, ps, HD, maxP, pps, n_split,
-                HD ** -0.5, stream)
+                part_ml.data_ptr(), S, H, KV, NP, ps, HD, maxP, geo.pps,
+                geo.n_split, HD ** -0.5, stream)
     _build.check(lib, rc, what)
     return out
 

@@ -363,20 +363,23 @@ def test_kernel_head_dims_cover_every_dim_up_to_256():
         fa.kernel_head_dim(257)
 
 
-@pytest.mark.parametrize("G,HD,elt,expect", [
-    (1, 128, 2, (True, 1, 16, 8)),      # the 7b preset, bf16
-    (2, 128, 4, (True, 2, 32, 4)),      # the 1b preset, f32
-    (8, 256, 2, (True, 8, 32, 8)),      # Gemma-2B, bf16
-    (1, 96, 2, (False, 1, 12, 8)),      # Phi-3-mini: 12 chunks
-    (1, 256, 4, (False, 1, 64, 4)),     # HD 256 in f32: 64 chunks
-    (3, 128, 2, (False, 3, 16, 8)),     # Llama-3.2-3B
-    (7, 128, 2, (False, 7, 16, 8)),     # Qwen2-7B
-    (16, 64, 2, (False, 8, 8, 8)),      # two chunks of 8 heads
-    (11, 64, 2, (False, 6, 8, 8)),      # chunks of 6 and 5
-    (1, 100, 2, (False, 1, 100, 1)),    # not a multiple of 16 bytes
-    (1, 250, 2, (False, 1, 128, 1)),    # two elements a thread in p.v
+# (kernel, heads a block, chunks, pages a split, splits, ring slots, shared
+# memory bytes) at 16 slots of 32 pages of 64
+@pytest.mark.parametrize("G,HD,elt,KV,expect", [
+    (1, 128, 2, 32, ("ring", 1, 1, 8, 4, 4, 34664)),   # the 7b preset, bf16
+    (2, 128, 4, 8, ("fixed", 2, 1, 4, 8, 0, 8208)),    # the 1b preset, f32
+    (8, 256, 2, 1, ("ring", 8, 1, 1, 32, 4, 67928)),   # Gemma-2B, bf16
+    (1, 96, 2, 32, ("ring", 1, 1, 8, 4, 8, 50984)),    # Phi-3-mini
+    (1, 256, 4, 1, ("any", 1, 1, 4, 8, 0, 6152)),      # HD 256 in f32
+    (3, 128, 2, 8, ("ring", 3, 1, 2, 16, 4, 34648)),   # Llama-3.2-3B
+    (7, 128, 2, 4, ("ring", 7, 1, 1, 32, 4, 34648)),   # Qwen2-7B
+    (16, 64, 2, 1, ("ring", 8, 2, 1, 32, 8, 34456)),   # two chunks of 8
+    (11, 64, 2, 1, ("ring", 6, 2, 1, 32, 8, 34456)),   # chunks of 6 and 5
+    (1, 100, 2, 2, ("any", 1, 1, 4, 8, 0, 2632)),      # not 16-byte rows
+    (1, 250, 2, 1, ("any", 1, 1, 4, 8, 0, 5032)),      # 2 chunks a thread
 ])
-def test_paged_block_geometry(G, HD, elt, expect):
+def test_paged_block_geometry(G, HD, elt, KV, expect):
     """Which paged decode kernel a shape takes and how its block is laid
     out (the wrapper's shared-memory check reads the same numbers)."""
-    assert pa.block_geometry(G, HD, elt) == expect
+    assert tuple(pa.block_geometry(G, HD, elt, S=16, KV=KV, ps=64,
+                                   maxP=32)) == expect

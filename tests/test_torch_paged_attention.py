@@ -318,8 +318,9 @@ def _refuse_plain(monkeypatch):
 def test_any_shape_kernels_match_plain_on_card(dtype, H, KV, HD,
                                                monkeypatch):
     """K6 and K5 at group counts 3, 7 and 16 and head dims 48, 80, 96, 100
-    and 256 (the fixed-G kernel for the shapes it is compiled for, the
-    any-shape kernel for the others): the launch counters move, the plain
+    and 256 (bf16 at a head dim that is a multiple of 8 on the ring
+    kernel; f32 on the fixed-G kernel at its shapes, the any-shape kernel
+    at the others, as bf16 at HD 100): the launch counters move, the plain
     versions are not called, live rows within kernel_tolerance, dead rows
     zero, K6's pools equal to the plain version's, K5's unchanged."""
     require_cuda()
@@ -359,3 +360,261 @@ def test_head_dim_above_256_raises_on_card():
     dev = {k: torch.from_numpy(v).cuda() for k, v in case.items()}
     with pytest.raises(NotImplementedError, match="256"):
         pa.paged_attention(*(dev[k] for k in READ_ARGS))
+
+
+# --- the split rule and the blocks' geometry (plain Python) ----------------
+
+
+@pytest.mark.parametrize("S,KV,chunks,maxP,expect", [
+    (16, 32, 1, 32, 8),     # the 7b serving shape (and Phi-3-mini): 512 tokens
+    (16, 8, 1, 32, 2),      # the 1b preset's GQA (and Llama-3.2-3B)
+    (16, 1, 1, 32, 1),      # Gemma-2B: one kv head, one page a split
+    (16, 1, 2, 32, 1),      # G 16: two chunks of 8 query heads
+    (64, 32, 1, 128, 125),  # 64 slots of 8,192 tokens
+    (1, 1, 1, 1, 1),
+])
+def test_split_pages_rule(S, KV, chunks, maxP, expect):
+    """pps = ceil(S KV chunks maxP / (16 x 132)): a launch of about 16
+    blocks an SM if every slot were full, never fewer pages than 1."""
+    pps = pa.split_pages(S, KV, chunks, maxP)
+    assert pps == expect
+    blocks = S * KV * chunks * -(-maxP // pps)
+    assert blocks <= pa.SPLIT_BLOCKS + S * KV * chunks
+    if pps > 1:
+        assert S * KV * chunks * -(-maxP // (pps - 1)) > pa.SPLIT_BLOCKS
+
+
+# (name, G, HD, KV, ring geometry at 16 slots of 32 pages of 64, f32's
+# kernel). A stage holds 16 K and 16 V rows in TMA boxes, 64 HD bytes
+# rounded up to 1 KB (7b: 8,192; Phi-3-mini 6,144; Gemma-2B 16,384; HD 64
+# 4,096); the ring at least 32 KB in 1-4 slots a consumer warp (4, 8, 4,
+# 8); then the new k/v row (4 HD bytes), 8 bytes of mbarrier a slot twice
+# and one more, 256 of the warps' (max, sum), the page ids (pps rounded
+# up to 4 ints: 8 pages at 7b and Phi-3-mini, 1 at the others) and 1 KB
+# to align the ring
+PUBLIC_PAGED = [
+    ("7b", 1, 128, 32,
+     ("ring", 1, 1, 8, 4, 4, 32768 + 512 + 72 + 256 + 32 + 1024), "fixed"),
+    ("phi3-mini", 1, 96, 32,
+     ("ring", 1, 1, 8, 4, 8, 49152 + 384 + 136 + 256 + 32 + 1024), "any"),
+    ("gemma-2b", 8, 256, 1,
+     ("ring", 8, 1, 1, 32, 4, 65536 + 1024 + 72 + 256 + 16 + 1024), "any"),
+    ("g16", 16, 64, 1,
+     ("ring", 8, 2, 1, 32, 8, 32768 + 256 + 136 + 256 + 16 + 1024), "any"),
+]
+
+
+@pytest.mark.parametrize("name,G,HD,KV,expect,f32_kernel", PUBLIC_PAGED,
+                         ids=[c[0] for c in PUBLIC_PAGED])
+def test_ring_geometry_at_public_shapes(name, G, HD, KV, expect, f32_kernel):
+    """bf16 takes the ring kernel with ``split_pages``' split; f32 at the
+    same shape the fixed (G 1, 2, 4, 8 at a power-of-two row) or the
+    any-shape kernel, with 256-token splits (4 pages)."""
+    geo = pa.block_geometry(G, HD, 2, S=16, KV=KV, ps=64, maxP=32)
+    assert tuple(geo) == expect
+    f32 = pa.block_geometry(G, HD, 4, S=16, KV=KV, ps=64, maxP=32)
+    assert (f32.kernel, f32.pps, f32.n_split, f32.slots) == (f32_kernel, 4,
+                                                            8, 0)
+    assert (f32.heads, f32.chunks) == (geo.heads, geo.chunks)
+
+
+def _ring_chunk(HD, ps, r, ch):
+    """Shared-memory offset of 16-byte chunk ch of stage row r in a ring
+    tensor, as csrc/paged_attention.cu's RingSmem::at lays it: boxes of
+    the largest of 32, 16, 8 columns that divides HD, 16 rows of 2 bc
+    bytes each; TMA's swizzle (chunk c of row r at c ^ ((r >> xs) & (bc /
+    8 - 1))) where bc >= 16 and the copies' rows (16, or the largest power
+    of two dividing ps) are >= 8."""
+    bc = next(b for b in (32, 16, 8) if HD % b == 0)
+    lc = {32: 2, 16: 1, 8: 0}[bc]
+    br = min(16, ps & -ps)
+    m = (1 << lc) - 1
+    x = (r >> (3 - lc)) & m if bc >= 16 and br >= 8 else 0
+    return (ch >> lc) * 16 * 2 * bc + r * 2 * bc + (((ch & m) ^ x) << 4)
+
+
+def test_ring_geometry_fits_every_head_dim():
+    """At every head dim that is a multiple of 8 up to 256 and page sizes
+    of 8, 16 and 64: each row's chunks in distinct places inside the
+    stage's 32 HD bytes, the 8 rows an ldmatrix phase reads at one chunk
+    in 8 distinct bank groups (conflict-free), at least RING_BYTES of ring
+    in 1-4 slots a consumer warp (or 4 slots), room on the ring for the
+    warps' f32 outputs at the block's end, and a block within the card's
+    227 KB even at 256 pages a split."""
+    for HD in range(8, 257, 8):
+        for ps in (8, 16, 64):
+            offs = {_ring_chunk(HD, ps, r, ch)
+                    for r in range(16) for ch in range(HD // 8)}
+            assert len(offs) == 2 * HD and max(offs) < 32 * HD
+            for r0 in (0, 8):
+                for ch in range(HD // 8):
+                    banks = {_ring_chunk(HD, ps, r0 + r, ch) // 16 % 8
+                             for r in range(8)}
+                    assert len(banks) == 8, (HD, ps, r0, ch)
+            for pps in (1, 4, 256):
+                geo = pa.block_geometry(8, HD, 2, S=1, KV=1, ps=ps,
+                                        maxP=pps)
+                ring = geo.slots * -(-64 * HD // 1024) * 1024
+                assert geo.kernel == "ring"
+                assert geo.slots % pa.RING_WARPS == 0
+                assert 1 <= geo.slots // pa.RING_WARPS <= 4
+                assert (ring >= pa.RING_BYTES
+                        or geo.slots == 4 * pa.RING_WARPS)
+                assert pa.RING_WARPS * 8 * HD * 4 <= ring
+                assert geo.smem <= pa._MAX_SMEM
+
+
+# --- the ring kernel on the card --------------------------------------------
+
+
+def _force_pps(monkeypatch, S, KV, chunks, maxP, pps):
+    """Set SPLIT_BLOCKS so that ``split_pages`` gives `pps` at this shape."""
+    n = S * KV * chunks * maxP
+    for blocks in range(1, n + 1):
+        if -(-n // blocks) == pps:
+            monkeypatch.setattr(pa, "SPLIT_BLOCKS", blocks)
+            assert pa.split_pages(S, KV, chunks, maxP) == pps
+            return
+    raise AssertionError(f"no SPLIT_BLOCKS gives {pps} pages a split")
+
+
+def _ring_round_trip(S, H, KV, HD, ps, maxP, lengths, share, seed,
+                     monkeypatch):
+    """K6 twice, then K5 twice over the pools K6 wrote, on the card in
+    bf16, against the plain version: live rows within kernel_tolerance,
+    dead rows zero, the pools equal to the plain version's (and unchanged
+    by K5), each kernel's two runs bit-identical, and K5 bit-identical to
+    K6 (the new rows it reads from the pools are the ones K6 took from
+    k_new/v_new). Every pool row but the live ones holds NaN: a copy
+    brings whole box rows of a slot's last page, and none of the rows past
+    a length may reach an output."""
+    case = make_case(S, H, KV, HD, ps, maxP, lengths, share=share, seed=seed)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in case.items()}
+    for k in ("q", "k_new", "v_new", "k_pool", "v_pool"):
+        dev[k] = dev[k].to(torch.bfloat16)
+    args = [dev[k] for k in ("q", "k_new", "v_new")]
+    tail = [dev["page_table"], dev["lengths"]]
+    # the plain version on clean pools: it multiplies every row by its p
+    kr, vr = dev["k_pool"].clone(), dev["v_pool"].clone()
+    o_ref, _, _ = pa.paged_decode_attention_inplace_reference(*args, kr, vr,
+                                                              *tail)
+    live_rows = np.zeros(case["k_pool"].shape[1:3], bool)   # [NP, ps]
+    for s, n in enumerate(lengths):
+        for j in range(-(-n // ps)):
+            live_rows[case["page_table"][s, j], :min(n - j * ps, ps)] = True
+    dmask = torch.from_numpy(~live_rows).cuda()
+    for k in ("k_pool", "v_pool"):
+        dev[k][:, dmask] = float("nan")
+    kp, vp = dev["k_pool"].clone(), dev["v_pool"].clone()
+    before = (pa.launches, pa.launches_read)
+    with monkeypatch.context() as m:
+        _refuse_plain(m)
+        o6, _, _ = pa.paged_decode_attention_inplace(*args, kp, vp, *tail)
+        k6p, v6p = kp.clone(), vp.clone()
+        o6b, _, _ = pa.paged_decode_attention_inplace(*args, kp, vp, *tail)
+        o5 = pa.paged_attention(dev["q"], kp, vp, *tail)
+        o5b = pa.paged_attention(dev["q"], kp, vp, *tail)
+    # the pools: the plain version's write into the poisoned pools
+    kr, vr = dev["k_pool"].clone(), dev["v_pool"].clone()
+    pa.paged_decode_attention_inplace_reference(*args, kr, vr, *tail)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.launches_read) == (before[0] + 2, before[1] + 2)
+    live = dev["lengths"] > 0
+    tol = pa.kernel_tolerance(o_ref)[live]
+    assert ((o6.float() - o_ref.float()).abs()[live] <= tol).all()
+    assert torch.equal(_bits(k6p), _bits(kr))
+    assert torch.equal(_bits(v6p), _bits(vr))
+    assert torch.equal(_bits(kp), _bits(k6p))
+    assert torch.equal(_bits(vp), _bits(v6p))
+    assert torch.isfinite(o6.float()[live]).all()
+    assert torch.equal(o6, o6b) and torch.equal(o5, o5b)
+    assert torch.equal(o5[live], o6[live])
+    assert (o6[~live] == 0).all() and (o5[~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("HD", [64, 96, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 3, 8, 16])
+def test_ring_kernel_matches_plain_on_card(G, HD, monkeypatch):
+    """The ring kernel at G 1, 2, 3, 8 and 16 (two chunks of 8) and head
+    dims 64-256, pages of 16, splits of 2 pages (32 tokens): a length-0
+    slot; a one-token slot (the tip in a split's first page and first
+    stage); a slot ending exactly on a split boundary; one whose tip opens
+    a split (33); one ending on a page boundary (80); one whose first split
+    is slot 4's shared prefix pages, its tip on the page right after them
+    (47)."""
+    require_cuda()
+    KV = 1 if G == 16 else 2
+    _force_pps(monkeypatch, 6, KV, -(-G // 8), 8, 2)
+    assert pa.block_geometry(G, HD, 2, S=6, KV=KV, ps=16,
+                             maxP=8).kernel == "ring"
+    _ring_round_trip(6, G * KV, KV, HD, 16, 8, [0, 1, 32, 33, 80, 47],
+                     (4, 5, 2), G * HD, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,HD", [(3, 96), (8, 256)])
+@pytest.mark.parametrize("ps", [8, 16, 64])
+def test_ring_kernel_stages_and_pages_on_card(ps, G, HD, monkeypatch):
+    """Page sizes 8, 16 and 64 with splits of 256 tokens (16 stages, the
+    ring of 8 slots at HD 96 and of 4 at 256 walked around more than once)
+    and, for the same lengths, of one page: tips in every stage of a split
+    (the ring's last slot among them), lengths on a split boundary (256)
+    and the whole table (512), and a slot whose pages before its tip page
+    are another slot's."""
+    require_cuda()
+    maxP = 512 // ps
+    lengths = ([0] + [1 + 16 * i + (5 * i) % 16 + 256 * (i % 2)
+                      for i in range(16)] + [256, 512, 255])
+    share = (18, 19, 254 // ps)
+    for pps in (256 // ps, 1):
+        with monkeypatch.context() as m:
+            _force_pps(m, len(lengths), 1, 1, maxP, pps)
+            _ring_round_trip(len(lengths), G, 1, HD, ps, maxP, lengths,
+                             share, ps + pps, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,HD,symbol", [
+    (torch.bfloat16, 128, "paged_decode_ring_kernel"),
+    (torch.bfloat16, 96, "paged_decode_ring_kernel"),
+    (torch.bfloat16, 40, "paged_decode_ring_kernel"),
+    (torch.bfloat16, 100, "paged_decode_split_any_kernel"),
+    (torch.float32, 128, "paged_decode_split_kernel"),
+    (torch.float32, 96, "paged_decode_split_any_kernel"),
+])
+def test_paged_routes_on_card(dtype, HD, symbol):
+    """The kernels a launch runs, by the profiler's names: bf16 at a head
+    dim that is a multiple of 8 (40: a half k-step) the ring kernel, bf16
+    at HD 100 the any-shape kernel; f32 the fixed-G kernel at G 2 and
+    HD 128, the any-shape kernel at HD 96; each with the merge pass, and
+    the outputs within kernel_tolerance."""
+    require_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    case = make_case(6, 4, 2, HD, 8, 4, [0, 9, 16, 5, 25, 32],
+                     share=(4, 5, 2), seed=5)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in case.items()}
+    for k in ("q", "k_new", "v_new", "k_pool", "v_pool"):
+        dev[k] = dev[k].to(dtype)
+    args = [dev[k] for k in ("q", "k_new", "v_new", "k_pool", "v_pool",
+                             "page_table", "lengths")]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o, _, _ = pa.paged_decode_attention_inplace(*args)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    split = [n for n in names if "paged_decode" in n and "merge" not in n]
+    assert split and all(symbol in n for n in split), names
+    assert any("paged_decode_merge_kernel" in n for n in names), names
+    kr, vr = dev["k_pool"].clone(), dev["v_pool"].clone()
+    case2 = {k: torch.from_numpy(v).cuda() for k, v in case.items()}
+    for k in ("q", "k_new", "v_new", "k_pool", "v_pool"):
+        case2[k] = case2[k].to(dtype)
+    o_ref, _, _ = pa.paged_decode_attention_inplace_reference(
+        case2["q"], case2["k_new"], case2["v_new"], case2["k_pool"],
+        case2["v_pool"], case2["page_table"], case2["lengths"])
+    live = dev["lengths"] > 0
+    tol = pa.kernel_tolerance(o_ref)[live]
+    assert ((o.float() - o_ref.float()).abs()[live] <= tol).all()
+    assert torch.equal(kr, case2["k_pool"])
