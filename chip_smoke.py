@@ -59,20 +59,28 @@ printing one JSON line:
    in paged decode), bf16 timed at Phi-3-mini's and Gemma-2B's heads, and
    K1/K3/K4 at the tiny presets' heads (head dim 16, and 32 on the same
    heads) and H2O-Danube-1.8B's (80); the SFU's time for the
-   exponentials (exp_ms) beside the bound;
+   exponentials (exp_ms) beside the bound; above head dim 256 every
+   kernel phase holds the wide kernels (K1-K4: ``flash_fwd_wide_kernel``,
+   ``flash_bwd_dq_wide_kernel``, ``flash_bwd_dkdv_wide_kernel``; K5/K6:
+   the any-shape paged kernel) at head dim 512 (bf16 timed: flash at B 2
+   S 1024 H 8 KV 2 causal, K2 under window 128; paged at 16 slots, H 8
+   KV 2) and 320, in both dtypes, by name and against the plain versions;
 9. shapes: public model shapes outside the presets (SHAPE_MODELS):
    Phi-3-mini (head dim 96), Llama-3.2-3B (G 3), Gemma-2B's attention
-   (head dim 256, G 8) and H2O-Danube-1.8B (head dim 80, sliding window),
-   each cut to 2 layers in f32 card vs CPU (prefill logits, the engine's
+   (head dim 256, G 8), H2O-Danube-1.8B (head dim 80, sliding window) and
+   DeepSeek-V4-Flash's attention (head dim 512, G 8: the wide kernels in
+   every pass, and its 128-token window trained apart), each cut to 2
+   layers in f32 card vs CPU (prefill logits, the engine's
    greedy tokens, loss_fn and its gradients, the attention's gradients
    within grad_tolerance), and loss_fn's gradients in bf16 compute on the
    card against the f32 card run's (SHAPES_BF16_GRAD_RTOL; the TMA/wgmma
    K3/K4 at head dims 80, 96 and 256 on that path); each served at full
    width in bf16 (flash prefill, paged but for the windowed Danube, whose
-   traced decode steps run the ring kernel only;
-   Phi-3-mini at 8 of its 32 layers, with the K5 path over its pools,
-   Danube at 2, the others at 4): 4 greedy prompts of
-   64-512 tokens, 32 new tokens each, TTFT, decode tokens/s, peak memory;
+   traced decode steps run the ring kernel only, the any-shape one at
+   head dim 512; Phi-3-mini at 8 of its 32 layers and DeepSeek-V4-Flash
+   at 2, both with the K5 path over their pools, Danube at 2, the others
+   at 4): 4 greedy prompts of 64-512 tokens, 32 new tokens each, TTFT,
+   decode tokens/s, peak memory;
    the tiny presets (Llama and MoE, head dim 16) trained with flash, 3
    AdamW steps card vs CPU; its launches counted from 0;
 10. train_card_vs_cpu: 2 layers at the 1b width, f32, 2 AdamW steps on the
@@ -439,9 +447,10 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 
 
 # the paged decode kernels (csrc/paged_attention.cu): the ring kernel, which
-# every bf16 launch at a head dim that is a multiple of 8 must run, the f32
-# kernel of G 1, 2, 4, 8 at power-of-two rows, the any-shape kernel (other
-# shapes) and the merge pass after each
+# every bf16 launch at a head dim up to 256 that is a multiple of 8 must
+# run, the f32 kernel of G 1, 2, 4, 8 at power-of-two rows, the any-shape
+# kernel (other shapes, and every head dim above 256) and the merge pass
+# after each
 RING_SYMBOL = "paged_decode_ring_kernel"
 FIXED_SYMBOL = "paged_decode_split_kernel"
 ANY_SYMBOL = "paged_decode_split_any_kernel"
@@ -450,6 +459,8 @@ MERGE_SYMBOL = "paged_decode_merge_kernel"
 
 def paged_symbol(dtype: str, head_dim: int, G: int) -> str:
     """The K5/K6 split kernel a dtype, head dim and group count must run."""
+    if head_dim > 256:
+        return ANY_SYMBOL
     if dtype == "bfloat16":
         return RING_SYMBOL if head_dim % 8 == 0 else ANY_SYMBOL
     fixed = (G in (1, 2, 4, 8) and head_dim % 4 == 0
@@ -506,6 +517,15 @@ def paged_times(res, run, dtype, HD, G, timed):
     if paged_symbol(dtype, HD, G) == RING_SYMBOL:
         res["ptxas"] = _ptxas_of("paged_attention", RING_SYMBOL,
                                  ring_instance(HD))
+    elif HD > 256:
+        res["ptxas"] = _ptxas_of("paged_attention", ANY_SYMBOL, HD, dtype)
+
+
+def paged_counters(HD: int):
+    """The launch counters of (K6, K5) at head dim HD (ops/paged_attention.
+    py): the wide ones above 256."""
+    return (("launches_wide", "launches_read_wide") if HD > 256
+            else ("launches", "launches_read"))
 
 
 def paged_inputs(*, S, H, KV, HD, ps, maxP, dtype, seed):
@@ -556,13 +576,14 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
     (q, kn, vn, kp0, vp0, pt, ln), lengths = paged_inputs(
         S=S, H=H, KV=KV, HD=HD, ps=ps, maxP=maxP, dtype=dtype, seed=seed)
     kp, vp = kp0.clone(), vp0.clone()
-    before = pa.launches
+    c6 = paged_counters(HD)[0]
+    before = getattr(pa, c6)
     o, _, _ = pa.paged_decode_attention_inplace(q, kn, vn, kp, vp, pt, ln)
     kp_ref, vp_ref = kp0.clone(), vp0.clone()
     o_ref, _, _ = pa.paged_decode_attention_inplace_reference(
         q, kn, vn, kp_ref, vp_ref, pt, ln)
     torch.cuda.synchronize()
-    if pa.launches != before + 1:
+    if getattr(pa, c6) != before + 1:
         raise AssertionError("K6 wrapper did not launch its kernel")
     live = torch.as_tensor(lengths > 0, device="cuda")
     err, over = held(o, o_ref, pa.kernel_tolerance(o_ref), live)
@@ -593,11 +614,11 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
         ok = ok and (res["ran_expected_kernel"] or dtype != "bfloat16")
     res["ok"] = ok
     if not timed:
-        pa.launches = before
+        setattr(pa, c6, before)
         return res
 
     res["event_ms"] = cuda_ms(run, iters=50)   # bound by the host's launches
-    pa.launches = before   # timing launches are not main-path launches
+    setattr(pa, c6, before)   # timing launches are not main-path launches
     res["plain_ms"] = cuda_ms(
         lambda: pa.paged_decode_attention_inplace_reference(
             q, kn, vn, kp_ref, vp_ref, pt, ln), iters=5)
@@ -617,14 +638,18 @@ def k6_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
 
 # (H, KV, HD) of the paged decode shapes outside the presets: the public
 # models of the shapes phase (SHAPE_MODELS) and Qwen2-7B (G 7), timed in
-# bf16, and two more (16 query heads a kv head, two chunks of 8; HD 100,
-# not a multiple of a 16-byte vector: the any-shape kernel)
+# bf16, and more (16 query heads a kv head, two chunks of 8; HD 100, not a
+# multiple of a 16-byte vector: the any-shape kernel); above 256, where the
+# any-shape kernel runs in both dtypes, DeepSeek-V4-Flash's head dim 512
+# at H 8 KV 2 (timed in bf16) and HD 320 at G 4
 PAGED_SHAPES = (("phi3-mini", (32, 32, 96), True),
                 ("gemma-2b", (8, 1, 256), True),
                 ("llama3.2-3b", (24, 8, 128), True),
                 ("qwen2-7b", (28, 4, 128), True),
                 ("g16", (16, 1, 64), False),
-                ("hd100", (4, 2, 100), False))
+                ("hd100", (4, 2, 100), False),
+                ("hd512", (8, 2, 512), True),
+                ("hd320", (4, 1, 320), False))
 
 
 def _paged_phase(case_fn):
@@ -648,8 +673,9 @@ def _paged_phase(case_fn):
 def phase_k6():
     """K6 timed at the 7b serving shape and the 1b GQA shape (HD 128, G 1
     and 2), bf16 and f32, and in bf16 at Phi-3-mini's HD 96, Gemma-2B's
-    HD 256 (G 8), Llama-3.2-3B's G 3 and Qwen2-7B's G 7; untimed there in
-    f32 and at G 16 and HD 100 in both. Every bf16 case traces its
+    HD 256 (G 8), Llama-3.2-3B's G 3, Qwen2-7B's G 7 and HD 512 (G 4, the
+    any-shape kernel); untimed there in f32 and at G 16, HD 100 and HD 320
+    in both. Every bf16 case traces its
     kernels' names (``paged_times``); two launches give the same bits."""
     return _paged_phase(k6_case)
 
@@ -670,11 +696,12 @@ def k5_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
     (q, kn, vn, kp, vp, pt, ln), lengths = paged_inputs(
         S=S, H=H, KV=KV, HD=HD, ps=ps, maxP=maxP, dtype=dtype, seed=seed)
     kp0, vp0 = kp.clone(), vp.clone()
-    before, before6 = pa.launches_read, pa.launches
+    c6, c5 = paged_counters(HD)
+    before, before6 = getattr(pa, c5), getattr(pa, c6)
     o = pa.paged_attention(q, kp, vp, pt, ln)
     o_ref = pa.paged_attention_reference(q, kp, vp, pt, ln)
     torch.cuda.synchronize()
-    if pa.launches_read != before + 1:
+    if getattr(pa, c5) != before + 1:
         raise AssertionError("K5 wrapper did not launch its kernel")
     live = torch.as_tensor(lengths > 0, device="cuda")
     err, over = held(o, o_ref, pa.kernel_tolerance(o_ref), live)
@@ -709,12 +736,14 @@ def k5_case(*, S, H, KV, HD, ps, maxP, dtype, seed, timed=True):
         ok = ok and (res["ran_expected_kernel"] or dtype != "bfloat16")
     res["ok"] = ok
     if not timed:
-        pa.launches_read, pa.launches = before, before6
+        setattr(pa, c5, before)
+        setattr(pa, c6, before6)
         return res
 
     res["event_ms"] = cuda_ms(run, iters=50)   # bound by the host's launches
     # comparison and timing launches are not main-path launches
-    pa.launches_read, pa.launches = before, before6
+    setattr(pa, c5, before)
+    setattr(pa, c6, before6)
     res["plain_ms"] = cuda_ms(
         lambda: pa.paged_attention_reference(q, kp, vp, pt, ln), iters=5)
     elt = torch.finfo(dt).bits // 8
@@ -749,10 +778,16 @@ WGMMA_DQ_SYMBOL = "flash_bwd_dq_wgmma_kernel"
 WGMMA_DKDV_SYMBOL = "flash_bwd_dkdv_wgmma_kernel"
 SMALL_DQ_SYMBOL = "flash_bwd_dq_small_kernel"
 SMALL_DKDV_SYMBOL = "flash_bwd_dkdv_small_kernel"
+# above head dim 256, both dtypes: the wide kernels (D at run time)
+WIDE_FWD_SYMBOL = "flash_fwd_wide_kernel"
+WIDE_DQ_SYMBOL = "flash_bwd_dq_wide_kernel"
+WIDE_DKDV_SYMBOL = "flash_bwd_dkdv_wide_kernel"
 
 
 def fwd_symbol(dtype: str, head_dim: int) -> str:
     """The K1/K2 kernel a dtype and kernel head dim must run."""
+    if head_dim > 256:
+        return WIDE_FWD_SYMBOL
     if dtype != "bfloat16":
         return "flash_fwd_f32_kernel"
     return SMALL_FWD_SYMBOL if head_dim in (16, 32) else WGMMA_FWD_SYMBOL
@@ -760,6 +795,8 @@ def fwd_symbol(dtype: str, head_dim: int) -> str:
 
 def bwd_symbols(dtype: str, head_dim: int):
     """The (K3, K4) kernels a dtype and kernel head dim must run."""
+    if head_dim > 256:
+        return WIDE_DQ_SYMBOL, WIDE_DKDV_SYMBOL
     if dtype != "bfloat16":
         return "flash_bwd_dq_f32_kernel", "flash_bwd_dkdv_f32_kernel"
     if head_dim in (16, 32):
@@ -827,8 +864,8 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
     q = t(rng.standard_normal((B, S, H, D)))
     k = t(rng.standard_normal((B, T, KV, D)))
     v = t(rng.standard_normal((B, T, KV, D)))
-    counter = "launches_window" if window else "launches"
-    before = (fa.launches, fa.launches_window)
+    counter = fwd_counter(D, window)
+    before = {c: getattr(fa, c) for c in FWD_COUNTERS}
 
     def run():
         return fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
@@ -844,7 +881,7 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
     finally:
         mm.allow_bf16_reduced_precision_reduction = reduced
     torch.cuda.synchronize()
-    if getattr(fa, counter) != before[counter == "launches_window"] + 1:
+    if getattr(fa, counter) != before[counter] + 1:
         raise AssertionError("forward wrapper did not launch its kernel")
     err, over = held(out, ref, fa.kernel_tolerance(q, k, v, ref,
                                                    causal=causal,
@@ -867,7 +904,7 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
            "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
            "kernel_names": sorted(names), "kernel_head_dim": dk,
            "expects_kernel": symbol, "ran_expected_kernel_only": ran_new,
-           "ptxas": _ptxas_of("flash_attention", symbol, dk)}
+           "ptxas": _ptxas_of("flash_attention", symbol, dk, dtype)}
     ok = finite and over <= 1.0 and lse_err <= LSE_TOL and ran_new
     if timed:
         res["kernel_ms"] = dev
@@ -893,9 +930,24 @@ def fwd_case(*, B, S, H, KV, D, dtype, causal=True, window=None, T=None,
         res.update(fwd_bound(B=B, S=S, T=T, H=H, KV=KV, D=D, dtype=dtype,
                              causal=causal, window=window))
     # comparison and timing launches are not main-path launches
-    fa.launches, fa.launches_window = before
+    for c, n in before.items():
+        setattr(fa, c, n)
     res["ok"] = ok
     return res
+
+
+# the forward's launch counters (ops/flash_attention.py): K1 and K2, at
+# head dims up to 256 and above (the wide kernel)
+FWD_COUNTERS = ("launches", "launches_window", "launches_wide",
+                "launches_wide_window")
+
+
+def fwd_counter(D: int, window) -> str:
+    """The counter a forward launch at head dim D (and `window`) moves."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return ("launches" + ("_wide" if fa._wide(fa.kernel_head_dim(D)) else "")
+            + ("_window" if window else ""))
 
 
 def phase_k1():
@@ -904,7 +956,8 @@ def phase_k1():
     KV = 12, D 64), in bf16 and f32; untimed: ragged S = T = 200 causal and
     full, S = T = 1000 (a ragged last 128-row tile), S = T = 130 (one row
     past a tile), T = 512 > S = 256 (forward_with_cache's cache row); then
-    bf16 timed at FLASH_SMALL_TIMED's heads (head dims 16, 32, 80)."""
+    bf16 timed at FLASH_SMALL_TIMED's heads (head dims 16, 32, 80), the
+    head dims outside the presets and, above 256, FLASH_WIDE's."""
     cases = []
     timed = (("7b", dict(H=32, KV=32, D=128)),
              ("1b-gqa", dict(H=16, KV=8, D=128)),
@@ -924,7 +977,8 @@ def phase_k1():
                          dtype=dtype, seed=3, timed=False)
             r["config"] = name
             cases.append(r)
-    return cases + _small_head_fwd_cases() + _head_dim_fwd_cases(window=None)
+    return (cases + _small_head_fwd_cases() + _head_dim_fwd_cases(window=None)
+            + _wide_fwd_cases(window=None))
 
 
 # bf16 rows timed at B 8 S 1024 causal, K1 and (but for the tiny heads,
@@ -998,11 +1052,35 @@ def _head_dim_fwd_cases(window):
     return cases
 
 
+# above head dim 256 (the wide kernels, both dtypes): DeepSeek-V4-Flash's
+# head dim 512 at H 8 KV 2 (G 4), bf16 timed and f32 untimed at B 2 S 1024
+# causal (K2: its sliding window, 128), and head dim 320 at G 1, ragged S
+# 200, untimed in both dtypes
+FLASH_WIDE = (("d512", dict(B=2, S=1024, H=8, KV=2, D=512), True),
+              ("d320", dict(B=2, S=200, H=4, KV=4, D=320), False))
+WIDE_WINDOW = 128
+
+
+def _wide_fwd_cases(window):
+    """K1 (K2 under `window`) at FLASH_WIDE's shapes."""
+    cases = []
+    tag = f"-w{window}" if window else ""
+    for name, shape, timed in FLASH_WIDE:
+        for dtype in ("bfloat16", "float32"):
+            r = fwd_case(**shape, window=window, dtype=dtype, seed=6,
+                         timed=timed and dtype == "bfloat16")
+            r["config"] = name + tag
+            cases.append(r)
+    return cases
+
+
 def phase_k2():
     """K2 timed at the 1b train shape (B 8, S 1024, H 16, KV 8, D 128) with
     windows 256 and 1024 (the whole causal band), and at debug-125m's heads
     (H = KV = 12, D 64) with window 256, in bf16 and f32; untimed: ragged
-    S = T = 200 with window 64, S = T = 1000 with window 200."""
+    S = T = 200 with window 64, S = T = 1000 with window 200; then the head
+    dims outside the presets under window 96 and FLASH_WIDE's under
+    WIDE_WINDOW (128)."""
     cases = []
     timed = (("1b-w256", dict(H=16, KV=8, D=128, window=256)),
              ("1b-w1024", dict(H=16, KV=8, D=128, window=1024)),
@@ -1019,7 +1097,8 @@ def phase_k2():
                          dtype=dtype, seed=21, timed=False)
             r["config"] = name
             cases.append(r)
-    return cases + _head_dim_fwd_cases(window=96)
+    return (cases + _head_dim_fwd_cases(window=96)
+            + _wide_fwd_cases(window=WIDE_WINDOW))
 
 
 # --- K3 / K4: the flash backward ----------------------------------------------
@@ -1052,7 +1131,9 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
     v = t(rng.standard_normal((B, S, KV, D)))
     g = t(rng.standard_normal((B, S, H, D)))
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
-    before = (fa.launches_dq, fa.launches_dkdv)
+    wide = "_wide" if fa._wide(fa.kernel_head_dim(D)) else ""
+    counters = ("launches_dq" + wide, "launches_dkdv" + wide)
+    before = tuple(getattr(fa, c) for c in counters)
     got = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
                                  window=window)
     again = fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
@@ -1062,7 +1143,8 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
     tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
                              window=window)
     torch.cuda.synchronize()
-    if (fa.launches_dq, fa.launches_dkdv) != (before[0] + 2, before[1] + 2):
+    if tuple(getattr(fa, c) for c in counters) != (before[0] + 2,
+                                                   before[1] + 2):
         raise AssertionError("K3/K4 wrappers did not launch their kernels")
     res = {"shape": f"B={B} S=T={S} H={H} KV={KV} D={D}", "dtype": dtype,
            "causal": causal, "window": window,
@@ -1133,7 +1215,7 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
                     and res["ran_expected_kernels_only"]):
                 res["cluster_sizes"] = fa.bwd_cluster_sizes(
                     B, S, S, H, KV, causal=causal, window=window)
-    res["ptxas"] = {sym: _ptxas_of("flash_attention_bwd", sym, dk)
+    res["ptxas"] = {sym: _ptxas_of("flash_attention_bwd", sym, dk, dtype)
                     for sym in symbols}
     if timed:
         res["plain_ms"] = cuda_ms(lambda: fa.flash_attention_bwd_reference(
@@ -1159,7 +1241,8 @@ def k3k4_case(*, B, S, H, KV, D, causal, window, dtype, seed, timed=True):
             res["library_kernels"] = sorted(lib_names)
         res.update(k3k4_bounds(B=B, S=S, H=H, KV=KV, D=D, dtype=dtype,
                                causal=causal, window=window))
-    fa.launches_dq, fa.launches_dkdv = before
+    for c, n in zip(counters, before):
+        setattr(fa, c, n)
     res["ok"] = ok
     return res
 
@@ -1173,7 +1256,9 @@ def phase_k3k4():
     untimed at B 2), bf16 alone at the tiny heads with head dim 32 and at
     H2O-Danube-1.8B's (H 32, KV 8, D 80), and untimed at head dim 16 (G 3),
     48 (zero-padded to 64), 80 (non-causal), 96 (G 7, window 96) and 256,
-    ragged S 200 (256 under the window)."""
+    ragged S 200 (256 under the window); above 256, the wide kernels: head
+    dim 512 (FLASH_WIDE, bf16 timed at B 2 S 1024, f32 untimed) and 320
+    under window 128, untimed."""
     cases = []
     shapes = (("1b", dict(B=8, S=1024, H=16, KV=8, D=128, causal=True,
                           window=None), True),
@@ -1200,7 +1285,11 @@ def phase_k3k4():
               ("d96-g7-w96", dict(B=2, S=256, H=7, KV=1, D=96, causal=True,
                                   window=96), False),
               ("d256-g8", dict(B=2, S=200, H=8, KV=1, D=256, causal=True,
-                               window=None), False))
+                               window=None), False),
+              ("d512", dict(FLASH_WIDE[0][1], causal=True, window=None),
+               "bf16"),
+              ("d320-w128", dict(FLASH_WIDE[1][1], causal=True,
+                                 window=WIDE_WINDOW), False))
     for name, shape, timed in shapes:
         for dtype in ("bfloat16", "float32"):
             if timed == "bf16":
@@ -1243,12 +1332,23 @@ SHAPE_MODELS = {
     "danube": dict(vocab_size=32000, d_model=2560, n_layers=24,
                    n_heads=32, n_kv_heads=8, d_ff=6912, rope_theta=10000.0,
                    max_seq_len=4096, sliding_window=4096),
+    # deepseek-ai/DeepSeek-V4-Flash's attention: head dim 512 over one kv
+    # head, at its hidden size 4096 (so 8 of its 64 query heads: LlamaConfig
+    # ties d_model to heads x head dim), where the wide kernels run (its
+    # learned sparse attention, q/o low-rank projections, MoE, mHC and
+    # yarn rope are not LlamaConfig's; d_ff is its expert width); its
+    # sliding window (128) is trained apart (``_shapes_wide_window``)
+    "deepseek-v4-flash": dict(vocab_size=129280, d_model=4096, n_layers=43,
+                              n_heads=8, n_kv_heads=1, d_ff=2048,
+                              rope_theta=10000.0, max_seq_len=4096),
 }
-# served at full width, bf16: Phi-3-mini at 8 of its 32 layers, Danube at
-# 2, the others at 4 (the script's time; their attention is the same at
-# every layer)
+# served at full width, bf16: Phi-3-mini at 8 of its 32 layers, Danube and
+# DeepSeek-V4-Flash at 2, the others at 4 (the script's time; their
+# attention is the same at every layer)
 SHAPE_SERVE_LAYERS = {"phi3-mini": 8, "llama3.2-3b": 4, "gemma-2b": 4,
-                      "danube": 2}
+                      "danube": 2, "deepseek-v4-flash": 2}
+# served with the K5 path over their pools
+SHAPE_K5 = ("phi3-mini", "deepseek-v4-flash")
 SHAPE_PROMPT_LENS = (64, 192, 320, 512)
 SHAPE_NEW_TOKENS = 32
 
@@ -1260,13 +1360,34 @@ def _kv_layout(cfg) -> str:
     return "paged" if cfg.sliding_window is None else "contiguous"
 
 
-def _all_kernel_launches():
+# the counters of the kernels above head dim 256, by the kernels line's
+# names: (module, counter)
+WIDE_LAUNCHES = {"flash_attention_fwd_wide": ("fa", "launches_wide"),
+                 "flash_attention_fwd_window_wide":
+                     ("fa", "launches_wide_window"),
+                 "flash_attention_bwd_dq_wide": ("fa", "launches_dq_wide"),
+                 "flash_attention_bwd_dkdv_wide":
+                     ("fa", "launches_dkdv_wide"),
+                 "paged_decode_attention_inplace_wide":
+                     ("pa", "launches_wide"),
+                 "paged_attention_wide": ("pa", "launches_read_wide")}
+
+
+def _wide_modules():
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
 
+    return {"fa": fa, "pa": pa}
+
+
+def _all_kernel_launches():
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    mods = _wide_modules()
     return {**_train_launches(),
             "paged_decode_attention_inplace": pa.launches,
-            "paged_attention": pa.launches_read}
+            "paged_attention": pa.launches_read,
+            **{n: getattr(mods[m], c) for n, (m, c) in WIDE_LAUNCHES.items()}}
 
 
 def _set_all_kernel_launches(counts):
@@ -1275,6 +1396,9 @@ def _set_all_kernel_launches(counts):
     _set_train_launches(counts)
     pa.launches = counts["paged_decode_attention_inplace"]
     pa.launches_read = counts["paged_attention"]
+    mods = _wide_modules()
+    for n, (m, c) in WIDE_LAUNCHES.items():
+        setattr(mods[m], c, counts[n])
 
 
 def _attention_grads_held(cfg, device, seed):
@@ -1410,6 +1534,32 @@ def _shapes_tiny_bf16(device):
     return _shapes_bf16_grads(cfg, params, batch, device, grads_f32)
 
 
+def _shapes_wide_window(cfg, device):
+    """DeepSeek-V4-Flash's attention (`cfg`, head dim 512) under its
+    sliding window (WIDE_WINDOW, 128) cut to 2 layers, flash, B 1 S 384 (so
+    the window binds), from one seeded init on `device`: loss_fn's
+    gradients in f32, then in bf16 compute against them
+    (``_shapes_bf16_grads``: on the card the wide K2 and K3/K4 by name)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import train_step as ts
+
+    cfg = cfg.replace(n_layers=2, dtype=torch.float32, attn_impl="flash",
+                      sliding_window=WIDE_WINDOW, max_seq_len=512)
+    params = llama.init_params(
+        torch.Generator(device=device).manual_seed(0), cfg)
+    batch = np.random.default_rng(17).integers(0, cfg.vocab_size,
+                                               size=(1, 385))
+    p = ts._map(lambda t: t.detach().clone().requires_grad_(True), params)
+    llama.loss_fn(p, {"tokens": torch.as_tensor(batch, device=device)},
+                  cfg).backward()
+    grads_f32 = [t.grad.float() for t in ts._leaves(p)]
+    del p
+    return _shapes_bf16_grads(cfg, params, batch, device, grads_f32)
+
+
 def _shapes_card_vs_cpu(cfg, device):
     """`cfg` cut to 2 layers, f32 (no TF32), flash, from one seeded init on
     `device` and on the CPU: prefill logits of 2 prompts (bucket 256)
@@ -1488,8 +1638,9 @@ def _shapes_serve(cfg, layers, device, k5=False):
     SHAPE_PROMPT_LENS prompts greedily, SHAPE_NEW_TOKENS each, submitted at
     once; TTFT, decode tokens/s, peak memory. Paged on the card: then,
     with those slots live again, two decode steps traced, whose split
-    kernels must all be the ring kernel (bf16), and (k5) the K5 path over
-    the engine's pools (``k5_path``)."""
+    kernels must all be ``paged_symbol``'s (bf16: the ring kernel, the
+    any-shape one above head dim 256), and (k5) the K5 path over the
+    engine's pools (``k5_path``)."""
     import numpy as np
     import torch
 
@@ -1544,8 +1695,11 @@ def _shapes_serve(cfg, layers, device, k5=False):
         device_ms(lambda: eng.step_n(2), iters=1, names=names)
         res["decode_paged_kernels"] = sorted(n for n in names
                                              if "paged_decode" in n)
-        res["decode_ran_ring_only"] = ran_paged_only(names, RING_SYMBOL)
-        res["ok"] = res["ok"] and res["decode_ran_ring_only"]
+        res["decode_expects_kernel"] = paged_symbol(
+            "bfloat16", cfg.head_dim, cfg.n_heads // cfg.n_kv_heads)
+        res["decode_ran_expected_only"] = ran_paged_only(
+            names, res["decode_expects_kernel"])
+        res["ok"] = res["ok"] and res["decode_ran_expected_only"]
         if k5:
             res["k5_path"] = k5_path(eng)
             res["ok"] = res["ok"] and res["k5_path"]["ok"]
@@ -1591,14 +1745,18 @@ def _shapes_train(device):
 def phase_shapes(device="cuda", models=None, serve_layers=None):
     """The attention kernels at public model shapes outside the presets
     (SHAPE_MODELS): Phi-3-mini (head dim 96), Llama-3.2-3B (G 3),
-    Gemma-2B's attention (head dim 256, G 8) and H2O-Danube-1.8B (head dim
-    80, G 4, sliding window). (a) each at full width cut to 2 layers, f32,
-    card vs CPU (``_shapes_card_vs_cpu``); (b) each served at full width in
-    bf16 (``_shapes_serve``): Phi-3-mini at 8 of its 32 layers (with the K5
-    path over its pools), Danube at 2, the others at 4; (c) the tiny
-    presets' training with flash (head dim 16; ``_shapes_train``); (d) the
-    tiny Llama preset's bf16 gradients against its f32 ones, through the
-    small-head kernels (``_shapes_tiny_bf16``).
+    Gemma-2B's attention (head dim 256, G 8), H2O-Danube-1.8B (head dim
+    80, G 4, sliding window) and DeepSeek-V4-Flash's attention (head dim
+    512, G 8: the wide kernels). (a) each at full width cut to 2 layers,
+    f32, card vs CPU (``_shapes_card_vs_cpu``); (b) each served at full
+    width in bf16 (``_shapes_serve``): Phi-3-mini at 8 of its 32 layers,
+    Danube and DeepSeek-V4-Flash at 2, the others at 4, Phi-3-mini and
+    DeepSeek-V4-Flash with the K5 path over their pools (SHAPE_K5);
+    (c) the tiny presets' training with flash (head dim 16;
+    ``_shapes_train``); (d) the tiny Llama preset's bf16 gradients against
+    its f32 ones, through the small-head kernels (``_shapes_tiny_bf16``);
+    (e) DeepSeek-V4-Flash's sliding window, the wide K2
+    (``_shapes_wide_window``).
     The launch counters are set to 0 just before and read just after;
     the attention comparisons of (a) are not counted."""
     import torch
@@ -1619,13 +1777,13 @@ def phase_shapes(device="cuda", models=None, serve_layers=None):
         ok = ok and r["ok"]
         if on_card:
             torch.cuda.empty_cache()
-    k5 = 0
+    k5 = {"paged_attention": 0, "paged_attention_wide": 0}
     for name, kw in models.items():
         t0 = time.perf_counter()
         r = _shapes_serve(llama.LlamaConfig(**kw), serve_layers[name],
-                          device, k5=name == "phi3-mini")
-        k5 += r.get("k5_path", {}).get("launches", {}).get(
-            "paged_attention", 0)
+                          device, k5=name in SHAPE_K5)
+        for n in k5:
+            k5[n] += r.get("k5_path", {}).get("launches", {}).get(n, 0)
         res["serve"][name] = r
         res["seconds"][f"serve/{name}"] = time.perf_counter() - t0
         ok = ok and r["ok"]
@@ -1639,11 +1797,18 @@ def phase_shapes(device="cuda", models=None, serve_layers=None):
     res["tiny_bf16"] = _shapes_tiny_bf16(device)
     res["seconds"]["tiny_bf16"] = time.perf_counter() - t0
     ok = ok and res["tiny_bf16"]["ok"]
+    if "deepseek-v4-flash" in models:
+        t0 = time.perf_counter()
+        res["wide_window"] = _shapes_wide_window(
+            llama.LlamaConfig(**models["deepseek-v4-flash"]), device)
+        res["seconds"]["wide_window"] = time.perf_counter() - t0
+        ok = ok and res["wide_window"]["ok"]
     launches = _all_kernel_launches()
-    launches["paged_attention"] = k5
+    launches.update(k5)
     res["launches"] = launches
     if on_card:
-        # every kernel ran (K2 in Danube's prefills)
+        # every kernel ran (K2 in Danube's prefills; the wide ones in
+        # DeepSeek-V4-Flash's runs)
         ok = ok and all(n > 0 for n in launches.values())
     res["ok"] = ok
     return res
@@ -6474,11 +6639,13 @@ def k5_path(eng):
     g = torch.Generator(device="cuda").manual_seed(8)
     q = torch.randn((eng.max_slots, cfg.n_heads, cfg.head_dim), generator=g,
                     device="cuda").to(cfg.dtype)
-    pa.launches_read = 0
+    counter = paged_counters(cfg.head_dim)[1]
+    name = "paged_attention" + ("_wide" if cfg.head_dim > 256 else "")
+    setattr(pa, counter, 0)
     outs = [pa.paged_attention(q, eng.kp[i], eng.vp[i], pt, ln)
             for i in range(cfg.n_layers)]
     torch.cuda.synchronize()
-    launches = {"paged_attention": pa.launches_read}
+    launches = {name: getattr(pa, counter)}
     err = over = 0.0
     dead_zero = finite = True
     for i, o in enumerate(outs):
@@ -6492,7 +6659,7 @@ def k5_path(eng):
            "max_abs_err": err, "max_err_over_tol": over,
            "dead_slots_zero": dead_zero}
     res["ok"] = (finite and over <= 1.0 and dead_zero
-                 and launches["paged_attention"] == cfg.n_layers
+                 and launches[name] == cfg.n_layers
                  and res["live_slots"] > 0)
     return res
 
@@ -6745,12 +6912,18 @@ def ran_only(names, symbol) -> bool:
     return bool(names) and all(symbol in n for n in names)
 
 
-def _ptxas_of(source: str, symbol: str, head_dim: int) -> list:
+def _ptxas_of(source: str, symbol: str, head_dim: int,
+              dtype: str = "bfloat16") -> list:
     """The build phase's ptxas lines ("registers; spills") of the entry
     functions of `source` that instantiate kernel `symbol` at `head_dim`
-    (its mangled name holds ``<symbol>ILi<head_dim>E``)."""
+    (its mangled name holds ``<symbol>ILi<head_dim>E``); above 256, where
+    the kernels take the head dim at run time, its instances of `dtype`
+    (``<symbol>I13__nv_bfloat16`` or ``<symbol>If``)."""
     logs = RESULTS["phases"].get("build", {}).get("ptxas", {}).get(source, {})
-    key = f"{symbol}ILi{head_dim}E"
+    if head_dim > 256:
+        key = symbol + ("I13__nv_bfloat16" if dtype == "bfloat16" else "If")
+    else:
+        key = f"{symbol}ILi{head_dim}E"
     return sorted({v for n, v in logs.items() if key in n})
 
 
@@ -6828,10 +7001,17 @@ def _run_phase(ph: str) -> bool:
                 if (_build.BUILD_DIR / f"{n}.log").is_file()}
         ring = {n: v for n, v in logs.get("paged_attention", {}).items()
                 if RING_SYMBOL in n}
+        # the kernels above head dim 256 (every instance of them)
+        wide = {n: v for src in logs.values() for n, v in src.items()
+                if any(sym in n for sym in (WIDE_FWD_SYMBOL, WIDE_DQ_SYMBOL,
+                                            WIDE_DKDV_SYMBOL, ANY_SYMBOL))}
         emit("build", seconds=time.perf_counter() - t0, per_source_s=took,
              ptxas=logs, ring_ptxas=ring, ring_spill_free=bool(ring) and all(
                  "0 bytes spill stores, 0 bytes spill loads" in v
-                 for v in ring.values()))
+                 for v in ring.values()),
+             wide_ptxas=wide, wide_spill_free=bool(wide) and all(
+                 "0 bytes spill stores, 0 bytes spill loads" in v
+                 for v in wide.values()))
         return True
     if ph in KERNEL_PHASES:
         t0 = time.perf_counter()
@@ -6963,6 +7143,28 @@ def main() -> int:
          "ray_tpu/ops/paged_attention.py:127", case("k6", "7b"), ""),
         ("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu",
          "ray_tpu/ops/paged_attention.py:61", case("k5", "7b"), ""),
+    ]
+    # the same six above head dim 256 (the wide kernels; the paged ones the
+    # any-shape kernel), timed at head dim 512
+    wide34 = case("k3k4", "d512")
+    rows += [
+        ("flash_attention_fwd_wide", "ray_tpu_torch/csrc/flash_attention.cu",
+         "ray_tpu/ops/flash_attention.py:37", case("k1", "d512"), ""),
+        ("flash_attention_fwd_window_wide",
+         "ray_tpu_torch/csrc/flash_attention.cu",
+         "ray_tpu/ops/flash_attention.py:123",
+         case("k2", f"d512-w{WIDE_WINDOW}"), ""),
+        ("flash_attention_bwd_dq_wide",
+         "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+         "ray_tpu/ops/flash_attention.py:251", wide34, "k3_"),
+        ("flash_attention_bwd_dkdv_wide",
+         "ray_tpu_torch/csrc/flash_attention_bwd.cu",
+         "ray_tpu/ops/flash_attention.py:297", wide34, "k4_"),
+        ("paged_decode_attention_inplace_wide",
+         "ray_tpu_torch/csrc/paged_attention.cu",
+         "ray_tpu/ops/paged_attention.py:127", case("k6", "hd512"), ""),
+        ("paged_attention_wide", "ray_tpu_torch/csrc/paged_attention.cu",
+         "ray_tpu/ops/paged_attention.py:61", case("k5", "hd512"), ""),
     ]
     emit("kernel_status", ported=[r[0] for r in rows], to_port=TO_PORT)
     for name, src, rep, c, pre in rows:

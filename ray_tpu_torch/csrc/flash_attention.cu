@@ -19,10 +19,11 @@
 // operations. Either way the S x T scores must never reach device memory,
 // and only wgmma reaches the tensor cores' full rate.
 //
-// Three kernels, chosen explicitly by dtype and head dim in launch_d (head
+// Four kernels, chosen explicitly by dtype and head dim in launch_d (head
 // dims 16, 32, 64, 80, 96, 128 and 256 are compiled; other head dims <=
 // 256 are zero-padded to the next compiled one by the wrapper,
-// ops/flash_attention.py):
+// ops/flash_attention.py) and, above 256, the wide kernel at any head dim
+// that is a multiple of 8 (the wrapper zero-pads the rest):
 //
 // bf16, head dims 64, 80, 96, 128 and 256 (every card preset; H2O-Danube's
 // and Phi-2's 80, Phi-3-mini's 96, Gemma-2B's 256), flash_fwd_wgmma_kernel:
@@ -93,6 +94,13 @@
 // version to rounding; 32-row query tiles at head dim 256, whose 64-row
 // tiles would not fit shared memory.
 //
+// Head dims above 256 (DeepSeek-V4-Flash's 512), both dtypes,
+// flash_fwd_wide_kernel: the head dim is a run-time argument and the
+// block owns one 64-column chunk of the output, so no tile grows with it
+// (wide_head.cuh). Its scores are recomputed once a column chunk, on the
+// CUDA cores: right first, far from the bound; a TMA/wgmma design is later
+// work.
+//
 // The ragged edge (S or T not a multiple of the tile) is masked: rows past
 // T read as zeros and are scored -1e30, rows past S are not stored. A row
 // whose keys in a tile are all masked (the band's first tile under a
@@ -107,6 +115,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "small_head.cuh"
+#include "wide_head.cuh"
 
 namespace {
 
@@ -899,6 +908,155 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
   }
 }
 
+// ------------------------------------------- head dims above 256, wide ---
+
+// K1/K2 at a head dim D above 256 (a multiple of 8, no upper limit), both
+// dtypes: one block per (32 query rows, 64-column chunk of the output,
+// head, batch). For each K/V tile of 64 keys in the band, the scores sum
+// over every column chunk of q and k (wide_head.cuh), then the online
+// softmax (in natural-log units; bf16 rounds p before p . V, as the TPU
+// kernel and flash_fwd_wgmma_kernel do) and O += P V on the block's own 64
+// columns of V. The block of column chunk 0 also stores the LSE. (Without
+// the minimum of one block an SM in its launch bounds, ptxas held four of
+// the six instances to 72-80 registers and spilled 24-36 bytes.)
+template <typename T, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(WD_NT, 1) flash_fwd_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int S, int T_len, int H, int KV, int D, int window, float scale) {
+  extern __shared__ __align__(16) float wsm[];
+  float* Qs = wsm;                 // [32, WD_LD] a column chunk of q
+  float* Ks = Qs + WD_R * WD_LD;   // [64, WD_LD] and of k
+  float* Ps = Ks + WD_C * WD_LD;   // [32, WD_LD] p
+  float* Vs = Ps + WD_R * WD_LD;   // [64, WD_DC] the block's columns of v
+
+  const int nc = wd_chunks(D);
+  const int chunk = blockIdx.x % nc;
+  // causal tiles near the end do the most work: schedule them first
+  const int q0 = (gridDim.x / nc - 1 - blockIdx.x / nc) * WD_R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int r0 = wd_row(threadIdx.x);
+  const int cc = wd_col(threadIdx.x);
+
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)KV * D;
+  const T* qb = q + (((size_t)b * S + q0) * H + h) * D;
+  const T* kb = k + ((size_t)b * T_len * KV + kvh) * D;
+  const T* vb = v + ((size_t)b * T_len * KV + kvh) * D;
+
+  int n_k = (T_len + WD_C - 1) / WD_C;
+  int kt_lo = 0;
+  if (CAUSAL) {
+    n_k = min(n_k, (q0 + WD_R - 1) / WD_C + 1);
+    if (WINDOW) kt_lo = max(0, q0 - window + 1) / WD_C;
+  }
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -1e30f;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int kt = kt_lo; kt < n_k; ++kt) {
+    const int k0 = kt * WD_C;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int t = 0; t < nc; ++t) {
+      const int c0 = ((chunk + 1 + t) % nc) * WD_DC;
+      __syncthreads();  // the previous chunk (and tile) is no longer read
+      wd_load<WD_R>(Qs, WD_LD, qb, q_stride, S - q0, c0, D);
+      wd_load<WD_C>(Ks, WD_LD, kb + (size_t)k0 * kv_stride, kv_stride,
+                    T_len - k0, c0, D);
+      if (t == 0)
+        wd_load<WD_C>(Vs, WD_DC, vb + (size_t)k0 * kv_stride, kv_stride,
+                      T_len - k0, chunk * WD_DC, D);
+      __syncthreads();
+      wd_dot(s, Qs, Ks);
+    }
+    // mask, then the online-softmax step; p to shared memory
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + r0 + i;
+      float x[4];
+      float mx = -1e30f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + cc + 16 * j;
+        const bool keep = kpos < T_len &&
+                          (!CAUSAL || (kpos <= qpos &&
+                                       (!WINDOW || qpos - kpos < window)));
+        x[j] = keep ? s[i][j] * scale : -1e30f;
+        mx = fmaxf(mx, x[j]);
+      }
+      const float m_new = fmaxf(m[i], wd_row_max(mx));
+      // under a window a row may have no visible key yet: p = 0
+      const float m_exp = WINDOW && m_new <= -1e29f ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(x[j] - m_exp);
+        sum += p;
+        Ps[(r0 + i) * WD_LD + cc + 16 * j] = to_f32(from_f32<T>(p));
+      }
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + wd_row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();  // p complete
+    wd_update(acc, Ps, Vs, WD_DC);
+  }
+
+  // l >= 1 on a row with a visible key (its max contributes exp(0)), where
+  // the approximate reciprocal is within 2 ulp
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) inv[i] = __fdividef(1.f, fmaxf(l[i], 1e-30f));
+  wd_store(o + (((size_t)b * S + q0) * H + h) * D, q_stride, S - q0,
+           chunk * WD_DC, D, acc, inv);
+  if (chunk == 0 && cc == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + r0 + i;
+      if (qpos < S)
+        lse[((size_t)b * H + h) * S + qpos] =
+            m[i] + logf(fmaxf(l[i], 1e-30f));
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(int causal, int window, const void* q, const void* k,
+                const void* v, void* o, void* lse, int B, int S, int T_len,
+                int H, int KV, int D, float scale, cudaStream_t st) {
+  if (D % WD_MULTIPLE != 0 || H > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_x =
+      (long long)((S + WD_R - 1) / WD_R) * wd_chunks(D);
+  if (n_x > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float) * ((size_t)(2 * WD_R + WD_C) * WD_LD + WD_C * WD_DC);
+  auto kernel = window > 0 ? flash_fwd_wide_kernel<T, true, true>
+                : causal   ? flash_fwd_wide_kernel<T, true, false>
+                           : flash_fwd_wide_kernel<T, false, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(static_cast<unsigned>(n_x), H, B), WD_NT, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      S, T_len, H, KV, D, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // --------------------------------------------------------------- launch ---
 
 template <int D>
@@ -953,6 +1111,13 @@ extern "C" int flash_attention_fwd(int dtype, int causal, int window,
     case 96: return launch_d<96>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
     case 128: return launch_d<128>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
     case 256: return launch_d<256>(dtype, causal, window, q, k, v, o, lse, B, S, T_len, H, KV, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (D <= 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == RT_BF16)
+    return launch_wide<__nv_bfloat16>(causal, window, q, k, v, o, lse, B, S,
+                                      T_len, H, KV, D, scale, st);
+  if (dtype == RT_F32)
+    return launch_wide<float>(causal, window, q, k, v, o, lse, B, S, T_len,
+                              H, KV, D, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -158,6 +158,13 @@
 // dim 256 a warp takes 8 rows (queries in K3, keys in K4) instead of 16, so
 // the tiles fit shared memory and the accumulators registers.
 //
+// Head dims above 256 (DeepSeek-V4-Flash's 512), both dtypes,
+// flash_bwd_dq_wide_kernel and flash_bwd_dkdv_wide_kernel: the head dim is
+// a run-time argument (a multiple of 8; the wrapper zero-pads the rest)
+// and a block owns one 64-column chunk of dq (dk and dv), so no tile grows
+// with it (wide_head.cuh). S and dP are recomputed once a column chunk, on
+// the CUDA cores in f32: right first, far from the bound.
+//
 // The ragged edge (S or T not a multiple of 64) is masked: rows past the
 // edge are zero-filled and get P = 0, and are not stored. Masked entries get
 // P = 0 explicitly (never exp of -1e30 against an lse), so rows or keys
@@ -169,6 +176,7 @@
 #include "common.cuh"
 #include "hopper.cuh"
 #include "small_head.cuh"
+#include "wide_head.cuh"
 
 namespace {
 
@@ -2160,6 +2168,282 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkdv_f32_kernel(
   }
 }
 
+// ------------------------------------------- head dims above 256, wide ---
+
+// K3 at a head dim D above 256 (a multiple of 8, no upper limit), both
+// dtypes: one block per (32 query rows, 64-column chunk of dq, head,
+// batch). delta = rowsum(o * dO) over all of D first (the blocks of
+// column chunk 0 store it for K4); then for each K/V tile of 64 keys in
+// the band, S = q k^T and dP = dO v^T sum over every column chunk
+// (wide_head.cuh), P = exp(S scale - lse), dS = P (dP - delta) scale, and
+// dq += dS k on the block's own 64 columns of k (its chunk is the last
+// one staged). P and dS stay f32.
+template <typename T, bool CAUSAL>
+__global__ void __launch_bounds__(WD_NT) flash_bwd_dq_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ o,
+    const T* __restrict__ g, const float* __restrict__ lse,
+    T* __restrict__ dq, float* __restrict__ delta, int S, int T_len, int H,
+    int KV, int D, int window, float scale) {
+  extern __shared__ __align__(16) float wsm[];
+  float* Qs = wsm;                 // [32, WD_LD] a column chunk of q
+  float* Gs = Qs + WD_R * WD_LD;   // [32, WD_LD] of dO
+  float* Ks = Gs + WD_R * WD_LD;   // [64, WD_LD] of k
+  float* Vs = Ks + WD_C * WD_LD;   // [64, WD_LD] of v
+  float* Ps = Vs + WD_C * WD_LD;   // [32, WD_LD] dS
+  float* row_sh = Ps + WD_R * WD_LD;  // [32] lse, then [32] delta
+
+  const int nc = wd_chunks(D);
+  const int chunk = blockIdx.x % nc;
+  const int q0 = (gridDim.x / nc - 1 - blockIdx.x / nc) * WD_R;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int tid = threadIdx.x;
+  const int r0 = wd_row(tid);
+  const int cc = wd_col(tid);
+
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)KV * D;
+  const size_t head = (((size_t)b * S + q0) * H + h) * D;
+  const T* kb = k + ((size_t)b * T_len * KV + kvh) * D;
+  const T* vb = v + ((size_t)b * T_len * KV + kvh) * D;
+
+  // delta over all of D: 4 lanes a row, 8 columns a load
+  {
+    const int r = tid >> 2;
+    const int row = q0 + r;
+    float a = 0.f;
+    if (row < S) {
+      const T* orow = o + head + (size_t)r * q_stride;
+      const T* grow = g + head + (size_t)r * q_stride;
+      for (int d = (tid & 3) * 8; d < D; d += 32) {
+        float x[8], y[8];
+        wd_load8(orow + d, x);
+        wd_load8(grow + d, y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a = fmaf(x[e], y[e], a);
+      }
+    }
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    a += __shfl_xor_sync(0xffffffffu, a, 2);
+    if ((tid & 3) == 0) {
+      const size_t li = ((size_t)b * H + h) * S + row;
+      row_sh[r] = row < S ? lse[li] : 0.f;
+      row_sh[WD_R + r] = a;
+      if (chunk == 0 && row < S) delta[li] = a;
+    }
+  }
+
+  int kt_lo = 0;
+  int kt_hi = (T_len + WD_C - 1) / WD_C;
+  if (CAUSAL) {
+    kt_hi = min(kt_hi, (q0 + WD_R - 1) / WD_C + 1);
+    if (window > 0) kt_lo = max(0, q0 - window + 1) / WD_C;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * WD_C;
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int t = 0; t < nc; ++t) {
+      const int c0 = ((chunk + 1 + t) % nc) * WD_DC;
+      __syncthreads();  // the previous chunk (and tile's dS) is not read
+      wd_load<WD_R>(Qs, WD_LD, q + head, q_stride, S - q0, c0, D);
+      wd_load<WD_R>(Gs, WD_LD, g + head, q_stride, S - q0, c0, D);
+      wd_load<WD_C>(Ks, WD_LD, kb + (size_t)k0 * kv_stride, kv_stride,
+                    T_len - k0, c0, D);
+      wd_load<WD_C>(Vs, WD_LD, vb + (size_t)k0 * kv_stride, kv_stride,
+                    T_len - k0, c0, D);
+      __syncthreads();
+      wd_dot(s, Qs, Ks);
+      wd_dot(dp, Gs, Vs);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + r0 + i;
+      const float m = row_sh[r0 + i];
+      const float dl = row_sh[WD_R + r0 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = visible<CAUSAL>(row, k0 + cc + 16 * j, S, T_len,
+                                        window)
+                            ? expf(s[i][j] * scale - m) : 0.f;
+        Ps[(r0 + i) * WD_LD + cc + 16 * j] = p * (dp[i][j] - dl) * scale;
+      }
+    }
+    __syncthreads();  // dS complete
+    wd_update(acc, Ps, Ks, WD_LD);  // dq += dS k, the block's columns
+  }
+
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  wd_store(dq + head, q_stride, S - q0, chunk * WD_DC, D, acc, one);
+}
+
+// K4 at a head dim D above 256, both dtypes: one block per (32 keys,
+// 64-column chunk of dk and dv, kv head, batch). For every query head of
+// the kv head (the GQA groups summed in the block, no atomics) and every
+// query tile of 64 rows that sees the block's keys: S^T = k q^T and dP^T =
+// v dO^T over every column chunk, P^T from the LSE, dS^T = P^T (dP^T -
+// delta) scale, then dv += P^T dO and dk += dS^T q on the block's own 64
+// columns (its chunk is the last one staged).
+template <typename T, bool CAUSAL>
+__global__ void __launch_bounds__(WD_NT) flash_bwd_dkdv_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, int S, int T_len, int H, int KV,
+    int D, int window, float scale) {
+  extern __shared__ __align__(16) float wsm[];
+  float* Ks = wsm;                 // [32, WD_LD] a column chunk of k
+  float* Vs = Ks + WD_R * WD_LD;   // [32, WD_LD] of v
+  float* Qs = Vs + WD_R * WD_LD;   // [64, WD_LD] of q
+  float* Gs = Qs + WD_C * WD_LD;   // [64, WD_LD] of dO
+  float* Ps = Gs + WD_C * WD_LD;   // [32, WD_LD] P^T
+  float* Ds = Ps + WD_R * WD_LD;   // [32, WD_LD] dS^T
+  float* lse_sh = Ds + WD_R * WD_LD;  // [64]
+  float* dl_sh = lse_sh + WD_C;       // [64]
+
+  const int nc = wd_chunks(D);
+  const int chunk = blockIdx.x % nc;
+  const int k0 = (blockIdx.x / nc) * WD_R;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int groups = H / KV;
+  const int tid = threadIdx.x;
+  const int r0 = wd_row(tid);
+  const int cc = wd_col(tid);
+
+  const size_t q_stride = (size_t)H * D;
+  const size_t kv_stride = (size_t)KV * D;
+  const size_t kv_off = (((size_t)b * T_len + k0) * KV + kvh) * D;
+
+  int qt_lo = 0;
+  int qt_hi = (S + WD_C - 1) / WD_C;
+  if (CAUSAL) {
+    qt_lo = k0 / WD_C;
+    if (window > 0)
+      qt_hi = min(qt_hi, (k0 + WD_R - 1 + window - 1) / WD_C + 1);
+  }
+  float dka[4][4], dva[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
+
+  for (int gi = 0; gi < groups; ++gi) {
+    const int hh = kvh * groups + gi;
+    for (int qt = qt_lo; qt < qt_hi; ++qt) {
+      const int q0 = qt * WD_C;
+      const size_t off = (((size_t)b * S + q0) * H + hh) * D;
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int t = 0; t < nc; ++t) {
+        const int c0 = ((chunk + 1 + t) % nc) * WD_DC;
+        __syncthreads();  // the previous chunk (and tile's P, dS) is not read
+        wd_load<WD_R>(Ks, WD_LD, k + kv_off, kv_stride, T_len - k0, c0, D);
+        wd_load<WD_R>(Vs, WD_LD, v + kv_off, kv_stride, T_len - k0, c0, D);
+        wd_load<WD_C>(Qs, WD_LD, q + off, q_stride, S - q0, c0, D);
+        wd_load<WD_C>(Gs, WD_LD, g + off, q_stride, S - q0, c0, D);
+        if (t == 0 && tid < WD_C) {
+          const int row = q0 + tid;
+          const size_t li = ((size_t)b * H + hh) * S + row;
+          lse_sh[tid] = row < S ? lse[li] : 0.f;
+          dl_sh[tid] = row < S ? delta[li] : 0.f;
+        }
+        __syncthreads();
+        wd_dot(s, Ks, Qs);
+        wd_dot(dp, Vs, Gs);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + r0 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = cc + 16 * j;
+          const float p = visible<CAUSAL>(q0 + c, key, S, T_len, window)
+                              ? expf(s[i][j] * scale - lse_sh[c]) : 0.f;
+          Ps[(r0 + i) * WD_LD + c] = p;
+          Ds[(r0 + i) * WD_LD + c] = p * (dp[i][j] - dl_sh[c]) * scale;
+        }
+      }
+      __syncthreads();  // P^T and dS^T complete
+      wd_update(dva, Ps, Gs, WD_LD);  // dv += P^T dO
+      wd_update(dka, Ds, Qs, WD_LD);  // dk += dS^T q
+    }
+  }
+
+  const float one[4] = {1.f, 1.f, 1.f, 1.f};
+  wd_store(dk + kv_off, kv_stride, T_len - k0, chunk * WD_DC, D, dka, one);
+  wd_store(dv + kv_off, kv_stride, T_len - k0, chunk * WD_DC, D, dva, one);
+}
+
+// the grid's x extent of a wide launch over `rows` rows (queries in K3,
+// keys in K4); 0 where it exceeds the grid's limit
+inline unsigned wide_grid_x(int rows, int D) {
+  const long long n = (long long)((rows + WD_R - 1) / WD_R) * wd_chunks(D);
+  return n > 0x7fffffffLL ? 0u : static_cast<unsigned>(n);
+}
+
+template <typename T>
+int launch_dq_wide(int causal, int window, const void* q, const void* k,
+                   const void* v, const void* o, const void* g,
+                   const void* lse, void* dq, void* delta, int B, int S,
+                   int T_len, int H, int KV, int D, float scale,
+                   cudaStream_t st) {
+  const unsigned nx = wide_grid_x(S, D);
+  if (D % WD_MULTIPLE != 0 || nx == 0 || H > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float) * ((size_t)(3 * WD_R + 2 * WD_C) * WD_LD + 2 * WD_R);
+  auto kernel = causal ? flash_bwd_dq_wide_kernel<T, true>
+                       : flash_bwd_dq_wide_kernel<T, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(nx, H, B), WD_NT, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<T*>(dq), static_cast<float*>(delta), S, T_len, H, KV, D,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dkdv_wide(int causal, int window, const void* q, const void* k,
+                     const void* v, const void* g, const void* lse,
+                     const void* delta, void* dk, void* dv, int B, int S,
+                     int T_len, int H, int KV, int D, float scale,
+                     cudaStream_t st) {
+  const unsigned nx = wide_grid_x(T_len, D);
+  if (D % WD_MULTIPLE != 0 || nx == 0 || KV > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float) * ((size_t)(4 * WD_R + 2 * WD_C) * WD_LD + 2 * WD_C);
+  auto kernel = causal ? flash_bwd_dkdv_wide_kernel<T, true>
+                       : flash_bwd_dkdv_wide_kernel<T, false>;
+  cudaError_t err = rt_set_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(nx, KV, B), WD_NT, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), S, T_len, H, KV, D, window,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // --------------------------------------------------------------- launch ---
 
 template <int D>
@@ -2253,8 +2537,15 @@ extern "C" int flash_attention_bwd_dq(
     case 96: return launch_dq<96>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
     case 128: return launch_dq<128>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
     case 256: return launch_dq<256>(dtype, causal, window, q, k, v, o, g, lse, dq, delta, B, S, T_len, H, KV, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (D <= 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == RT_BF16)
+    return launch_dq_wide<bf16>(causal, window, q, k, v, o, g, lse, dq,
+                                delta, B, S, T_len, H, KV, D, scale, st);
+  if (dtype == RT_F32)
+    return launch_dq_wide<float>(causal, window, q, k, v, o, g, lse, dq,
+                                 delta, B, S, T_len, H, KV, D, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The cluster size (blocks) bf16 K3 (dkdv 0) or K4 (dkdv 1) launch with at
@@ -2286,6 +2577,13 @@ extern "C" int flash_attention_bwd_dkdv(
     case 96: return launch_dkdv<96>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
     case 128: return launch_dkdv<128>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
     case 256: return launch_dkdv<256>(dtype, causal, window, q, k, v, g, lse, delta, dk, dv, B, S, T_len, H, KV, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (D <= 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == RT_BF16)
+    return launch_dkdv_wide<bf16>(causal, window, q, k, v, g, lse, delta,
+                                  dk, dv, B, S, T_len, H, KV, D, scale, st);
+  if (dtype == RT_F32)
+    return launch_dkdv_wide<float>(causal, window, q, k, v, g, lse, delta,
+                                   dk, dv, B, S, T_len, H, KV, D, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

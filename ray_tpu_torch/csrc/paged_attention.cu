@@ -20,8 +20,8 @@
 // bytes in flight on every SM (3.35 TB/s x ~1 us of latency: ~25 KB an
 // SM), and spend little on anything else.
 //
-// bf16 at head dims that are a multiple of 8 (every preset and public
-// shape): paged_decode_ring_kernel, the reference's own page-by-page
+// bf16 at head dims up to 256 that are a multiple of 8 (every preset and
+// public shape but DeepSeek-V4-Flash's 512): paged_decode_ring_kernel, the reference's own page-by-page
 // algorithm (grid (S, KV, maxP); [G, HD] . [HD, ps] scores, an online max
 // and sum, acc += P V a page) in Hopper's terms:
 //   * a split of pps pages a block: grid (splits, S, KV x head chunks),
@@ -68,7 +68,9 @@
 //
 // f32 (parity runs): paged_decode_split_kernel at G 1, 2, 4, 8 and rows of
 // a power of two of 16-byte chunks (every preset), else
-// paged_decode_split_any_kernel (as bf16 at HD 100): CUDA-core FMAs on
+// paged_decode_split_any_kernel (as bf16 at HD 100, and bf16 and f32 at
+// every head dim above 256, where p . V walks the split's V rows once for
+// each 1,024 columns in bf16 and 512 in f32): CUDA-core FMAs on
 // 16-byte loads (or one element where HD is not a multiple of a vector),
 // 256-token splits, the scores of a split in shared memory and an exact
 // softmax there, HD / 4 lanes (or a power of two of lanes, with a lane
@@ -113,12 +115,26 @@ struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
 };
 
+// one 16-byte vector from p as f32; a bf16 is the high half of its f32,
+// so each widens by a shift of the loaded words
 template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[Vec<T>::N]) {
+__device__ __forceinline__ void load_vec(const T* p, float (&out)[Vec<T>::N]);
+template <>
+__device__ __forceinline__ void load_vec<float>(const float* p,
+                                                float (&out)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+}
+template <>
+__device__ __forceinline__ void load_vec<__nv_bfloat16>(
+    const __nv_bfloat16* p, float (&out)[8]) {
   const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_f32(e[i]);
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 // Pass 1 in f32 at G in {1, 2, 4, 8} and rows of a power of two of 16-byte
@@ -298,11 +314,15 @@ __device__ __forceinline__ void load_chunk(const T* p, float (&out)[VW]) {
 
 constexpr int GC_MAX = 8;  // query heads a block of the any-shape kernel
 
-// Pass 1 for any G and HD <= 256: one block per (slot, kv head x chunk of
-// gcn query heads, split). VW: elements a lane loads at once (a 16-byte
-// vector where HD is a multiple of one, else 1).
+// Pass 1 for any G and any HD: one block per (slot, kv head x chunk of gcn
+// query heads, split). VW: elements a lane loads at once (a 16-byte vector
+// where HD is a multiple of one, else 1). Rows of more than MAXC * 128
+// chunks (HD above 1,024 in bf16, 512 in f32, 256 with VW 1) take p . V in
+// passes of that many chunks, each a walk over the split's V rows. (Without
+// the minimum of one block an SM in its launch bounds, ptxas spilled 8-20
+// bytes in two instances.)
 template <typename T, int VW, bool WRITE>
-__global__ void __launch_bounds__(K6_THREADS) paged_decode_split_any_kernel(
+__global__ void __launch_bounds__(K6_THREADS, 1) paged_decode_split_any_kernel(
     const T* __restrict__ q, const T* __restrict__ k_new,
     const T* __restrict__ v_new, T* k_pool, T* v_pool,
     const int* __restrict__ page_table, const int* __restrict__ lengths,
@@ -434,11 +454,11 @@ __global__ void __launch_bounds__(K6_THREADS) paged_decode_split_any_kernel(
   }
   __syncthreads();
 
-  // p . V: a thread owns chunk dc (and dc + 128) of every query row and
-  // every tg_n-th token
-  {
-    const int tg = nch <= K6_THREADS ? tid / nch : 0;
-    const int dc = nch <= K6_THREADS ? tid % nch : tid;
+  // p . V: in a pass from chunk cb, a thread owns chunk cb + dc (and
+  // cb + dc + 128) of every query row and every tg_n-th token
+  const int tg = nch <= K6_THREADS ? tid / nch : 0;
+  const int dc = nch <= K6_THREADS ? tid % nch : tid;
+  for (int cb = 0; cb < nch; cb += MAXC * K6_THREADS) {
     float acc[GC_MAX][MAXC * VW];
 #pragma unroll
     for (int g = 0; g < GC_MAX; ++g)
@@ -451,7 +471,7 @@ __global__ void __launch_bounds__(K6_THREADS) paged_decode_split_any_kernel(
         const T* vrow = tip ? nullptr : row_of(t, v_pool);
 #pragma unroll
         for (int j = 0; j < MAXC; ++j) {
-          const int cc = dc + j * K6_THREADS;
+          const int cc = cb + dc + j * K6_THREADS;
           if (cc >= nch) continue;
           float v[VW];
           if (tip) {
@@ -473,7 +493,7 @@ __global__ void __launch_bounds__(K6_THREADS) paged_decode_split_any_kernel(
       }
 #pragma unroll
       for (int j = 0; j < MAXC; ++j) {
-        const int cc = dc + j * K6_THREADS;
+        const int cc = cb + dc + j * K6_THREADS;
         if (cc >= nch) continue;
 #pragma unroll
         for (int g = 0; g < GC_MAX; ++g) {
@@ -485,7 +505,9 @@ __global__ void __launch_bounds__(K6_THREADS) paged_decode_split_any_kernel(
         }
       }
     }
-    __syncthreads();
+  }
+  __syncthreads();
+  {
     const size_t part = ((size_t)s * KV + kv) * n_split + split;
     for (int e = tid; e < gc * HD; e += K6_THREADS) {
       float a = 0.f;
@@ -1121,7 +1143,7 @@ int launch_any(int G, const void* q, const void* k_new, const void* v_new,
                void* part_o, void* part_ml, int S, int KV, int NP, int ps,
                int HD, int maxP, int pps, int n_split, float scale,
                cudaStream_t stream) {
-  if (HD % VW != 0 || HD > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (HD % VW != 0) return static_cast<int>(cudaErrorInvalidValue);
   int n_chunks, gcn, tg_n;
   any_geometry(G, HD, VW, n_chunks, gcn, tg_n);
   const int tps = pps * ps;
@@ -1147,8 +1169,9 @@ int launch_any(int G, const void* q, const void* k_new, const void* v_new,
       page_table, S, KV, G, HD, NP, ps, maxP, pps, n_split, 0, stream));
 }
 
-// bf16 at head dims that are a multiple of 8: the ring kernel; f32 at the
-// fixed kernel's shapes: that kernel; any other: the any-shape kernel
+// bf16 at head dims up to 256 that are a multiple of 8: the ring kernel;
+// f32 at the fixed kernel's shapes: that kernel; any other (bf16 above 256
+// among them): the any-shape kernel
 template <bool WRITE>
 int dispatch(int dtype, const void* q, const void* k_new, const void* v_new,
              const void* k_pool, const void* v_pool, const void* page_table,
@@ -1165,9 +1188,11 @@ int dispatch(int dtype, const void* q, const void* k_new, const void* v_new,
 #define PAGED_ARGS                                                         \
   q, k_new, v_new, k_pool, v_pool, page_table, lengths, out, part_o,       \
       part_ml, S, KV, NP, ps, HD, maxP, pps, n_split, scale, st
-  if (dtype == RT_BF16)
-    return HD % 8 == 0 ? launch_ring<WRITE>(G, PAGED_ARGS)
-                       : launch_any<bf16, 1, WRITE>(G, PAGED_ARGS);
+  if (dtype == RT_BF16) {
+    if (HD % 8 != 0) return launch_any<bf16, 1, WRITE>(G, PAGED_ARGS);
+    return HD <= 256 ? launch_ring<WRITE>(G, PAGED_ARGS)
+                     : launch_any<bf16, 8, WRITE>(G, PAGED_ARGS);
+  }
   if (dtype != RT_F32) return static_cast<int>(cudaErrorInvalidValue);
   if (fixed_shape(G, HD)) {
     switch (G) {

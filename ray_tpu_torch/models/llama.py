@@ -40,9 +40,11 @@ batch rows on local tensors. Every weight is gathered at its use over the
 data axes (all-gather forward, reduce-scatter or all-reduce of its
 gradient backward, through DTensor's ``redistribute``); the ``tp`` axis
 splits attention and the MLP Megatron-style (local heads, column- and
-row-parallel matmuls, ``parallel.sharding``'s f and g all-reduces). The
-serving functions take sharded params too and gather each weight whole at
-its use.
+row-parallel matmuls, ``parallel.sharding``'s f and g all-reduces). Rules
+that lay seq over sp (``ShardingRules.full()``) split the sequence too:
+each rank computes its chunk, and flash or xla attention gathers the
+chunks' k and v (and q for flash) over sp. The serving functions take
+sharded params too and gather each weight whole at its use.
 
 Sequence parallel (``forward_sp``): each sp rank runs ``forward`` on its
 chunk of the sequence, RoPE at its global offset, and attention is ring
@@ -509,8 +511,10 @@ def _attention_xla(q, k, v, causal: bool, q_offset=0, window=None):
 
 def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0,
                sp=None):
-    """sp: the ``parallel.spmd.Axis`` the sequence is laid over, for ring
-    and Ulysses (None: a 1-rank axis, the whole sequence here)."""
+    """sp: the ``parallel.spmd.Axis`` the sequence is laid over (None: a
+    1-rank axis, the whole sequence here): ring and Ulysses exchange over
+    it, and flash or xla attention gather the chunks (``_attention_seq``).
+    """
     win = cfg.sliding_window
     if win is not None and cfg.attn_impl in ("ring", "ulysses"):
         # silently computing FULL attention here would train a different
@@ -519,6 +523,9 @@ def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0,
             "sliding_window is not supported with ring/ulysses attention "
             "(the band would have to chase blocks around the ring); use "
             "attn_impl='flash' or 'xla' for windowed models")
+    if sp is not None and sp.size > 1 and cfg.attn_impl not in ("ring",
+                                                                 "ulysses"):
+        return _attention_seq(q, k, v, cfg, sp)
     # flash builds positions from 0, so offset chunks take the xla path,
     # which honors q_offset
     at_origin = isinstance(q_offset, int) and q_offset == 0
@@ -538,6 +545,28 @@ def _attention(q, k, v, cfg: LlamaConfig, causal=True, q_offset=0,
     return _attention_xla(q, k, v, causal, q_offset, window=win)
 
 
+def _attention_seq(q, k, v, cfg: LlamaConfig, sp):
+    """Causal attention of this rank's chunk of a sequence split over `sp`
+    (chunk ``sp.index`` of S * sp.size tokens; q, k, v [B, S, heads, D],
+    this rank's heads under tp), as the reference's GSPMD computes it: the
+    route is chosen from the whole sequence's length. flash gathers q, k
+    and v, runs the kernels over the whole sequence (they take no query
+    offset) and keeps this rank's query rows; xla gathers k and v and
+    attends the local queries at their global offset."""
+    from ray_tpu_torch.parallel.spmd import all_gather
+
+    S = q.shape[1]
+    start = sp.index * S
+    k, v = all_gather(k, 1, sp), all_gather(v, 1, sp)
+    if cfg.attn_impl == "flash" and S * sp.size >= 128:
+        from ray_tpu_torch.ops.flash_attention import flash_attention
+
+        out = flash_attention(all_gather(q, 1, sp), k, v, causal=True,
+                              window=cfg.sliding_window)
+        return out.narrow(1, start, S)
+    return _attention_xla(q, k, v, True, start, window=cfg.sliding_window)
+
+
 def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False,
            tp=None, sp=None):
     """One transformer block. x: [B, S, D]. cache: (k, v, offset) with k/v
@@ -547,8 +576,8 @@ def _layer(x, lp, cfg: LlamaConfig, cos, sin, cache=None, collect_kv=False,
     ``_TensorParallel``): lp holds this rank's column blocks of wq/wk/wv/
     w_gate/w_up and row blocks of wo/w_down, attention runs on its
     H/tp query heads and the KV/tp kv heads they read, and the block
-    outputs are summed over the tp ranks. sp: the sequence's axis for ring
-    and Ulysses attention (``_attention``)."""
+    outputs are summed over the tp ranks. sp: the axis the sequence is
+    split over (``_attention``)."""
     B, S, D = x.shape
     n = tp.size if tp is not None else 1
     H, KV, HD = cfg.n_heads // n, cfg.n_kv_heads // n, cfg.head_dim
@@ -631,8 +660,10 @@ class _TensorParallel(NamedTuple):
 class _MeshPlan:
     """How the sharded forward runs on `mesh` under `rules`: each rank
     computes its rows of the [batch, seq, embed] activation (the rules'
-    placement of it; with ``seq=True`` its chunk of the sequence too, for
-    ``forward_sp``) on local tensors. A weight is made local at its use
+    placement of it) on local tensors, and where the rules lay seq over an
+    sp axis of more than one rank, its chunk of the sequence too (``sp``,
+    that axis; a forward that computes whole sequences takes
+    ``whole_sequences(rules)``). A weight is made local at its use
     (``use``): redistributed to whole over every mesh axis but tp (an
     all-gather of its fsdp shards), and over tp to the block its rank
     computes with (column or row block of a layer's projections; embed,
@@ -646,8 +677,7 @@ class _MeshPlan:
     whole over every axis, tp included; the tp ranks then compute the same
     rows, so the gradient is Replicate over tp."""
 
-    def __init__(self, cfg, mesh, rules, seq: bool = False,
-                 split_tp: bool = True):
+    def __init__(self, cfg, mesh, rules, split_tp: bool = True):
         from torch.distributed.tensor import Shard
 
         from ray_tpu_torch.parallel import sharding as sh
@@ -658,8 +688,13 @@ class _MeshPlan:
         self.mesh = mesh
         self.names = sh.axis_names(mesh)
         sizes = sh.axis_sizes(mesh)
-        self.act = _act_placements(mesh, rules, seq)
-        self.rows = _act_constraint(mesh, rules, seq)
+        self.act = _act_placements(mesh, rules)
+        self.sp = None
+        if Shard(1) in self.act:
+            from ray_tpu_torch.parallel.spmd import Axis
+
+            self.sp = Axis.of(mesh, "sp")
+        self.rows = _act_constraint(mesh, rules)
         self.data = [n for n, p in zip(self.names, self.act)
                      if isinstance(p, Shard)]
         self.data_groups = sh.mesh_groups(mesh, self.data)
@@ -748,26 +783,25 @@ class _MeshPlan:
                                   stride=contiguous_stride(shape))
 
 
-def _act_placements(mesh, rules, seq: bool = False):
-    """The DTensor placement of the [batch, seq, embed] activation. A
-    sequence laid over sp is forward_sp's (``seq``): ``forward`` computes
-    whole sequences."""
-    from torch.distributed.tensor import Shard
-
+def _act_placements(mesh, rules):
+    """The DTensor placement of the [batch, seq, embed] activation: Shard(0)
+    over the batch's axes and, where the rules lay seq over sp (``full()``),
+    Shard(1) over sp."""
     from ray_tpu_torch.parallel import sharding as sh
 
-    act = sh.spec_placements(
+    return sh.spec_placements(
         sh.logical_to_mesh(("batch", "seq", None), rules, mesh), mesh)
-    if Shard(1) in act and not seq:
-        raise NotImplementedError(
-            "a sequence sharded over sp runs in forward_sp (attn_impl "
-            "'ring' or 'ulysses'); forward computes whole sequences, where "
-            "JAX's GSPMD may also split them (ROADMAP.md, queue 1 item "
-            "22)")
-    return act
 
 
-def _act_constraint(mesh, rules, seq: bool = False):
+def whole_sequences(rules):
+    """`rules` with the sequence unsplit, for a forward that computes whole
+    sequences (``forward_pp``, the ViT's): the batch's chunks are gathered
+    over sp and the sp ranks compute the same rows, the reference's
+    results (its GSPMD splits what it likes)."""
+    return rules and rules.with_(seq=None)
+
+
+def _act_constraint(mesh, rules):
     """JAX pins the [batch, seq, embed] activation to its rules sharding.
     The port computes each rank's rows on local tensors, so the activation
     keeps that placement by construction: the constraint is the
@@ -778,7 +812,7 @@ def _act_constraint(mesh, rules, seq: bool = False):
         return _same
     from ray_tpu_torch.parallel.sharding import local_shard
 
-    act = _act_placements(mesh, rules, seq)
+    act = _act_placements(mesh, rules)
 
     def rows(x):
         if is_dtensor(x):
@@ -800,22 +834,43 @@ def forward(params, tokens, cfg: LlamaConfig, pos_offset=0, mesh=None,
     this rank's rows (``_act_constraint``); the result is the global
     logits as a DTensor of the activation's placement. Each layer's
     weights are gathered inside its checkpointed body, so remat gathers
-    them again in the backward, and tp splits the block (``_MeshPlan``)."""
-    plan = _MeshPlan(cfg, mesh, rules) if (mesh is not None or
-                                           rules is not None) else None
+    them again in the backward, and tp splits the block (``_MeshPlan``).
+    Where the rules lay seq over sp (``full()``), each rank computes its
+    chunk of the sequence, at the RoPE positions of that chunk in the
+    whole sequence, and attention gathers the chunks over sp
+    (``_attention_seq``), as the reference's GSPMD splits the sequence
+    through the whole forward."""
+    plan = _MeshPlan(cfg, mesh, rules) if (
+        mesh is not None or rules is not None) else None
     B, S = tokens.shape
+    sp = rope = None
     if plan is not None:
         tokens = plan.rows(tokens)
-    logits = _forward_local(params, tokens, cfg, pos_offset, plan)
+        sp = plan.sp
+    if sp is not None:
+        n = tokens.shape[1]
+        rope = tuple(t.narrow(0, sp.index * n, n) for t in _rope(
+            cfg, pos_offset, S, tokens.device))
+    logits = _forward_local(params, tokens, cfg, pos_offset, plan, sp, rope)
     if plan is None:
         return logits
     return plan.whole(logits, (B, S, logits.shape[-1]))
 
 
+def _rope(cfg: LlamaConfig, pos_offset, S: int, device):
+    """(cos, sin) of S positions from pos_offset, as ``forward`` takes
+    them: the tables of S positions at offset 0, else ``_rope_at``."""
+    if isinstance(pos_offset, int) and pos_offset == 0:
+        return _rope_tables(cfg.rope_theta, S, cfg.head_dim, device)
+    return _rope_at(cfg, pos_offset, S, device)
+
+
 def _forward_local(params, tokens, cfg: LlamaConfig, pos_offset, plan,
-                   sp=None):
+                   sp=None, rope=None):
     """``forward`` on this rank's tokens (its rows, and under sp its
-    chunk): the local logits. sp: the sequence's axis (``_attention``)."""
+    chunk): the local logits. sp: the axis the sequence is split over
+    (``_attention``); rope: the chunk's (cos, sin), else those of
+    ``pos_offset``."""
     dt = cfg.dtype
     S = tokens.shape[1]
 
@@ -823,10 +878,7 @@ def _forward_local(params, tokens, cfg: LlamaConfig, pos_offset, plan,
         return plan.use(name, w) if plan is not None else w
 
     x = _embed({"embed": use("embed", params["embed"])}, tokens, dt)
-    if isinstance(pos_offset, int) and pos_offset == 0:
-        cos, sin = _rope_tables(cfg.rope_theta, S, cfg.head_dim, x.device)
-    else:
-        cos, sin = _rope_at(cfg, pos_offset, S, x.device)
+    cos, sin = rope or _rope(cfg, pos_offset, S, x.device)
     tp = plan.tp if plan is not None else None
 
     def body(x, lp):
@@ -852,7 +904,7 @@ def _head(x, params, cfg: LlamaConfig, use):
 def _sp_plan(cfg, mesh, rules):
     """forward_sp's plan: the rules with the sequence laid over sp (JAX's
     ``in_specs=P(None, "sp")`` whatever the rules say of seq)."""
-    return _MeshPlan(cfg, mesh, rules and rules.with_(seq="sp"), seq=True)
+    return _MeshPlan(cfg, mesh, rules and rules.with_(seq="sp"))
 
 
 def forward_sp(params, tokens, cfg: LlamaConfig, mesh, rules=None):
@@ -908,8 +960,10 @@ def forward_pp(params, tokens, cfg: LlamaConfig, mesh, num_microbatches=None,
     head run on every stage, outside the trunk; each stage runs ``_layer``
     over its L/pp layers (under remat when ``cfg.remat``).
 
-    mesh+rules: params are DTensors; each rank computes its rows (dp/fsdp),
-    tp splits the blocks, and the stacked layer leaves are made local whole
+    mesh+rules: params are DTensors; each rank computes its rows (dp/fsdp)
+    of whole sequences (a sequence the rules lay over sp is gathered:
+    ``whole_sequences``), tp splits the blocks, and the stacked layer
+    leaves are made local whole
     at the trunk (``_MeshPlan.stacked``: one gather for the schedule where
     ``forward`` gathers each layer at its use); the layers rest replicated
     over pp and each gets its full gradient on every stage (the trunk sums
@@ -922,7 +976,8 @@ def forward_pp(params, tokens, cfg: LlamaConfig, mesh, num_microbatches=None,
     pp = Axis.of(mesh, "pp").size
     M = num_microbatches or max(2 * pp, 1)
     dt = cfg.dtype
-    plan = _MeshPlan(cfg, mesh, rules) if rules is not None else None
+    plan = (_MeshPlan(cfg, mesh, whole_sequences(rules))
+            if rules is not None else None)
     B, S = tokens.shape
     if plan is not None:
         tokens = plan.rows(tokens)
@@ -993,8 +1048,12 @@ def loss_fn(params, batch, cfg: LlamaConfig, mesh=None, rules=None):
         return _nll_mean(logits, targets, mask)
     from ray_tpu_torch.parallel.sharding import sum_in_forward
 
-    plan = (_sp_plan(cfg, mesh, rules) if on_sp
-            else _MeshPlan(cfg, mesh, rules))
+    if on_sp:
+        plan = _sp_plan(cfg, mesh, rules)
+    elif sizes.get("pp", 1) > 1:
+        plan = _MeshPlan(cfg, mesh, whole_sequences(rules))
+    else:
+        plan = _MeshPlan(cfg, mesh, rules)
     n_tokens = targets.numel()
     logits, targets = logits.to_local(), plan.rows(targets)
     nll = _nll(logits, targets)

@@ -25,7 +25,11 @@ moments at rest). The routing is a function of the whole batch (the
 capacity, the slot counts and the aux loss run over all T tokens), so each
 layer's FFN input is all-gathered over the data axes, the MoE FFN computed
 on the global tokens, and each rank keeps its rows (the gather's backward
-reduce-scatters). An all-to-all token dispatch to the ranks holding the
+reduce-scatters). Rules that lay seq over sp (``ShardingRules.full()``)
+split the sequence as ``llama.forward`` does: each rank computes its chunk
+at its RoPE positions, attention gathers the chunks over sp
+(``llama._attention_seq``), and the FFN's gather takes the chunks too. An
+all-to-all token dispatch to the ranks holding the
 experts is a ROADMAP follow-up; the results do not depend on it.
 """
 
@@ -212,16 +216,20 @@ def forward(params, tokens, cfg: MoEConfig, pos_offset=0, mesh=None,
     plan = (_ll._MeshPlan(cfg, mesh, rules, split_tp=False)
             if mesh is not None or rules is not None else None)
     B, S = tokens.shape
+    sp = None
     if plan is not None:
         tokens = plan.rows(tokens)
         glob = _GlobalTokens(plan, B, S)
+        sp = plan.sp
 
     def use(name, w):
         return plan.use(name, w) if plan is not None else w
 
-    b = tokens.shape[0]
+    b, s = tokens.shape
     x = _ll._embed({"embed": use("embed", params["embed"])}, tokens, dt)
     cos, sin = _ll._rope_tables(cfg.rope_theta, S, cfg.head_dim, x.device)
+    if sp is not None:   # this rank's chunk of the positions
+        cos, sin = (t.narrow(0, sp.index * s, s) for t in (cos, sin))
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = (plan.layers(params["layers"]) if plan is not None
@@ -230,13 +238,13 @@ def forward(params, tokens, cfg: MoEConfig, pos_offset=0, mesh=None,
         if plan is not None:
             lp = plan.layer(lp)
         h = _ll.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = (h @ lp["wq"].to(dt)).reshape(b, S, H, HD)
-        k = (h @ lp["wk"].to(dt)).reshape(b, S, KV, HD)
-        v = (h @ lp["wv"].to(dt)).reshape(b, S, KV, HD)
+        q = (h @ lp["wq"].to(dt)).reshape(b, s, H, HD)
+        k = (h @ lp["wk"].to(dt)).reshape(b, s, KV, HD)
+        v = (h @ lp["wv"].to(dt)).reshape(b, s, KV, HD)
         q = _ll.apply_rope(q, cos, sin)
         k = _ll.apply_rope(k, cos, sin)
-        attn = _ll._attention(q, k, v, cfg, causal=True)
-        x = x + attn.reshape(b, S, H * HD) @ lp["wo"].to(dt)
+        attn = _ll._attention(q, k, v, cfg, causal=True, sp=sp)
+        x = x + attn.reshape(b, s, H * HD) @ lp["wo"].to(dt)
         h = _ll.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
         if plan is None:
             moe_out, a = _moe_ffn(h, lp, cfg)

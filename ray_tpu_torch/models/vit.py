@@ -147,9 +147,13 @@ def patchify(images, cfg: ViTConfig):
 
 
 def _plan(cfg, mesh, rules):
+    """Each rank's rows of whole images: the rules' "seq" (laid over sp by
+    ``full()``) places the batch's dim 1, the images' rows, which are
+    gathered over sp (``llama.whole_sequences``)."""
     if mesh is None and rules is None:
         return None
-    return _ll._MeshPlan(cfg, mesh, rules, split_tp=False)
+    return _ll._MeshPlan(cfg, mesh, _ll.whole_sequences(rules),
+                         split_tp=False)
 
 
 def forward(params, images, cfg: ViTConfig, mesh=None, rules=None):

@@ -13,7 +13,9 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   stage at head dim 256); bf16 with head dim 16 or 32 the small-head
   kernel (64-row blocks, a TMA ring of 128-key stages, ``mma.sync`` from
   registers, as in the backward's small-head kernels); f32 exact
-  CUDA-core FMAs;
+  CUDA-core FMAs; head dims above 256, in either dtype, the wide kernel
+  (``flash_fwd_wide_kernel``: D a run-time argument, a block one 64-column
+  chunk of the output, the scores summed over every chunk);
 - backward, ``flash_attention_bwd``: the FlashAttention-2 split of the TPU
   kernels K3 (``_bwd_dq_kernel``) and K4 (``_bwd_dkdv_kernel``) in
   ``csrc/flash_attention_bwd.cu``: a dQ pass over query tiles and a dK/dV
@@ -29,7 +31,9 @@ Port of ``ray_tpu/ops/flash_attention.py``:
   small-head kernels (64-row blocks, a TMA ring of 128-row stages,
   ``mma.sync`` from registers, the walk split over a cluster of up to 8
   blocks where the heaviest block's chain is long:
-  ``bwd_cluster_sizes``); f32 exact CUDA-core FMAs;
+  ``bwd_cluster_sizes``); f32 exact CUDA-core FMAs; head dims above 256,
+  in either dtype, the wide kernels (``flash_bwd_dq_wide_kernel``,
+  ``flash_bwd_dkdv_wide_kernel``, laid out as the forward's);
 - ``_Flash``, a ``torch.autograd.Function``, takes the place of ``_flash``'s
   ``custom_vjp``.
 
@@ -43,12 +47,14 @@ and ``_reference_chunked_bwd``.
 Shapes: q [B, S, H, D], k/v [B, T, KV, D] -> out [B, S, H, D] in q.dtype,
 lse [B, H, S] f32 (the TPU kernel's 128-lane broadcast of the LSE existed
 only for Mosaic and is dropped). Unlike the TPU wrapper, S and T need not
-divide a block: the kernels mask the ragged edge. Head dims: any D up to
-MAX_HEAD_DIM (256), like the TPU kernels, whose blocks span the whole D.
-The kernels are compiled for KERNEL_HEAD_DIMS; any other D runs at the next
-of them with q, k, v (and out, dO) zero-padded along D and the scale of the
-true D (``on_kernel_head_dim``), which is exact: zero columns add nothing to
-q.k and give zero columns of out, dq, dk and dv, which are sliced off.
+divide a block: the kernels mask the ragged edge. Head dims: any D, like
+the TPU kernels, whose blocks span the whole D. Up to 256 the kernels are
+compiled for KERNEL_HEAD_DIMS; above 256 the wide kernels take D at run
+time in multiples of WIDE_MULTIPLE. Any other D runs at the next of those
+(``kernel_head_dim``) with q, k, v (and out, dO) zero-padded along D and
+the scale of the true D (``on_kernel_head_dim``), which is exact: zero
+columns add nothing to q.k and give zero columns of out, dq, dk and dv,
+which are sliced off.
 """
 
 from __future__ import annotations
@@ -64,19 +70,26 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 #: launches of the CUDA forward kernel without a window (K1) and with one
-#: (K2), and of the backward kernels K3 (dQ) and K4 (dK/dV); each counted
-#: where it is launched, nowhere else
+#: (K2), and of the backward kernels K3 (dQ) and K4 (dK/dV), at head dims
+#: up to 256; each counted where it is launched, nowhere else
 launches = 0
 launches_window = 0
 launches_dq = 0
 launches_dkdv = 0
+#: the same four above 256, where the wide kernels run
+launches_wide = 0
+launches_wide_window = 0
+launches_dq_wide = 0
+launches_dkdv_wide = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the kernels (forward and backward, both dtypes) are
 #: compiled for; bf16 runs the wgmma kernels at 64, 80, 96, 128 and 256
 #: and the small-head kernels at 16 and 32, in both passes
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
-MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+#: above the last of them, the wide kernels take any head dim that is a
+#: multiple of this (16-byte rows of bf16)
+WIDE_MULTIPLE = 8
 
 
 def _window(window) -> int:
@@ -103,14 +116,18 @@ def band_mask(S: int, T: int, *, causal: bool, window=None, device=None):
 
 def kernel_head_dim(D: int) -> int:
     """The head dim the kernels run a head dim D at: D where they are
-    compiled for it, else the next of KERNEL_HEAD_DIMS (D zero-padded).
-    Raises NotImplementedError above MAX_HEAD_DIM."""
+    compiled for it, else the next of KERNEL_HEAD_DIMS (D zero-padded);
+    above 256, D rounded up to a multiple of WIDE_MULTIPLE (the wide
+    kernels)."""
     for dk in KERNEL_HEAD_DIMS:
         if D <= dk:
             return dk
-    raise NotImplementedError(
-        f"flash attention kernels take head dims up to {MAX_HEAD_DIM}; "
-        f"got {D}")
+    return -(-D // WIDE_MULTIPLE) * WIDE_MULTIPLE
+
+
+def _wide(D: int) -> bool:
+    """Whether a launch at kernel head dim D runs the wide kernels."""
+    return D > KERNEL_HEAD_DIMS[-1]
 
 
 def on_kernel_head_dim(fn, heads, n_out: int):
@@ -302,7 +319,6 @@ def _check(what, q, k, v, *rest):
             or H % KV or T == 0 or D == 0):
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    kernel_head_dim(D)   # raises above MAX_HEAD_DIM
 
 
 def _aligned(*ts):
@@ -313,8 +329,8 @@ def _aligned(*ts):
 
 
 def _fwd_launch(q, k, v, causal, w, *, scale):
-    """K1 (K2 under a window) at a compiled head dim."""
-    global launches, launches_window
+    """K1 (K2 under a window) at a kernel head dim."""
+    global launches, launches_window, launches_wide, launches_wide_window
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     q, k, v = _aligned(q, k, v)
@@ -328,7 +344,12 @@ def _fwd_launch(q, k, v, causal, w, *, scale):
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, S, T, H, KV, D,
             scale, stream)
     _build.check(lib, rc, "flash_attention_fwd")
-    if w:
+    if _wide(D):
+        if w:
+            launches_wide_window += 1
+        else:
+            launches_wide += 1
+    elif w:
         launches_window += 1
     else:
         launches += 1
@@ -365,8 +386,8 @@ def _bwd_inputs(what, q, k, v, out, lse, g):
 
 
 def _dq_launch(q, k, v, out, g, lse, causal, w, *, scale):
-    """K3 at a compiled head dim: (dq, delta)."""
-    global launches_dq
+    """K3 at a kernel head dim: (dq, delta)."""
+    global launches_dq, launches_dq_wide
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
@@ -380,13 +401,16 @@ def _dq_launch(q, k, v, out, g, lse, causal, w, *, scale):
             dq.data_ptr(), delta.data_ptr(), B, S, T, H, KV, D, scale,
             stream)
     _build.check(lib, rc, "flash_attention_bwd_dq")
-    launches_dq += 1
+    if _wide(D):
+        launches_dq_wide += 1
+    else:
+        launches_dq += 1
     return dq, delta
 
 
 def _dkdv_launch(q, k, v, g, lse, delta, causal, w, *, scale):
-    """K4 at a compiled head dim, from K3's delta: (dk, dv)."""
-    global launches_dkdv
+    """K4 at a kernel head dim, from K3's delta: (dk, dv)."""
+    global launches_dkdv, launches_dkdv_wide
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
@@ -399,7 +423,10 @@ def _dkdv_launch(q, k, v, g, lse, delta, causal, w, *, scale):
             v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, D, scale, stream)
     _build.check(lib, rc, "flash_attention_bwd_dkdv")
-    launches_dkdv += 1
+    if _wide(D):
+        launches_dkdv_wide += 1
+    else:
+        launches_dkdv += 1
     return dk, dv
 
 

@@ -16,7 +16,7 @@ over pieces of each slot's pages, then a merge pass):
   ``_kernel``): the same split kernel with the write compiled out, every
   K/V row read from the pool, the pools never written.
 
-bf16 at a head dim that is a multiple of 8 runs the ring kernel
+bf16 at a head dim up to 256 that is a multiple of 8 runs the ring kernel
 (``paged_decode_ring_kernel``): a producer warp loads the split's pages by
 TMA, 16 keys a stage, through a tensor map of each pool (encoded once per
 pool and kept) into a ring with mbarriers, and four consumer warps each
@@ -24,7 +24,8 @@ take every fourth stage in one pass (scores by ``mma.sync``, the online
 softmax, ``O += P V``); splits of ``split_pages(S, KV, chunks, maxP)``
 pages, then a merge pass (which also stores K6's new rows). f32 runs the
 fixed-G kernel at G 1, 2, 4, 8 and power-of-two rows, every other shape
-(and bf16 at HD 100) the any-shape kernel, both with 256-token splits.
+(and bf16 at HD 100, and bf16 above 256) the any-shape kernel, both with
+256-token splits (64 above head dim 256).
 ``block_geometry`` says which a launch takes, with its split and shared
 memory.
 
@@ -36,9 +37,10 @@ raises.
 Shapes: q [S, H, HD] (one new token per slot), k_new/v_new [S, KV, HD],
 pools [KV, NP, ps, HD], page_table [S, maxP] int32, lengths [S] int32
 (tokens INCLUDING the current one; 0 marks an inactive slot). Any
-G = H / KV >= 1 and any HD <= MAX_HEAD_DIM; the ring and any-shape kernels
-take a kv head's query heads in chunks of at most 8 (G 16: two blocks a kv
-head).
+G = H / KV >= 1 and any HD (the any-shape kernel takes HD at run time,
+with no upper limit but its block's shared memory); the ring and any-shape
+kernels take a kv head's query heads in chunks of at most 8 (G 16: two
+blocks a kv head).
 """
 
 from __future__ import annotations
@@ -54,14 +56,22 @@ from ray_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 #: launches of the fused write+attend kernel (K6) and of the read-only one
-#: (K5), each counted where it is launched, nowhere else
+#: (K5) at head dims up to 256, each counted where it is launched, nowhere
+#: else
 launches = 0
 launches_read = 0
+#: the same two above 256, where the any-shape kernel runs in both dtypes
+launches_wide = 0
+launches_read_wide = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GROUP_CHUNK = 8                # query heads a block
-MAX_HEAD_DIM = 256
+RING_MAX_HEAD_DIM = 256         # above it bf16 takes the any-shape kernel
 _SPLIT_TOKENS = 256             # tokens a block of the any-shape kernel
+# above head dim 256: its rows are long, so a split of 64 tokens keeps a
+# block's walk short and the blocks many (at HD 512, 16 slots of 8,594
+# live tokens: 0.110 ms for K5 against 0.28 at 256; PERF.md)
+_WIDE_SPLIT_TOKENS = 64
 _THREADS = 128                  # threads a block of the any-shape kernel
 _MAX_SMEM = 232448
 SMS = 132                       # the H100's SMs: the unit of the split rule
@@ -73,8 +83,8 @@ RING_BYTES = 32768              # bytes a block's ring holds at least
 
 class PagedGeometry(NamedTuple):
     """How ``csrc/paged_attention.cu`` runs one launch: ``kernel`` "ring"
-    (bf16), "fixed" (f32 at G 1, 2, 4, 8 and HD a power of two <= 128) or
-    "any"; ``heads`` query heads a block (a chunk of <= 8 of a kv
+    (bf16 at HD <= 256), "fixed" (f32 at G 1, 2, 4, 8 and HD a power of two
+    <= 128) or "any"; ``heads`` query heads a block (a chunk of <= 8 of a kv
     head's G), ``chunks`` of them a kv head; ``pps`` pages a split,
     ``n_split`` splits a slot; ``slots`` ring slots (ring kernel; 0 for
     the other); ``smem`` a block's shared-memory bytes."""
@@ -168,14 +178,15 @@ def block_geometry(G: int, HD: int, elt: int, *, S: int, KV: int, ps: int,
     """Which paged decode kernel a launch with G query heads a kv head,
     head dim HD and elements of `elt` bytes takes, and its split and shared
     memory (the wrapper's check and the C launch compute the same): bf16
-    at HD a multiple of 8 the ring kernel, split by ``split_pages``; f32
-    at G 1, 2, 4 or 8 and rows of a power of two of 16-byte chunks the
-    fixed kernel, every other shape the any-shape kernel, both 256-token
-    splits, their shared memory the split's scores, q, the new row and the
+    at HD a multiple of 8 up to 256 the ring kernel, split by
+    ``split_pages``; f32 at G 1, 2, 4 or 8 and rows of a power of two of
+    16-byte chunks the fixed kernel, every other shape the any-shape
+    kernel, both 256-token splits (64 above head dim 256), their shared
+    memory the split's scores, q, the new row and the
     p . V partial rows of 128 / (HD / vw) token groups."""
     chunks = -(-G // _GROUP_CHUNK)
     heads = -(-G // chunks)
-    if elt == 2 and HD % 8 == 0:
+    if elt == 2 and HD % 8 == 0 and HD <= RING_MAX_HEAD_DIM:
         pps = split_pages(S, KV, chunks, maxP)
         slots, smem = _ring_smem(HD, ps, pps)
         return PagedGeometry("ring", heads, chunks, pps, -(-maxP // pps),
@@ -185,7 +196,8 @@ def block_geometry(G: int, HD: int, elt: int, *, S: int, KV: int, ps: int,
     fixed = (elt == 4 and G in (1, 2, 4, 8) and HD % vec == 0
              and 32 % nch == 0)
     groups = _THREADS // nch if nch <= _THREADS else 1
-    pps = max(1, _SPLIT_TOKENS // ps)
+    tokens = _SPLIT_TOKENS if HD <= RING_MAX_HEAD_DIM else _WIDE_SPLIT_TOKENS
+    pps = max(1, tokens // ps)
     smem = 4 * (heads * HD + 2 * HD + heads * pps * ps
                 + groups * heads * HD + 2 * heads)
     if fixed:
@@ -236,10 +248,8 @@ def _launch(what, q, k_pool, v_pool, page_table, lengths, k_new=None,
             f"{tuple(lengths.shape)} new "
             f"{[tuple(t.shape) for t in new]}")
     G = H // KV
-    if not 0 < HD <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{what}: the paged decode kernels take head dims up to "
-            f"{MAX_HEAD_DIM}; got {HD}")
+    if HD == 0:
+        raise ValueError(f"{what}: head dim 0")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("the pools are read (and K6 updates them) in place "
                          "and must be contiguous")
@@ -281,7 +291,7 @@ def paged_decode_attention_inplace(q, k_new, v_new, k_pool, v_pool,
     (o [S, H, HD], k_pool, v_pool). Length-0 slots write nothing and their
     output rows are zeros on the card (garbage on the CPU); callers mask
     them."""
-    global launches
+    global launches, launches_wide
     _build.reject_dtensor("paged_decode_attention_inplace", q, k_new, v_new,
                           k_pool, v_pool, page_table, lengths)
     if not q.is_cuda:
@@ -289,7 +299,10 @@ def paged_decode_attention_inplace(q, k_new, v_new, k_pool, v_pool,
             q, k_new, v_new, k_pool, v_pool, page_table, lengths)
     out = _launch("paged_decode_attention_inplace", q, k_pool, v_pool,
                   page_table, lengths, k_new, v_new)
-    launches += 1
+    if q.shape[-1] > RING_MAX_HEAD_DIM:
+        launches_wide += 1
+    else:
+        launches += 1
     return out, k_pool, v_pool
 
 
@@ -297,12 +310,15 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
     """q [S, H, HD] -> [S, H, HD], read-only. lengths INCLUDE the current
     token (its k/v already in the pool). Length-0 slots output zeros on the
     card (garbage on the CPU, as in JAX); callers mask them."""
-    global launches_read
+    global launches_read, launches_read_wide
     _build.reject_dtensor("paged_attention", q, k_pool, v_pool, page_table,
                           lengths)
     if not q.is_cuda:
         return paged_attention_reference(q, k_pool, v_pool, page_table,
                                          lengths)
     out = _launch("paged_attention", q, k_pool, v_pool, page_table, lengths)
-    launches_read += 1
+    if q.shape[-1] > RING_MAX_HEAD_DIM:
+        launches_read_wide += 1
+    else:
+        launches_read += 1
     return out

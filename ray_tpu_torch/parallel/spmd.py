@@ -18,6 +18,9 @@ that order in the backward as long as each rank builds the same graph.
   x split into ``axis.size`` blocks along split_dim, block j sent to rank
   j, the received blocks concatenated along concat_dim in rank order. Its
   backward is the inverse exchange.
+- ``all_gather(x, dim, axis)``: JAX's tiled all_gather: every rank's x
+  concatenated along dim in axis order. Its backward is the reduce-scatter:
+  the cotangent summed over the axis, this rank's block kept.
 - ``sendrecv``/``shift``, ``broadcast`` and ``all_reduce``: the plain
   (no autograd) exchanges the pipeline schedules make in their own
   forward and backward. A sum whose gradient passes unchanged is
@@ -160,6 +163,36 @@ def all_to_all(x, split_dim: int, concat_dim: int, axis: Axis):
     if n == 1:
         return x
     return _AllToAll.apply(x, split_dim, concat_dim, axis)
+
+
+def _gather(x, dim: int, axis: Axis):
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(axis.size)]
+    dist.all_gather(parts, x.contiguous(), group=axis.group)
+    return torch.cat(parts, dim=dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis, ctx.n = dim, axis, x.shape[dim]
+        return _gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.clone(memory_format=torch.contiguous_format),
+                       ctx.axis)
+        return (g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None,
+                None)
+
+
+def all_gather(x, dim: int, axis: Axis):
+    """``jax.lax.all_gather(x, axis_name, axis=dim, tiled=True)`` over
+    `axis`: the ranks' blocks concatenated along dim, rank (coordinate)
+    order, which is the order DTensor lays out a ``Shard(dim)``."""
+    if axis.size == 1:
+        return x
+    return _AllGather.apply(x, dim % x.ndim, axis)
 
 
 def broadcast(x, src: int, axis: Optional[Axis]):

@@ -1044,17 +1044,79 @@ def test_head_dim_kernels_match_plain_on_card(dtype, D, S, H, KV, causal,
         assert ((a.float() - b.float()).abs() <= t).all()
 
 
+WIDE_SYMBOLS = ("flash_fwd_wide_kernel", "flash_bwd_dq_wide_kernel",
+                "flash_bwd_dkdv_wide_kernel")
+WIDE_COUNTERS = ("launches_wide", "launches_wide_window", "launches_dq_wide",
+                 "launches_dkdv_wide")
+
+
 @pytest.mark.cuda
-def test_head_dim_above_256_raises_on_card():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [264, 300, 320, 512, 1024])
+@pytest.mark.parametrize("S,H,KV,causal,window", [
+    (200, 4, 4, True, None), (256, 8, 2, True, 96),
+    (200, 4, 1, False, None)])
+def test_wide_kernels_match_plain_on_card(dtype, D, S, H, KV, causal, window,
+                                          monkeypatch):
+    """K1/K2 and K3/K4 above head dim 256 run the wide kernels, in both
+    dtypes: D 264 (a ragged last column chunk), 300 (zero-padded to 304),
+    320, 512 and 1024, G 1 and 4, causal, windowed and full, ragged S. The
+    wide launch counters move and no other, the plain versions are not
+    called, the profiler names only the wide kernels, out, the LSE and
+    (dq, dk, dv) lie within kernel_tolerance / grad_tolerance of the plain
+    versions, and a second run is bit-identical."""
     require_cuda()
-    q, k, v = (torch.from_numpy(a).cuda()
-               for a in make_qkv(1, 128, 2, 2, 264, seed=15))
-    with pytest.raises(NotImplementedError, match="256"):
-        fa.flash_attention_fwd(q, k, v)
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+               for a in make_qkv(2, S, H, KV, D, seed=15))
+    g = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        q.shape).astype(np.float32)).cuda().to(dtype)
+    counters = ("launches", "launches_window", "launches_dq",
+                "launches_dkdv") + WIDE_COUNTERS
+    before = [getattr(fa, c) for c in counters]
+
+    def run():
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+        return (out, lse) + fa.flash_attention_bwd(
+            q, k, v, out, lse, g, causal=causal, window=window)
+
+    with monkeypatch.context() as m:
+        _refuse_plain(m)
+        got = run()
+        again = run()
+    torch.cuda.synchronize()
+    after = [getattr(fa, c) for c in counters]
+    assert [a - b for a, b in zip(after, before)] == [
+        0, 0, 0, 0, 0 if window else 2, 2 if window else 0, 2, 2]
+    assert [torch.equal(a, b) for a, b in zip(got, again)] == [True] * 5
+    out, lse, *grads = got
+    ref, lse_ref = _plain_on_card(q, k, v, causal, window)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert bool(torch.isfinite(out.float()).all())
+    assert ((out.float() - ref.float()).abs() <= fa.kernel_tolerance(
+        q, k, v, ref, causal=causal, window=window)).all()
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    plain = fa.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                             causal=causal, window=window)
+    tols = fa.grad_tolerance(q, k, v, out, lse, g, plain, causal=causal,
+                             window=window)
+    for name, a, b, t in zip(("dq", "dk", "dv"), grads, plain, tols):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert bool(torch.isfinite(a.float()).all()), name
+        over = float(((a.float() - b.float()).abs() / t).max())
+        assert over <= 1.0, (name, over)
+    names = _fwd_kernel_names(
+        lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
+                                       window=window), WIDE_SYMBOLS[0])
+    assert names and all(WIDE_SYMBOLS[0] in n for n in names), names
+    names = _bwd_kernel_names(q, k, v, out, lse, g, causal, window,
+                              WIDE_SYMBOLS[1:])
+    assert names and all(any(s in n for s in WIDE_SYMBOLS[1:])
+                         for n in names), names
 
 
 @pytest.mark.parametrize("name", ["phi3-mini", "llama3.2-3b", "gemma-2b",
-                                  "danube", "tiny"])
+                                  "danube", "deepseek-v4-flash", "tiny"])
 def test_shapes_bf16_grads_hold_their_bound_on_the_plain_path(name):
     """chip_smoke.py's bf16-against-f32 gradient check of the public model
     shapes, rehearsed on the CPU (plain attention) at each model's heads
@@ -1090,7 +1152,8 @@ def test_chip_smoke_fwd_symbols():
     """The forward kernel chip_smoke.py requires of each dtype and kernel
     head dim: the small-head kernel at 16 and 32, the TMA/wgmma kernel at
     64, 80, 96, 128 and 256 (so no bf16 head dim is left to the deleted
-    mma.sync kernel), the exact f32 kernel at every head dim."""
+    mma.sync kernel), the exact f32 kernel at every head dim up to 256,
+    and the wide kernels above it in both dtypes."""
     import chip_smoke as cs
 
     assert cs.SMALL_FWD_SYMBOL == "flash_fwd_small_kernel"
@@ -1099,10 +1162,16 @@ def test_chip_smoke_fwd_symbols():
         want = cs.SMALL_FWD_SYMBOL if d <= 32 else cs.WGMMA_FWD_SYMBOL
         assert cs.fwd_symbol("bfloat16", d) == want
         assert cs.fwd_symbol("float32", d) == "flash_fwd_f32_kernel"
-    # every head dim reaches one of them through kernel_head_dim
+    # every head dim reaches one of them through kernel_head_dim, and
+    # above 256 the wide kernels in both dtypes
     assert {cs.fwd_symbol("bfloat16", fa.kernel_head_dim(d))
             for d in range(1, 257)} == {cs.SMALL_FWD_SYMBOL,
                                         cs.WGMMA_FWD_SYMBOL}
+    for dt in ("bfloat16", "float32"):
+        assert {cs.fwd_symbol(dt, fa.kernel_head_dim(d))
+                for d in range(257, 1025)} == {cs.WIDE_FWD_SYMBOL}
+        assert cs.bwd_symbols(dt, 512) == (cs.WIDE_DQ_SYMBOL,
+                                           cs.WIDE_DKDV_SYMBOL)
     assert {name for name, *_ in cs.FLASH_UNTIMED} >= {"d32-g2", "d80"}
 
 

@@ -1,6 +1,7 @@
 """The attention paths at the head dims and group counts that the public
 model shapes need and the presets do not have: head dim 16 (the tiny
-presets' training), 80 (Phi-2), 96 (Phi-3-mini) and 256 (Gemma-2B), and
+presets' training), 80 (Phi-2), 96 (Phi-3-mini), 256 (Gemma-2B), 320 and
+512 (DeepSeek-V4-Flash; above 256 the card runs the wide kernels), and
 3 (Llama-3.2-3B) and 7 (Qwen2-7B) query heads a kv head.
 
 Each shape is a 2-layer model at d_model = n_heads * head_dim, and each
@@ -47,6 +48,8 @@ SHAPES = {
     "hd80": (80, 2, 2),
     "hd96": (96, 2, 1),
     "hd256": (256, 2, 1),
+    "hd320": (320, 2, 1),
+    "hd512": (512, 2, 2),
     "g3": (16, 3, 1),
     "g7": (16, 7, 1),
 }
@@ -351,16 +354,20 @@ def test_padded_head_dim_equals_unpadded_on_the_plain_versions(D, Dk):
         torch.testing.assert_close(a, b, atol=PAD_TOL, rtol=0)
 
 
-def test_kernel_head_dims_cover_every_dim_up_to_256():
-    """Every D in 1..256 runs at a compiled head dim at least D (the
-    next one); above 256 a clear error names the limit."""
-    for D in range(1, 257):
+def test_kernel_head_dims_cover_every_dim_up_to_1024():
+    """Every D in 1..1024 runs at a kernel head dim at least D, with no
+    raise: up to 256 the next compiled one, above it the next multiple of
+    WIDE_MULTIPLE (the wide kernels take D at run time)."""
+    for D in range(1, 1025):
         dk = fa.kernel_head_dim(D)
-        assert dk in fa.KERNEL_HEAD_DIMS and dk >= D
-        assert not [c for c in fa.KERNEL_HEAD_DIMS if D <= c < dk]
+        assert dk >= D
+        if D <= 256:
+            assert dk in fa.KERNEL_HEAD_DIMS
+            assert not [c for c in fa.KERNEL_HEAD_DIMS if D <= c < dk]
+        else:
+            assert dk % fa.WIDE_MULTIPLE == 0 and dk - D < fa.WIDE_MULTIPLE
     assert fa.kernel_head_dim(96) == 96 and fa.kernel_head_dim(80) == 80
-    with pytest.raises(NotImplementedError, match="256"):
-        fa.kernel_head_dim(257)
+    assert fa.kernel_head_dim(512) == 512 and fa.kernel_head_dim(260) == 264
 
 
 # (kernel, heads a block, chunks, pages a split, splits, ring slots, shared
@@ -377,6 +384,10 @@ def test_kernel_head_dims_cover_every_dim_up_to_256():
     (11, 64, 2, 1, ("ring", 6, 2, 1, 32, 8, 34456)),   # chunks of 6 and 5
     (1, 100, 2, 2, ("any", 1, 1, 4, 8, 0, 2632)),      # not 16-byte rows
     (1, 250, 2, 1, ("any", 1, 1, 4, 8, 0, 5032)),      # 2 chunks a thread
+    (1, 512, 2, 1, ("any", 1, 1, 1, 32, 0, 10504)),    # above 256, bf16:
+    (4, 320, 2, 2, ("any", 4, 1, 1, 32, 0, 24096)),    # 64-token splits
+    (8, 512, 4, 1, ("any", 8, 1, 1, 32, 0, 38976)),    # above 256, f32
+    (1, 1040, 2, 1, ("any", 1, 1, 1, 32, 0, 16904)),   # p . V in 2 passes
 ])
 def test_paged_block_geometry(G, HD, elt, KV, expect):
     """Which paged decode kernel a shape takes and how its block is laid

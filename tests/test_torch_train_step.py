@@ -256,11 +256,13 @@ def test_eval_step_and_global_norm(tiny):
 def test_mesh_raises_not_implemented(tiny, monkeypatch):
     """Routing and what the sharded path does not run: loss_fn sends
     ring/Ulysses attention with sp > 1 to forward_sp and pp > 1 to
-    forward_pp (stand-ins here record the call); ``forward`` itself
-    computes whole sequences, so rules that shard the sequence over sp
-    raise there, naming forward_sp; a mesh whose axis sizes do not divide
-    a dim names the dim. (Sizes are read from a MeshSpec: no process group
-    needed.)"""
+    forward_pp (stand-ins here record the call); rules that shard the
+    sequence over sp place the activation's seq dim on sp, which
+    ``llama.forward`` splits (tests/test_torch_parallel_seq.py runs it),
+    and ``whole_sequences`` of them, which ``forward_pp`` takes, do not; a
+    mesh whose axis sizes do not divide a dim names the dim. (Sizes are
+    read from a MeshSpec: no process group needed.)"""
+    from torch.distributed.tensor import Replicate, Shard
     from ray_tpu_torch.parallel.mesh import MeshSpec
     from ray_tpu_torch.parallel.sharding import ShardingRules, shard_params
 
@@ -288,9 +290,11 @@ def test_mesh_raises_not_implemented(tiny, monkeypatch):
     with pytest.raises(Routed):
         llama.loss_fn(tp, batch, tcfg, mesh=MeshSpec(pp=2), rules=rules)
     assert routed == ["forward_sp", "forward_sp", "forward_pp"]
-    with pytest.raises(NotImplementedError, match="runs in forward_sp"):
-        llama.forward(tp, batch["tokens"], tcfg, mesh=MeshSpec(sp=2),
-                      rules=ShardingRules.full())
+    assert llama._act_placements(MeshSpec(sp=2), ShardingRules.full()) == (
+        Replicate(), Replicate(), Replicate(), Shard(1), Replicate())
+    assert llama._act_placements(
+        MeshSpec(sp=2), llama.whole_sequences(ShardingRules.full())) == (
+        Replicate(),) * 5
     with pytest.raises(ValueError, match="tp=3 does not divide n_heads=4"):
         llama.forward(tp, batch["tokens"], tcfg, mesh=MeshSpec(tp=3),
                       rules=rules)
